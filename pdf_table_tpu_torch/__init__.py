@@ -1,0 +1,10 @@
+"""PyTorch/CUDA port of pdf_table_tpu for NVIDIA Hopper.
+
+The JAX package ``pdf_table_tpu`` stays the reference; this package imports
+nothing of it (nor JAX). Entry points run on ``cuda`` unless the caller
+passes ``device="cpu"``. Each kernel the JAX package wrote in Pallas is a
+hand-written Hopper kernel here (``ops/kernels/csrc``), with a plain
+PyTorch version beside it that the CPU path and the tests use.
+"""
+
+__version__ = "0.1.0"

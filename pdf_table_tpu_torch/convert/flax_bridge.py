@@ -1,0 +1,80 @@
+"""Weight bridge: the JAX package's flax variables -> the port's state_dict.
+
+The port's modules carry the flax submodule names as attribute names, so the
+path maps one to one (``params/detector/base/level3/...`` ->
+``detector.base.level3...``). Leaf layouts (the inverse of
+pdf_table_tpu/convert/torch_to_flax.py):
+
+- conv ``kernel`` HWIO -> ``weight`` OIHW; the depthwise upsample kernel
+  (k, k, 1, C) takes the same transpose to the ``conv_transpose2d`` weight
+  (C, 1, k, k);
+- dense ``kernel`` (In, Out) -> ``weight`` (Out, In);
+- embed ``embedding`` -> ``weight``, unchanged;
+- BatchNorm ``scale``/``bias`` + ``batch_stats`` ``mean``/``var`` ->
+  ``weight``/``bias``/``running_mean``/``running_var``;
+- the DCN ``weight`` (3, 3, Cin, Cout) keeps the JAX layout, which the
+  deform-conv function takes as it is; ``bias`` and RefNorm ``alpha`` too.
+
+Inputs are nested dicts of numpy-convertible arrays; nothing here imports
+JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Iterator, Mapping, Tuple
+
+import numpy as np
+import torch
+
+_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def tree_leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()
+                ) -> Iterator[Tuple[Tuple[str, ...], Any]]:
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, Mapping):
+            yield from tree_leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def flax_leaf_to_torch(leaf: str, a: np.ndarray) -> Tuple[str, np.ndarray]:
+    """(flax param name, array) -> (torch param name, array)."""
+    if leaf == "kernel":
+        return "weight", (a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T)
+    if leaf in ("scale", "embedding"):
+        return "weight", a
+    return leaf, a
+
+
+def flax_to_state_dict(variables: Mapping[str, Any]
+                       ) -> Dict[str, torch.Tensor]:
+    """{"params": ..., "batch_stats": ...} -> a state_dict (f32 tensors)."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, arr in tree_leaves(variables["params"]):
+        name, a = flax_leaf_to_torch(path[-1], np.asarray(arr, np.float32))
+        out[".".join(path[:-1] + (name,))] = torch.from_numpy(
+            np.array(a, np.float32, order="C"))
+    for path, arr in tree_leaves(variables.get("batch_stats", {})):
+        out[".".join(path[:-1] + (_STATS[path[-1]],))] = torch.from_numpy(
+            np.array(arr, np.float32, order="C"))
+    return out
+
+
+def load_flax_variables(model: torch.nn.Module,
+                        variables: Mapping[str, Any]) -> None:
+    """Copy a flax variables tree into ``model`` in place, keeping each
+    parameter's device and dtype. Every key must match both ways."""
+    sd = flax_to_state_dict(variables)
+    own = model.state_dict()
+    missing = sorted(set(own) - set(sd))
+    extra = sorted(set(sd) - set(own))
+    if missing or extra:
+        raise KeyError(f"flax tree does not match the model: missing "
+                       f"{missing[:5]}, unexpected {extra[:5]}")
+    for k, v in sd.items():
+        if tuple(own[k].shape) != tuple(v.shape):
+            raise ValueError(f"{k}: model {tuple(own[k].shape)} vs flax "
+                             f"{tuple(v.shape)}")
+    model.load_state_dict(sd)

@@ -1,0 +1,38 @@
+"""The port runs its slice with nothing of JAX, flax or pdf_table_tpu
+imported: a fresh interpreter imports pdf_table_tpu_torch, runs the tiny
+LORE slice on the CPU down to table HTML, and lists what got imported."""
+
+import json
+import os
+import subprocess
+import sys
+
+_SCRIPT = r"""
+import json, sys
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from pdf_table_tpu_torch.tasks.table_structure import OcrTableStructureTask
+from pdf_table_tpu_torch.tasks.table_to_html import OcrTableToHtmlTask
+task = OcrTableStructureTask(
+    model="Lore", task_type="wireless", device="cpu", resolution=(64, 64),
+    max_objs=8, hidden_size=32, head_conv=16, tsfm_layers=1,
+    stacking_layers=1, num_heads=4, max_fmp_size=64, d_ff=64)
+pages = np.full((1, 90, 80, 3), 255, np.uint8)
+pages[0, ::12] = 20
+res = task.batch_infer_from_pages(pages, [(0, (5, 5, 75, 85))])
+html = OcrTableToHtmlTask()(res[0], [])
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "pdf_table_tpu"))
+print(json.dumps({"bad": bad, "html": html.startswith("<table")}))
+"""
+
+
+def test_slice_runs_without_jax():
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    out = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"bad": [], "html": True}
