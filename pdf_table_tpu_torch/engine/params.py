@@ -86,9 +86,14 @@ def init_lore(cfg: LoreConfig, seed: int = 0) -> Dict[str, Any]:
     return {"params": params, "batch_stats": stats}
 
 
-def perturb_conv_offset_mask(variables: Dict[str, Any], seed: int = 0,
-                             kernel_gain: float = 0.5,
-                             bias_std: float = 1.5) -> Dict[str, Any]:
+# noise scale of perturb_conv_offset_mask: kernel std gain / sqrt(fan_in),
+# and the bias std in feature-map px (offsets reach a few px)
+OFFSET_KERNEL_GAIN = 0.5
+OFFSET_BIAS_STD = 1.5
+
+
+def perturb_conv_offset_mask(variables: Dict[str, Any], seed: int = 0
+                             ) -> Dict[str, Any]:
     """Copy of ``variables`` with seeded noise on every DCN
     ``conv_offset_mask`` kernel and bias. The init zeroes them, so every
     deform conv would sample integer points only; with the noise offsets
@@ -101,10 +106,10 @@ def perturb_conv_offset_mask(variables: Dict[str, Any], seed: int = 0,
         if "conv_offset_mask" in path:
             if path[-1] == "kernel":
                 fan_in = a.shape[0] * a.shape[1] * a.shape[2]
-                a = a + (rng.standard_normal(a.shape)
-                         * kernel_gain / np.sqrt(fan_in)).astype(np.float32)
+                a = a + (rng.standard_normal(a.shape) * OFFSET_KERNEL_GAIN
+                         / np.sqrt(fan_in)).astype(np.float32)
             else:
                 a = a + (rng.standard_normal(a.shape)
-                         * bias_std).astype(np.float32)
+                         * OFFSET_BIAS_STD).astype(np.float32)
         _set(out, path, a)
     return out

@@ -24,7 +24,9 @@ ACTS = {
 
 class BatchNorm(nn.Module):
     """Inference BatchNorm over dim 1 (flax ``nn.BatchNorm`` with
-    ``use_running_average=True``): scale/bias + running mean/var."""
+    ``use_running_average=True``): scale/bias + running mean/var. They stay
+    f32 whatever the activations' dtype; a bf16 input is normalized in f32
+    and returned in bf16, as flax does with its f32 params."""
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()

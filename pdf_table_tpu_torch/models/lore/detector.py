@@ -46,13 +46,13 @@ class DLASegDetector(nn.Module):
     first_level = 2   # down_ratio 4
     last_level = 5
 
-    def __init__(self, config: LoreConfig, plain_dcn: bool = False):
+    def __init__(self, config: LoreConfig):
         super().__init__()
         ch = DLA34_CHANNELS[self.first_level:]
         self.base = DLA34()
-        self.dla_up = DLAUp(ch, plain_dcn)
+        self.dla_up = DLAUp(ch)
         n = self.last_level - self.first_level
-        self.ida_up = IDAUp(ch[0], ch[:n], (1, 2, 4), plain_dcn)
+        self.ida_up = IDAUp(ch[0], ch[:n], (1, 2, 4))
         self.heads = CenterHeads(ch[0], config.head_conv, config.hidden_size)
 
     def forward(self, x) -> Dict[str, torch.Tensor]:

@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...ops.deform_conv import deform_conv2d, deform_conv2d_plain
+from ...ops.deform_conv import deform_conv2d
 from ..layers import BatchNorm, ConvBNAct
 
 DLA34_LEVELS = (1, 1, 1, 2, 2, 1)
@@ -128,25 +128,24 @@ class DLA34(nn.Module):
 
 
 class DeformConvBlock(nn.Module):
-    """offset/mask conv + modulated deform conv + bn + relu.
+    """offset/mask conv + modulated deform conv + bn + relu. The mask's
+    sigmoid runs in the activations' dtype and the DCN bias stays f32 and
+    is added to the f32 sums, as in the flax block."""
 
-    ``plain=True`` runs :func:`deform_conv2d_plain` on every device: a
-    yardstick for the kernel, never a fallback."""
-
-    def __init__(self, in_ch: int, features: int, plain: bool = False):
+    def __init__(self, in_ch: int, features: int):
         super().__init__()
         self.conv_offset_mask = nn.Conv2d(in_ch, 27, 3, padding=1)
         self.weight = nn.Parameter(torch.empty(3, 3, in_ch, features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.bn = BatchNorm(features)
-        self.dcn = deform_conv2d_plain if plain else deform_conv2d
+        self.dcn = deform_conv2d
 
     def forward(self, x):
-        om = self.conv_offset_mask(x).permute(0, 2, 3, 1).float()
-        offset = om[..., :18].contiguous()
-        mask = torch.sigmoid(om[..., 18:]).contiguous()
+        om = self.conv_offset_mask(x).permute(0, 2, 3, 1)
+        offset = om[..., :18].float().contiguous()
+        mask = torch.sigmoid(om[..., 18:]).float().contiguous()
         y = self.dcn(x.permute(0, 2, 3, 1).contiguous(), offset, mask,
-                     self.weight, self.bias.float())
+                     self.weight, self.bias)
         y = y.to(x.dtype).permute(0, 3, 1, 2)
         return torch.relu(self.bn(y))
 
@@ -188,16 +187,16 @@ class IDAUp(nn.Module):
     of level ``startp + k``; the forward updates levels startp+1..endp-1."""
 
     def __init__(self, features: int, in_channels: Sequence[int],
-                 up_factors: Tuple[int, ...], plain: bool = False):
+                 up_factors: Tuple[int, ...]):
         super().__init__()
         self.n = len(in_channels)
         for k in range(1, self.n):
             setattr(self, f"proj_{k}",
-                    DeformConvBlock(in_channels[k], features, plain))
+                    DeformConvBlock(in_channels[k], features))
             setattr(self, f"up_{k}",
                     DepthwiseUpsample(features, int(up_factors[k])))
             setattr(self, f"node_{k}",
-                    DeformConvBlock(features, features, plain))
+                    DeformConvBlock(features, features))
 
     def forward(self, layers: List[torch.Tensor], startp: int, endp: int):
         out = list(layers)
@@ -214,7 +213,7 @@ class DLAUp(nn.Module):
     Input: levels[first_level:] with ``channels``; returns outs with
     outs[i] the merged feature at stride 4*2^i, channels[i]."""
 
-    def __init__(self, channels: Tuple[int, ...], plain: bool = False):
+    def __init__(self, channels: Tuple[int, ...]):
         super().__init__()
         n = len(channels)
         self.n = n
@@ -224,7 +223,7 @@ class DLAUp(nn.Module):
             j = n - i - 2
             up_f = tuple(s // scales[j] for s in scales[j:])
             setattr(self, f"ida_{i}",
-                    IDAUp(channels[j], in_ch[j:], up_f, plain))
+                    IDAUp(channels[j], in_ch[j:], up_f))
             scales[j + 1:] = [scales[j] for _ in scales[j + 1:]]
             in_ch[j + 1:] = [channels[j] for _ in in_ch[j + 1:]]
 

@@ -10,9 +10,12 @@ from typing import Dict
 import torch
 from torch import nn
 
+from ...engine.device import compute_dtype
 from ...ops.centernet import decode_boxes_4ps, gather_feat
+from ...ops.deform_conv import deform_conv2d_plain
 from .config import LoreConfig
 from .detector import DLASegDetector
+from .dla import DeformConvBlock, DepthwiseUpsample
 from .processor_model import LoreProcessor
 
 # packed output layout: (name, width) along the last axis
@@ -36,8 +39,11 @@ def gather_corner_features(cr_map: torch.Tensor,
 
 
 class LoreModel(nn.Module):
-    """``plain_dcn=True`` runs every deform conv through its plain PyTorch
-    version (a yardstick run for the kernel)."""
+    """The detector computes in ``config.dtype`` as the flax modules do:
+    conv, DCN and upsample weights (and conv biases) take that dtype, while
+    BatchNorm parameters and statistics and the DCN biases stay f32. The
+    regressor is f32. ``plain_dcn=True`` runs every deform conv through its
+    plain PyTorch version (a yardstick run for the kernel)."""
 
     def __init__(self, config: LoreConfig, plain_dcn: bool = False):
         super().__init__()
@@ -46,15 +52,22 @@ class LoreModel(nn.Module):
                 "the port runs the dla34 detector without corner refine "
                 "(wireless); resnet18 and wtw are not ported yet")
         self.config = config
-        self.detector = DLASegDetector(config, plain_dcn)
+        self.dtype = compute_dtype(config.dtype)
+        self.detector = DLASegDetector(config)
         self.processor = LoreProcessor(config)
+        for m in self.detector.modules():
+            if isinstance(m, (nn.Conv2d, DepthwiseUpsample)):
+                m.to(self.dtype)
+            elif isinstance(m, DeformConvBlock):
+                m.weight = nn.Parameter(m.weight.detach().to(self.dtype))
+                if plain_dcn:
+                    m.dcn = deform_conv2d_plain
 
     def heads(self, pixel_values: torch.Tensor) -> Dict[str, torch.Tensor]:
         """pixel_values (B, H, W, 3) normalized, NHWC -> the detector's
         head maps, NHWC f32."""
-        dt = next(self.detector.parameters()).dtype
         x = pixel_values.permute(0, 3, 1, 2).to(
-            dtype=dt, memory_format=torch.channels_last)
+            dtype=self.dtype, memory_format=torch.channels_last)
         return {k: v.permute(0, 2, 3, 1)
                 for k, v in self.detector(x).items()}
 

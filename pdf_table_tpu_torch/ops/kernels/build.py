@@ -1,10 +1,10 @@
-"""Build the hand-written CUDA kernels at first use and load them with ctypes.
+"""Build a hand-written CUDA kernel at first use and load it with ctypes.
 
-Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
-shared library with a plain C interface under ``ops/kernels/build/`` (listed
-in ``.gitignore``). The library name carries a hash of its source, so an
-edited source rebuilds. :func:`build_all` starts one ``nvcc`` per missing
-library, all at once, and waits for them.
+``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface under ``ops/kernels/build/`` (listed in
+``.gitignore``). The library name carries a hash of its source, so an
+edited source rebuilds. nvcc's report (ptxas registers, shared memory,
+spills) is kept beside the library as ``<library>.log``.
 """
 
 from __future__ import annotations
@@ -14,23 +14,12 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 from pathlib import Path
-from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-
-_loaded: Dict[str, ctypes.CDLL] = {}
-_lock = threading.Lock()
-# ptxas register / shared-memory / spill report of the last build, by name
-build_logs: Dict[str, str] = {}
-
-
-def kernel_names() -> List[str]:
-    return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
 def nvcc_path() -> str:
@@ -51,40 +40,26 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build_all(names: Optional[List[str]] = None) -> Dict[str, Path]:
-    """Compile every missing library in parallel; raise if any nvcc fails."""
-    names = kernel_names() if names is None else names
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its library exists; raise if nvcc
+    fails. Returns the library's path."""
+    lib = library_path(name)
+    if lib.exists():
+        return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        lib = library_path(name)
-        if lib.exists():
-            continue
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, lib)
-    failed = []
-    for name, (proc, tmp, lib) in procs.items():
-        log, _ = proc.communicate()
-        build_logs[name] = log
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
-            continue
-        os.replace(tmp, lib)
-    if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    return {name: library_path(name) for name in names}
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                           str(CSRC / f"{name}.cu")],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"kernel build failed: {name}: nvcc exited "
+                           f"{proc.returncode}\n{proc.stdout}")
+    lib.with_suffix(".log").write_text(proc.stdout)
+    os.replace(tmp, lib)
+    return lib
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if missing."""
-    with _lock:
-        lib = _loaded.get(name)
-        if lib is None:
-            path = build_all([name])[name]
-            lib = ctypes.CDLL(str(path))
-            _loaded[name] = lib
-        return lib
+    """The library for ``csrc/<name>.cu``, built first if missing."""
+    return ctypes.CDLL(str(build(name)))

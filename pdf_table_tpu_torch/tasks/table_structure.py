@@ -15,7 +15,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..engine.device import compute_dtype, resolve_device, set_float_precision
+from ..engine.device import resolve_device, set_float_precision
 from ..engine.params import init_lore
 from ..models.lore.config import LoreConfig
 from ..models.lore.model import LoreModel, unpack_lore
@@ -49,16 +49,14 @@ class OcrTableStructureTask:
     convert/flax_bridge.py) or, when None, the seeded :func:`init_lore`.
     ``res_buckets`` ("auto" or a tuple of sides) runs small crops at a
     smaller square resolution; ``batch_size`` caps a full-resolution
-    sub-batch. ``plain_dcn`` runs the deform convs through their plain
-    PyTorch version (a yardstick for the kernel)."""
+    sub-batch."""
 
     task_name = "table_structure"
 
     def __init__(self, model: str = "Lore", task_type: str = "wtw",
                  config: Optional[LoreConfig] = None,
                  res_buckets: Any = (), device=None, batch_size: int = 8,
-                 variables: Optional[Dict[str, Any]] = None, seed: int = 0,
-                 plain_dcn: bool = False, **kw):
+                 variables: Optional[Dict[str, Any]] = None, **kw):
         if model != "Lore":
             raise NotImplementedError(f"TSR model {model!r} is not ported "
                                       f"yet")
@@ -72,13 +70,10 @@ class OcrTableStructureTask:
             self.res_buckets = tuple(res_buckets or ())
         self.batch_size = batch_size
         self.post = LorePostProcessor(cfg)
-        self.model = LoreModel(cfg, plain_dcn=plain_dcn).eval()
+        self.model = LoreModel(cfg).eval()
         self.load_variables(variables if variables is not None
-                            else init_lore(cfg, seed))
+                            else init_lore(cfg, 0))
         self.model.to(self.device)
-        # the detector runs in the compute dtype; the regressor stays f32
-        # (the flax heads cast to f32 and its Dense layers keep f32)
-        self.model.detector.to(compute_dtype(cfg.dtype))
         self.mean = torch.as_tensor(LorePreProcessor.MEAN, device=self.device)
         self.std = torch.as_tensor(LorePreProcessor.STD, device=self.device)
 

@@ -127,7 +127,8 @@ def test_kernel_matches_plain_on_card():
     """Runs on a machine with the card: python -m pytest -m cuda."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+    # the same operands on both sides, summed in f32 in another order
+    for dtype, tol in ((torch.bfloat16, 1e-4), (torch.float32, 1e-4)):
         x, off, mask, w, b = _inputs(2, 20, 18, 64, 72, (1, 1), (1, 1),
                                      (1, 1), off_scale=3.0)
         dev = torch.device("cuda")

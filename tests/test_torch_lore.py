@@ -3,6 +3,9 @@ package on one flax-initialized tree moved through the weight bridge, at a
 tiny config on the CPU. Every DCN's conv_offset_mask carries seeded noise,
 so the deform convs sample fractional and out-of-bounds points."""
 
+import copy
+
+import flax.linen as fnn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,10 +24,13 @@ from pdf_table_tpu_torch.convert.flax_bridge import (flax_to_state_dict,
                                                      tree_leaves)
 from pdf_table_tpu_torch.engine.params import (init_lore,
                                                perturb_conv_offset_mask)
+from pdf_table_tpu_torch.models.layers import BatchNorm
 from pdf_table_tpu_torch.models.lore.config import LoreConfig
+from pdf_table_tpu_torch.models.lore.dla import DeformConvBlock
 from pdf_table_tpu_torch.models.lore.model import (LoreModel,
                                                    gather_corner_features)
 from pdf_table_tpu_torch.ops import centernet as tcn
+from pdf_table_tpu_torch.ops.deform_conv import deform_conv2d_plain
 from pdf_table_tpu_torch.ops.warp import resample_axis_aligned_crops
 
 torch.set_num_threads(1)
@@ -37,6 +43,11 @@ TINY = dict(resolution=(64, 64), max_objs=8, hidden_size=32, head_conv=16,
 REL_TOL = 1e-4
 # scores closer than this are treated as tied when ordering valid slots
 SCORE_TOL = 1e-5
+# bf16 detector against the JAX bf16 detector: both round activations to
+# bf16 after every layer, in another order, and the roundings spread
+# through ~40 layers (the JAX f32 and bf16 heads differ by 1.7e-2 here).
+# Relative to each head's largest magnitude.
+BF16_REL_TOL = 4e-2
 
 
 @pytest.fixture(scope="module")
@@ -49,6 +60,34 @@ def models():
     x = np.random.default_rng(0).standard_normal((2, 64, 64, 3)) \
         .astype(np.float32)
     return jm, v, tm, x
+
+
+def _bn_perturbed(v, seed=7):
+    """Copy of ``v`` with seeded BatchNorm statistics, scales and biases
+    (the init's 0/1 statistics and zero biases would hide their
+    precision)."""
+    rng = np.random.default_rng(seed)
+
+    def walk(tree, path):
+        out = {}
+        for k, a in tree.items():
+            if isinstance(a, dict):
+                out[k] = walk(a, path + (k,))
+                continue
+            a = np.asarray(a, np.float32)
+            if path[-1] == "bn" or k in ("mean", "var"):
+                if k == "mean":
+                    a = rng.standard_normal(a.shape)
+                elif k == "var":
+                    a = rng.uniform(0.5, 2.0, a.shape)
+                elif k == "scale":
+                    a = rng.uniform(0.5, 1.5, a.shape)
+                else:
+                    a = rng.standard_normal(a.shape) * 0.5
+            out[k] = np.asarray(a, np.float32)
+        return out
+
+    return walk(v, ())
 
 
 def _close(got, want, tol=REL_TOL):
@@ -112,6 +151,76 @@ def test_detector_heads_match(models):
     assert set(got) == {"hm", "wh", "reg", "ax", "cr", "st"}
     for k in got:
         _close(got[k].permute(0, 2, 3, 1).numpy(), want[k])
+
+
+@pytest.fixture(scope="module")
+def bf16_models(models):
+    jm, v, _, x = models
+    v = _bn_perturbed(v)
+    cfg = dict(TINY, dtype="bfloat16")
+    tm = LoreModel(LoreConfig.wireless(**cfg)).eval()
+    load_flax_variables(tm, v)
+    return JLoreModel(JLoreConfig.wireless(**cfg)), v, tm, x
+
+
+def test_bf16_model_keeps_norms_and_dcn_bias_f32(bf16_models):
+    _, _, tm, _ = bf16_models
+    assert tm.processor.stacker is not None
+    for name, mod in tm.named_modules():
+        own = dict(mod.named_parameters(recurse=False),
+                   **dict(mod.named_buffers(recurse=False)))
+        if isinstance(mod, BatchNorm) or name.startswith("processor"):
+            want = {k: torch.float32 for k in own}
+        elif isinstance(mod, DeformConvBlock):
+            want = {"weight": torch.bfloat16, "bias": torch.float32}
+        else:
+            want = {k: torch.bfloat16 for k in own}
+        assert {k: t.dtype for k, t in own.items()} == want, name
+
+
+def test_bf16_batch_norm_matches_flax(bf16_models):
+    """A DCN block's BatchNorm of the bf16 model on a bf16 input with large
+    means: flax subtracts the f32 mean, scales and shifts in f32 and rounds
+    once, so both sides agree to one bf16 rounding. f32 statistics rounded
+    to bf16 would miss by about 2 %."""
+    _, v, tm, _ = bf16_models
+    bn = copy.deepcopy(tm.detector.dla_up.ida_0.node_1.bn)
+    p = v["params"]["detector"]["dla_up"]["ida_0"]["node_1"]["bn"]
+    st = dict(v["batch_stats"]["detector"]["dla_up"]["ida_0"]["node_1"]["bn"])
+    rng = np.random.default_rng(8)
+    c = st["mean"].shape[0]
+    st["mean"] = rng.uniform(8.0, 12.0, c).astype(np.float32)
+    bn.running_mean.copy_(torch.from_numpy(st["mean"]))
+    x = (st["mean"] + rng.standard_normal((2, 5, 6, c))).astype(np.float32)
+    x16 = jnp.asarray(x, jnp.bfloat16)
+    want = fnn.BatchNorm(use_running_average=True, momentum=0.9,
+                         epsilon=1e-5, dtype=jnp.bfloat16).apply(
+        {"params": p, "batch_stats": st}, x16)
+    with torch.no_grad():
+        got = bn(torch.from_numpy(np.array(x16.astype(jnp.float32)))
+                 .to(torch.bfloat16).permute(0, 3, 1, 2))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(
+        got.permute(0, 2, 3, 1).float().numpy(),
+        np.asarray(want.astype(jnp.float32)), rtol=2 ** -7, atol=1e-6)
+
+
+def test_bf16_detector_heads_match(bf16_models):
+    jm, v, tm, x = bf16_models
+    want = jm.apply(v, x, method=lambda m, x: m.detector(x, train=False))
+    with torch.no_grad():
+        got = tm.heads(torch.from_numpy(x))
+    assert set(got) == set(want)
+    for k in got:
+        assert got[k].dtype == torch.float32
+        _close(got[k].numpy(), want[k], BF16_REL_TOL)
+
+
+def test_plain_dcn_is_set_on_every_deform_conv():
+    tm = LoreModel(LoreConfig.wireless(**TINY), plain_dcn=True)
+    dcns = [m.dcn for m in tm.modules() if isinstance(m, DeformConvBlock)]
+    assert len(dcns) == 16
+    assert all(f is deform_conv2d_plain for f in dcns)
 
 
 def test_features_and_logical_match(models):
