@@ -8,6 +8,11 @@ pdf_table_tpu/convert/torch_to_flax.py):
 - conv ``kernel`` HWIO -> ``weight`` OIHW; the depthwise upsample kernel
   (k, k, 1, C) takes the same transpose to the ``conv_transpose2d`` weight
   (C, 1, k, k);
+- a flax ``nn.ConvTranspose`` ``kernel`` (kh, kw, In, Out) -> the
+  ``nn.ConvTranspose2d`` ``weight`` (In, Out, kh, kw), flipped in space:
+  flax dilates the input and correlates with the kernel as it is, which
+  for DBNet's 2x2/2 "SAME" upsample puts ``kernel[1 - dy, 1 - dx]`` where
+  torch puts ``weight[..., dy, dx]``;
 - dense ``kernel`` (In, Out) -> ``weight`` (Out, In);
 - embed ``embedding`` -> ``weight``, unchanged;
 - BatchNorm ``scale``/``bias`` + ``batch_stats`` ``mean``/``var`` ->
@@ -21,7 +26,7 @@ JAX.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Mapping, Tuple
+from typing import AbstractSet, Any, Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -39,8 +44,12 @@ def tree_leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()
             yield prefix + (k,), v
 
 
-def flax_leaf_to_torch(leaf: str, a: np.ndarray) -> Tuple[str, np.ndarray]:
-    """(flax param name, array) -> (torch param name, array)."""
+def flax_leaf_to_torch(leaf: str, a: np.ndarray, transposed: bool = False
+                       ) -> Tuple[str, np.ndarray]:
+    """(flax param name, array) -> (torch param name, array);
+    ``transposed`` marks the kernel of a flax ``nn.ConvTranspose``."""
+    if leaf == "kernel" and transposed:
+        return "weight", a.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
     if leaf == "kernel":
         return "weight", (a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T)
     if leaf in ("scale", "embedding"):
@@ -48,12 +57,16 @@ def flax_leaf_to_torch(leaf: str, a: np.ndarray) -> Tuple[str, np.ndarray]:
     return leaf, a
 
 
-def flax_to_state_dict(variables: Mapping[str, Any]
+def flax_to_state_dict(variables: Mapping[str, Any],
+                       transposed: AbstractSet[str] = frozenset()
                        ) -> Dict[str, torch.Tensor]:
-    """{"params": ..., "batch_stats": ...} -> a state_dict (f32 tensors)."""
+    """{"params": ..., "batch_stats": ...} -> a state_dict (f32 tensors).
+    ``transposed`` names the modules (dotted paths) that are flax
+    ``nn.ConvTranspose``."""
     out: Dict[str, torch.Tensor] = {}
     for path, arr in tree_leaves(variables["params"]):
-        name, a = flax_leaf_to_torch(path[-1], np.asarray(arr, np.float32))
+        name, a = flax_leaf_to_torch(path[-1], np.asarray(arr, np.float32),
+                                     ".".join(path[:-1]) in transposed)
         out[".".join(path[:-1] + (name,))] = torch.from_numpy(
             np.array(a, np.float32, order="C"))
     for path, arr in tree_leaves(variables.get("batch_stats", {})):
@@ -66,7 +79,9 @@ def load_flax_variables(model: torch.nn.Module,
                         variables: Mapping[str, Any]) -> None:
     """Copy a flax variables tree into ``model`` in place, keeping each
     parameter's device and dtype. Every key must match both ways."""
-    sd = flax_to_state_dict(variables)
+    sd = flax_to_state_dict(variables, {
+        name for name, m in model.named_modules()
+        if isinstance(m, torch.nn.ConvTranspose2d)})
     own = model.state_dict()
     missing = sorted(set(own) - set(sd))
     extra = sorted(set(sd) - set(own))

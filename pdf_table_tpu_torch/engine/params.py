@@ -1,12 +1,14 @@
 """Deterministic numpy-seeded initialization in the flax layout.
 
-:func:`init_lore` returns a ``{"params", "batch_stats"}`` tree with the
-paths and shapes the JAX package's ``LoreModel.init`` gives, filled with the
-flax initializers' kinds: lecun-normal conv / dense kernels, he-normal DCN
-weights, zero biases, BN statistics 0/1, the bilinear upsample kernel, a
-zero ``conv_offset_mask`` and the -2.19 ``hm_out`` bias. The numbers differ
-from a JAX PRNG init (another generator); the structure is the same, so
-the weight bridge moves either tree.
+:func:`init_lore` and :func:`init_dbnet` return a ``{"params",
+"batch_stats"}`` tree with the paths and shapes the JAX package's
+``LoreModel.init`` / ``DBNet.init`` give, filled with the flax initializers'
+kinds: lecun-normal conv / transposed-conv / dense kernels, zero biases,
+BN scale/bias 1/0 and statistics 0/1; for LORE also he-normal DCN weights,
+the bilinear upsample kernel, a zero ``conv_offset_mask`` and the -2.19
+``hm_out`` bias. The numbers differ from a JAX PRNG init (another
+generator); the structure is the same, so the weight bridge moves either
+tree.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 from torch import nn
 
 from ..convert.flax_bridge import tree_leaves
+from ..models.dbnet.config import DbNetConfig
 from ..models.layers import BatchNorm
 from ..models.lore.config import LoreConfig
 from ..models.lore.dla import (DeformConvBlock, DepthwiseUpsample,
@@ -31,6 +34,19 @@ def _set(tree: Dict[str, Any], path, value) -> None:
     tree[path[-1]] = value
 
 
+def _normal(rng: np.random.Generator, shape, fan_in: int,
+            gain: float = 1.0) -> np.ndarray:
+    return (rng.standard_normal(shape) * np.sqrt(gain / fan_in)) \
+        .astype(np.float32)
+
+
+def _set_batch_norm(params, stats, path, c: int) -> None:
+    _set(params, path + ("scale",), np.ones((c,), np.float32))
+    _set(params, path + ("bias",), np.zeros((c,), np.float32))
+    _set(stats, path + ("mean",), np.zeros((c,), np.float32))
+    _set(stats, path + ("var",), np.ones((c,), np.float32))
+
+
 def init_lore(cfg: LoreConfig, seed: int = 0) -> Dict[str, Any]:
     from ..models.lore.model import LoreModel
 
@@ -41,8 +57,7 @@ def init_lore(cfg: LoreConfig, seed: int = 0) -> Dict[str, Any]:
     stats: Dict[str, Any] = {}
 
     def normal(shape, fan_in, gain=1.0):
-        return (rng.standard_normal(shape) * np.sqrt(gain / fan_in)) \
-            .astype(np.float32)
+        return _normal(rng, shape, fan_in, gain)
 
     for mname, mod in model.named_modules():
         path = tuple(mname.split(".")) if mname else ()
@@ -65,11 +80,7 @@ def init_lore(cfg: LoreConfig, seed: int = 0) -> Dict[str, Any]:
             v, d = mod.weight.shape
             _set(params, path + ("embedding",), normal((v, d), v))
         elif isinstance(mod, BatchNorm):
-            c = mod.weight.shape[0]
-            _set(params, path + ("scale",), np.ones((c,), np.float32))
-            _set(params, path + ("bias",), np.zeros((c,), np.float32))
-            _set(stats, path + ("mean",), np.zeros((c,), np.float32))
-            _set(stats, path + ("var",), np.ones((c,), np.float32))
+            _set_batch_norm(params, stats, path, mod.weight.shape[0])
         elif isinstance(mod, DeformConvBlock):
             kh, kw, i, o = mod.weight.shape
             _set(params, path + ("weight",),
@@ -83,6 +94,32 @@ def init_lore(cfg: LoreConfig, seed: int = 0) -> Dict[str, Any]:
         elif isinstance(mod, RefNorm):
             _set(params, path + ("alpha",), np.ones((mod.dim,), np.float32))
             _set(params, path + ("bias",), np.zeros((mod.dim,), np.float32))
+    return {"params": params, "batch_stats": stats}
+
+
+def init_dbnet(cfg: DbNetConfig, seed: int = 0) -> Dict[str, Any]:
+    """The DBNet tree: conv kernels (kh, kw, In/groups, Out), transposed-conv
+    kernels (kh, kw, In, Out), SE biases zero, BatchNorm leaves."""
+    from ..models.dbnet.model import DBNet
+
+    rng = np.random.default_rng(seed)
+    with torch.device("meta"):
+        model = DBNet(cfg)
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    for mname, mod in model.named_modules():
+        path = tuple(mname.split(".")) if mname else ()
+        if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
+            if isinstance(mod, nn.Conv2d):
+                o, i, kh, kw = mod.weight.shape
+            else:
+                i, o, kh, kw = mod.weight.shape
+            _set(params, path + ("kernel",),
+                 _normal(rng, (kh, kw, i, o), kh * kw * i))
+            if mod.bias is not None:
+                _set(params, path + ("bias",), np.zeros((o,), np.float32))
+        elif isinstance(mod, BatchNorm):
+            _set_batch_norm(params, stats, path, mod.weight.shape[0])
     return {"params": params, "batch_stats": stats}
 
 

@@ -1,0 +1,156 @@
+"""DBNet, the PP-OCRv4 detector (counterpart of
+pdf_table_tpu/models/dbnet/model.py, the ``mobilenetv3`` backbone).
+
+MobileNetV3-0.5 backbone -> RSE-FPN neck (concat at stride 4) -> DB
+binarize head (conv, two 2x2/2 transposed convs) -> prob map. Modules keep
+the flax submodule names, so the weight bridge maps the JAX tree one to
+one. ``DBNet`` takes NHWC images, as the JAX module does, and runs them as
+a ``channels_last`` NCHW view.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Sequence
+
+import torch
+from torch import nn
+
+from ..layers import (BatchNorm, ConvBNAct, InvertedResidual, SEModule,
+                      make_divisible, upsample2x, upsample_nearest)
+from .config import DbNetConfig
+
+
+class MobileNetV3Det(nn.Module):
+    """MobileNetV3-large(0.5) detection backbone. Returns C2..C5 at strides
+    4/8/16/32: a feature tap before each stride-2 block from stride 4 on,
+    and the 1x1 ``last_conv`` at stride 32."""
+
+    # (kernel, expand, out, use_se, act, stride)
+    CFG = [
+        (3, 16, 16, False, "relu", 1),
+        (3, 64, 24, False, "relu", 2),
+        (3, 72, 24, False, "relu", 1),    # C2 @ stride 4
+        (5, 72, 40, True, "relu", 2),
+        (5, 120, 40, True, "relu", 1),
+        (5, 120, 40, True, "relu", 1),    # C3 @ stride 8
+        (3, 240, 80, False, "hardswish", 2),
+        (3, 200, 80, False, "hardswish", 1),
+        (3, 184, 80, False, "hardswish", 1),
+        (3, 184, 80, False, "hardswish", 1),
+        (3, 480, 112, True, "hardswish", 1),
+        (3, 672, 112, True, "hardswish", 1),  # C4 @ stride 16
+        (5, 672, 160, True, "hardswish", 2),
+        (5, 960, 160, True, "hardswish", 1),
+        (5, 960, 160, True, "hardswish", 1),  # C5 @ stride 32
+    ]
+
+    def __init__(self, in_ch: int = 3, scale: float = 0.5,
+                 disable_se: bool = True):
+        super().__init__()
+        s = scale
+        c = make_divisible(16 * s)
+        self.stem = ConvBNAct(in_ch, c, (3, 3), (2, 2), act="hardswish")
+        self.taps: List[int] = []        # blocks whose input is a feature
+        self.out_channels: List[int] = []
+        stride_now = 2
+        for i, (k, e, o, se, act, st) in enumerate(self.CFG):
+            if st == 2 and stride_now >= 4:
+                self.taps.append(i)
+                self.out_channels.append(c)
+            stride_now *= st
+            out = make_divisible(o * s)
+            self.add_module(f"block{i}", InvertedResidual(
+                c, out, make_divisible(e * s), (k, k), (st, st),
+                use_se=se and not disable_se, act=act))
+            c = out
+        self.last_conv = ConvBNAct(c, make_divisible(960 * s), (1, 1),
+                                   act="hardswish")
+        self.out_channels.append(make_divisible(960 * s))
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        x = self.stem(x)
+        feats = []
+        for i in range(len(self.CFG)):
+            if i in self.taps:
+                feats.append(x)
+            x = getattr(self, f"block{i}")(x)
+        feats.append(self.last_conv(x))
+        return feats
+
+
+class RSELayer(nn.Module):
+    """Residual squeeze-excite conv: ``y + SE(y)`` with ``y = conv(x)``."""
+
+    def __init__(self, in_ch: int, features: int, kernel: int = 1):
+        super().__init__()
+        self.conv = nn.Conv2d(in_ch, features, kernel,
+                              padding=(kernel - 1) // 2, bias=False)
+        self.se = SEModule(features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.conv(x)
+        return y + self.se(y)
+
+
+class RSEFPN(nn.Module):
+    """RSE 1x1 laterals with top-down adds, RSE 3x3 smooths, and the
+    stride-4 concat in the order o5, o4, o3, o2."""
+
+    def __init__(self, in_channels: Sequence[int], out_channels: int = 96):
+        super().__init__()
+        f, q = out_channels, out_channels // 4
+        for lvl, c in zip((2, 3, 4, 5), in_channels):
+            self.add_module(f"in{lvl}", RSELayer(c, f, 1))
+        for lvl in (5, 4, 3, 2):
+            self.add_module(f"out{lvl}", RSELayer(f, q, 3))
+
+    def forward(self, feats: Sequence[torch.Tensor]) -> torch.Tensor:
+        c2, c3, c4, c5 = feats
+        p5 = self.in5(c5)
+        p4 = self.in4(c4) + upsample2x(p5)
+        p3 = self.in3(c3) + upsample2x(p4)
+        p2 = self.in2(c2) + upsample2x(p3)
+        return torch.cat([upsample_nearest(self.out5(p5), 8),
+                          upsample_nearest(self.out4(p4), 4),
+                          upsample2x(self.out3(p3)), self.out2(p2)], dim=1)
+
+
+class BinarizeHead(nn.Module):
+    """conv3x3 + BN + relu -> 2x2/2 transposed conv + BN + relu -> 2x2/2
+    transposed conv -> sigmoid; (B, 1, H, W) -> prob (B, H, W) at 4x the
+    input's side."""
+
+    def __init__(self, in_ch: int, inner: int):
+        super().__init__()
+        q = inner // 4
+        self.conv = ConvBNAct(in_ch, q, (3, 3), act="relu")
+        self.up1 = nn.ConvTranspose2d(q, q, 2, stride=2)
+        self.bn1 = BatchNorm(q)
+        self.up2 = nn.ConvTranspose2d(q, 1, 2, stride=2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = torch.relu(self.bn1(self.up1(self.conv(x))))
+        return torch.sigmoid(self.up2(x))[:, 0]
+
+
+class DBNet(nn.Module):
+    """The detector. ``forward(images)`` takes NHWC float images and returns
+    {"prob": (B, H, W) f32}, as the JAX module's inference call does."""
+
+    def __init__(self, config: DbNetConfig):
+        super().__init__()
+        cfg = config
+        if cfg.backbone != "mobilenetv3":
+            raise NotImplementedError(
+                f"DBNet backbone {cfg.backbone!r} is not ported yet")
+        if cfg.dtype != "float32":
+            raise NotImplementedError(
+                f"the DBNet detector runs float32 only, not {cfg.dtype!r}")
+        self.config = cfg
+        self.backbone = MobileNetV3Det()
+        self.neck = RSEFPN(self.backbone.out_channels, cfg.inner_channels)
+        self.binarize = BinarizeHead(cfg.inner_channels, cfg.inner_channels)
+
+    def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        x = images.permute(0, 3, 1, 2)   # NHWC memory read as channels_last
+        return {"prob": self.binarize(self.neck(self.backbone(x)))}

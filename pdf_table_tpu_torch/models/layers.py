@@ -1,10 +1,12 @@
 """Shared building blocks (counterpart of pdf_table_tpu/models/layers.py).
 
-Only what the LORE slice uses: ``ConvBNAct`` with the torch/paddle
-symmetric ``k//2`` padding and BatchNorm eps 1e-5, an inference-mode
-``BatchNorm`` whose parameter names the weight bridge maps one to one, and
-the activation table. Modules run NCHW (the model keeps activations in
-``channels_last`` memory format).
+What the LORE and DBNet slices use: ``ConvBNAct`` (grouped for depthwise)
+with the torch/paddle symmetric ``k//2`` padding and BatchNorm eps 1e-5,
+an inference-mode ``BatchNorm`` whose parameter names the weight bridge
+maps one to one, the activation table, ``make_divisible``, ``SEModule``,
+the MobileNetV3 ``InvertedResidual`` and the nearest ``upsample2x``.
+Modules run NCHW (the models keep activations in ``channels_last`` memory
+format).
 """
 
 from __future__ import annotations
@@ -15,11 +17,34 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+
+
+def hardswish(x: torch.Tensor) -> torch.Tensor:
+    return x * F.relu6(x + 3.0) / 6.0
+
+
+def hardsigmoid(x: torch.Tensor) -> torch.Tensor:
+    return F.relu6(x + 3.0) / 6.0
+
+
 ACTS = {
     "relu": torch.relu,
+    "relu6": F.relu6,
+    "hardswish": hardswish,
+    "hardsigmoid": hardsigmoid,
     "sigmoid": torch.sigmoid,
     None: None,
 }
+
+
+def make_divisible(v: float, divisor: int = 8,
+                   min_value: Optional[int] = None) -> int:
+    if min_value is None:
+        min_value = divisor
+    new_v = max(min_value, int(v + divisor / 2) // divisor * divisor)
+    if new_v < 0.9 * v:
+        new_v += divisor
+    return new_v
 
 
 class BatchNorm(nn.Module):
@@ -42,20 +67,70 @@ class BatchNorm(nn.Module):
 
 
 class ConvBNAct(nn.Module):
-    """Conv2d (no bias) + BatchNorm + activation."""
+    """Conv2d (no bias, ``groups`` for depthwise) + BatchNorm + activation.
+    Strided convs keep the symmetric ``k//2`` padding too."""
 
     def __init__(self, in_ch: int, features: int,
                  kernel: Tuple[int, int] = (3, 3),
                  stride: Tuple[int, int] = (1, 1),
-                 act: Optional[str] = "relu"):
+                 act: Optional[str] = "relu", groups: int = 1):
         super().__init__()
         kh, kw = kernel
         self.conv = nn.Conv2d(in_ch, features, kernel, stride=stride,
                               padding=((kh - 1) // 2, (kw - 1) // 2),
-                              bias=False)
+                              groups=groups, bias=False)
         self.bn = BatchNorm(features)
         self.act = ACTS[act]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.bn(self.conv(x))
         return self.act(x) if self.act is not None else x
+
+
+class SEModule(nn.Module):
+    """Squeeze-excite: mean -> 1x1 fc1 -> relu -> 1x1 fc2 ->
+    ``x * hardsigmoid``."""
+
+    def __init__(self, channels: int, reduction: int = 4):
+        super().__init__()
+        mid = max(1, channels // reduction)
+        self.fc1 = nn.Conv2d(channels, mid, 1)
+        self.fc2 = nn.Conv2d(mid, channels, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = torch.relu(self.fc1(x.mean((2, 3), keepdim=True)))
+        return x * hardsigmoid(self.fc2(s))
+
+
+class InvertedResidual(nn.Module):
+    """MobileNetV3 block: 1x1 expand -> depthwise -> (SE) -> 1x1 project;
+    the residual only at stride 1 with equal widths."""
+
+    def __init__(self, in_ch: int, features: int, expand: int,
+                 kernel: Tuple[int, int] = (3, 3),
+                 stride: Tuple[int, int] = (1, 1), use_se: bool = False,
+                 act: str = "relu"):
+        super().__init__()
+        self.expand = ConvBNAct(in_ch, expand, (1, 1), act=act)
+        self.dw = ConvBNAct(expand, expand, kernel, stride, act=act,
+                            groups=expand)
+        self.se = SEModule(expand) if use_se else None
+        self.project = ConvBNAct(expand, features, (1, 1), act=None)
+        self.residual = tuple(stride) == (1, 1) and in_ch == features
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.dw(self.expand(x))
+        if self.se is not None:
+            y = self.se(y)
+        y = self.project(y)
+        return y + x if self.residual else y
+
+
+def upsample_nearest(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """Nearest upsample of an NCHW tensor by an integer factor: every
+    pixel becomes a ``factor x factor`` block."""
+    return F.interpolate(x, scale_factor=factor, mode="nearest")
+
+
+def upsample2x(x: torch.Tensor) -> torch.Tensor:
+    return upsample_nearest(x, 2)

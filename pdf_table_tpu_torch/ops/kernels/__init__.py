@@ -2,12 +2,15 @@
 
 ``launch_counts`` counts each kernel's launches by name: a wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that its
-path went through the kernels.
+path went through the kernels. ``KERNELS`` maps each count's name to its
+source under ``csrc/``.
 """
 
 from __future__ import annotations
 
 from collections import Counter
+
+KERNELS = {"deform_conv2d": "deform_conv", "resize_normalize": "resize_norm"}
 
 launch_counts: Counter = Counter()
 

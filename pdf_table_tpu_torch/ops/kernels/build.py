@@ -4,7 +4,8 @@
 library with a plain C interface under ``ops/kernels/build/`` (listed in
 ``.gitignore``). The library name carries a hash of its source, so an
 edited source rebuilds. nvcc's report (ptxas registers, shared memory,
-spills) is kept beside the library as ``<library>.log``.
+spills) is kept beside the library as ``<library>.log``. ``build_all``
+starts one ``nvcc`` per source, all at once.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -40,26 +42,34 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library exists; raise if nvcc
-    fails. Returns the library's path."""
-    lib = library_path(name)
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(CSRC / f"{name}.cu")],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"kernel build failed: {name}: nvcc exited "
-                           f"{proc.returncode}\n{proc.stdout}")
-    lib.with_suffix(".log").write_text(proc.stdout)
-    os.replace(tmp, lib)
-    return lib
+def build_all(names: Iterable[str]) -> Dict[str, Path]:
+    """Compile every ``csrc/<name>.cu`` whose library is missing, one
+    ``nvcc`` each, all started together; raise if any fails. Returns each
+    library's path."""
+    libs = {name: library_path(name) for name in names}
+    procs = {}
+    for name, lib in libs.items():
+        if lib.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (tmp, subprocess.Popen(
+            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+             str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            continue
+        libs[name].with_suffix(".log").write_text(log)
+        os.replace(tmp, libs[name])
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return libs
 
 
 def load(name: str) -> ctypes.CDLL:
     """The library for ``csrc/<name>.cu``, built first if missing."""
-    return ctypes.CDLL(str(build(name)))
+    return ctypes.CDLL(str(build_all([name])[name]))
