@@ -1,7 +1,11 @@
 """LoreModel: detector + on-device decode + logical-location regressor
-(counterpart of pdf_table_tpu/models/lore/model.py, wireless path: no corner
-refine). Static K cell slots: invalid slots carry a mask instead of being
-filtered, so the device never waits for the host."""
+(counterpart of pdf_table_tpu/models/lore/model.py). Static K cell slots:
+invalid slots carry a mask instead of being filtered, so the device never
+waits for the host. Under ``wiz_rev`` (the wtw config) the corner channel is
+decoded too and cell vertices snap to corner detections
+(``corner_refine.py``) between :meth:`LoreModel.detect_decode` and
+:meth:`LoreModel.gather_logical`; :meth:`LoreModel.forward_packed` runs
+either path."""
 
 from __future__ import annotations
 
@@ -14,6 +18,7 @@ from ...engine.device import compute_dtype
 from ...ops.centernet import decode_boxes_4ps, gather_feat
 from ...ops.deform_conv import deform_conv2d_plain
 from .config import LoreConfig
+from .corner_refine import refine_sort
 from .detector import DLASegDetector
 from .dla import DeformConvBlock, DepthwiseUpsample
 from .processor_model import LoreProcessor
@@ -47,10 +52,10 @@ class LoreModel(nn.Module):
 
     def __init__(self, config: LoreConfig, plain_dcn: bool = False):
         super().__init__()
-        if config.backbone != "dla34" or config.wiz_rev:
+        if config.backbone != "dla34":
             raise NotImplementedError(
-                "the port runs the dla34 detector without corner refine "
-                "(wireless); resnet18 and wtw are not ported yet")
+                "the port runs the dla34 detector; resnet18 is not ported "
+                "yet")
         self.config = config
         self.dtype = compute_dtype(config.dtype)
         self.detector = DLASegDetector(config)
@@ -73,8 +78,15 @@ class LoreModel(nn.Module):
 
     def features(self, pixel_values: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Detector + decode + corner-feature aggregation: everything before
-        the regressor. ``inds`` are the slots' flat feature-map indices."""
+        the regressor, without the corner refine. ``inds`` are the slots'
+        flat feature-map indices. Under ``wiz_rev`` the path is
+        :meth:`detect_decode` -> ``refine_sort`` -> :meth:`gather_logical`
+        (:meth:`forward_packed`), so this raises."""
         cfg = self.config
+        if cfg.wiz_rev:
+            raise ValueError("under wiz_rev the corner refine runs between "
+                             "detect_decode and gather_logical; call "
+                             "forward_packed")
         out = self.heads(pixel_values)
         hm = torch.sigmoid(out["hm"])
         dets, scores, _clses, centers, inds = decode_boxes_4ps(
@@ -89,6 +101,42 @@ class LoreModel(nn.Module):
     def logical(self, feat: torch.Tensor, dets: torch.Tensor):
         return self.processor(feat, dets=dets)
 
+    def detect_decode(self, pixel_values: torch.Tensor
+                      ) -> Dict[str, torch.Tensor]:
+        """Detector + both channel decodes, no refine (wiz_rev path).
+        ``dc_packed`` (B, K + M, 11): cells [dets 8, score, ind, 0] padded
+        to the corner width, then corners [gbox 8, center 2, score]; the
+        ax and cr maps stay on the device for :meth:`gather_logical`."""
+        cfg = self.config
+        out = self.heads(pixel_values)
+        hm = torch.sigmoid(out["hm"])
+        dets, scores, _c, _centers, inds = decode_boxes_4ps(
+            hm[..., 0:1], out["wh"], out["reg"], cfg.max_objs)
+        gboxes, gscores, _gc, gcenters, _gi = decode_boxes_4ps(
+            hm[..., 1:2], out["st"], out["reg"], cfg.max_corners)
+        B, H, W, _ = hm.shape
+        cells = torch.cat([dets, scores[..., None], inds.float()[..., None],
+                           torch.zeros_like(scores)[..., None]], dim=-1)
+        corners = torch.cat([gboxes, gcenters, gscores[..., None]], dim=-1)
+        return {"dc_packed": torch.cat([cells, corners], dim=1),
+                "ax_flat": out["ax"].reshape(B, H * W, -1),
+                "cr_map": out["cr"]}
+
+    def gather_logical(self, ax_flat: torch.Tensor, cr_map: torch.Tensor,
+                       dets: torch.Tensor, inds: torch.Tensor,
+                       scores: torch.Tensor) -> torch.Tensor:
+        """Feature gathers at the refined dets + the regressor, packed as
+        LORE_PACK (B, K, 20); the centers slot holds zeros."""
+        feat = gather_feat(ax_flat, inds) + gather_corner_features(cr_map,
+                                                                   dets)
+        logi, stacked = self.logical(feat, dets)
+        if stacked is None:
+            stacked = logi
+        valid = scores >= self.config.vis_thresh
+        return torch.cat([dets, scores[..., None], valid.float()[..., None],
+                          torch.zeros_like(dets[..., :2]), logi, stacked],
+                         dim=-1)
+
     def proc_pack(self, fo: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Regressor + pack into one (B, K, 20) array (layout LORE_PACK)."""
         logi, stacked = self.logical(fo["feat"], fo["dets"])
@@ -97,6 +145,22 @@ class LoreModel(nn.Module):
         return torch.cat([fo["dets"], fo["scores"][..., None],
                           fo["valid"].float()[..., None], fo["centers"],
                           logi, stacked], dim=-1)
+
+    def forward_packed(self, pixel_values: torch.Tensor) -> torch.Tensor:
+        """Normalized crops -> the packed (B, K, 20) output (layout
+        LORE_PACK), left on the device. Under ``wiz_rev``: detect-decode,
+        the dense corner refine and stable re-sort, then the feature
+        gathers and regressor at the refined slots (the JAX task's
+        device-refine chain)."""
+        cfg = self.config
+        if not cfg.wiz_rev:
+            return self.proc_pack(self.features(pixel_values))
+        dd = self.detect_decode(pixel_values)
+        dets, inds, scores = refine_sort(dd["dc_packed"], cfg.max_objs,
+                                         cfg.vis_thresh,
+                                         cfg.vis_thresh_corner)
+        return self.gather_logical(dd["ax_flat"], dd["cr_map"], dets, inds,
+                                   scores)
 
 
 def unpack_lore(arr):

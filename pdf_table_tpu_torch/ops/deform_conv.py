@@ -3,10 +3,18 @@ pdf_table_tpu/ops/deform_conv.py).
 
 ``deform_conv2d`` keeps the JAX signature and layouts: x NHWC, offset
 (B, Ho, Wo, 2K) in (dy, dx) pairs, mask (B, Ho, Wo, K) post-sigmoid,
-weight (Kh, Kw, Cin, Cout), f32 output. On a CUDA tensor it launches the
-hand-written kernel ``ops/kernels/csrc/deform_conv.cu`` (gather, blend and
-contraction in one pass) and raises on what the kernel does not take; on a
-CPU tensor it runs :func:`deform_conv2d_plain`.
+weight (Kh, Kw, Cin, Cout), f32 output. On a CPU tensor it runs
+:func:`deform_conv2d_plain`. On a CUDA tensor it takes the route the JAX
+package takes on a TPU (:func:`flat_kc_route`):
+
+- where JAX runs the tap-major kernel, or leaves the back half to XLA,
+  :func:`deform_conv2d_tap` launches ``ops/kernels/csrc/deform_conv.cu``
+  (gather, blend and contraction in one pass);
+- where JAX chunks the taps and sends every chunk to the flat-kc kernel,
+  :func:`deform_conv2d_chunked` gathers each chunk's corner rows and
+  launches ``ops/kernels/csrc/blend_matmul.cu`` on them.
+
+Each kernel raises on what it does not take.
 """
 
 from __future__ import annotations
@@ -16,10 +24,18 @@ from typing import Optional, Tuple
 
 import torch
 
+from .blend_matmul import blend_matmul
 from .kernels import launch_counts
 
 Pair = Tuple[int, int]
 _CORNERS = ((0, 0), (0, 1), (1, 0), (1, 1))   # (dy, dx) of the 4 corners
+
+# the JAX route's constants (ops/deform_conv.py:103,127 and
+# ops/pallas/deform_blend.py:53,281,314,342)
+GATHER_BUDGET = 1.5e9          # bytes of gathered corner rows per chunk
+TILE_ROWS = 256                # flat-kc kernel row tile
+VMEM_BUDGET = 12 * 1024 * 1024
+FLAT_KC_MAX = 2304             # the flat-kc kernel's auto region
 
 
 def _out_hw(H: int, W: int, Kh: int, Kw: int, stride: Pair, padding: Pair,
@@ -27,6 +43,109 @@ def _out_hw(H: int, W: int, Kh: int, Kw: int, stride: Pair, padding: Pair,
     Ho = (H + 2 * padding[0] - dilation[0] * (Kh - 1) - 1) // stride[0] + 1
     Wo = (W + 2 * padding[1] - dilation[1] * (Kw - 1) - 1) // stride[1] + 1
     return Ho, Wo
+
+
+# ---------------------------------------------------------------------------
+# the route, as pure functions of shapes (copies of the JAX predicates
+# without their backend test and environment switches)
+# ---------------------------------------------------------------------------
+
+
+def gather_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype corner rows are gathered in: bf16/f16 as is, else f32."""
+    return dtype if dtype in (torch.bfloat16, torch.float16) \
+        else torch.float32
+
+
+def row_tile(hw: int, cap: int = 512) -> int:
+    """Largest multiple-of-8 divisor of hw, capped; 0 when none."""
+    best = 0
+    for t in range(8, min(hw, cap) + 1, 8):
+        if hw % t == 0:
+            best = t
+    return best
+
+
+def _tap_vmem_fits(tile: int, c4: int, co: int) -> bool:
+    need = (2 * (tile * c4 * 2) + 2 * (tile * 128 * 2) + 8 * c4 * 2
+            + 2 * (c4 * co * 2) + tile * co * 4)
+    return need <= VMEM_BUDGET
+
+
+def blend_tap_supported(b: int, hw: int, k: int, c4: int, co: int,
+                        dtype: torch.dtype) -> int:
+    """Row tile of the tap-major TPU kernel where it applies, else 0."""
+    if dtype != torch.bfloat16 or c4 % 128 != 0:
+        return 0
+    tile = row_tile(hw)
+    if tile < 128 or not _tap_vmem_fits(tile, c4, co):
+        return 0
+    return tile
+
+
+def _vmem_fits(kc: int, co: int) -> bool:
+    need = (2 * (TILE_ROWS * kc * 2) + 2 * (TILE_ROWS * 128 * 2)
+            + 128 * kc * 2 + kc * co * 2 + 2 * TILE_ROWS * co * 4)
+    return need <= VMEM_BUDGET
+
+
+def blend_matmul_supported(np_: int, kc: int, co: int,
+                           dtype: torch.dtype) -> bool:
+    """Whether JAX sends a tap chunk's back half to the flat-kc kernel
+    (its auto mode)."""
+    return (dtype == torch.bfloat16 and np_ % TILE_ROWS == 0
+            and kc % 128 == 0 and co >= 1 and _vmem_fits(kc, co)
+            and kc <= FLAT_KC_MAX)
+
+
+def tap_chunk_size(b: int, ho: int, wo: int, cin: int, k: int,
+                   dtype: torch.dtype) -> int:
+    """Taps per chunk: as many as keep the gathered rows under the
+    budget, at least 1."""
+    bytes_per_tap = b * ho * wo * 4 * cin * gather_dtype(dtype).itemsize
+    return max(1, min(k, int(GATHER_BUDGET // max(bytes_per_tap, 1))))
+
+
+def flat_kc_route(b: int, ho: int, wo: int, cin: int, k: int, cout: int,
+                  dtype: torch.dtype) -> bool:
+    """Whether the JAX package, on a TPU, chunks this DCN's taps and sends
+    every chunk's back half to the flat-kc kernel (rather than running the
+    tap-major kernel or leaving the back half to XLA)."""
+    gdt = gather_dtype(dtype)
+    bytes_per_tap = b * ho * wo * 4 * cin * gdt.itemsize
+    if bytes_per_tap * k <= GATHER_BUDGET and blend_tap_supported(
+            b, ho * wo, k, 4 * cin, cout, gdt):
+        return False
+    chunk = tap_chunk_size(b, ho, wo, cin, k, dtype)
+    np_ = b * ho * wo
+    return all(blend_matmul_supported(np_,
+                                      (min(t0 + chunk, k) - t0) * 4 * cin,
+                                      cout, gdt)
+               for t0 in range(0, k, chunk))
+
+
+# ---------------------------------------------------------------------------
+# plain version
+# ---------------------------------------------------------------------------
+
+
+def _sample_points(offset: torch.Tensor, Ho: int, Wo: int, Kh: int, Kw: int,
+                   stride: Pair, padding: Pair, dilation: Pair):
+    """Sample coordinates (sy, sx), each (B, Ho, Wo, K) f32."""
+    B = offset.shape[0]
+    K = Kh * Kw
+    dev = offset.device
+    f32 = torch.float32
+    oy = torch.arange(Ho, device=dev, dtype=f32) * stride[0] - padding[0]
+    ox = torch.arange(Wo, device=dev, dtype=f32) * stride[1] - padding[1]
+    ky = torch.arange(Kh, device=dev, dtype=f32) * dilation[0]
+    kx = torch.arange(Kw, device=dev, dtype=f32) * dilation[1]
+    base_y = (oy[:, None, None, None] + ky[None, None, :, None]) \
+        .expand(Ho, Wo, Kh, Kw).reshape(Ho, Wo, K)
+    base_x = (ox[None, :, None, None] + kx[None, None, None, :]) \
+        .expand(Ho, Wo, Kh, Kw).reshape(Ho, Wo, K)
+    off = offset.reshape(B, Ho, Wo, K, 2).to(f32)
+    return base_y + off[..., 0], base_x + off[..., 1]
 
 
 def deform_conv2d_plain(x: torch.Tensor, offset: torch.Tensor,
@@ -44,17 +163,8 @@ def deform_conv2d_plain(x: torch.Tensor, offset: torch.Tensor,
     K = Kh * Kw
     dev = x.device
     f32 = torch.float32
-    oy = torch.arange(Ho, device=dev, dtype=f32) * stride[0] - padding[0]
-    ox = torch.arange(Wo, device=dev, dtype=f32) * stride[1] - padding[1]
-    ky = torch.arange(Kh, device=dev, dtype=f32) * dilation[0]
-    kx = torch.arange(Kw, device=dev, dtype=f32) * dilation[1]
-    base_y = (oy[:, None, None, None] + ky[None, None, :, None]) \
-        .expand(Ho, Wo, Kh, Kw).reshape(Ho, Wo, K)
-    base_x = (ox[None, :, None, None] + kx[None, None, None, :]) \
-        .expand(Ho, Wo, Kh, Kw).reshape(Ho, Wo, K)
-    off = offset.reshape(B, Ho, Wo, K, 2).to(f32)
-    sy = base_y + off[..., 0]                    # (B, Ho, Wo, K)
-    sx = base_x + off[..., 1]
+    sy, sx = _sample_points(offset, Ho, Wo, Kh, Kw, stride, padding,
+                            dilation)
     y0 = torch.floor(sy)
     x0 = torch.floor(sx)
     wy = sy - y0
@@ -83,6 +193,79 @@ def deform_conv2d_plain(x: torch.Tensor, offset: torch.Tensor,
         out = out + bias.to(f32)
     return out
 
+
+# ---------------------------------------------------------------------------
+# the tap-chunk branch (JAX ops/deform_conv.py:88-97, 161-203)
+# ---------------------------------------------------------------------------
+
+
+def deform_conv2d_chunked(x: torch.Tensor, offset: torch.Tensor,
+                          mask: torch.Tensor, weight: torch.Tensor,
+                          bias: Optional[torch.Tensor] = None,
+                          stride: Pair = (1, 1), padding: Pair = (1, 1),
+                          dilation: Pair = (1, 1),
+                          tap_chunk: Optional[int] = None) -> torch.Tensor:
+    """DCNv2 through gathered corner rows, ``tap_chunk`` taps at a time
+    (default: :func:`tap_chunk_size`). The 2x2 neighbourhood is stacked
+    along the channels (``xq``, wrapping at the far edges; each corner
+    carries its own in-bounds mask), each chunk's rows are gathered in the
+    gather dtype and its back half runs in :func:`blend_matmul`: the
+    kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    B, H, W, Cin = x.shape
+    Kh, Kw, _, Cout = weight.shape
+    Ho, Wo = _out_hw(H, W, Kh, Kw, stride, padding, dilation)
+    K = Kh * Kw
+    dev = x.device
+    sy, sx = _sample_points(offset, Ho, Wo, Kh, Kw, stride, padding,
+                            dilation)
+    gdt = gather_dtype(x.dtype)
+    xg = x.to(gdt)
+    xr = torch.roll(xg, -1, dims=2)                      # (y,   x+1)
+    xq = torch.cat([xg, xr, torch.roll(xg, -1, dims=1),  # (y+1, x)
+                    torch.roll(xr, -1, dims=1)],         # (y+1, x+1)
+                   dim=-1).reshape(B * H * W, 4 * Cin)
+    m = mask.to(torch.float32)
+    wmat = weight.to(torch.float32).reshape(K, Cin, Cout)
+    if tap_chunk is None:
+        tap_chunk = tap_chunk_size(B, Ho, Wo, Cin, K, x.dtype)
+    np_ = B * Ho * Wo
+    row0 = (torch.arange(B, device=dev) * (H * W)).reshape(B, 1, 1, 1)
+    out = torch.zeros(np_, Cout, device=dev, dtype=torch.float32)
+    for t0 in range(0, K, tap_chunk):
+        t1 = min(t0 + tap_chunk, K)
+        T = t1 - t0
+        syk, sxk = sy[..., t0:t1], sx[..., t0:t1]       # (B, Ho, Wo, T)
+        y0 = torch.floor(syk)
+        x0 = torch.floor(sxk)
+        wy = syk - y0
+        wx = sxk - x0
+        yi = y0.long()
+        xi = x0.long()
+        rows = (yi % H) * W + (xi % W) + row0
+        in_y0 = (yi >= 0) & (yi < H)
+        in_y1 = (yi + 1 >= 0) & (yi + 1 < H)
+        in_x0 = (xi >= 0) & (xi < W)
+        in_x1 = (xi + 1 >= 0) & (xi + 1 < W)
+        w4 = torch.stack(
+            [(1 - wy) * (1 - wx) * (in_y0 & in_x0),
+             (1 - wy) * wx * (in_y0 & in_x1),
+             wy * (1 - wx) * (in_y1 & in_x0),
+             wy * wx * (in_y1 & in_x1)], dim=-1)       # (B, Ho, Wo, T, 4)
+        w4 = w4 * m[..., t0:t1, None]
+        g2 = xq.index_select(0, rows.reshape(-1)).reshape(np_, T * 4 * Cin)
+        w4s = w4.reshape(np_, T * 4).to(gdt)
+        wrep = wmat[t0:t1].reshape(T, 1, Cin, Cout) \
+            .expand(T, 4, Cin, Cout).reshape(T * 4 * Cin, Cout).to(gdt)
+        out += blend_matmul(g2, w4s, wrep, Cin)
+    out = out.reshape(B, Ho, Wo, Cout)
+    if bias is not None:
+        out = out + bias.to(torch.float32)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the tap-major kernel (K1)
+# ---------------------------------------------------------------------------
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _fwd = None
@@ -139,13 +322,13 @@ def _check(x, offset, mask, weight, bias, Ho, Wo):
         raise ValueError("deform_conv2d kernel needs 16-byte aligned x")
 
 
-def deform_conv2d(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
-                  weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
-                  stride: Pair = (1, 1), padding: Pair = (1, 1),
-                  dilation: Pair = (1, 1)) -> torch.Tensor:
-    """Modulated deform conv (DCNv2), channels-last; returns f32
-    (B, Ho, Wo, Cout). CUDA tensors go through the kernel, CPU tensors
-    through :func:`deform_conv2d_plain`."""
+def deform_conv2d_tap(x: torch.Tensor, offset: torch.Tensor,
+                      mask: torch.Tensor, weight: torch.Tensor,
+                      bias: Optional[torch.Tensor] = None,
+                      stride: Pair = (1, 1), padding: Pair = (1, 1),
+                      dilation: Pair = (1, 1)) -> torch.Tensor:
+    """The whole DCN in the tap-major kernel on a CUDA tensor; the plain
+    version on a CPU tensor."""
     if x.device.type == "cpu":
         return deform_conv2d_plain(x, offset, mask, weight, bias, stride,
                                    padding, dilation)
@@ -172,3 +355,22 @@ def deform_conv2d(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
                            f"cudaError {err}")
     launch_counts["deform_conv2d"] += 1
     return out
+
+
+def deform_conv2d(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
+                  weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                  stride: Pair = (1, 1), padding: Pair = (1, 1),
+                  dilation: Pair = (1, 1)) -> torch.Tensor:
+    """Modulated deform conv (DCNv2), channels-last; returns f32
+    (B, Ho, Wo, Cout). CPU tensors go through :func:`deform_conv2d_plain`;
+    CUDA tensors through the chunked flat-kc route where the JAX package
+    takes it (:func:`flat_kc_route`), else through the tap-major kernel."""
+    if x.device.type == "cuda":
+        B, H, W, Cin = x.shape
+        Kh, Kw, _, Cout = weight.shape
+        Ho, Wo = _out_hw(H, W, Kh, Kw, stride, padding, dilation)
+        if flat_kc_route(B, Ho, Wo, Cin, Kh * Kw, Cout, x.dtype):
+            return deform_conv2d_chunked(x, offset, mask, weight, bias,
+                                         stride, padding, dilation)
+    return deform_conv2d_tap(x, offset, mask, weight, bias, stride, padding,
+                             dilation)

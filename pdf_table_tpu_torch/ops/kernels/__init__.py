@@ -10,7 +10,8 @@ from __future__ import annotations
 
 from collections import Counter
 
-KERNELS = {"deform_conv2d": "deform_conv", "resize_normalize": "resize_norm"}
+KERNELS = {"deform_conv2d": "deform_conv", "blend_matmul": "blend_matmul",
+           "resize_normalize": "resize_norm"}
 
 launch_counts: Counter = Counter()
 

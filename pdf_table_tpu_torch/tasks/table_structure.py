@@ -5,7 +5,10 @@ pdf_table_tpu/tasks/table_structure.py, the ``Lore`` path).
 every crop on the device (corner-anchored axis-aligned resample, BGR flip,
 CenterNet normalization), runs the LORE trunk, decode and logical-location
 regressor per resolution bucket and sub-batch, and post-processes each crop
-on the host into {"cells": [...]} in crop coordinates.
+on the host into {"cells": [...]} in crop coordinates. Under ``wiz_rev``
+(``task_type="wtw"``, the default) a sub-batch runs detect-decode, the
+dense corner refine and re-sort, then the feature gathers and regressor,
+all on the device.
 """
 
 from __future__ import annotations
@@ -159,7 +162,7 @@ class OcrTableStructureTask:
         if not regions:
             return []
         # every sub-batch is enqueued before the first download blocks
-        pending = [(sub, metas, self.model.proc_pack(self.model.features(x)))
+        pending = [(sub, metas, self.model.forward_packed(x))
                    for sub, metas, x in self.sub_batches(pages, regions)]
         results: List[Dict[str, Any]] = [{} for _ in regions]
         for sub, metas, packed in pending:

@@ -1,8 +1,8 @@
 """The port runs its slices with nothing of JAX, flax or pdf_table_tpu
 imported: a fresh interpreter imports pdf_table_tpu_torch, runs the tiny
-LORE slice on the CPU down to table HTML and the detection slice (full
-width, small detector input) down to page quads, and lists what got
-imported."""
+wireless and wtw LORE slices on the CPU down to table HTML and the
+detection slice (full width, small detector input) down to page quads, and
+lists what got imported."""
 
 import json
 import os
@@ -24,6 +24,13 @@ pages = np.full((1, 90, 80, 3), 255, np.uint8)
 pages[0, ::12] = 20
 res = task.batch_infer_from_pages(pages, [(0, (5, 5, 75, 85))])
 html = OcrTableToHtmlTask()(res[0], [])
+wtw = OcrTableStructureTask(
+    model="Lore", task_type="wtw", device="cpu", resolution=(64, 64),
+    max_objs=8, max_corners=16, hidden_size=32, head_conv=16, tsfm_layers=1,
+    stacking_layers=1, num_heads=4, max_fmp_size=64, d_ff=64,
+    vis_thresh_corner=0.1)
+res = wtw.batch_infer_from_pages(pages, [(0, (5, 5, 75, 85))])
+wtw_html = OcrTableToHtmlTask()(res[0], [])
 from pdf_table_tpu_torch.tasks.detection import OcrDetectionTask
 det = OcrDetectionTask(device="cpu", limit_side_len=64, thresh=0.5,
                        box_thresh=0.0)
@@ -31,6 +38,7 @@ quads = det.batch_infer_from_pages([pages[0], pages[0][:50]])
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "pdf_table_tpu"))
 print(json.dumps({"bad": bad, "html": html.startswith("<table"),
+                  "wtw_html": wtw_html.startswith("<table"),
                   "quads": [list(q.shape[1:]) for q in quads]}))
 """
 
@@ -42,4 +50,5 @@ def test_slice_runs_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert res == {"bad": [], "html": True, "quads": [[4, 2], [4, 2]]}
+    assert res == {"bad": [], "html": True, "wtw_html": True,
+                   "quads": [[4, 2], [4, 2]]}
