@@ -5,20 +5,24 @@
 
 Phases, each fatal on failure:
   1. device: a CUDA card must be present; prints its name and power limit;
-  2. build: compiles the three kernels from ops/kernels/csrc, one nvcc
-     each, started together;
-  3. kernels: the deform-conv kernel (K1) against its plain PyTorch
-     version at every LORE DCN shape (768^2 crops and the 384/512 buckets,
-     B=2), bf16 and one f32 shape; then at the main paths' own shapes (one
-     sub-batch of 8 crops at 768^2 and at 1024^2), timed beside each
-     call's bound; at the 1024^2 stride-4 shape also the flat-kc route
-     (deform_conv2d_chunked: quad gather + K2) beside K1; the flat-kc
-     kernel (K2) against its plain version at the wtw slice's two chunk
-     shapes and two small ones, timed beside its bound and torch.matmul of
-     the pre-scaled bf16 rows; the resize+normalize kernel (K3) against its
-     plain version at the three page buckets' detector sizes (N = 1 and
-     8), one upscale and both norm styles, timed at the detection slice's
-     shape beside its bound and F.interpolate + normalize;
+  2. build: compiles the two kernel sources in ops/kernels/csrc
+     (deform_conv, resize_norm), one nvcc each, started together; prints
+     ptxas's registers and spills per kernel function;
+  3. kernels: the deform-conv kernel's tap mode (K1) against its plain
+     PyTorch version at every LORE DCN shape (768^2 crops and the 384/512
+     buckets, B=2), bf16 and one f32 shape; then at the main paths' own
+     shapes (one sub-batch of 8 crops at 768^2 and at 1024^2), timed
+     beside each call's bound and torch.matmul of the bf16 tap columns;
+     its flat-kc mode (K2) against the plain chunked version at the wtw
+     slice's stride-4 shape (8 x 256^2 x 64 -> 64) and two small ones (one
+     ragged in pixels with Cout = 72), timed at the slice's shape beside
+     its bound and torch.matmul of the corner-rounded rows; both modes
+     also against the plain version on the inputs cast to f32, and at a
+     strided and a dilated geometry against their plain versions; the
+     resize+normalize kernel (K3) against its plain version at the three
+     page buckets' detector sizes (N = 1 and 8), one upscale and both norm
+     styles, timed at the detection slice's shape beside its bound and
+     F.interpolate + normalize;
   4. LORE wireless slice: OcrTableStructureTask(model="Lore",
      task_type="wireless", dtype="bfloat16") at full LORE width over 4
      synthetic 1224x950 pages with 2 table regions each, on numpy-seeded
@@ -28,12 +32,12 @@ Phases, each fatal on failure:
      outputs;
   5. LORE wtw slice: the same with task_type="wtw" (1024^2, corner
      decode, dense vertex refine): the 8 crops run as one 1024^2
-     sub-batch, whose forward launches K2 10 times (the five stride-4 DCNs,
-     two tap chunks each) and K1 11 times; snapped vertices and valid
-     cells are counted, the yardstick holds its outputs, the refine on the
-     card equals the CPU's on the task's own decode, crops/s, peak
-     memory and the device's idle share (from a device-only trace of one
-     run) are printed;
+     sub-batch, whose forward launches K2 5 times (the five stride-4 DCNs,
+     all 9 taps each) and K1 11 times, and runs no row gather; snapped
+     vertices and valid cells are counted, the yardstick holds its
+     outputs, the refine on the card equals the CPU's on the task's own
+     decode, crops/s, peak memory and the device's idle share (from a
+     device-only trace of one run) are printed;
   6. detection slice: OcrDetectionTask(model="PP-OCRv4_det") at full
      width, f32, over 8 synthetic 1224x950 pages (one chunk: bucket
      1280x960, detector input 960x720) down to page quads, with the
@@ -59,8 +63,7 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM, dense
 PEAK_BYTES = 3.35e12
 REPLACES = "pdf_table_tpu/ops/pallas/deform_blend.py:190"
 SOURCE = "pdf_table_tpu_torch/ops/kernels/csrc/deform_conv.cu"
-BM_REPLACES = "pdf_table_tpu/ops/pallas/deform_blend.py:83"
-BM_SOURCE = "pdf_table_tpu_torch/ops/kernels/csrc/blend_matmul.cu"
+FK_REPLACES = "pdf_table_tpu/ops/pallas/deform_blend.py:83"
 RN_REPLACES = "pdf_table_tpu/ops/pallas/resize_norm.py:61"
 RN_SOURCE = "pdf_table_tpu_torch/ops/kernels/csrc/resize_norm.cu"
 # every LORE DCN at a 768^2 crop: (side, Cin, Cout, calls per forward)
@@ -73,22 +76,22 @@ DCN_SHAPES_1024 = [(256, 64, 64, 5), (128, 128, 64, 4), (128, 128, 128, 2),
                    (64, 256, 128, 2), (64, 256, 256, 1), (64, 256, 64, 1),
                    (32, 512, 256, 1)]
 MAIN_BATCH = 8   # both LORE slices run their 8 crops as one sub-batch
-# the flat-kc route against the f32 plain DCN: it rounds w4 and the blended
-# product to bf16 (2^-9 relative each) before an f32 contraction
-ROUTE_TOL = 1e-2
-# K2 cases (rows, taps T, Cin, Cout): the wtw slice's two chunks of one
-# stride-4 DCN (5 + 4 taps of 8 x 256^2 pixels), then two small ones (one
-# ragged in rows and channels)
-WTW_ROWS = MAIN_BATCH * 256 * 256
-BM_CASES = [(WTW_ROWS, 5, 64, 64), (WTW_ROWS, 4, 64, 64), (512, 1, 32, 16),
-            (1000, 9, 64, 72)]
-BM_CALLS = 5     # stride-4 DCNs per wtw forward, one launch per chunk each
-# max |err| / max |plain out|: the same bf16 products on both sides, summed
-# in f32 in another order
-BM_TOL = 1e-4
-# max |err| / max |plain out|: both sides take the same operands and sum
-# in f32, in another order, in either dtype
-TOL = {"bfloat16": 1e-4, "float32": 1e-4}
+# K2 cases (B, H, W, Cin, Cout): the wtw slice's stride-4 DCN, then two
+# small ones (one ragged in pixels, with Cout = 72)
+FK_CASES = [(MAIN_BATCH, 256, 256, 64, 64), (1, 25, 40, 64, 72),
+            (2, 32, 32, 128, 64)]
+FK_CALLS = 5     # stride-4 DCNs per wtw forward, one launch each
+# max |err| / max |plain out|. K1 against the plain version: the same bf16
+# column (the same f32 blend, one rounding) and f32 sums in another order;
+# a column that rounds the other way at a tie shows as ~1e-5. K2 against
+# the plain chunked version: the same bf16 products, f32 sums in another
+# order. f32: the same operands, f32 sums in another order.
+TOL = {"bfloat16": 1e-3, "float32": 1e-4}
+FK_TOL = 1e-4
+# either mode against the plain version on the same inputs cast to f32:
+# the bf16 roundings of the column (K1) or of w4 and each corner's
+# product (K2), 2^-9 relative each
+F32_TOL = 1e-2
 # yardstick run (bf16 model, deform conv kernel vs plain): both sum the DCN
 # in f32 in another order, so bf16 roundings of activations flip and spread
 # through ~40 layers
@@ -197,11 +200,14 @@ def host_ms(fn, iters: int = 5) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def dcn_bound(b, hw, cin, cout, dtype: str):
-    """Least time for one call: max(ops / peak, compulsory bytes / rate)."""
+def dcn_bound(b, h, w, cin, cout, dtype: str, corners: int = 1):
+    """Least time for one DCN call: max(ops / peak, compulsory bytes /
+    rate). Bytes: x, offset, mask, W and bias read once, the f32 output
+    written once; operations: the contraction, ``corners`` times as deep
+    where each corner is contracted on its own (flat-kc mode)."""
     esize = 2 if dtype == "bfloat16" else 4
-    px = b * hw * hw
-    flops = 2 * px * 9 * cin * cout
+    px = b * h * w
+    flops = 2 * px * 9 * corners * cin * cout
     nbytes = (px * cin * esize + px * 18 * 4 + px * 9 * 4
               + 9 * cin * cout * esize + cout * 4 + px * cout * 4)
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -209,17 +215,71 @@ def dcn_bound(b, hw, cin, cout, dtype: str):
     return max(t_ops, t_bytes), t_ops, t_bytes
 
 
-def phase_kernels(gen):
+def dcn_inputs(gen, b, h, w, cin, cout, dt, out_hw=None):
+    """x, offset (3 px spread), mask, W (He scale) and bias on the card;
+    offset and mask at ``out_hw`` (default: the input's size)."""
     import torch
 
-    from pdf_table_tpu_torch.ops.deform_conv import (deform_conv2d,
-                                                     deform_conv2d_chunked,
-                                                     deform_conv2d_plain,
+    ho, wo = out_hw or (h, w)
+    x = torch.randn(b, h, w, cin, device="cuda", generator=gen).to(dt)
+    off = torch.randn(b, ho, wo, 18, device="cuda", generator=gen) * 3.0
+    mask = torch.rand(b, ho, wo, 9, device="cuda", generator=gen)
+    wt = (torch.randn(3, 3, cin, cout, device="cuda", generator=gen)
+          * (2.0 / (9 * cin)) ** 0.5).to(dt)
+    bias = torch.randn(cout, device="cuda", generator=gen)
+    return x, off, mask, wt, bias
+
+
+def errors(got, want) -> tuple:
+    """(max |got - want|, that over max |want|)."""
+    abs_err = float((got - want).abs().max())
+    return abs_err, abs_err / float(want.abs().max())
+
+
+def f32_rel_err(got, args) -> float:
+    """``got`` against the plain version on the same inputs cast to f32."""
+    from pdf_table_tpu_torch.ops.deform_conv import deform_conv2d_plain
+
+    x, off, mask, wt, bias = args
+    return errors(got, deform_conv2d_plain(x.float(), off, mask, wt.float(),
+                                           bias))[1]
+
+
+def tiling(b, h, w, cout, flat_kc) -> dict:
+    import torch
+
+    from pdf_table_tpu_torch.ops.deform_conv import kernel_tiling
+
+    n, wgs, splits = kernel_tiling(
+        b * h * w, cout, flat_kc,
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    return {"n_tile": n, "pixels_per_block": 64 * wgs, "cout_splits": splits}
+
+
+def timed(row, fn, plain, library, bound) -> None:
+    """Kernel, plain and library ms (CUDA events) and the bound into
+    ``row``."""
+    t_min, t_ops, t_bytes = bound
+    row.update(ms=cuda_ms(fn, 20), plain_ms=cuda_ms(plain, 3, 1),
+               library_ms=cuda_ms(library, 20), bound_ms=t_min,
+               ops_ms=t_ops, bytes_ms=t_bytes,
+               bound_by="operations" if t_ops >= t_bytes else "bytes")
+    row["x_bound"] = row["ms"] / t_min
+
+
+def phase_kernels(gen):
+    """K1 (the tap mode) against its plain version at every LORE DCN
+    shape; timed at the slices' sub-batch shapes beside its bound and the
+    library yardstick: torch.matmul of the already-built tap columns,
+    (B*HW, 9*Cin) @ (9*Cin, Cout), the contraction alone on cuBLAS."""
+    import torch
+
+    from pdf_table_tpu_torch.ops.deform_conv import (deform_conv2d_plain,
                                                      deform_conv2d_tap,
-                                                     flat_kc_route)
+                                                     flat_kc_route,
+                                                     tap_columns)
     from pdf_table_tpu_torch.ops.kernels import launch_counts
 
-    dev = torch.device("cuda")
     # (crop side, fmap side, Cin, Cout, calls per forward, dtype, batch)
     cases = [(768, hw, ci, co, n, "bfloat16", 2)
              for hw, ci, co, n in DCN_SHAPES_768]
@@ -234,112 +294,117 @@ def phase_kernels(gen):
     rows = []
     for crop, hw, cin, cout, calls, dname, B in cases:
         dt = getattr(torch, dname)
-        x = torch.randn(B, hw, hw, cin, device=dev, generator=gen).to(dt)
-        off = torch.randn(B, hw, hw, 18, device=dev, generator=gen) * 3.0
-        mask = torch.rand(B, hw, hw, 9, device=dev, generator=gen)
-        w = (torch.randn(3, 3, cin, cout, device=dev, generator=gen)
-             * (2.0 / (9 * cin)) ** 0.5).to(dt)
-        bias = torch.randn(cout, device=dev, generator=gen)
-        args = (x, off, mask, w, bias)
+        args = dcn_inputs(gen, B, hw, hw, cin, cout, dt)
         flat_kc = flat_kc_route(B, hw, hw, cin, 9, cout, dt)
         # K1 itself at every shape, the flat-kc route's included
-        k1 = deform_conv2d_tap if flat_kc else deform_conv2d
         n0 = launch_counts["deform_conv2d"]
-        got = k1(*args)
+        got = deform_conv2d_tap(*args)
         torch.cuda.synchronize()
         check(launch_counts["deform_conv2d"] == n0 + 1,
               "deform_conv2d did not count its launch")
-        want = deform_conv2d_plain(*args)
-        abs_err = float((got - want).abs().max())
-        rel = abs_err / float(want.abs().max())
-        check(rel < TOL[dname], f"deform_conv2d {crop} {hw}^2 {cin}->{cout} "
-              f"{dname} B={B}: rel err {rel:.3g} >= {TOL[dname]}")
+        abs_err, rel = errors(got, deform_conv2d_plain(*args))
+        tag = f"deform_conv2d {crop} {hw}^2 {cin}->{cout} {dname} B={B}"
+        check(rel < TOL[dname], f"{tag}: rel err {rel:.3g} >= {TOL[dname]}")
         row = {"crop": crop, "hw": hw, "cin": cin, "cout": cout, "batch": B,
                "dtype": dname, "calls_per_forward": calls,
                "route": "flat_kc" if flat_kc else "tap",
+               "tiling": tiling(B, hw, hw, cout, False),
                "max_abs_err": abs_err, "rel_err": rel}
+        if dname == "bfloat16":
+            row["f32_rel_err"] = f32_rel_err(got, args)
+            check(row["f32_rel_err"] < F32_TOL, f"{tag}: against f32 "
+                  f"{row['f32_rel_err']:.3g} >= {F32_TOL}")
+        del got
         if B == MAIN_BATCH or dname == "float32":
-            bound, t_ops, t_bytes = dcn_bound(B, hw, cin, cout, dname)
-            row.update(
-                ms=cuda_ms(lambda: k1(*args), 20),
-                plain_ms=cuda_ms(lambda: deform_conv2d_plain(*args), 3, 1),
-                bound_ms=bound, ops_ms=t_ops, bytes_ms=t_bytes,
-                bound_by="operations" if t_ops >= t_bytes else "bytes")
-        if flat_kc:
-            # what the dispatcher runs here: the quad gather + K2 per chunk
-            n0 = launch_counts["blend_matmul"]
-            got = deform_conv2d(*args)
-            torch.cuda.synchronize()
-            check(launch_counts["blend_matmul"] > n0,
-                  "the flat-kc route did not launch blend_matmul")
-            r_err = float((got - want).abs().max())
-            check(r_err / float(want.abs().max()) < ROUTE_TOL,
-                  f"flat-kc route {hw}^2 {cin}->{cout}: rel err "
-                  f"{r_err / float(want.abs().max()):.3g} >= {ROUTE_TOL}")
-            row.update(route_max_abs_err=r_err,
-                       route_rel_err=r_err / float(want.abs().max()),
-                       route_ms=cuda_ms(
-                           lambda: deform_conv2d_chunked(*args), 10))
+            x, off, mask, wt, _ = args
+            cols = torch.cat(list(tap_columns(x, off, mask, (3, 3))),
+                             dim=1).to(dt)
+            wl = wt.reshape(9 * cin, cout)
+            timed(row, lambda: deform_conv2d_tap(*args),
+                  lambda: deform_conv2d_plain(*args),
+                  lambda: torch.matmul(cols, wl),
+                  dcn_bound(B, hw, hw, cin, cout, dname))
+            del cols
         rows.append(row)
+        del args
+    torch.cuda.empty_cache()
     return rows
 
 
-def bm_bound(np_, t, cin, cout):
-    """Least time for one blend_matmul call: max(ops / bf16 peak,
-    compulsory bytes / rate). Bytes: g2, w4 and wrep read once, the f32
-    output written once; operations: the blend multiply and the
-    contraction's multiply-adds."""
-    kc = t * 4 * cin
-    nbytes = np_ * kc * 2 + np_ * t * 4 * 2 + kc * cout * 2 + np_ * cout * 4
-    flops = np_ * kc + 2 * np_ * kc * cout
-    t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    return max(t_ops, t_bytes), t_ops, t_bytes
-
-
-def phase_blend_matmul(gen):
+def phase_geometry(gen):
+    """Both modes off LORE's geometry (stride, padding, dilation 1): a
+    strided and a dilated 3x3 DCN, ragged in pixels, Cout 72, against
+    their plain versions. Rows for the K1 and the K2 entries."""
     import torch
 
-    from pdf_table_tpu_torch.ops.blend_matmul import (blend_matmul,
-                                                      blend_matmul_plain)
+    from pdf_table_tpu_torch.ops.deform_conv import (
+        _out_hw, deform_conv2d_chunked, deform_conv2d_chunked_plain,
+        deform_conv2d_plain, deform_conv2d_tap)
+
+    k1_rows, k2_rows = [], []
+    for geo in (((2, 2), (1, 1), (1, 1)), ((1, 1), (2, 2), (2, 2))):
+        ho, wo = _out_hw(23, 19, 3, 3, *geo)
+        args = dcn_inputs(gen, 2, 23, 19, 64, 72, torch.bfloat16, (ho, wo))
+        for fn, plain, tol, rows in (
+                (deform_conv2d_tap, deform_conv2d_plain, TOL["bfloat16"],
+                 k1_rows),
+                (deform_conv2d_chunked, deform_conv2d_chunked_plain, FK_TOL,
+                 k2_rows)):
+            abs_err, rel = errors(fn(*args, *geo), plain(*args, *geo))
+            check(rel < tol, f"{fn.__name__} stride/padding/dilation {geo}: "
+                  f"rel err {rel:.3g} >= {tol}")
+            rows.append({"crop": None, "batch": 2, "h": 23, "w": 19,
+                         "cin": 64, "cout": 72, "dtype": "bfloat16",
+                         "stride_padding_dilation": geo,
+                         "max_abs_err": abs_err, "rel_err": rel})
+    return k1_rows, k2_rows
+
+
+def phase_flat_kc(gen):
+    """K2 (the flat-kc mode) against the plain chunked version on the same
+    tensors; timed at the wtw slice's stride-4 shape beside its bound and
+    the library yardstick: torch.matmul of the corner-rounded rows,
+    (B*HW, 36*Cin) @ (36*Cin, Cout), the contraction alone on cuBLAS."""
+    import torch
+
+    from pdf_table_tpu_torch.ops.deform_conv import (
+        deform_conv2d_chunked, deform_conv2d_chunked_plain, flat_kc_chunks,
+        flat_kc_route)
     from pdf_table_tpu_torch.ops.kernels import launch_counts
 
     rows = []
-    for np_, t, cin, cout in BM_CASES:
-        kc = t * 4 * cin
-        g2 = torch.randn(np_, kc, device="cuda", generator=gen).bfloat16()
-        w4 = torch.rand(np_, t * 4, device="cuda", generator=gen).bfloat16()
-        wrep = (torch.randn(kc, cout, device="cuda", generator=gen)
-                * (1.0 / kc) ** 0.5).bfloat16()
-        args = (g2, w4, wrep, cin)
-        n0 = launch_counts["blend_matmul"]
-        got = blend_matmul(*args)
+    for i, (B, H, W, cin, cout) in enumerate(FK_CASES):
+        args = dcn_inputs(gen, B, H, W, cin, cout, torch.bfloat16)
+        n0 = launch_counts["deform_conv2d_flat_kc"]
+        got = deform_conv2d_chunked(*args)
         torch.cuda.synchronize()
-        check(launch_counts["blend_matmul"] == n0 + 1,
-              "blend_matmul did not count its launch")
-        want = blend_matmul_plain(*args)
-        abs_err = float((got - want).abs().max())
-        rel = abs_err / float(want.abs().max())
-        check(rel < BM_TOL, f"blend_matmul {np_}x{kc}->{cout}: rel err "
-              f"{rel:.3g} >= {BM_TOL}")
-        row = {"rows": np_, "taps": t, "cin": cin, "kc": kc, "cout": cout,
-               "max_abs_err": abs_err, "rel_err": rel}
-        if np_ == WTW_ROWS:
-            # the library yardstick: one bf16 matmul of the rows already
-            # scaled and rounded (the blend is not in it)
-            gm = (g2.float() * torch.repeat_interleave(
-                w4.float(), cin, dim=1)).bfloat16()
-            bound, t_ops, t_bytes = bm_bound(np_, t, cin, cout)
-            row.update(
-                calls_per_forward=BM_CALLS,
-                ms=cuda_ms(lambda: blend_matmul(*args), 20),
-                plain_ms=cuda_ms(lambda: blend_matmul_plain(*args), 3, 1),
-                library_ms=cuda_ms(lambda: torch.matmul(gm, wrep), 20),
-                bound_ms=bound, ops_ms=t_ops, bytes_ms=t_bytes,
-                bound_by="operations" if t_ops >= t_bytes else "bytes")
+        check(launch_counts["deform_conv2d_flat_kc"] == n0 + 1,
+              "deform_conv2d_flat_kc did not count its launch")
+        abs_err, rel = errors(got, deform_conv2d_chunked_plain(*args))
+        tag = f"deform_conv2d_flat_kc {B}x{H}x{W} {cin}->{cout}"
+        check(rel < FK_TOL, f"{tag}: rel err {rel:.3g} >= {FK_TOL}")
+        row = {"batch": B, "h": H, "w": W, "cin": cin, "cout": cout,
+               "flat_kc_route": flat_kc_route(B, H, W, cin, 9, cout,
+                                              torch.bfloat16),
+               "tiling": tiling(B, H, W, cout, True),
+               "max_abs_err": abs_err, "rel_err": rel,
+               "f32_rel_err": f32_rel_err(got, args)}
+        check(row["f32_rel_err"] < F32_TOL, f"{tag}: against f32 "
+              f"{row['f32_rel_err']:.3g} >= {F32_TOL}")
+        del got
+        if i == 0:   # the wtw slice's stride-4 DCN
+            check(row["flat_kc_route"], f"{tag} is not on the flat-kc route")
+            (g2, w4, wrep), = flat_kc_chunks(*args[:4], tap_chunk=9)
+            gm = g2 * torch.repeat_interleave(w4, cin, dim=1)
+            del g2
+            row["calls_per_forward"] = FK_CALLS
+            timed(row, lambda: deform_conv2d_chunked(*args),
+                  lambda: deform_conv2d_chunked_plain(*args),
+                  lambda: torch.matmul(gm, wrep),
+                  dcn_bound(B, H, W, cin, cout, "bfloat16", corners=4))
             del gm
         rows.append(row)
-        del g2, w4, wrep, got, want
+        del args
     torch.cuda.empty_cache()
     return rows
 
@@ -420,43 +485,43 @@ def phase_resize(gen):
     return rows
 
 
-def kernels_line(rows, launches: dict, bm_rows, bm_launches: int,
+def kernels_line(rows, launches: dict, fk_rows, fk_launches: int,
                  rn_rows, rn_launches: int) -> dict:
-    """One entry per kernel. deform_conv2d's times are summed over the 16
-    DCN calls of one forward of the wireless slice's sub-batch (B=8 at
-    768^2, bf16), and its launches over both LORE slices' counted runs
-    (``launches`` by path); blend_matmul's over its 10 calls in one
-    forward of the wtw slice's sub-batch (B=8 at 1024^2: 5 stride-4 DCNs
-    x chunks of 5 and 4 taps); resize_normalize's are one call at the
-    detection slice's chunk (8 canvases 1280x960 -> 960x720). ``shapes``
-    lists every checked shape with its error and, where timed, its
-    times."""
-    main = [r for r in rows if r["batch"] == MAIN_BATCH
-            and r["crop"] == 768 and r["dtype"] == "bfloat16"]
+    """One entry per TPU kernel. deform_conv2d (K1, the tap mode): times
+    summed over the 16 DCN calls of one forward of the wireless slice's
+    sub-batch (B=8 at 768^2, bf16), ``wtw_forward`` over the 11 tap-mode
+    calls of one wtw forward (B=8 at 1024^2), launches over both LORE
+    slices' counted runs (``launches`` by path). deform_conv2d_flat_kc
+    (K2, the flat-kc mode): times over its 5 calls in one wtw forward (the
+    stride-4 DCNs). resize_normalize (K3): one call at the detection
+    slice's chunk (8 canvases 1280x960 -> 960x720). ``shapes`` lists every
+    checked shape with its errors and, where timed, its times."""
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms")
 
-    def total(rs, key):
-        return sum(r[key] * r["calls_per_forward"] for r in rs)
+    def total(rs):
+        sums = {k: sum(r[k] * r["calls_per_forward"] for r in rs)
+                for k in keys + ("ops_ms", "bytes_ms")}
+        sums["bound_by"] = "operations" \
+            if sums.pop("ops_ms") >= sums.pop("bytes_ms") else "bytes"
+        return sums
 
-    bm = [r for r in bm_rows if "ms" in r]
+    bf16 = [r for r in rows if r["batch"] == MAIN_BATCH
+            and r["dtype"] == "bfloat16"]
+    main = total([r for r in bf16 if r["crop"] == 768])
+    wtw = total([r for r in bf16 if r["crop"] == 1024
+                 and r["route"] == "tap"])
+    fk = total([r for r in fk_rows if "ms" in r])
     rn = next(r for r in rn_rows if "ms" in r)
     return {"kernels": [{
         "name": "deform_conv2d", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES, "launches": sum(launches.values()),
         "launches_by_path": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": total(main, "ms"), "plain_ms": total(main, "plain_ms"),
-        "bound_ms": total(main, "bound_ms"),
-        "bound_by": "operations"
-        if total(main, "ops_ms") >= total(main, "bytes_ms") else "bytes",
-        "library_ms": None, "shapes": rows}, {
-        "name": "blend_matmul", "route": "cuda", "source": BM_SOURCE,
-        "replaces": BM_REPLACES, "launches": bm_launches,
-        "max_abs_err": max(r["max_abs_err"] for r in bm_rows),
-        "ms": total(bm, "ms"), "plain_ms": total(bm, "plain_ms"),
-        "bound_ms": total(bm, "bound_ms"),
-        "bound_by": "operations"
-        if total(bm, "ops_ms") >= total(bm, "bytes_ms") else "bytes",
-        "library_ms": total(bm, "library_ms"), "shapes": bm_rows}, {
+        "max_abs_err": max(r["max_abs_err"] for r in rows), **main,
+        "wtw_forward": wtw, "shapes": rows}, {
+        "name": "deform_conv2d_flat_kc", "route": "cuda", "source": SOURCE,
+        "replaces": FK_REPLACES, "launches": fk_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in fk_rows), **fk,
+        "shapes": fk_rows}, {
         "name": "resize_normalize", "route": "cuda", "source": RN_SOURCE,
         "replaces": RN_REPLACES, "launches": rn_launches,
         "max_abs_err": max(r["max_abs_err"] for r in rn_rows),
@@ -659,6 +724,7 @@ def profile_run(fn) -> dict:
 
     wall, events = _trace(fn, [ProfilerActivity.CUDA])
     busy = sum(e.self_device_time_total for e in events) / 1e3
+    names = sorted({e.key for e in events})
     full_wall, full = _trace(fn, [ProfilerActivity.CPU,
                                   ProfilerActivity.CUDA])
     full_busy = sum(e.self_device_time_total for e in full) / 1e3
@@ -671,15 +737,19 @@ def profile_run(fn) -> dict:
                                              / full_wall)},
             "top_ops": [{"name": e.key[:80],
                          "device_ms": e.self_device_time_total / 1e3,
-                         "calls": e.count} for e in top]}
+                         "calls": e.count} for e in top],
+            "kernel_names": names}
 
 
 # kernel launches per sub-batch of 8 full-resolution crops: the wireless
 # forward runs its 16 DCNs on K1; the wtw forward (1024^2) its five
-# stride-4 DCNs on the flat-kc route (two tap chunks, one K2 launch each)
-# and the other 11 on K1
-SLICE_LAUNCHES = {"wireless": {"deform_conv2d": 16, "blend_matmul": 0},
-                  "wtw": {"deform_conv2d": 11, "blend_matmul": 10}}
+# stride-4 DCNs on the flat-kc route (one K2 launch each, all 9 taps) and
+# the other 11 on K1
+SLICE_LAUNCHES = {"wireless": {"deform_conv2d": 16,
+                               "deform_conv2d_flat_kc": 0},
+                  "wtw": {"deform_conv2d": 11, "deform_conv2d_flat_kc": 5}}
+# device kernels of the TPU route's row gather, which no slice runs now
+GATHER_KERNELS = ("indexSelect", "index_select", "blend_matmul")
 
 
 def count_snaps(task, pages, regions) -> int:
@@ -755,6 +825,8 @@ def phase_slice(card, task_type="wireless"):
     per_run = statistics.median(run_s)
     peak = torch.cuda.max_memory_allocated()
     prof = profile_run(lambda: task.batch_infer_from_pages(pages, regions))
+    gathers = [n for n in prof.pop("kernel_names")
+               if any(g in n for g in GATHER_KERNELS)]
 
     plain = LoreModel(task.model_config, plain_dcn=True).eval()
     load_flax_variables(plain, variables)
@@ -782,7 +854,7 @@ def phase_slice(card, task_type="wireless"):
         "plain_dcn_run_s": plain_run,
         "cells_per_table": cells, "valid_cells": sum(cells),
         "html_bytes": [len(h) for h in htmls], "yardstick": cmp,
-        "profile": prof,
+        "profile": prof, "row_gather_kernels": gathers,
     }
     if task_type == "wtw":
         summary["snapped_vertices"] = count_snaps(task, pages, regions)
@@ -793,6 +865,8 @@ def phase_slice(card, task_type="wireless"):
     check(cmp["match"] >= MATCH_MIN, f"valid slots differ: {cmp['match']}")
     check(cmp["dets_px"] < DETS_TOL, f"dets differ: {cmp['dets_px']:.3g}")
     check(cmp["logi"] < LOGI_TOL, f"logi differ: {cmp['logi']:.3g}")
+    check(not gathers, f"{task_type}: the run gathered corner rows outside "
+          f"the kernel: {gathers}")
     if task_type == "wtw":
         check(cmp["refine_exact"], "wtw: the refine on the card differs "
               "from the CPU's on the same decode")
@@ -840,8 +914,9 @@ def det_stages(task, pages) -> dict:
             "host_finish": host_ms(lambda: task._boxes_finish(
                 packed_np, shapes, bucket, prob_hw)),
         }
-    return {"stage_ms": stages,
-            "profile": profile_run(lambda: task.batch_infer_from_pages(pages))}
+    prof = profile_run(lambda: task.batch_infer_from_pages(pages))
+    prof.pop("kernel_names")
+    return {"stage_ms": stages, "profile": prof}
 
 
 def det_yardstick(task, pages) -> dict:
@@ -959,6 +1034,48 @@ def phase_detection(card):
     return launches
 
 
+def demangle(sym: str) -> str:
+    """The kernel's name (and integer template arguments) in a mangled
+    symbol: the length-prefixed identifier that ends in "kernel"."""
+    import re
+
+    for m in re.finditer(r"(?<!\d)(\d+)", sym):
+        ident = sym[m.end():m.end() + int(m.group(1))]
+        if ident.endswith("kernel"):
+            args = re.match(r"I((?:Li\d+E)+)E", sym[m.end() + len(ident):])
+            if args:
+                ident += "<" + ",".join(re.findall(r"Li(\d+)E",
+                                                   args.group(1))) + ">"
+            return ident
+    return sym
+
+
+def ptxas_report(libs) -> list:
+    """Registers and spills of every kernel function, from each library's
+    nvcc log (``-Xptxas -v``), and the bf16 deform-conv body's dynamic
+    shared memory per (mode, channel tile, warpgroups)."""
+    import re
+
+    from pdf_table_tpu_torch.ops.deform_conv import _smem_bytes
+
+    report = []
+    for name, lib in libs.items():
+        fn = None
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                fn = demangle(m.group(1))
+                report.append({"source": name, "function": fn})
+            elif fn and "registers" in line:
+                report[-1]["ptxas"] = line.split(":", 1)[1].strip()
+            elif fn and "spill" in line:
+                report[-1]["spills"] = line.strip()
+    report.append({"source": "deform_conv", "dynamic_smem_bytes": {
+        f"{'flat_kc' if fk else 'tap'} n{n} wg{w}": _smem_bytes(fk, n, w)
+        for fk in (False, True) for n in (64, 128, 256) for w in (1, 2)}})
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -975,16 +1092,16 @@ def main() -> int:
           f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    libs = build.build_all(KERNELS.values())
+    libs = build.build_all(sorted(set(KERNELS.values())))
     print(json.dumps({"build_s": time.perf_counter() - t0}))
-    for name, lib in libs.items():
-        for line in lib.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas {name}: {line.strip()}")
+    print(json.dumps({"ptxas": ptxas_report(libs)}))
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = phase_kernels(gen)
-    bm_rows = phase_blend_matmul(gen)
+    fk_rows = phase_flat_kc(gen)
+    geo_k1, geo_k2 = phase_geometry(gen)
+    rows += geo_k1
+    fk_rows += geo_k2
     rn_rows = phase_resize(gen)
     wireless = phase_slice(card, "wireless")
     wtw = phase_slice(card, "wtw")
@@ -994,8 +1111,8 @@ def main() -> int:
     launches = {"lore_wireless": wireless["deform_conv2d"],
                 "lore_wtw": wtw["deform_conv2d"]}
     print(card)
-    print(json.dumps(kernels_line(rows, launches, bm_rows,
-                                  wtw["blend_matmul"], rn_rows,
+    print(json.dumps(kernels_line(rows, launches, fk_rows,
+                                  wtw["deform_conv2d_flat_kc"], rn_rows,
                                   rn_launches)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

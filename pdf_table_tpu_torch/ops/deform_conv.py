@@ -5,14 +5,17 @@ pdf_table_tpu/ops/deform_conv.py).
 (B, Ho, Wo, 2K) in (dy, dx) pairs, mask (B, Ho, Wo, K) post-sigmoid,
 weight (Kh, Kw, Cin, Cout), f32 output. On a CPU tensor it runs
 :func:`deform_conv2d_plain`. On a CUDA tensor it takes the route the JAX
-package takes on a TPU (:func:`flat_kc_route`):
+package takes on a TPU (:func:`flat_kc_route`). Both routes launch the
+one kernel of ``ops/kernels/csrc/deform_conv.cu`` (gather, blend and
+contraction in one pass), which differ only in where they round to bf16:
 
 - where JAX runs the tap-major kernel, or leaves the back half to XLA,
-  :func:`deform_conv2d_tap` launches ``ops/kernels/csrc/deform_conv.cu``
-  (gather, blend and contraction in one pass);
+  :func:`deform_conv2d_tap` runs its tap mode (K1): the blended column
+  rounded once;
 - where JAX chunks the taps and sends every chunk to the flat-kc kernel,
-  :func:`deform_conv2d_chunked` gathers each chunk's corner rows and
-  launches ``ops/kernels/csrc/blend_matmul.cu`` on them.
+  :func:`deform_conv2d_chunked` runs its flat-kc mode (K2): each corner's
+  bf16 product, as the TPU kernel rounds it; its plain twin is
+  :func:`deform_conv2d_chunked_plain`.
 
 Each kernel raises on what it does not take.
 """
@@ -24,7 +27,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .blend_matmul import blend_matmul
+from .blend_matmul import blend_matmul_plain
 from .kernels import launch_counts
 
 Pair = Tuple[int, int]
@@ -148,20 +151,17 @@ def _sample_points(offset: torch.Tensor, Ho: int, Wo: int, Kh: int, Kw: int,
     return base_y + off[..., 0], base_x + off[..., 1]
 
 
-def deform_conv2d_plain(x: torch.Tensor, offset: torch.Tensor,
-                        mask: torch.Tensor, weight: torch.Tensor,
-                        bias: Optional[torch.Tensor] = None,
-                        stride: Pair = (1, 1), padding: Pair = (1, 1),
-                        dilation: Pair = (1, 1)) -> torch.Tensor:
-    """Plain PyTorch DCNv2 in f32: per tap, the four bilinear corners are
-    gathered with their own in-bounds masks (zero outside the image),
-    blended with the bilinear weight x modulation and contracted with
-    ``W[t]``."""
+def tap_columns(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
+                kernel_size: Pair, stride: Pair = (1, 1),
+                padding: Pair = (1, 1), dilation: Pair = (1, 1)):
+    """Each tap's blended column, (B*Ho*Wo, Cin) f32, in tap order: the four
+    bilinear corners gathered with their own in-bounds masks (zero outside
+    the image) and summed in f32 with weight ((lerp_y * lerp_x) *
+    in_bounds) * mask. For bf16 x the column is rounded to bf16 once, as
+    the tap kernel's tensor-core operand is."""
     B, H, W, Cin = x.shape
-    Kh, Kw, _, Cout = weight.shape
+    Kh, Kw = kernel_size
     Ho, Wo = _out_hw(H, W, Kh, Kw, stride, padding, dilation)
-    K = Kh * Kw
-    dev = x.device
     f32 = torch.float32
     sy, sx = _sample_points(offset, Ho, Wo, Kh, Kw, stride, padding,
                             dilation)
@@ -173,10 +173,8 @@ def deform_conv2d_plain(x: torch.Tensor, offset: torch.Tensor,
     xi = x0.long()
     m = mask.to(f32)
     xf = x.reshape(B, H * W, Cin)
-    wmat = weight.to(f32).reshape(K, Cin, Cout)
-    out = torch.zeros(B * Ho * Wo, Cout, device=dev, dtype=f32)
-    for t in range(K):
-        col = torch.zeros(B, Ho * Wo, Cin, device=dev, dtype=f32)
+    for t in range(Kh * Kw):
+        col = torch.zeros(B, Ho * Wo, Cin, device=x.device, dtype=f32)
         for dy, dx in _CORNERS:
             yy = yi[..., t] + dy
             xx = xi[..., t] + dx
@@ -187,7 +185,27 @@ def deform_conv2d_plain(x: torch.Tensor, offset: torch.Tensor,
                 .reshape(B, Ho * Wo, 1).expand(B, Ho * Wo, Cin)
             col += torch.gather(xf, 1, idx).to(f32) \
                 * w.reshape(B, Ho * Wo, 1)
-        out += col.reshape(B * Ho * Wo, Cin) @ wmat[t]
+        if x.dtype == torch.bfloat16:
+            col = col.to(x.dtype).to(f32)
+        yield col.reshape(B * Ho * Wo, Cin)
+
+
+def deform_conv2d_plain(x: torch.Tensor, offset: torch.Tensor,
+                        mask: torch.Tensor, weight: torch.Tensor,
+                        bias: Optional[torch.Tensor] = None,
+                        stride: Pair = (1, 1), padding: Pair = (1, 1),
+                        dilation: Pair = (1, 1)) -> torch.Tensor:
+    """Plain PyTorch DCNv2: each tap's column (:func:`tap_columns`, bf16
+    for bf16 x) contracted with ``W[t]`` in f32, plus the bias."""
+    B, H, W, Cin = x.shape
+    Kh, Kw, _, Cout = weight.shape
+    Ho, Wo = _out_hw(H, W, Kh, Kw, stride, padding, dilation)
+    f32 = torch.float32
+    wmat = weight.to(f32).reshape(Kh * Kw, Cin, Cout)
+    out = torch.zeros(B * Ho * Wo, Cout, device=x.device, dtype=f32)
+    for t, col in enumerate(tap_columns(x, offset, mask, (Kh, Kw), stride,
+                                        padding, dilation)):
+        out += col @ wmat[t]
     out = out.reshape(B, Ho, Wo, Cout)
     if bias is not None:
         out = out + bias.to(f32)
@@ -199,23 +217,22 @@ def deform_conv2d_plain(x: torch.Tensor, offset: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def deform_conv2d_chunked(x: torch.Tensor, offset: torch.Tensor,
-                          mask: torch.Tensor, weight: torch.Tensor,
-                          bias: Optional[torch.Tensor] = None,
-                          stride: Pair = (1, 1), padding: Pair = (1, 1),
-                          dilation: Pair = (1, 1),
-                          tap_chunk: Optional[int] = None) -> torch.Tensor:
-    """DCNv2 through gathered corner rows, ``tap_chunk`` taps at a time
-    (default: :func:`tap_chunk_size`). The 2x2 neighbourhood is stacked
-    along the channels (``xq``, wrapping at the far edges; each corner
-    carries its own in-bounds mask), each chunk's rows are gathered in the
-    gather dtype and its back half runs in :func:`blend_matmul`: the
-    kernel on a CUDA tensor, the plain version on a CPU tensor."""
+def flat_kc_chunks(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
+                   weight: torch.Tensor, stride: Pair = (1, 1),
+                   padding: Pair = (1, 1), dilation: Pair = (1, 1),
+                   tap_chunk: Optional[int] = None):
+    """The flat-kc back half's operands, ``tap_chunk`` taps at a time
+    (default: :func:`tap_chunk_size`), as JAX's chunk branch builds them:
+    per chunk ``(g2, w4, wrep)`` for :func:`blend_matmul_plain`. The 2x2
+    neighbourhood is stacked along the channels (``xq``, wrapping at the
+    far edges; each corner carries its own in-bounds mask), each chunk's
+    rows are gathered in the gather dtype, ``w4 = ((lerp_y * lerp_x) *
+    in_bounds) * mask`` is rounded to it, and ``wrep`` replicates each
+    tap's weights over the 4 corners."""
     B, H, W, Cin = x.shape
     Kh, Kw, _, Cout = weight.shape
     Ho, Wo = _out_hw(H, W, Kh, Kw, stride, padding, dilation)
     K = Kh * Kw
-    dev = x.device
     sy, sx = _sample_points(offset, Ho, Wo, Kh, Kw, stride, padding,
                             dilation)
     gdt = gather_dtype(x.dtype)
@@ -229,8 +246,7 @@ def deform_conv2d_chunked(x: torch.Tensor, offset: torch.Tensor,
     if tap_chunk is None:
         tap_chunk = tap_chunk_size(B, Ho, Wo, Cin, K, x.dtype)
     np_ = B * Ho * Wo
-    row0 = (torch.arange(B, device=dev) * (H * W)).reshape(B, 1, 1, 1)
-    out = torch.zeros(np_, Cout, device=dev, dtype=torch.float32)
+    row0 = (torch.arange(B, device=x.device) * (H * W)).reshape(B, 1, 1, 1)
     for t0 in range(0, K, tap_chunk):
         t1 = min(t0 + tap_chunk, K)
         T = t1 - t0
@@ -256,7 +272,27 @@ def deform_conv2d_chunked(x: torch.Tensor, offset: torch.Tensor,
         w4s = w4.reshape(np_, T * 4).to(gdt)
         wrep = wmat[t0:t1].reshape(T, 1, Cin, Cout) \
             .expand(T, 4, Cin, Cout).reshape(T * 4 * Cin, Cout).to(gdt)
-        out += blend_matmul(g2, w4s, wrep, Cin)
+        yield g2, w4s, wrep
+
+
+def deform_conv2d_chunked_plain(x: torch.Tensor, offset: torch.Tensor,
+                                mask: torch.Tensor, weight: torch.Tensor,
+                                bias: Optional[torch.Tensor] = None,
+                                stride: Pair = (1, 1), padding: Pair = (1, 1),
+                                dilation: Pair = (1, 1),
+                                tap_chunk: Optional[int] = None
+                                ) -> torch.Tensor:
+    """Plain version of the flat-kc route (the kernel's flat-kc mode): the
+    chunks of :func:`flat_kc_chunks` through :func:`blend_matmul_plain`,
+    summed in f32, plus the bias."""
+    B, H, W, Cin = x.shape
+    Kh, Kw, _, Cout = weight.shape
+    Ho, Wo = _out_hw(H, W, Kh, Kw, stride, padding, dilation)
+    out = torch.zeros(B * Ho * Wo, Cout, device=x.device,
+                      dtype=torch.float32)
+    for g2, w4s, wrep in flat_kc_chunks(x, offset, mask, weight, stride,
+                                        padding, dilation, tap_chunk):
+        out += blend_matmul_plain(g2, w4s, wrep, Cin)
     out = out.reshape(B, Ho, Wo, Cout)
     if bias is not None:
         out = out + bias.to(torch.float32)
@@ -264,24 +300,54 @@ def deform_conv2d_chunked(x: torch.Tensor, offset: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# the tap-major kernel (K1)
+# the kernel: tap mode (K1) and flat-kc mode (K2)
 # ---------------------------------------------------------------------------
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_fwd = None
+_fns = {}
+
+# the bf16 body's tiling (ops/kernels/csrc/deform_conv.cu): output pixels
+# per warpgroup, channels per K step, shared-memory stages and limit
+ROWS_PER_WG = 64
+STEP_C = 64
+A_STAGES, B_STAGES = 2, 4
+MAX_SMEM = 232448
 
 
-def _kernel_fn():
-    global _fwd
-    if _fwd is None:
+def _smem_bytes(flat_kc: bool, n_tile: int, wgs: int) -> int:
+    corners = 4 if flat_kc else 1
+    return (1024 + A_STAGES * wgs * corners * ROWS_PER_WG * STEP_C * 2
+            + B_STAGES * n_tile * 128 + 2 * wgs * ROWS_PER_WG * 32
+            + B_STAGES * 8)
+
+
+def kernel_tiling(p: int, cout: int, flat_kc: bool,
+                  sms: int = 132) -> Tuple[int, int, int]:
+    """(channel tile, warpgroups per block, Cout splits) of the bf16 body
+    for ``p`` output pixels: all of Cout in one tile (64, 128 or 256 wide)
+    and two warpgroups (128 pixels) per block where that gives at least
+    ``sms`` blocks and fits in shared memory; else 64-pixel blocks, and
+    then Cout split in halves until the blocks cover the SMs."""
+    n_tile = next(n for n in (64, 128, 256) if n >= cout)
+    wgs = 2 if (-(-p // (2 * ROWS_PER_WG)) >= sms
+                and _smem_bytes(flat_kc, n_tile, 2) <= MAX_SMEM) else 1
+    blocks = -(-p // (wgs * ROWS_PER_WG))
+    while n_tile > 64 and blocks * -(-cout // n_tile) < sms:
+        n_tile //= 2
+    return n_tile, wgs, -(-cout // n_tile)
+
+
+def _kernel_fn(entry: str):
+    if entry not in _fns:
         from .kernels.build import load
 
-        fn = load("deform_conv").pdft_deform_conv2d_fwd
+        fn = getattr(load("deform_conv"), entry)
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 16 \
+        n_int = 18 if entry == "pdft_deform_conv2d_fwd" else 17
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * n_int \
             + [ctypes.c_void_p]
-        _fwd = fn
-    return _fwd
+        _fns[entry] = fn
+    return _fns[entry]
 
 
 def _check(x, offset, mask, weight, bias, Ho, Wo):
@@ -306,9 +372,16 @@ def _check(x, offset, mask, weight, bias, Ho, Wo):
         if not t.is_contiguous():
             raise ValueError(f"deform_conv2d kernel needs a contiguous "
                              f"{name}")
-    if wc != Cin or Cin % 32 != 0:
-        raise ValueError(f"deform_conv2d kernel needs weight Cin == x Cin "
-                         f"and Cin % 32 == 0, got {wc} / {Cin}")
+    if wc != Cin:
+        raise ValueError(f"weight Cin {wc} != x Cin {Cin}")
+    if x.dtype == torch.bfloat16:
+        if Cin % STEP_C or Cout % 8 or Cout > 256:
+            raise ValueError(f"the bf16 deform_conv2d kernel needs Cin % 64 "
+                             f"== 0, Cout % 8 == 0 and Cout <= 256, got "
+                             f"{Cin} -> {Cout}")
+    elif Cin % 32:
+        raise ValueError(f"the f32 deform_conv2d kernel needs Cin % 32 == 0, "
+                         f"got {Cin}")
     if tuple(offset.shape) != (B, Ho, Wo, 2 * K) \
             or tuple(mask.shape) != (B, Ho, Wo, K):
         raise ValueError(f"offset {tuple(offset.shape)} / mask "
@@ -316,10 +389,54 @@ def _check(x, offset, mask, weight, bias, Ho, Wo):
                          f"({B}, {Ho}, {Wo}) with K={K}")
     if bias is not None and tuple(bias.shape) != (Cout,):
         raise ValueError(f"bias shape {tuple(bias.shape)} != ({Cout},)")
-    if B * H * W >= 2 ** 31:
-        raise ValueError("deform_conv2d kernel indexes x rows in int32")
+    if B * H * W >= 2 ** 31 or B * Ho * Wo >= 2 ** 31:
+        raise ValueError("deform_conv2d kernel indexes pixels in int32")
     if x.data_ptr() % 16:
         raise ValueError("deform_conv2d kernel needs 16-byte aligned x")
+
+
+def _launch(flat_kc: bool, x, offset, mask, weight, bias, stride, padding,
+            dilation) -> torch.Tensor:
+    """One launch of the kernel's tap or flat-kc mode on CUDA tensors."""
+    B, H, W, Cin = x.shape
+    Kh, Kw, _, Cout = weight.shape
+    Ho, Wo = _out_hw(H, W, Kh, Kw, stride, padding, dilation)
+    _check(x, offset, mask, weight, bias, Ho, Wo)
+    if flat_kc and x.dtype != torch.bfloat16:
+        raise TypeError(f"the flat-kc kernel takes bf16 x, got {x.dtype}")
+    out = torch.empty((B, Ho, Wo, Cout), device=x.device,
+                      dtype=torch.float32)
+    n_tile, wgs, nsplit = kernel_tiling(
+        B * Ho * Wo, Cout, flat_kc,
+        torch.cuda.get_device_properties(x.device).multi_processor_count)
+    wtile = torch.empty((Kh * Kw * Cin * nsplit * n_tile
+                         if x.dtype == torch.bfloat16 else 0,),
+                        device=x.device, dtype=torch.bfloat16)
+    ptrs = (x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
+            weight.data_ptr(), None if bias is None else bias.data_ptr(),
+            out.data_ptr(), wtile.data_ptr())
+    shape = (B, H, W, Cin, Ho, Wo, Cout, Kh, Kw, stride[0], stride[1],
+             padding[0], padding[1], dilation[0], dilation[1], n_tile, wgs)
+    entry = "pdft_deform_conv2d_flat_kc_fwd" if flat_kc \
+        else "pdft_deform_conv2d_fwd"
+    dtype = () if flat_kc else (_DTYPE_CODE[x.dtype],)
+    with torch.cuda.device(x.device):
+        err = _kernel_fn(entry)(
+            *ptrs, *dtype, *shape,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"deform_conv2d kernel ({entry}) launch failed: "
+                           f"cudaError {err}")
+    launch_counts["deform_conv2d_flat_kc" if flat_kc
+                  else "deform_conv2d"] += 1
+    return out
+
+
+def _device_type(x: torch.Tensor) -> str:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"deform_conv2d runs on cuda or cpu, not "
+                         f"{x.device}")
+    return x.device.type
 
 
 def deform_conv2d_tap(x: torch.Tensor, offset: torch.Tensor,
@@ -327,34 +444,29 @@ def deform_conv2d_tap(x: torch.Tensor, offset: torch.Tensor,
                       bias: Optional[torch.Tensor] = None,
                       stride: Pair = (1, 1), padding: Pair = (1, 1),
                       dilation: Pair = (1, 1)) -> torch.Tensor:
-    """The whole DCN in the tap-major kernel on a CUDA tensor; the plain
-    version on a CPU tensor."""
-    if x.device.type == "cpu":
+    """The whole DCN in the kernel's tap mode (K1) on a CUDA tensor; the
+    plain version on a CPU tensor."""
+    if _device_type(x) == "cpu":
         return deform_conv2d_plain(x, offset, mask, weight, bias, stride,
                                    padding, dilation)
-    if x.device.type != "cuda":
-        raise ValueError(f"deform_conv2d runs on cuda or cpu, not "
-                         f"{x.device}")
-    B, H, W, Cin = x.shape
-    Kh, Kw, _, Cout = weight.shape
-    Ho, Wo = _out_hw(H, W, Kh, Kw, stride, padding, dilation)
-    _check(x, offset, mask, weight, bias, Ho, Wo)
-    out = torch.empty((B, Ho, Wo, Cout), device=x.device,
-                      dtype=torch.float32)
-    fn = _kernel_fn()
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
-                 weight.data_ptr(),
-                 None if bias is None else bias.data_ptr(), out.data_ptr(),
-                 _DTYPE_CODE[x.dtype], B, H, W, Cin, Ho, Wo, Cout, Kh, Kw,
-                 stride[0], stride[1], padding[0], padding[1],
-                 dilation[0], dilation[1],
-                 torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"deform_conv2d kernel launch failed: "
-                           f"cudaError {err}")
-    launch_counts["deform_conv2d"] += 1
-    return out
+    return _launch(False, x, offset, mask, weight, bias, stride, padding,
+                   dilation)
+
+
+def deform_conv2d_chunked(x: torch.Tensor, offset: torch.Tensor,
+                          mask: torch.Tensor, weight: torch.Tensor,
+                          bias: Optional[torch.Tensor] = None,
+                          stride: Pair = (1, 1), padding: Pair = (1, 1),
+                          dilation: Pair = (1, 1)) -> torch.Tensor:
+    """The flat-kc route: the whole DCN, all taps, in one launch of the
+    kernel's flat-kc mode (K2) on a CUDA tensor; on a CPU tensor
+    :func:`deform_conv2d_chunked_plain` in JAX's tap chunks, which changes
+    only the order of the f32 sums."""
+    if _device_type(x) == "cpu":
+        return deform_conv2d_chunked_plain(x, offset, mask, weight, bias,
+                                           stride, padding, dilation)
+    return _launch(True, x, offset, mask, weight, bias, stride, padding,
+                   dilation)
 
 
 def deform_conv2d(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
@@ -363,8 +475,8 @@ def deform_conv2d(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
                   dilation: Pair = (1, 1)) -> torch.Tensor:
     """Modulated deform conv (DCNv2), channels-last; returns f32
     (B, Ho, Wo, Cout). CPU tensors go through :func:`deform_conv2d_plain`;
-    CUDA tensors through the chunked flat-kc route where the JAX package
-    takes it (:func:`flat_kc_route`), else through the tap-major kernel."""
+    CUDA tensors through the flat-kc mode where the JAX package takes its
+    flat-kc route (:func:`flat_kc_route`), else through the tap mode."""
     if x.device.type == "cuda":
         B, H, W, Cin = x.shape
         Kh, Kw, _, Cout = weight.shape

@@ -1,8 +1,9 @@
-"""The flat-kc DCNv2 back half (pdf_table_tpu_torch/ops/blend_matmul.py) and
-the deform conv's tap-chunk route (ops/deform_conv.py) against the JAX
-package: blend_matmul_xla, the Pallas kernel in interpret mode, JAX
-deform_conv2d forced through its chunk branch, and the route JAX chooses
-on a TPU. Inputs come from numpy with fixed seeds."""
+"""The flat-kc DCNv2 back half's plain version
+(pdf_table_tpu_torch/ops/blend_matmul.py) and the deform conv's flat-kc
+route (ops/deform_conv.py: the kernel's flat-kc mode and its plain chunked
+twin) against the JAX package: blend_matmul_xla, the Pallas kernel in
+interpret mode, JAX deform_conv2d forced through its chunk branch, and the
+route JAX chooses on a TPU. Inputs come from numpy with fixed seeds."""
 
 import jax
 import jax.experimental.pallas as pl
@@ -14,8 +15,7 @@ import torch
 from pdf_table_tpu.ops import deform_conv as jdc
 from pdf_table_tpu.ops.pallas import deform_blend as dbm
 from pdf_table_tpu_torch.ops import deform_conv as tdc
-from pdf_table_tpu_torch.ops.blend_matmul import (blend_matmul,
-                                                  blend_matmul_plain)
+from pdf_table_tpu_torch.ops.blend_matmul import blend_matmul_plain
 from pdf_table_tpu_torch.ops.kernels import launch_counts
 
 torch.set_num_threads(1)
@@ -92,18 +92,24 @@ def test_plain_matches_pallas_kernel(interpret, cin, t, cout):
 
 
 def test_wrapper_on_cpu_is_the_plain_version():
-    g2, w4, wrep = _k2_inputs(256, 2, 32, 16)
-    before = launch_counts["blend_matmul"]
-    got = blend_matmul(_bf16(g2), _bf16(w4), _bf16(wrep), 32)
-    want = blend_matmul_plain(_bf16(g2), _bf16(w4), _bf16(wrep), 32)
-    assert torch.equal(got, want)
-    assert launch_counts["blend_matmul"] == before
+    """The flat-kc entry on CPU tensors is the plain chunked version, and
+    launches nothing."""
+    x, off, mask, w, b = _dcn_inputs(2, 16, 8, 32, 16, seed=5)
+    ts = [torch.from_numpy(a) for a in (x, off, mask, w, b)]
+    ts[0], ts[3] = ts[0].bfloat16(), ts[3].bfloat16()
+    before = dict(launch_counts)
+    got = tdc.deform_conv2d_chunked(*ts)
+    assert torch.equal(got, tdc.deform_conv2d_chunked_plain(*ts))
+    assert dict(launch_counts) == before
 
 
 def test_wrapper_refuses_other_devices():
-    z = torch.zeros(256, 128, dtype=torch.bfloat16, device="meta")
+    z = torch.zeros(1, 4, 4, 64, dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
-        blend_matmul(z, z[:, :4], z.t()[:, :16], 32)
+        tdc.deform_conv2d_chunked(
+            z, torch.zeros(1, 4, 4, 18, device="meta"),
+            torch.zeros(1, 4, 4, 9, device="meta"),
+            torch.zeros(3, 3, 64, 16, dtype=torch.bfloat16, device="meta"))
 
 
 # ---------------------------------------------------------------------------
@@ -124,7 +130,7 @@ def _dcn_inputs(B, H, W, C, Co, seed):
 
 
 def _port_chunked(x, off, mask, w, b, tap_chunk=None):
-    return tdc.deform_conv2d_chunked(
+    return tdc.deform_conv2d_chunked_plain(
         _bf16(x), torch.from_numpy(off), torch.from_numpy(mask), _bf16(w),
         torch.from_numpy(b), tap_chunk=tap_chunk).numpy()
 
@@ -257,19 +263,27 @@ def test_wtw_sub_batch_routes():
 
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card():
-    """Runs on a machine with the card: python -m pytest -m cuda."""
+    """Runs on a machine with the card: python -m pytest -m cuda. Both
+    modes of the deform-conv kernel on the same bf16 inputs: the flat-kc
+    mode against the plain chunked version (the same bf16 products, summed
+    in f32 in another order) and the tap mode against the plain version;
+    shapes ragged in pixels, Cout 72 (two Cout splits) and 64."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
-    # the same bf16 products on both sides, summed in f32 in another order
-    for np_, t, cin, cout in ((512, 1, 32, 16), (1000, 9, 64, 72),
-                              (4096, 5, 64, 64)):
-        g2, w4, wrep = (_bf16(a).to(dev)
-                        for a in _k2_inputs(np_, t, cin, cout))
-        before = launch_counts["blend_matmul"]
-        got = blend_matmul(g2, w4, wrep, cin)
-        torch.cuda.synchronize()
-        assert launch_counts["blend_matmul"] == before + 1
-        want = blend_matmul_plain(g2, w4, wrep, cin)
-        err = float((got - want).abs().max() / want.abs().max())
-        assert err < 1e-4, (np_, t, cin, cout, err)
+    for B, H, W, C, Co in ((1, 25, 40, 64, 72), (2, 32, 32, 128, 64)):
+        x, off, mask, w, b = (torch.from_numpy(a).to(dev) for a in
+                              _dcn_inputs(B, H, W, C, Co, seed=9))
+        x, w = x.bfloat16(), w.bfloat16()
+        for fn, plain, name in (
+                (tdc.deform_conv2d_chunked, tdc.deform_conv2d_chunked_plain,
+                 "deform_conv2d_flat_kc"),
+                (tdc.deform_conv2d_tap, tdc.deform_conv2d_plain,
+                 "deform_conv2d")):
+            before = launch_counts[name]
+            got = fn(x, off, mask, w, b)
+            torch.cuda.synchronize()
+            assert launch_counts[name] == before + 1
+            want = plain(x, off, mask, w, b)
+            err = float((got - want).abs().max() / want.abs().max())
+            assert err < 1e-4, (name, B, H, W, C, Co, err)

@@ -1,9 +1,11 @@
 """The port's deform conv (pdf_table_tpu_torch/ops/deform_conv.py) against
 the JAX package: its f32 XLA path, the numpy reference, and in bf16 the
-tap-major Pallas kernel run in interpret mode. Inputs come from numpy with a
-fixed seed; offsets are fractional and reach outside the image."""
+tap-major Pallas kernel run in interpret mode and a column built in numpy.
+Inputs come from numpy with a fixed seed; offsets are fractional and reach
+outside the image."""
 
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -98,20 +100,106 @@ def test_plain_bf16_matches_pallas_tap_kernel(monkeypatch, seed, cin, cout):
         jdc.deform_conv2d.clear_cache()
     got = _plain(x, off, mask, w, b, (1, 1), (1, 1), (1, 1),
                  dtype=torch.bfloat16)
-    # the TPU kernel rounds the blended corners to bf16 before its bf16
-    # matmul; the plain version blends and contracts in f32
+    # the TPU kernel rounds each corner's product to bf16 before its bf16
+    # matmul; the plain version blends in f32 and rounds the column once
     scale = float(np.abs(want).max())
     assert float(np.abs(got - want).max()) / scale < 2e-2
 
 
+@pytest.mark.parametrize("case", CASES)
+def test_plain_bf16_matches_jax_f32(case):
+    """bf16 x and W through the plain version (the tap kernel's column
+    rounding) against JAX's f32 XLA path on the same bf16-valued inputs:
+    the one rounding of each blended column (2^-9 relative) spread over a
+    9*Cin-deep f32 contraction."""
+    *shape, stride, padding, dilation = case
+    x, off, mask, w, b = _inputs(*shape, stride, padding, dilation, seed=2)
+    x, w = _bf16_values(x), _bf16_values(w)
+    want = np.asarray(jdc.deform_conv2d(x, off, mask, w, b, stride=stride,
+                                        padding=padding, dilation=dilation))
+    got = _plain(x, off, mask, w, b, stride, padding, dilation,
+                 dtype=torch.bfloat16)
+    assert float(np.abs(got - want).max()) / float(np.abs(want).max()) < 1e-2
+
+
+def _bf16_values(a):
+    return a.astype(ml_dtypes.bfloat16).astype(np.float32)
+
+
+def _numpy_bf16_column_dcn(x, off, mask, w, b):
+    """3x3 DCNv2 at stride, padding and dilation 1 in numpy: per tap the
+    four corners blended in f32 (weights ((lerp_y * lerp_x) * in_bounds) *
+    mask, corners in the order (0,0), (0,1), (1,0), (1,1)), the column
+    rounded once to bf16, then contracted in f32."""
+    B, H, W, C = x.shape
+    Co = w.shape[-1]
+    f32 = np.float32
+    out = np.zeros((B * H * W, Co), f32)
+    bi = np.arange(B)[:, None, None]
+    for t in range(9):
+        ky, kx = divmod(t, 3)
+        sy = (np.arange(H, dtype=f32) - 1 + ky)[None, :, None] \
+            + off[..., 2 * t]
+        sx = (np.arange(W, dtype=f32) - 1 + kx)[None, None, :] \
+            + off[..., 2 * t + 1]
+        y0, x0 = np.floor(sy), np.floor(sx)
+        wy, wx = sy - y0, sx - x0
+        col = np.zeros((B, H, W, C), f32)
+        for dy, dx in ((0, 0), (0, 1), (1, 0), (1, 1)):
+            yy = y0.astype(np.int64) + dy
+            xx = x0.astype(np.int64) + dx
+            ok = (yy >= 0) & (yy < H) & (xx >= 0) & (xx < W)
+            ly = wy if dy else f32(1) - wy
+            lx = wx if dx else f32(1) - wx
+            wq = (ly * lx) * ok * mask[..., t]
+            g = x[bi, yy.clip(0, H - 1), xx.clip(0, W - 1)]
+            col = col + g * wq[..., None]
+        out += _bf16_values(col).reshape(-1, C) @ w[ky, kx]
+    return out.reshape(B, H, W, Co) + b
+
+
+@pytest.mark.parametrize("seed,cin,cout", [(4, 32, 16), (5, 64, 24)])
+def test_plain_bf16_is_a_bf16_column_contracted_in_f32(seed, cin, cout):
+    """The plain version for bf16 x against the column built independently
+    in numpy: the same f32 blend in the same order, so the same bf16
+    column; only the f32 contraction's summation order differs. A column
+    left unrounded, or rounded per corner, differs by ~1e-3."""
+    x, off, mask, w, b = _inputs(2, 9, 11, cin, cout, (1, 1), (1, 1),
+                                 (1, 1), seed=seed)
+    x, w = _bf16_values(x), _bf16_values(w)
+    want = _numpy_bf16_column_dcn(x, off, mask, w, b)
+    got = _plain(x, off, mask, w, b, (1, 1), (1, 1), (1, 1),
+                 dtype=torch.bfloat16)
+    assert float(np.abs(got - want).max()) / float(np.abs(want).max()) < 1e-5
+
+
+def test_kernel_tiling():
+    """The bf16 body's tiling at the slices' shapes (B = 8): 128-pixel
+    blocks over all of Cout where they cover the 132 SMs; the deep levels
+    take 64-pixel blocks and split Cout in halves."""
+    tiling = tdc.kernel_tiling
+    assert tiling(8 * 192 * 192, 64, False) == (64, 2, 1)
+    assert tiling(8 * 48 * 48, 256, False) == (256, 2, 1)
+    assert tiling(8 * 24 * 24, 256, False) == (128, 1, 2)
+    assert tiling(8 * 32 * 32, 256, False) == (128, 1, 2)
+    assert tiling(8 * 256 * 256, 64, True) == (64, 2, 1)
+    assert tiling(8 * 256 * 256, 256, True) == (256, 1, 1)
+    assert tiling(1000, 72, True) == (64, 1, 2)
+    for flat_kc in (False, True):
+        for n_tile in (64, 128, 256):
+            for wgs in (1, 2):
+                fits = tdc._smem_bytes(flat_kc, n_tile, wgs) <= tdc.MAX_SMEM
+                assert fits or (flat_kc and n_tile == 256 and wgs == 2)
+
+
 def test_wrapper_on_cpu_is_the_plain_version():
     x, off, mask, w, b = _inputs(1, 8, 8, 32, 8, (1, 1), (1, 1), (1, 1))
-    before = launch_counts["deform_conv2d"]
+    before = dict(launch_counts)
     got = tdc.deform_conv2d(*(torch.from_numpy(a)
                               for a in (x, off, mask, w, b))).numpy()
     want = _plain(x, off, mask, w, b, (1, 1), (1, 1), (1, 1))
     np.testing.assert_array_equal(got, want)
-    assert launch_counts["deform_conv2d"] == before
+    assert dict(launch_counts) == before
 
 
 def test_wrapper_refuses_other_devices():
@@ -124,22 +212,30 @@ def test_wrapper_refuses_other_devices():
 
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card():
-    """Runs on a machine with the card: python -m pytest -m cuda."""
+    """Runs on a machine with the card: python -m pytest -m cuda. Both
+    modes of the kernel, bf16 (and the tap mode's f32 body), at a shape
+    ragged in pixels with Cout = 72 (two Cout splits)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    x, off, mask, w, b = _inputs(2, 20, 18, 64, 72, (1, 1), (1, 1), (1, 1),
+                                 off_scale=3.0)
+    rest = [torch.from_numpy(a).to(dev) for a in (off, mask)]
+    bt = torch.from_numpy(b).to(dev)
     # the same operands on both sides, summed in f32 in another order
-    for dtype, tol in ((torch.bfloat16, 1e-4), (torch.float32, 1e-4)):
-        x, off, mask, w, b = _inputs(2, 20, 18, 64, 72, (1, 1), (1, 1),
-                                     (1, 1), off_scale=3.0)
-        dev = torch.device("cuda")
+    for fn, plain, dtype, name in (
+            (tdc.deform_conv2d_tap, tdc.deform_conv2d_plain, torch.bfloat16,
+             "deform_conv2d"),
+            (tdc.deform_conv2d_tap, tdc.deform_conv2d_plain, torch.float32,
+             "deform_conv2d"),
+            (tdc.deform_conv2d_chunked, tdc.deform_conv2d_chunked_plain,
+             torch.bfloat16, "deform_conv2d_flat_kc")):
         xt = torch.from_numpy(x).to(dev, dtype)
         wt = torch.from_numpy(w).to(dev, dtype)
-        rest = [torch.from_numpy(a).to(dev) for a in (off, mask)]
-        bt = torch.from_numpy(b).to(dev)
-        before = launch_counts["deform_conv2d"]
-        got = tdc.deform_conv2d(xt, *rest, wt, bt)
+        before = launch_counts[name]
+        got = fn(xt, *rest, wt, bt)
         torch.cuda.synchronize()
-        assert launch_counts["deform_conv2d"] == before + 1
-        want = tdc.deform_conv2d_plain(xt, *rest, wt, bt)
+        assert launch_counts[name] == before + 1
+        want = plain(xt, *rest, wt, bt)
         err = float((got - want).abs().max() / want.abs().max())
-        assert err < tol, (dtype, err)
+        assert err < 1e-4, (name, dtype, err)
