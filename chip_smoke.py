@@ -20,9 +20,12 @@ Phases, each fatal on failure:
      also against the plain version on the inputs cast to f32, and at a
      strided and a dilated geometry against their plain versions; the
      resize+normalize kernel (K3) against its plain version at the three
-     page buckets' detector sizes (N = 1 and 8), one upscale and both norm
-     styles, timed at the detection slice's shape beside its bound and
-     F.interpolate + normalize;
+     page buckets' detector sizes (N = 1 and 8), two upscales and both
+     norm styles, through both of its bodies where the vector body takes
+     the shape (and the default route must be the shape rule's); both
+     bodies timed at the three buckets, the plain version and
+     F.interpolate + normalize at the detection slice's shape, beside the
+     bound;
   4. LORE wireless slice: OcrTableStructureTask(model="Lore",
      task_type="wireless", dtype="bfloat16") at full LORE width over 4
      synthetic 1224x950 pages with 2 table regions each, on numpy-seeded
@@ -45,7 +48,18 @@ Phases, each fatal on failure:
      through K3; a yardstick run (the same model on
      resize_normalize_plain's input) holds the input, the prob maps and
      the uint8 maps, and the device boxes match the CPU's; stage times and
-     the device's idle share.
+     the device's idle share; the trace must show K3's vector body;
+  7. recognition slice: OcrRecognitionTask(model="PP-OCRv4_rec") with the
+     0/180 textline classifier, both at full width, f32, over the same 8
+     pages' canvases resident on the card and 31 text quads a page (the
+     bench's line grid of up to 30 axis-aligned quads, 120-360 px wide and
+     22 px tall, plus one tilted quad, so that the homography sampler runs
+     once), down to texts. Seeded weights with BatchNorm statistics
+     calibrated on strips of the pages, and the classifier's bias shifted
+     so that half of the crops flip. The lane launches none of K1-K3 (the
+     JAX lane reaches no Pallas kernel). The packed decode of the card is
+     held against the same port on the CPU, texts against the charset;
+     crops/s, stage times, peak memory and the device's idle share.
 Prints the card line, one {"kernels": [...]} line, and as the last line
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -109,11 +123,13 @@ WTW_VIS_THRESH = 0.04
 WTW_VIS_CORNER = 0.1
 # resize+normalize: (N, canvas H, W) -> detector (Ho, Wo); the three page
 # buckets at their PP-OCRv4 sizes, N = 1 and the slice's chunk of 8, and
-# one upscale. The first 8-canvas case is the slice's shape.
-RN_CASES = [(n, hw, det) for hw, det in (((1280, 960), (960, 720)),
-                                         ((1600, 1280), (960, 768)),
-                                         ((2048, 1536), (960, 720)))
-            for n in (8, 1)] + [(2, (480, 360), (960, 720))]
+# two upscales (360-px rows are off 16 bytes and take the scalar body,
+# 368-px rows the vector body). The first 8-canvas case is the slice's
+# shape.
+RN_BUCKETS = (((1280, 960), (960, 720)), ((1600, 1280), (960, 768)),
+              ((2048, 1536), (960, 720)))
+RN_CASES = [(n, hw, det) for hw, det in RN_BUCKETS for n in (8, 1)] \
+    + [(2, (480, 360), (960, 720)), (2, (480, 368), (960, 720))]
 # both sides compute in f32 and differ only in summation order
 RN_TOL = 1e-5
 # F.interpolate computes the source coordinate in f32 (the tap tables in
@@ -131,6 +147,14 @@ CC_MEAN_RTOL = 1e-6
 # text at the PP-OCRv4 defaults
 DET_KW = dict(thresh=0.45, box_thresh=0.0, max_candidates=48)
 DET_PAGES = 8
+# recognition slice: the card against the port on the CPU, same weights and
+# inputs, both f32. Share of crops whose ids and keep masks are all equal
+# (seeded logits can sit near a tie, and a crop near the flip threshold can
+# go the other way), and the confidence difference on those crops (a mean
+# of softmax maxima over f32 forwards that sum in another order)
+REC_EQUAL_MIN = 0.95
+REC_CONF_TOL = 1e-3
+REC_LINES = 30          # the bench's line grid per page
 
 
 class SmokeFailure(RuntimeError):
@@ -184,6 +208,37 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, launches: int = 100, replays: int = 5) -> float:
+    """Device ms per call of ``fn``: CUDA events around replays of a CUDA
+    graph that holds ``launches`` calls, the least of ``replays``. For a
+    kernel that runs tens of microseconds: between eager launches the
+    host's own cost per call can exceed that, and the events then time
+    the host."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    best = float("inf")
+    for _ in range(replays):
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) / launches)
+    return best
 
 
 def host_ms(fn, iters: int = 5) -> float:
@@ -444,10 +499,16 @@ def rn_library(norm):
 
 
 def phase_resize(gen):
+    """K3 against its plain version at RN_CASES, through every body that
+    takes the shape; the 8-canvas bucket shapes are timed through both
+    bodies (graph_ms, the bodies in turns; ``eager_ms`` is the same call
+    launched eagerly, host cost included), the slice's shape also through
+    the plain version and the library call."""
     import torch
 
     from pdf_table_tpu_torch.ops.kernels import launch_counts
-    from pdf_table_tpu_torch.ops.resize_norm import (resize_normalize,
+    from pdf_table_tpu_torch.ops.resize_norm import (kernel_route,
+                                                     resize_normalize,
                                                      resize_normalize_plain)
     from pdf_table_tpu_torch.tasks.detection import NORM
 
@@ -455,33 +516,51 @@ def phase_resize(gen):
     for i, (n, hw, det) in enumerate(RN_CASES):
         u8 = torch.randint(0, 256, (n, *hw, 3), device="cuda",
                            generator=gen, dtype=torch.uint8)
+        route = kernel_route(*hw, *det)
+        routes = ["scalar"] + (["vector"] if route == "vector" else [])
         for style, norm in NORM.items():
-            n0 = launch_counts["resize_normalize"]
-            got = resize_normalize(u8, det, **norm)
-            torch.cuda.synchronize()
-            check(launch_counts["resize_normalize"] == n0 + 1,
-                  "resize_normalize did not count its launch")
             want = resize_normalize_plain(u8, det, **norm)
-            err = float((got - want).abs().max())
-            check(err <= RN_TOL, f"resize_normalize {n}x{hw}->{det} "
-                  f"{style}: max abs err {err:.3g} > {RN_TOL}")
             row = {"batch": n, "canvas": list(hw), "det": list(det),
-                   "style": style, "max_abs_err": err}
+                   "style": style, "route": route, "max_abs_err": 0.0}
+            for r in [None] + routes:
+                n0 = launch_counts["resize_normalize"]
+                got = resize_normalize(u8, det, route=r, **norm)
+                torch.cuda.synchronize()
+                check(launch_counts["resize_normalize"] == n0 + 1,
+                      "resize_normalize did not count its launch")
+                err = float((got - want).abs().max())
+                check(err <= RN_TOL, f"resize_normalize {n}x{hw}->{det} "
+                      f"{style} {r}: max abs err {err:.3g} > {RN_TOL}")
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+                row[f"{r or 'default'}_max_abs_err"] = err
+            if n == 8 and style == "imagenet":
+                times = {r: [] for r in routes}
+                for r in routes + routes[::-1]:
+                    times[r].append(graph_ms(
+                        lambda: resize_normalize(u8, det, route=r, **norm)))
+                bound, t_ops, t_bytes = rn_bound(n, hw, det)
+                row.update(ms=min(times[route]),
+                           scalar_ms=min(times["scalar"]),
+                           eager_ms=cuda_ms(
+                               lambda: resize_normalize(u8, det, **norm),
+                               100, 10), bound_ms=bound,
+                           ops_ms=t_ops, bytes_ms=t_bytes,
+                           bound_by="operations" if t_ops >= t_bytes
+                           else "bytes")
+                row["x_bound"] = row["ms"] / bound
             if i == 0 and style == "imagenet":   # the slice's shape
                 library = rn_library(norm)
                 lib = library(u8, det)
-                bound, t_ops, t_bytes = rn_bound(n, hw, det)
                 row.update(
-                    ms=cuda_ms(lambda: resize_normalize(u8, det, **norm), 50),
                     plain_ms=cuda_ms(
                         lambda: resize_normalize_plain(u8, det, **norm), 10),
                     library_ms=cuda_ms(lambda: library(u8, det), 20),
-                    library_max_abs_err=float((lib - want).abs().max()),
-                    bound_ms=bound, ops_ms=t_ops, bytes_ms=t_bytes,
-                    bound_by="operations" if t_ops >= t_bytes else "bytes")
+                    library_max_abs_err=float((lib - want).abs().max()))
                 check(row["library_max_abs_err"] <= RN_LIBRARY_TOL,
                       "F.interpolate + normalize computes another function")
             rows.append(row)
+    check(all(r["route"] == "vector" for r in rows if "ms" in r),
+          "a page bucket's detector shape is off the vector body")
     return rows
 
 
@@ -494,8 +573,11 @@ def kernels_line(rows, launches: dict, fk_rows, fk_launches: int,
     slices' counted runs (``launches`` by path). deform_conv2d_flat_kc
     (K2, the flat-kc mode): times over its 5 calls in one wtw forward (the
     stride-4 DCNs). resize_normalize (K3): one call at the detection
-    slice's chunk (8 canvases 1280x960 -> 960x720). ``shapes`` lists every
-    checked shape with its errors and, where timed, its times."""
+    slice's chunk (8 canvases 1280x960 -> 960x720) through the body the
+    shape rule picks (the vector body; ``scalar_ms`` is the other body at
+    the same shape, ``buckets`` both at the three page buckets).
+    ``shapes`` lists every checked shape with its errors and, where timed,
+    its times."""
     keys = ("ms", "plain_ms", "bound_ms", "library_ms")
 
     def total(rs):
@@ -511,7 +593,10 @@ def kernels_line(rows, launches: dict, fk_rows, fk_launches: int,
     wtw = total([r for r in bf16 if r["crop"] == 1024
                  and r["route"] == "tap"])
     fk = total([r for r in fk_rows if "ms" in r])
-    rn = next(r for r in rn_rows if "ms" in r)
+    rn = next(r for r in rn_rows if "plain_ms" in r)
+    rn_buckets = [{k: r[k] for k in ("canvas", "det", "ms", "scalar_ms",
+                                     "eager_ms", "bound_ms", "x_bound")}
+                  for r in rn_rows if "ms" in r]
     return {"kernels": [{
         "name": "deform_conv2d", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES, "launches": sum(launches.values()),
@@ -525,9 +610,10 @@ def kernels_line(rows, launches: dict, fk_rows, fk_launches: int,
         "name": "resize_normalize", "route": "cuda", "source": RN_SOURCE,
         "replaces": RN_REPLACES, "launches": rn_launches,
         "max_abs_err": max(r["max_abs_err"] for r in rn_rows),
-        "ms": rn["ms"], "plain_ms": rn["plain_ms"],
-        "bound_ms": rn["bound_ms"], "bound_by": rn["bound_by"],
-        "library_ms": rn["library_ms"], "shapes": rn_rows}]}
+        "ms": rn["ms"], "scalar_ms": rn["scalar_ms"],
+        "eager_ms": rn["eager_ms"], "plain_ms": rn["plain_ms"], "bound_ms": rn["bound_ms"],
+        "bound_by": rn["bound_by"], "library_ms": rn["library_ms"],
+        "buckets": rn_buckets, "shapes": rn_rows}]}
 
 
 def _match(a, b, j):
@@ -915,8 +1001,10 @@ def det_stages(task, pages) -> dict:
                 packed_np, shapes, bucket, prob_hw)),
         }
     prof = profile_run(lambda: task.batch_infer_from_pages(pages))
-    prof.pop("kernel_names")
-    return {"stage_ms": stages, "profile": prof}
+    names = prof.pop("kernel_names")
+    return {"stage_ms": stages, "profile": prof,
+            "resize_kernels": [n[:60] for n in names
+                               if "resize_normalize" in n]}
 
 
 def det_yardstick(task, pages) -> dict:
@@ -1024,6 +1112,10 @@ def phase_detection(card):
         **stages,
     }
     print(json.dumps({"detection": summary}))
+    check(len(stages["resize_kernels"]) == 1
+          and "resize_normalize_vec_kernel" in stages["resize_kernels"][0],
+          f"the chunk did not go through K3's vector body: "
+          f"{stages['resize_kernels']}")
     check(cmp["input"] <= RN_TOL, f"det input differs: {cmp['input']:.3g}")
     check(cmp["prob"] <= DET_PROB_TOL, f"prob differs: {cmp['prob']:.3g}")
     check(cmp["u8_share"] <= DET_U8_SHARE,
@@ -1032,6 +1124,222 @@ def phase_detection(card):
     check(cmp["cc_mean_rel"] <= CC_MEAN_RTOL,
           f"device box means differ: {cmp['cc_mean_rel']:.3g}")
     return launches
+
+
+def rec_quads(shapes):
+    """Text quads per page: the bench's injected line grid (bench.py: up
+    to REC_LINES axis-aligned quads a page, 120-360 px wide, 22 px tall,
+    36 px apart) plus one tilted quad under it, so that the homography
+    sampler runs too."""
+    import numpy as np
+
+    out = []
+    for i, (h, w) in enumerate(shapes):
+        rng = np.random.default_rng(int(h) * 7 + int(w))
+        lines = []
+        y = 60
+        while y < h - 80 and len(lines) < REC_LINES:
+            ww = int(rng.integers(120, 360))
+            lines.append([[70, y], [70 + ww, y], [70 + ww, y + 22],
+                          [70, y + 22]])
+            y += 36
+        quad = np.asarray([[70, y], [370, y], [370, y + 22], [70, y + 22]],
+                          np.float32)
+        a = 0.02 * (i + 1)
+        rot = np.array([[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]],
+                       np.float32)
+        ctr = quad.mean(0, keepdims=True)
+        lines.append(((quad - ctr) @ rot.T + ctr).tolist())
+        out.append(np.asarray(lines, np.float32))
+    return out
+
+
+def rec_setup():
+    """The smoke's recognition slice: PP-OCRv4 rec and the 0/180 textline
+    classifier at full width, f32, on seeded weights whose BatchNorm
+    statistics are calibrated on strips of the pages (so that texts and
+    orientation probabilities depend on the crop). Returns (task on the
+    card, the same task on the CPU, canvases (8, 1280, 960, 3) uint8,
+    quads per page)."""
+    import numpy as np
+    import torch
+
+    from pdf_table_tpu_torch.engine.params import (calibrate_batch_stats,
+                                                   init_cls, init_rec)
+    from pdf_table_tpu_torch.models.cls.model import PPLCNetClassifier
+    from pdf_table_tpu_torch.models.rec_ctc.model import CTCRecModel
+    from pdf_table_tpu_torch.pipeline.batch_runner import pack_pages
+    from pdf_table_tpu_torch.tasks.cls_pulc import (CLS_MEAN, CLS_STD,
+                                                    ClsImagePulcTask)
+    from pdf_table_tpu_torch.tasks.recognition import (FLIP_THRESH,
+                                                       OcrRecognitionTask,
+                                                       rec_config)
+
+    pages = [make_page(i) for i in range(DET_PAGES)]
+    (bucket, g), = pack_pages(pages).items()
+    check(bucket == (1280, 960), f"pages fell into bucket {bucket}")
+    canvases = g["images"]
+    quads = rec_quads(g["shapes"])
+    strips = torch.from_numpy(np.stack(
+        [canvases[p, y:y + 48, 70:390] for p in range(2)
+         for y in range(54, 54 + 36 * 8, 36)])).float().cuda()
+    cfg = rec_config()
+    rec_v = calibrate_batch_stats(CTCRecModel(cfg).cuda(), init_rec(cfg, 0),
+                                  strips / 127.5 - 1.0)
+    cls = ClsImagePulcTask("textline_orientation", device="cuda")
+    mean = torch.tensor(CLS_MEAN, device="cuda")
+    std = torch.tensor(CLS_STD, device="cuda")
+    cls_v = calibrate_batch_stats(
+        PPLCNetClassifier(cls.model_config).cuda(),
+        init_cls(cls.model_config, 0),
+        (strips[:, :, :192] / 255.0 - mean) / std)
+    cls.load_variables(cls_v)
+    task = OcrRecognitionTask(device="cuda", variables=rec_v, cls_task=cls)
+    # put the flip threshold between the two middle crops' margins
+    dev_pages = torch.from_numpy(canvases).cuda()
+    margins = []
+    with torch.inference_mode():
+        for grp in task.plan(quads):
+            _, _, cls_in = task.cut(dev_pages, grp, task.upload(grp))
+            p = cls.probs(cls_in)[:grp["n"], 1].double()
+            margins += torch.log(p / (1 - p)).tolist()
+    m = np.sort(np.asarray(margins))
+    mid = (m[len(m) // 2 - 1] + m[len(m) // 2]) / 2
+    cls_v["params"]["fc"]["bias"] = cls_v["params"]["fc"]["bias"] + np.array(
+        [0.0, np.log(FLIP_THRESH / (1 - FLIP_THRESH)) - mid], np.float32)
+    cls.load_variables(cls_v)
+    cpu = OcrRecognitionTask(
+        device="cpu", variables=rec_v, cls_task=ClsImagePulcTask(
+            "textline_orientation", device="cpu", variables=cls_v))
+    return task, cpu, canvases, quads
+
+
+def rec_stages(task, dev_pages, quads) -> dict:
+    """The lane's stages, each timed alone over all groups (host_ms)."""
+    import torch
+
+    groups = task.plan(quads)
+    with torch.inference_mode():
+        up = [task.upload(g) for g in groups]
+        cuts = [task.cut(dev_pages, g, t) for g, t in zip(groups, up)]
+        crops = [task.orient(*c) for c in cuts]
+        logits = [task.logits(c) for c in crops]
+        packed = [task.pack(lg) for lg in logits]
+        packed_np = [p.cpu().numpy() for p in packed]
+        return {
+            "geometry": host_ms(lambda: task.plan(quads)),
+            "geometry_upload": host_ms(
+                lambda: [task.upload(g) for g in groups]),
+            "crop_resample": host_ms(
+                lambda: [task.cut(dev_pages, g, t)
+                         for g, t in zip(groups, up)]),
+            "cls": host_ms(lambda: [task.orient(*c) for c in cuts]),
+            "rec_forward": host_ms(lambda: [task.logits(c) for c in crops]),
+            "decode": host_ms(lambda: [task.pack(lg) for lg in logits]),
+            "download": host_ms(lambda: [p.cpu() for p in packed]),
+            "host_post": host_ms(
+                lambda: task.finish(quads, groups, packed_np)),
+        }
+
+
+def phase_recognition(card):
+    import numpy as np
+    import torch
+
+    from pdf_table_tpu_torch.ops.kernels import (launch_counts,
+                                                 reset_launch_counts)
+    from pdf_table_tpu_torch.tasks.recognition import unpack_rec
+
+    t0 = time.perf_counter()
+    task, cpu, canvases, quads = rec_setup()
+    build_s = time.perf_counter() - t0
+    n_crops = sum(len(q) for q in quads)
+    dev_pages = torch.from_numpy(canvases).cuda()
+
+    # the main path, counted: the lane launches none of the kernels
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    texts, scores = task.batch_infer_from_pages(dev_pages, quads)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    check(sum(launch_counts.values()) == 0,
+          f"the recognition lane launched {dict(launch_counts)}")
+    groups = task.plan(quads)
+    shape = [(g["bucket"], g["aa"], g["n"], len(g["pidx"])) for g in groups]
+    check(sorted(g["aa"] for g in groups) == [False, True],
+          f"expected one axis-aligned and one homography group: {shape}")
+    chars = set(task.charset.id_to_char[1:])
+    check([len(t) for t in texts] == [len(q) for q in quads]
+          and [len(s) for s in scores] == [len(q) for q in quads],
+          "one text and one score per quad")
+    check(all(isinstance(t, str) and set(t) <= chars
+              for page in texts for t in page),
+          "texts are strings of the charset")
+    check(all(np.isfinite(s) and 0.0 <= s <= 1.0
+              for page in scores for s in page), "scores lie in [0, 1]")
+    check(len({t for page in texts for t in page}) > n_crops // 2,
+          "the texts do not depend on the crops")
+
+    # steady state: each run ends in the packed decodes' download
+    torch.cuda.reset_peak_memory_stats()
+    runs = {"resident": [], "numpy": []}
+    for _ in range(10):
+        for key, src in (("resident", dev_pages), ("numpy", canvases)):
+            t0 = time.perf_counter()
+            task.batch_infer_from_pages(src, quads)
+            runs[key].append(time.perf_counter() - t0)
+    per_run = statistics.median(runs["resident"])
+    peak = torch.cuda.max_memory_allocated()
+    stages = rec_stages(task, dev_pages, quads)
+    prof = profile_run(lambda: task.batch_infer_from_pages(dev_pages, quads))
+    prof.pop("kernel_names")
+
+    # the card against the same port on the CPU
+    with torch.inference_mode():
+        got = [task.enqueue(dev_pages, g).cpu().numpy() for g in groups]
+        flips = 0
+        for g in groups:
+            crops, rot, cls_in = task.cut(dev_pages, g, task.upload(g))
+            out = task.orient(crops, rot, cls_in)[:g["n"]]
+            flips += int((out != crops[:g["n"]]).flatten(1).any(1).sum())
+    t0 = time.perf_counter()
+    cpu_pages = torch.from_numpy(canvases)
+    want = [cpu.enqueue(cpu_pages, g).numpy() for g in cpu.plan(quads)]
+    cpu_s = time.perf_counter() - t0
+    equal = conf_err = 0
+    for g, a, b in zip(groups, got, want):
+        (ia, ka, ca), (ib, kb, cb) = (unpack_rec(a, g["n"]),
+                                      unpack_rec(b, g["n"]))
+        same = (ia == ib).all(1) & (ka == kb).all(1)
+        equal += int(same.sum())
+        if same.any():
+            conf_err = max(conf_err, float(np.abs(ca - cb)[same].max()))
+    summary = {
+        "card": card, "pages": len(quads), "crops": n_crops,
+        "groups": shape, "launches": dict(launch_counts),
+        "model_build_s": build_s, "first_run_s": first_s,
+        "run_s_median": per_run, "run_s_min": min(runs["resident"]),
+        "run_s_max": max(runs["resident"]), "runs": len(runs["resident"]),
+        "crops_per_s": n_crops / per_run,
+        "ms_per_crop": per_run * 1e3 / n_crops,
+        "numpy_canvases": {
+            "run_s_median": statistics.median(runs["numpy"]),
+            "crops_per_s": n_crops / statistics.median(runs["numpy"])},
+        "peak_mem_gib": peak / 2 ** 30, "stage_ms": stages, "profile": prof,
+        "flipped_crops": flips,
+        "text_lengths": [min(len(t) for p in texts for t in p),
+                         max(len(t) for p in texts for t in p)],
+        "sample_texts": texts[0][:2],
+        "cpu": {"run_s": cpu_s, "equal_crops": equal,
+                "equal_share": equal / n_crops, "conf_max_abs": conf_err},
+    }
+    print(json.dumps({"recognition": summary}))
+    check(0 < flips < n_crops, f"{flips} of {n_crops} crops flipped")
+    check(equal / n_crops >= REC_EQUAL_MIN, f"only {equal} of {n_crops} "
+          f"crops decode as on the CPU")
+    check(conf_err <= REC_CONF_TOL,
+          f"confidences differ from the CPU's: {conf_err:.3g}")
 
 
 def demangle(sym: str) -> str:
@@ -1106,6 +1414,7 @@ def main() -> int:
     wireless = phase_slice(card, "wireless")
     wtw = phase_slice(card, "wtw")
     rn_launches = phase_detection(card)
+    phase_recognition(card)
     check("jax" not in sys.modules and "pdf_table_tpu" not in sys.modules,
           "the port imported JAX or the JAX package")
     launches = {"lore_wireless": wireless["deform_conv2d"],

@@ -5,9 +5,9 @@ path maps one to one (``params/detector/base/level3/...`` ->
 ``detector.base.level3...``). Leaf layouts (the inverse of
 pdf_table_tpu/convert/torch_to_flax.py):
 
-- conv ``kernel`` HWIO -> ``weight`` OIHW; the depthwise upsample kernel
-  (k, k, 1, C) takes the same transpose to the ``conv_transpose2d`` weight
-  (C, 1, k, k);
+- conv ``kernel`` HWIO -> ``weight`` OIHW; a depthwise kernel
+  (kh, kw, 1, C) takes the same transpose to (C, 1, kh, kw), the grouped
+  ``nn.Conv2d`` weight and LORE's ``conv_transpose2d`` upsample weight;
 - a flax ``nn.ConvTranspose`` ``kernel`` (kh, kw, In, Out) -> the
   ``nn.ConvTranspose2d`` ``weight`` (In, Out, kh, kw), flipped in space:
   flax dilates the input and correlates with the kernel as it is, which
@@ -16,7 +16,8 @@ pdf_table_tpu/convert/torch_to_flax.py):
 - dense ``kernel`` (In, Out) -> ``weight`` (Out, In);
 - embed ``embedding`` -> ``weight``, unchanged;
 - BatchNorm ``scale``/``bias`` + ``batch_stats`` ``mean``/``var`` ->
-  ``weight``/``bias``/``running_mean``/``running_var``;
+  ``weight``/``bias``/``running_mean``/``running_var``; LayerNorm
+  ``scale``/``bias`` -> ``weight``/``bias``;
 - the DCN ``weight`` (3, 3, Cin, Cout) keeps the JAX layout, which the
   deform-conv function takes as it is; ``bias`` and RefNorm ``alpha`` too.
 

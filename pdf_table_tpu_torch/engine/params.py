@@ -1,10 +1,12 @@
 """Deterministic numpy-seeded initialization in the flax layout.
 
-:func:`init_lore` and :func:`init_dbnet` return a ``{"params",
-"batch_stats"}`` tree with the paths and shapes the JAX package's
-``LoreModel.init`` / ``DBNet.init`` give, filled with the flax initializers'
-kinds: lecun-normal conv / transposed-conv / dense kernels, zero biases,
-BN scale/bias 1/0 and statistics 0/1; for LORE also he-normal DCN weights,
+:func:`init_lore`, :func:`init_dbnet`, :func:`init_rec` and
+:func:`init_cls` return a ``{"params", "batch_stats"}`` tree with the paths
+and shapes the JAX package's ``LoreModel.init`` / ``DBNet.init`` /
+``CTCRecModel.init`` / ``PPLCNetClassifier.init`` give, filled with the
+flax initializers' kinds: lecun-normal conv / transposed-conv / dense
+kernels, zero biases, BN and LayerNorm scale/bias 1/0 and statistics 0/1;
+for LORE also he-normal DCN weights,
 the bilinear upsample kernel, a zero ``conv_offset_mask`` and the -2.19
 ``hm_out`` bias. The numbers differ from a JAX PRNG init (another
 generator); the structure is the same, so the weight bridge moves either
@@ -20,12 +22,14 @@ import torch
 from torch import nn
 
 from ..convert.flax_bridge import tree_leaves
+from ..models.cls.config import ClsPulcConfig
 from ..models.dbnet.config import DbNetConfig
 from ..models.layers import BatchNorm
 from ..models.lore.config import LoreConfig
 from ..models.lore.dla import (DeformConvBlock, DepthwiseUpsample,
                                bilinear_up_kernel)
 from ..models.lore.processor_model import RefNorm
+from ..models.rec_ctc.config import RecConfig
 
 
 def _set(tree: Dict[str, Any], path, value) -> None:
@@ -97,14 +101,11 @@ def init_lore(cfg: LoreConfig, seed: int = 0) -> Dict[str, Any]:
     return {"params": params, "batch_stats": stats}
 
 
-def init_dbnet(cfg: DbNetConfig, seed: int = 0) -> Dict[str, Any]:
-    """The DBNet tree: conv kernels (kh, kw, In/groups, Out), transposed-conv
-    kernels (kh, kw, In, Out), SE biases zero, BatchNorm leaves."""
-    from ..models.dbnet.model import DBNet
-
+def _init_modules(model: nn.Module, seed: int) -> Dict[str, Any]:
+    """The tree of a model built from convs (kernels (kh, kw, In/groups,
+    Out)), transposed convs (kernels (kh, kw, In, Out)), dense layers
+    (kernels (In, Out)), BatchNorm and LayerNorm; biases zero."""
     rng = np.random.default_rng(seed)
-    with torch.device("meta"):
-        model = DBNet(cfg)
     params: Dict[str, Any] = {}
     stats: Dict[str, Any] = {}
     for mname, mod in model.named_modules():
@@ -118,9 +119,86 @@ def init_dbnet(cfg: DbNetConfig, seed: int = 0) -> Dict[str, Any]:
                  _normal(rng, (kh, kw, i, o), kh * kw * i))
             if mod.bias is not None:
                 _set(params, path + ("bias",), np.zeros((o,), np.float32))
+        elif isinstance(mod, nn.Linear):
+            o, i = mod.weight.shape
+            _set(params, path + ("kernel",), _normal(rng, (i, o), i))
+            _set(params, path + ("bias",), np.zeros((o,), np.float32))
+        elif isinstance(mod, nn.LayerNorm):
+            c = mod.weight.shape[0]
+            _set(params, path + ("scale",), np.ones((c,), np.float32))
+            _set(params, path + ("bias",), np.zeros((c,), np.float32))
         elif isinstance(mod, BatchNorm):
             _set_batch_norm(params, stats, path, mod.weight.shape[0])
     return {"params": params, "batch_stats": stats}
+
+
+def init_dbnet(cfg: DbNetConfig, seed: int = 0) -> Dict[str, Any]:
+    """The DBNet tree: conv and transposed-conv kernels, SE biases zero,
+    BatchNorm leaves."""
+    from ..models.dbnet.model import DBNet
+
+    with torch.device("meta"):
+        model = DBNet(cfg)
+    return _init_modules(model, seed)
+
+
+def init_rec(cfg: RecConfig, seed: int = 0) -> Dict[str, Any]:
+    """The CTC recognizer's tree (``svtr_lcnet``): conv kernels, SE biases,
+    dense kernels and biases, LayerNorm and BatchNorm leaves."""
+    from ..models.rec_ctc.model import CTCRecModel
+
+    with torch.device("meta"):
+        model = CTCRecModel(cfg)
+    return _init_modules(model, seed)
+
+
+def init_cls(cfg: ClsPulcConfig, seed: int = 0) -> Dict[str, Any]:
+    """The PP-LCNet classifier's tree."""
+    from ..models.cls.model import PPLCNetClassifier
+
+    with torch.device("meta"):
+        model = PPLCNetClassifier(cfg)
+    return _init_modules(model, seed)
+
+
+def calibrate_batch_stats(model: nn.Module, variables: Dict[str, Any],
+                          sample: torch.Tensor) -> Dict[str, Any]:
+    """Copy of ``variables`` whose BatchNorm ``mean``/``var`` are the
+    statistics of each layer's own input on ``sample`` (one forward of
+    ``model``, which is left holding the result). Seeded kernels with the
+    init's 0/1 statistics shrink the signal layer by layer (hardswish
+    halves small values), until the output no longer depends on the input;
+    with these statistics every layer sees unit-scale activations, as a
+    trained network does."""
+    from ..convert.flax_bridge import load_flax_variables
+
+    load_flax_variables(model, variables)
+    out: Dict[str, Any] = {}
+    for path, arr in tree_leaves(variables):
+        _set(out, path, np.asarray(arr, np.float32))
+
+    def hook(path):
+        def fn(mod, args):
+            x = args[0].float()
+            dims = [d for d in range(x.dim()) if d != 1]
+            mean, var = x.mean(dims), x.var(dims, unbiased=False)
+            mod.running_mean.copy_(mean)
+            mod.running_var.copy_(var)
+            _set(out, ("batch_stats",) + path + ("mean",),
+                 mean.cpu().numpy())
+            _set(out, ("batch_stats",) + path + ("var",), var.cpu().numpy())
+        return fn
+
+    handles = [m.register_forward_pre_hook(hook(tuple(name.split("."))))
+               for name, m in model.named_modules()
+               if isinstance(m, BatchNorm)]
+    try:
+        with torch.no_grad():
+            model.eval()(sample)
+    finally:
+        for h in handles:
+            h.remove()
+    return out
 
 
 # noise scale of perturb_conv_offset_mask: kernel std gain / sqrt(fan_in),

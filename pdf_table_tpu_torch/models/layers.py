@@ -1,10 +1,11 @@
 """Shared building blocks (counterpart of pdf_table_tpu/models/layers.py).
 
-What the LORE and DBNet slices use: ``ConvBNAct`` (grouped for depthwise)
-with the torch/paddle symmetric ``k//2`` padding and BatchNorm eps 1e-5,
-an inference-mode ``BatchNorm`` whose parameter names the weight bridge
-maps one to one, the activation table, ``make_divisible``, ``SEModule``,
-the MobileNetV3 ``InvertedResidual`` and the nearest ``upsample2x``.
+What the LORE, DBNet, recognition and classifier slices use: ``ConvBNAct``
+(grouped for depthwise) with the torch/paddle symmetric ``k//2`` padding
+and BatchNorm eps 1e-5, an inference-mode ``BatchNorm`` whose parameter
+names the weight bridge maps one to one, the activation table,
+``make_divisible``, ``SEModule``, the PP-LCNet ``DepthwiseSeparable``, the
+MobileNetV3 ``InvertedResidual`` and the nearest ``upsample2x``.
 Modules run NCHW (the models keep activations in ``channels_last`` memory
 format).
 """
@@ -18,13 +19,15 @@ import torch.nn.functional as F
 from torch import nn
 
 
-
 def hardswish(x: torch.Tensor) -> torch.Tensor:
-    return x * F.relu6(x + 3.0) / 6.0
+    """``x * relu6(x + 3) / 6``, in that order of operations, as one
+    kernel."""
+    return F.hardswish(x)
 
 
 def hardsigmoid(x: torch.Tensor) -> torch.Tensor:
-    return F.relu6(x + 3.0) / 6.0
+    """``relu6(x + 3) / 6`` as one kernel."""
+    return F.hardsigmoid(x)
 
 
 ACTS = {
@@ -32,6 +35,8 @@ ACTS = {
     "relu6": F.relu6,
     "hardswish": hardswish,
     "hardsigmoid": hardsigmoid,
+    "swish": F.silu,
+    "silu": F.silu,
     "sigmoid": torch.sigmoid,
     None: None,
 }
@@ -100,6 +105,27 @@ class SEModule(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         s = torch.relu(self.fc1(x.mean((2, 3), keepdim=True)))
         return x * hardsigmoid(self.fc2(s))
+
+
+class DepthwiseSeparable(nn.Module):
+    """PP-LCNet block: depthwise ``ConvBNAct`` -> (SE) -> 1x1 pointwise
+    ``ConvBNAct``, one activation for both."""
+
+    def __init__(self, in_ch: int, features: int,
+                 dw_kernel: Tuple[int, int] = (3, 3),
+                 stride: Tuple[int, int] = (1, 1), use_se: bool = False,
+                 act: str = "hardswish"):
+        super().__init__()
+        self.dw = ConvBNAct(in_ch, in_ch, dw_kernel, stride, act=act,
+                            groups=in_ch)
+        self.se = SEModule(in_ch) if use_se else None
+        self.pw = ConvBNAct(in_ch, features, (1, 1), act=act)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.dw(x)
+        if self.se is not None:
+            x = self.se(x)
+        return self.pw(x)
 
 
 class InvertedResidual(nn.Module):

@@ -18,6 +18,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..engine.buckets import bucket_batch_size
 from ..engine.device import resolve_device, set_float_precision
 from ..engine.params import init_lore
 from ..models.lore.config import LoreConfig
@@ -25,17 +26,7 @@ from ..models.lore.model import LoreModel, unpack_lore
 from ..models.lore.processor import LorePostProcessor, LorePreProcessor
 from ..ops.warp import resample_axis_aligned_crops
 
-# batch-size buckets: padded sub-batches keep the set of shapes small
-BUCKET_SIZES = (1, 2, 4, 8, 16, 32, 64, 128)
-
 Region = Tuple[int, Tuple[float, float, float, float]]
-
-
-def bucket_batch_size(n: int, buckets: Sequence[int] = BUCKET_SIZES) -> int:
-    for b in buckets:
-        if n <= b:
-            return b
-    return ((n + buckets[-1] - 1) // buckets[-1]) * buckets[-1]
 
 
 def lore_config(task_type: str = "wtw", **kw) -> LoreConfig:

@@ -1,8 +1,9 @@
 """The port runs its slices with nothing of JAX, flax or pdf_table_tpu
 imported: a fresh interpreter imports pdf_table_tpu_torch, runs the tiny
-wireless and wtw LORE slices on the CPU down to table HTML and the
-detection slice (full width, small detector input) down to page quads, and
-lists what got imported."""
+wireless and wtw LORE slices on the CPU down to table HTML, the detection
+slice (full width, small detector input) down to page quads and the
+recognition lane (full width, 0/180 classifier on, an axis-aligned and a
+rotated quad) down to texts, and lists what got imported."""
 
 import json
 import os
@@ -35,11 +36,20 @@ from pdf_table_tpu_torch.tasks.detection import OcrDetectionTask
 det = OcrDetectionTask(device="cpu", limit_side_len=64, thresh=0.5,
                        box_thresh=0.0)
 quads = det.batch_infer_from_pages([pages[0], pages[0][:50]])
+from pdf_table_tpu_torch.tasks.cls_pulc import ClsImagePulcTask
+from pdf_table_tpu_torch.tasks.recognition import OcrRecognitionTask
+rec = OcrRecognitionTask(device="cpu", cls_task=ClsImagePulcTask(
+    "textline_orientation", device="cpu"))
+texts, scores = rec.batch_infer_from_pages(pages, [np.array(
+    [[[5, 10], [70, 10], [70, 24], [5, 24]],
+     [[8, 40], [60, 46], [58, 60], [6, 54]]], np.float32)])
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "pdf_table_tpu"))
 print(json.dumps({"bad": bad, "html": html.startswith("<table"),
                   "wtw_html": wtw_html.startswith("<table"),
-                  "quads": [list(q.shape[1:]) for q in quads]}))
+                  "quads": [list(q.shape[1:]) for q in quads],
+                  "texts": [[type(t).__name__ for t in p] for p in texts],
+                  "scores": [len(p) for p in scores]}))
 """
 
 
@@ -51,4 +61,5 @@ def test_slice_runs_without_jax():
     assert out.returncode == 0, out.stderr[-2000:]
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res == {"bad": [], "html": True, "wtw_html": True,
-                   "quads": [[4, 2], [4, 2]]}
+                   "quads": [[4, 2], [4, 2]], "texts": [["str", "str"]],
+                   "scores": [2]}
