@@ -25,7 +25,9 @@ Phases, each fatal on failure:
      the shape (and the default route must be the shape rule's); both
      bodies timed at the three buckets, the plain version and
      F.interpolate + normalize at the detection slice's shape, beside the
-     bound;
+     bound; K1's f32 body (bench.py's default dtype) at every wireless DCN
+     of a sub-batch of 8 at 768^2, 512^2 and 384^2, timed beside its bound
+     and torch.matmul of the built f32 columns;
   4. LORE wireless slice: OcrTableStructureTask(model="Lore",
      task_type="wireless", dtype="bfloat16") at full LORE width over 4
      synthetic 1224x950 pages with 2 table regions each, on numpy-seeded
@@ -59,7 +61,31 @@ Phases, each fatal on failure:
      so that half of the crops flip. The lane launches none of K1-K3 (the
      JAX lane reaches no Pallas kernel). The packed decode of the card is
      held against the same port on the CPU, texts against the charset;
-     crops/s, stage times, peak memory and the device's idle share.
+     crops/s, stage times, peak memory and the device's idle share;
+  8. layout: OcrLayoutTask(model="picodet") at full width
+     (picodet_lcnet_x1_0, 800x608, f32) with bench.py's table arguments
+     (task_type="table", score_threshold=0.05, keep_top_k=2) on the
+     detection phase's 8 canvases, resident on the card: the antialiased
+     resize as two matmuls, PicoDet, the GFL decode + top-k and the
+     fixed-point NMS on the card. Seeded weights, BatchNorm scale 0.2 and
+     statistics calibrated on the canvases. The lane launches none of
+     K1-K3. Pages/s, stage times (with the NMS's rounds), peak memory and
+     idle share; the card's survivors against the same port on the CPU
+     (boxes within 0.5 px, the same labels, scores within 1e-4) at the
+     bench's arguments, and the share matched in any order at
+     keep_top_k 50;
+  9. pipeline: the port's BatchPipeline.run with bench.py's configuration
+     (det thresholds, the table layout head, rec en, LORE wireless f32 with
+     res_buckets="auto", use_orientation_cls=False, the 0/180 classifier
+     on, bench.py's line grid copied here and injected through
+     _boxes_finish) on 16 pages of make_page (two chunks of 8): a warm-up,
+     one counted run (K3 once a chunk, K1 16 times a LORE sub-batch, no
+     page with an error, every page with page_html, tables through LORE),
+     then the median of the timed runs: pages/s, per-lane ms, peak memory,
+     idle share. On 2 of the pages the card is held against the same
+     pipeline on the CPU: quads to 1 px, layout survivors equal, texts
+     equal on at least 98 % of crops, page_html byte-equal where its
+     inputs are equal.
 Prints the card line, one {"kernels": [...]} line, and as the last line
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -155,6 +181,24 @@ DET_PAGES = 8
 REC_EQUAL_MIN = 0.95
 REC_CONF_TOL = 1e-3
 REC_LINES = 30          # the bench's line grid per page
+# layout phase: bench.py's table arguments (bench.py:79-81); the seeded
+# tree's BatchNorm scale and head gain (see layout_tree); the card against
+# the CPU: boxes in canvas px (800x608 input from 1280x960 canvases, 1.6
+# canvas px a model px), scores (f32 sums in another order)
+LAYOUT_KW = dict(task_type="table", score_threshold=0.05, keep_top_k=2)
+LAYOUT_BN_SCALE = 0.2
+LAYOUT_HEAD_GAIN = 4.0
+LAYOUT_BOX_TOL = 0.5
+LAYOUT_SCORE_TOL = 1e-4
+# pipeline phase: 16 pages = two chunks of 8, LORE in bench.py's f32;
+# timed runs after one warm-up; the card against the CPU on 2 pages
+# (quads to 1 px, texts equal on at least 98 % of crops)
+PIPE_PAGES = 16
+PIPE_RUNS = 5
+PIPE_CPU_PAGES = 2
+PIPE_LORE_KW = dict(dtype="float32", vis_thresh=VIS_THRESH)
+PIPE_QUAD_TOL = 1.0
+PIPE_TEXT_MIN = 0.98
 
 
 class SmokeFailure(RuntimeError):
@@ -342,6 +386,12 @@ def phase_kernels(gen):
         cases += [(side, hw * side // 768, ci, co, n, "bfloat16", 2)
                   for hw, ci, co, n in DCN_SHAPES_768]
     cases.append((768, 48, 256, 128, 2, "float32", 2))
+    # the f32 body (bench.py's default dtype, the pipeline phase's LORE)
+    # at every wireless DCN of a sub-batch of 8, at 768^2 and the 384/512
+    # buckets
+    for side in (768, 384, 512):
+        cases += [(side, hw * side // 768, ci, co, n, "float32", MAIN_BATCH)
+                  for hw, ci, co, n in DCN_SHAPES_768]
     cases += [(768, hw, ci, co, n, "bfloat16", MAIN_BATCH)
               for hw, ci, co, n in DCN_SHAPES_768]
     cases += [(1024, hw, ci, co, n, "bfloat16", MAIN_BATCH)
@@ -564,13 +614,16 @@ def phase_resize(gen):
     return rows
 
 
-def kernels_line(rows, launches: dict, fk_rows, fk_launches: int,
-                 rn_rows, rn_launches: int) -> dict:
+def kernels_line(rows, launches: dict, fk_rows, fk_launches: dict,
+                 rn_rows, rn_launches: dict) -> dict:
     """One entry per TPU kernel. deform_conv2d (K1, the tap mode): times
     summed over the 16 DCN calls of one forward of the wireless slice's
     sub-batch (B=8 at 768^2, bf16), ``wtw_forward`` over the 11 tap-mode
-    calls of one wtw forward (B=8 at 1024^2), launches over both LORE
-    slices' counted runs (``launches`` by path). deform_conv2d_flat_kc
+    calls of one wtw forward (B=8 at 1024^2), ``f32_forward`` and
+    ``f32_buckets`` over the 16 calls of one f32 wireless forward of 8
+    crops at 768^2, 512^2 and 384^2 (the f32 body, which the pipeline
+    phase runs); launches over the counted runs of the paths that run it
+    (``launches_by_path``, here and for the other two). deform_conv2d_flat_kc
     (K2, the flat-kc mode): times over its 5 calls in one wtw forward (the
     stride-4 DCNs). resize_normalize (K3): one call at the detection
     slice's chunk (8 canvases 1280x960 -> 960x720) through the body the
@@ -592,6 +645,9 @@ def kernels_line(rows, launches: dict, fk_rows, fk_launches: int,
     main = total([r for r in bf16 if r["crop"] == 768])
     wtw = total([r for r in bf16 if r["crop"] == 1024
                  and r["route"] == "tap"])
+    f32 = {crop: total([r for r in rows if r["batch"] == MAIN_BATCH
+                        and r["dtype"] == "float32" and r["crop"] == crop])
+           for crop in (768, 512, 384)}
     fk = total([r for r in fk_rows if "ms" in r])
     rn = next(r for r in rn_rows if "plain_ms" in r)
     rn_buckets = [{k: r[k] for k in ("canvas", "det", "ms", "scalar_ms",
@@ -602,13 +658,17 @@ def kernels_line(rows, launches: dict, fk_rows, fk_launches: int,
         "replaces": REPLACES, "launches": sum(launches.values()),
         "launches_by_path": launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows), **main,
-        "wtw_forward": wtw, "shapes": rows}, {
+        "wtw_forward": wtw, "f32_forward": f32[768],
+        "f32_buckets": {str(c): f32[c] for c in (512, 384)},
+        "shapes": rows}, {
         "name": "deform_conv2d_flat_kc", "route": "cuda", "source": SOURCE,
-        "replaces": FK_REPLACES, "launches": fk_launches,
+        "replaces": FK_REPLACES, "launches": sum(fk_launches.values()),
+        "launches_by_path": fk_launches,
         "max_abs_err": max(r["max_abs_err"] for r in fk_rows), **fk,
         "shapes": fk_rows}, {
         "name": "resize_normalize", "route": "cuda", "source": RN_SOURCE,
-        "replaces": RN_REPLACES, "launches": rn_launches,
+        "replaces": RN_REPLACES, "launches": sum(rn_launches.values()),
+        "launches_by_path": rn_launches,
         "max_abs_err": max(r["max_abs_err"] for r in rn_rows),
         "ms": rn["ms"], "scalar_ms": rn["scalar_ms"],
         "eager_ms": rn["eager_ms"], "plain_ms": rn["plain_ms"], "bound_ms": rn["bound_ms"],
@@ -741,6 +801,31 @@ WTW_KW = dict(dtype="bfloat16", vis_thresh=WTW_VIS_THRESH,
               vis_thresh_corner=WTW_VIS_CORNER)
 
 
+def lore_variables(cfg):
+    """Seeded LORE tree for ``cfg`` with its offset convs perturbed. On
+    top: random heads put every cell corner on its center, and the post
+    filter drops cells under 1 px, so the corners get a fixed 6
+    feature-map px offset and the logical regressor's output is widened
+    10x, so that tables carry cells and a grid (the tests shape their
+    weights the same way); wtw corner group boxes get +-3 px, so that cell
+    quads hold them and vertices snap."""
+    import numpy as np
+
+    from pdf_table_tpu_torch.engine.params import (init_lore,
+                                                   perturb_conv_offset_mask)
+
+    variables = perturb_conv_offset_mask(init_lore(cfg, seed=0), seed=1)
+    prm = variables["params"]
+    heads = prm["detector"]["heads"]
+    heads["wh_out"]["bias"] = np.array(
+        [6, 6, -6, 6, -6, -6, 6, -6], np.float32)
+    if cfg.task_type == "wtw":
+        heads["st_out"]["bias"] = np.array(
+            [3, 3, -3, 3, -3, -3, 3, -3], np.float32)
+    prm["processor"]["stacker"]["tsfm"]["decoder"]["linear_2"]["kernel"] *= 10
+    return variables
+
+
 def slice_setup(device="cuda", task_type="wireless"):
     """The smoke's LORE slices: the bf16 ``task_type`` task at full width on
     seeded weights, 4 synthetic pages, 2 table regions each (all larger
@@ -748,28 +833,11 @@ def slice_setup(device="cuda", task_type="wireless"):
     Returns (task, variables, pages, regions)."""
     import numpy as np
 
-    from pdf_table_tpu_torch.engine.params import (init_lore,
-                                                   perturb_conv_offset_mask)
     from pdf_table_tpu_torch.tasks.table_structure import (
         OcrTableStructureTask, lore_config)
 
     kw = WTW_KW if task_type == "wtw" else SLICE_KW
-    cfg = lore_config(task_type, **kw)
-    variables = perturb_conv_offset_mask(init_lore(cfg, seed=0), seed=1)
-    # random heads put every cell corner on its center, and the post filter
-    # drops cells under 1 px: give the corners a fixed 6 feature-map px
-    # offset and widen the logical regressor's output 10x, so tables carry
-    # cells and a grid (the tests shape their weights the same way); wtw
-    # corner group boxes get +-3 px, so cell quads hold them and vertices
-    # snap
-    prm = variables["params"]
-    heads = prm["detector"]["heads"]
-    heads["wh_out"]["bias"] = np.array(
-        [6, 6, -6, 6, -6, -6, 6, -6], np.float32)
-    if task_type == "wtw":
-        heads["st_out"]["bias"] = np.array(
-            [3, 3, -3, 3, -3, -3, 3, -3], np.float32)
-    prm["processor"]["stacker"]["tsfm"]["decoder"]["linear_2"]["kernel"] *= 10
+    variables = lore_variables(lore_config(task_type, **kw))
     task = OcrTableStructureTask(model="Lore", task_type=task_type,
                                  device=device, variables=variables,
                                  res_buckets="auto", **kw)
@@ -1154,46 +1222,59 @@ def rec_quads(shapes):
     return out
 
 
-def rec_setup():
-    """The smoke's recognition slice: PP-OCRv4 rec and the 0/180 textline
-    classifier at full width, f32, on seeded weights whose BatchNorm
-    statistics are calibrated on strips of the pages (so that texts and
-    orientation probabilities depend on the crop). Returns (task on the
-    card, the same task on the CPU, canvases (8, 1280, 960, 3) uint8,
-    quads per page)."""
+def rec_cls_trees(canvases):
+    """PP-OCRv4 rec and 0/180 classifier trees, seeded, with BatchNorm
+    statistics calibrated on the card on 16 strips of the first two
+    canvases (so that texts and orientation probabilities depend on the
+    crop)."""
     import numpy as np
     import torch
 
     from pdf_table_tpu_torch.engine.params import (calibrate_batch_stats,
                                                    init_cls, init_rec)
+    from pdf_table_tpu_torch.models.cls.config import ClsPulcConfig
     from pdf_table_tpu_torch.models.cls.model import PPLCNetClassifier
     from pdf_table_tpu_torch.models.rec_ctc.model import CTCRecModel
-    from pdf_table_tpu_torch.pipeline.batch_runner import pack_pages
-    from pdf_table_tpu_torch.tasks.cls_pulc import (CLS_MEAN, CLS_STD,
-                                                    ClsImagePulcTask)
-    from pdf_table_tpu_torch.tasks.recognition import (FLIP_THRESH,
-                                                       OcrRecognitionTask,
-                                                       rec_config)
+    from pdf_table_tpu_torch.tasks.cls_pulc import CLS_MEAN, CLS_STD
+    from pdf_table_tpu_torch.tasks.recognition import rec_config
 
-    pages = [make_page(i) for i in range(DET_PAGES)]
-    (bucket, g), = pack_pages(pages).items()
-    check(bucket == (1280, 960), f"pages fell into bucket {bucket}")
-    canvases = g["images"]
-    quads = rec_quads(g["shapes"])
     strips = torch.from_numpy(np.stack(
         [canvases[p, y:y + 48, 70:390] for p in range(2)
          for y in range(54, 54 + 36 * 8, 36)])).float().cuda()
     cfg = rec_config()
     rec_v = calibrate_batch_stats(CTCRecModel(cfg).cuda(), init_rec(cfg, 0),
                                   strips / 127.5 - 1.0)
-    cls = ClsImagePulcTask("textline_orientation", device="cuda")
+    ccfg = ClsPulcConfig.for_task("textline_orientation")
     mean = torch.tensor(CLS_MEAN, device="cuda")
     std = torch.tensor(CLS_STD, device="cuda")
     cls_v = calibrate_batch_stats(
-        PPLCNetClassifier(cls.model_config).cuda(),
-        init_cls(cls.model_config, 0),
+        PPLCNetClassifier(ccfg).cuda(), init_cls(ccfg, 0),
         (strips[:, :, :192] / 255.0 - mean) / std)
-    cls.load_variables(cls_v)
+    return rec_v, cls_v
+
+
+def rec_setup():
+    """The smoke's recognition slice: PP-OCRv4 rec and the 0/180 textline
+    classifier at full width, f32, on the trees of :func:`rec_cls_trees`,
+    the classifier's bias shifted so that half of the crops flip. Returns
+    (task on the card, the same task on the CPU, canvases (8, 1280, 960,
+    3) uint8, quads per page)."""
+    import numpy as np
+    import torch
+
+    from pdf_table_tpu_torch.pipeline.batch_runner import pack_pages
+    from pdf_table_tpu_torch.tasks.cls_pulc import ClsImagePulcTask
+    from pdf_table_tpu_torch.tasks.recognition import (FLIP_THRESH,
+                                                       OcrRecognitionTask)
+
+    pages = [make_page(i) for i in range(DET_PAGES)]
+    (bucket, g), = pack_pages(pages).items()
+    check(bucket == (1280, 960), f"pages fell into bucket {bucket}")
+    canvases = g["images"]
+    quads = rec_quads(g["shapes"])
+    rec_v, cls_v = rec_cls_trees(canvases)
+    cls = ClsImagePulcTask("textline_orientation", device="cuda",
+                           variables=cls_v)
     task = OcrRecognitionTask(device="cuda", variables=rec_v, cls_task=cls)
     # put the flip threshold between the two middle crops' margins
     dev_pages = torch.from_numpy(canvases).cuda()
@@ -1342,6 +1423,404 @@ def phase_recognition(card):
           f"confidences differ from the CPU's: {conf_err:.3g}")
 
 
+def layout_tree(dev_canvases):
+    """The full-width PicoDet tree (picodet_lcnet_x1_0, bench.py's table
+    head): seeded, BatchNorm scales LAYOUT_BN_SCALE, statistics calibrated
+    on the card on the canvases at the model's input, ``head_cls`` kernels
+    x LAYOUT_HEAD_GAIN so that scores and box bins spread. At BatchNorm
+    scale 1 the 60-odd random layers are chaotic: two f32 runs that sum in
+    another order then differ by 1e-3 of the heads."""
+    import torch
+
+    from pdf_table_tpu_torch.engine.params import (calibrate_batch_stats,
+                                                   init_picodet,
+                                                   set_batch_norm_scale)
+    from pdf_table_tpu_torch.models.picodet.config import PicoDetConfig
+    from pdf_table_tpu_torch.models.picodet.model import PicoDet
+    from pdf_table_tpu_torch.tasks.layout import resize_bilinear_aa
+
+    cfg = PicoDetConfig(**LAYOUT_KW)
+    v = set_batch_norm_scale(init_picodet(cfg, 0), LAYOUT_BN_SCALE)
+    mean = torch.tensor(cfg.norm_mean, device="cuda")
+    std = torch.tensor(cfg.norm_std, device="cuda")
+    with torch.no_grad():
+        x = resize_bilinear_aa(dev_canvases, (cfg.img_height, cfg.img_width))
+        x = ((x / 255.0 - mean) / std).contiguous()
+    v = calibrate_batch_stats(PicoDet(cfg).cuda(), v, x)
+    for name, mod in v["params"]["head"].items():
+        if name.startswith("head_cls"):
+            mod["kernel"] = mod["kernel"] * LAYOUT_HEAD_GAIN
+    return v
+
+
+def layout_cells_diff(got, want) -> dict:
+    """Per-page layout cells of two runs: equal counts, labels and types,
+    worst box (px) and score difference."""
+    import numpy as np
+
+    out = {"same_count": True, "same_labels": True, "box_px": 0.0,
+           "score": 0.0, "cells": 0}
+    for g, w in zip(got, want):
+        out["same_count"] &= len(g) == len(w)
+        out["same_labels"] &= [(c.label, c.cell_type.name) for c in g] == \
+            [(c.label, c.cell_type.name) for c in w]
+        out["cells"] += len(w)
+        if g and len(g) == len(w):
+            out["box_px"] = max(out["box_px"], float(np.abs(
+                np.asarray([c.bbox for c in g])
+                - np.asarray([c.bbox for c in w])).max()))
+            out["score"] = max(out["score"], float(np.abs(
+                np.asarray([c.score for c in g])
+                - np.asarray([c.score for c in w])).max()))
+    return out
+
+
+def layout_cells_matched(got, want) -> float:
+    """Share of ``want``'s cells that a cell of ``got`` on the same page
+    matches (same label, box within LAYOUT_BOX_TOL px, score within
+    LAYOUT_SCORE_TOL), in any order."""
+    import numpy as np
+
+    matched = total = 0
+    for g, w in zip(got, want):
+        free = list(g)
+        total += len(w)
+        for c in w:
+            for i, d in enumerate(free):
+                if d.label == c.label and abs(d.score - c.score) \
+                        <= LAYOUT_SCORE_TOL and np.abs(
+                            np.subtract(d.bbox, c.bbox)).max() \
+                        <= LAYOUT_BOX_TOL:
+                    matched += 1
+                    del free[i]
+                    break
+    return matched / max(total, 1)
+
+
+def layout_stages(task, dev_pages) -> dict:
+    """The chunk's stages, each timed alone (host_ms), and the NMS's
+    fixed-point rounds."""
+    import torch
+
+    from pdf_table_tpu_torch.models.picodet.processor import (
+        nms_dominance, nms_fixed_point)
+
+    cfg = task.model_config
+    with torch.inference_mode():
+        x = task.preprocess(dev_pages)
+        raw = task.model(x)
+        cand = task.decode(raw)
+        handle, metas = task.enqueue(dev_pages)
+        packed = handle.cpu().numpy()
+        alive, dom, _ = nms_dominance(cand[..., :4], cand[..., 4:], cfg)
+        _, rounds = nms_fixed_point(alive, dom)
+        stages = {
+            "resize_normalize": host_ms(lambda: task.preprocess(dev_pages)),
+            "forward": host_ms(lambda: task.model(x)),
+            "decode_topk": host_ms(lambda: task.decode(raw)),
+            "nms": host_ms(lambda: task.nms(cand)),
+            "download": host_ms(lambda: handle.cpu()),
+            "host_finish": host_ms(lambda: [
+                task.post.to_layout_cells(task.post.from_device_nms(
+                    packed[i], m["org_shape"])) for i, m in enumerate(metas)]),
+        }
+    return {"stage_ms": stages, "nms_rounds": rounds,
+            "candidates": int(cand.shape[1])}
+
+
+def phase_layout(card):
+    """PicoDet at full width with bench.py's table arguments on the
+    detection phase's 8 canvases, resident on the card; the card's
+    survivors against the same port on the CPU."""
+    import numpy as np
+    import torch
+
+    from pdf_table_tpu_torch.ops.kernels import (launch_counts,
+                                                 reset_launch_counts)
+    from pdf_table_tpu_torch.pipeline.batch_runner import pack_pages
+    from pdf_table_tpu_torch.tasks.layout import OcrLayoutTask
+
+    (bucket, g), = pack_pages([make_page(i)
+                               for i in range(DET_PAGES)]).items()
+    canvases = g["images"]
+    dev_pages = torch.from_numpy(canvases).cuda()
+    t0 = time.perf_counter()
+    tree = layout_tree(dev_pages)
+    task = OcrLayoutTask(device="cuda", variables=tree, **LAYOUT_KW)
+    build_s = time.perf_counter() - t0
+
+    # the main path, counted: the lane reaches no Pallas kernel in JAX
+    # and launches none of K1-K3
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    cells = task.batch_infer_from_pages(dev_pages)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(launch_counts)
+    check(sum(launches.values()) == 0,
+          f"the layout lane launched {launches}")
+    check(len(cells) == len(canvases), "one cell list per page")
+    check(all(len(c) <= LAYOUT_KW["keep_top_k"] for c in cells),
+          "more survivors than keep_top_k")
+    check(sum(len(c) for c in cells) > 0, "no layout cell on any page")
+    H, W = bucket
+    for page in cells:
+        for c in page:
+            x1, y1, x2, y2 = c.bbox
+            check(c.label == "table" and c.cell_type.name == "TABLE",
+                  "the table head gives table cells")
+            check(0 <= x1 <= x2 <= W and 0 <= y1 <= y2 <= H
+                  and 0.05 < c.score <= 1.0, f"bad layout cell {c}")
+
+    torch.cuda.reset_peak_memory_stats()
+    run_s = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        task.batch_infer_from_pages(dev_pages)
+        run_s.append(time.perf_counter() - t0)
+    per_run = statistics.median(run_s)
+    peak = torch.cuda.max_memory_allocated()
+    stages = layout_stages(task, dev_pages)
+    prof = profile_run(lambda: task.batch_infer_from_pages(dev_pages))
+    prof.pop("kernel_names")
+
+    # the card against the same port on the CPU at bench.py's arguments;
+    # then, for information, at a deeper keep list, cells matched in any
+    # order: among 50 survivors a page, candidates whose scores lie within
+    # the two runs' f32 difference can swap places or suppress each other
+    # the other way
+    cpu = OcrLayoutTask(device="cpu", variables=tree, **LAYOUT_KW)
+    t0 = time.perf_counter()
+    cmp = {"bench": layout_cells_diff(cells,
+                                      cpu.batch_infer_from_pages(canvases))}
+    cpu_s = time.perf_counter() - t0
+    for t in (task, cpu):
+        t.model_config.score_threshold = 0.3
+        t.model_config.keep_top_k = 50
+    deep = cpu.batch_infer_from_pages(canvases)
+    cmp["keep50"] = {"cells": sum(len(c) for c in deep),
+                     "matched_share": layout_cells_matched(
+                         task.batch_infer_from_pages(dev_pages), deep)}
+    summary = {
+        "card": card, "pages": len(canvases), "canvas": list(bucket),
+        "input": [task.model_config.img_height, task.model_config.img_width],
+        "launches": launches, "model_build_s": build_s,
+        "first_run_s": first_s, "run_s_median": per_run,
+        "run_s_min": min(run_s), "run_s_max": max(run_s), "runs": len(run_s),
+        "pages_per_s": len(canvases) / per_run,
+        "ms_per_page": per_run * 1e3 / len(canvases),
+        "peak_mem_gib": peak / 2 ** 30, "cells_per_page": [len(c)
+                                                            for c in cells],
+        **stages, "profile": prof, "cpu": {"run_s": cpu_s, **cmp},
+    }
+    print(json.dumps({"layout": summary}))
+    c = cmp["bench"]
+    check(c["same_count"] and c["same_labels"],
+          "layout: the card's survivors differ from the CPU's")
+    check(c["box_px"] <= LAYOUT_BOX_TOL,
+          f"layout: boxes differ by {c['box_px']:.3g} px")
+    check(c["score"] <= LAYOUT_SCORE_TOL,
+          f"layout: scores differ by {c['score']:.3g}")
+    return tree
+
+
+def add_lines(quads, shapes):
+    """bench.py's line grid (bench.py:90-121), copied: up to 30
+    axis-aligned quads a page, after the detected ones."""
+    import numpy as np
+
+    out = []
+    for (h, w), q in zip(shapes, quads):
+        rng = np.random.default_rng(int(h) * 7 + int(w))
+        lines = []
+        y = 60
+        while y < h - 80 and len(lines) < REC_LINES:
+            x = 70
+            ww = int(rng.integers(120, 360))
+            lines.append([[x, y], [x + ww, y],
+                          [x + ww, y + 22], [x, y + 22]])
+            y += 36
+        out.append(np.concatenate(
+            [np.asarray(q).reshape(-1, 4, 2),
+             np.asarray(lines, np.float32)], axis=0))
+    return out
+
+
+def build_pipeline(device, trees):
+    """The port's BatchPipeline with bench.py's configuration
+    (bench.py:73-88): det thresholds, the table layout head, rec en, LORE
+    wireless f32 with res_buckets="auto", no page orientation check, the
+    0/180 textline classifier on; the line grid injected through
+    ``_boxes_finish``."""
+    from pdf_table_tpu_torch.pipeline.batch_runner import BatchPipeline
+    from pdf_table_tpu_torch.pipeline.system import OcrSystemConfig
+    from pdf_table_tpu_torch.tasks.cls_pulc import ClsImagePulcTask
+    from pdf_table_tpu_torch.tasks.detection import OcrDetectionTask
+    from pdf_table_tpu_torch.tasks.layout import OcrLayoutTask
+    from pdf_table_tpu_torch.tasks.recognition import OcrRecognitionTask
+    from pdf_table_tpu_torch.tasks.table_structure import \
+        OcrTableStructureTask
+
+    cfg = OcrSystemConfig(use_layout=True, use_table=True,
+                          use_orientation_cls=False)
+    bp = BatchPipeline(cfg, batch_pages=8, device=device)
+    s = bp.system
+    s._det = OcrDetectionTask(model="PP-OCRv4_det", device=device, **DET_KW)
+    s._layout = OcrLayoutTask(model="picodet", device=device,
+                              variables=trees["layout"], **LAYOUT_KW)
+    s._rec = OcrRecognitionTask(model=cfg.recognizer_model, lang=cfg.lang,
+                                device=device, variables=trees["rec"])
+    s._line_cls = ClsImagePulcTask("textline_orientation", device=device,
+                                   variables=trees["cls"])
+    s._tsr = OcrTableStructureTask(model="Lore", task_type="wireless",
+                                   device=device, variables=trees["lore"],
+                                   res_buckets="auto", **PIPE_LORE_KW)
+    orig = bp._boxes_finish
+    bp._boxes_finish = lambda packed, shapes, bucket_hw, prob_hw: add_lines(
+        orig(packed, shapes, bucket_hw, prob_hw), shapes)
+    return bp
+
+
+def pipeline_diff(got, want) -> dict:
+    """Page outputs of the card and the CPU on the same pages."""
+    import numpy as np
+
+    out = {"quads_same_count": True, "quad_px": 0.0, "crops": 0,
+           "equal_texts": 0, "layout": layout_cells_diff(
+               [o.layout_cells for o in got], [o.layout_cells for o in want]),
+           "table_html_equal": 0, "tables": 0, "page_html_checked": 0,
+           "page_html_equal": 0}
+    for g, w in zip(got, want):
+        gq = np.asarray([c.poly for c in g.text_cells])
+        wq = np.asarray([c.poly for c in w.text_cells])
+        out["quads_same_count"] &= gq.shape == wq.shape
+        if gq.shape == wq.shape and len(gq):
+            out["quad_px"] = max(out["quad_px"], float(np.abs(gq - wq).max()))
+        texts_equal = [a.text == b.text
+                       for a, b in zip(g.text_cells, w.text_cells)]
+        out["crops"] += len(w.text_cells)
+        out["equal_texts"] += sum(texts_equal)
+        out["tables"] += len(w.table_html)
+        out["table_html_equal"] += sum(a == b for a, b in
+                                       zip(g.table_html, w.table_html))
+        if gq.shape == wq.shape and all(texts_equal) \
+                and g.table_html == w.table_html:
+            out["page_html_checked"] += 1
+            out["page_html_equal"] += g.page_html == w.page_html
+    out["text_share"] = out["equal_texts"] / max(out["crops"], 1)
+    return out
+
+
+def phase_pipeline(card, layout_v):
+    """The port's BatchPipeline.run end to end on 16 pages (two chunks of
+    8) at full width: warm-up, one counted run, timed runs; then 2 pages
+    against the same pipeline on the CPU."""
+    import torch
+
+    from pdf_table_tpu_torch.ops.kernels import (KERNELS, launch_counts,
+                                                 reset_launch_counts)
+    from pdf_table_tpu_torch.pipeline.batch_runner import pack_pages
+    from pdf_table_tpu_torch.tasks.table_structure import lore_config
+
+    imgs = [make_page(i) for i in range(PIPE_PAGES)]
+    pages = [{"image": im, "page": i} for i, im in enumerate(imgs)]
+    t0 = time.perf_counter()
+    (bucket, g), = pack_pages(imgs[:DET_PAGES]).items()
+    rec_v, cls_v = rec_cls_trees(g["images"])
+    trees = {"layout": layout_v, "rec": rec_v, "cls": cls_v,
+             "lore": lore_variables(lore_config("wireless", **PIPE_LORE_KW))}
+    bp = build_pipeline("cuda", trees)
+    build_s = time.perf_counter() - t0
+    n_chunks = -(-PIPE_PAGES // bp.batch_pages)
+
+    t0 = time.perf_counter()
+    bp.run(pages)                       # warm-up
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    # the main path, counted; LORE forwards counted beside K1's launches
+    tsr_model = bp.system.tsr_task.model
+    forwards = []
+    real_forward = tsr_model.forward_packed
+    tsr_model.forward_packed = lambda x: (forwards.append(x.shape[0]),
+                                          real_forward(x))[1]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = bp.run(pages)
+    torch.cuda.synchronize()
+    counted_s = time.perf_counter() - t0
+    launches = {k: launch_counts[k] for k in KERNELS}
+    del tsr_model.forward_packed
+    check(len(out) == PIPE_PAGES, "one output per page")
+    errors = [o.metric.get("error") for o in out if o.metric.get("error")]
+    check(not errors, f"pages carry errors: {errors[:3]}")
+    check(all(o.page_html for o in out), "a page has no page_html")
+    n_tables = sum(len(o.table_structures) for o in out)
+    check(n_tables > 0 and forwards, "no table reached LORE")
+    check(launches["resize_normalize"] == n_chunks,
+          f"K3 launched {launches['resize_normalize']} times for "
+          f"{n_chunks} chunks")
+    check(launches["deform_conv2d"] == 16 * len(forwards),
+          f"K1 launched {launches['deform_conv2d']} times for "
+          f"{len(forwards)} LORE sub-batches (16 DCNs each)")
+    check(launches["deform_conv2d_flat_kc"] == 0, "K2 ran on the f32 path")
+
+    torch.cuda.reset_peak_memory_stats()
+    run_s, lanes = [], []
+    for _ in range(PIPE_RUNS):
+        t0 = time.perf_counter()
+        bp.run(pages)
+        run_s.append(time.perf_counter() - t0)
+        lanes.append(bp.last_stats)
+    per_run = statistics.median(run_s)
+    peak = torch.cuda.max_memory_allocated()
+    lane_ms = {k: statistics.median(st[k] for st in lanes) * 1e3
+               for k in lanes[0] if k != "n_pages"}
+    prof = profile_run(lambda: bp.run(pages))
+    prof.pop("kernel_names")
+
+    # 2 pages on the card against the same pipeline on the CPU
+    few = pages[:PIPE_CPU_PAGES]
+    got = bp.run(few)
+    cpu = build_pipeline("cpu", trees)
+    t0 = time.perf_counter()
+    want = cpu.run(few)
+    cpu_s = time.perf_counter() - t0
+    cmp = pipeline_diff(got, want)
+    summary = {
+        "card": card, "pages": PIPE_PAGES, "chunks": n_chunks,
+        "canvas": list(bucket), "launches": launches,
+        "lore_sub_batches": forwards, "model_build_s": build_s,
+        "warm_up_s": warm_s, "counted_run_s": counted_s,
+        "run_s_median": per_run, "run_s_min": min(run_s),
+        "run_s_max": max(run_s), "runs": len(run_s),
+        "pages_per_s": PIPE_PAGES / per_run,
+        "ms_per_page": per_run * 1e3 / PIPE_PAGES, "lane_ms": lane_ms,
+        "peak_mem_gib": peak / 2 ** 30, "tables": n_tables,
+        "text_cells": sum(len(o.text_cells) for o in out),
+        "layout_cells": sum(len(o.layout_cells) for o in out),
+        "page_html_bytes": [len(o.page_html) for o in out[:4]],
+        "profile": prof, "cpu": {"run_s": cpu_s, **cmp},
+    }
+    print(json.dumps({"pipeline": summary}))
+    check(not [o for o in want if o.metric.get("error")],
+          "the CPU pipeline gave errors")
+    check(cmp["quads_same_count"] and cmp["quad_px"] <= PIPE_QUAD_TOL,
+          f"quads differ from the CPU's: {cmp['quad_px']:.3g} px")
+    lay = cmp["layout"]
+    check(lay["same_count"] and lay["same_labels"]
+          and lay["box_px"] <= LAYOUT_BOX_TOL
+          and lay["score"] <= LAYOUT_SCORE_TOL,
+          f"layout survivors differ from the CPU's: {lay}")
+    check(cmp["text_share"] >= PIPE_TEXT_MIN,
+          f"texts equal on {cmp['text_share']:.3f} of crops")
+    check(cmp["page_html_equal"] == cmp["page_html_checked"],
+          "page_html differs where its inputs are equal")
+    return launches
+
+
 def demangle(sym: str) -> str:
     """The kernel's name (and integer template arguments) in a mangled
     symbol: the length-prefixed identifier that ends in "kernel"."""
@@ -1415,14 +1894,19 @@ def main() -> int:
     wtw = phase_slice(card, "wtw")
     rn_launches = phase_detection(card)
     phase_recognition(card)
+    layout_v = phase_layout(card)
+    pipe = phase_pipeline(card, layout_v)
     check("jax" not in sys.modules and "pdf_table_tpu" not in sys.modules,
           "the port imported JAX or the JAX package")
     launches = {"lore_wireless": wireless["deform_conv2d"],
-                "lore_wtw": wtw["deform_conv2d"]}
+                "lore_wtw": wtw["deform_conv2d"],
+                "pipeline": pipe["deform_conv2d"]}
     print(card)
-    print(json.dumps(kernels_line(rows, launches, fk_rows,
-                                  wtw["deform_conv2d_flat_kc"], rn_rows,
-                                  rn_launches)))
+    print(json.dumps(kernels_line(
+        rows, launches, fk_rows,
+        {"lore_wtw": wtw["deform_conv2d_flat_kc"],
+         "pipeline": pipe["deform_conv2d_flat_kc"]}, rn_rows,
+        {"detection": rn_launches, "pipeline": pipe["resize_normalize"]})))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

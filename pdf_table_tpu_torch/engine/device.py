@@ -25,6 +25,15 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     return dev
 
 
+def on_device(pages, device: torch.device) -> torch.Tensor:
+    """``pages`` (a numpy array or a tensor) as a tensor on ``device``; a
+    tensor already there is returned as it is, not copied."""
+    t = torch.as_tensor(pages)
+    here = t.device.type == device.type and device.index in (
+        None, t.device.index)
+    return t if here else t.to(device)
+
+
 def compute_dtype(name: str) -> torch.dtype:
     """The model's compute dtype by its config name; the deform-conv kernel
     takes these two."""

@@ -1,9 +1,10 @@
 """Deterministic numpy-seeded initialization in the flax layout.
 
-:func:`init_lore`, :func:`init_dbnet`, :func:`init_rec` and
-:func:`init_cls` return a ``{"params", "batch_stats"}`` tree with the paths
-and shapes the JAX package's ``LoreModel.init`` / ``DBNet.init`` /
-``CTCRecModel.init`` / ``PPLCNetClassifier.init`` give, filled with the
+:func:`init_lore`, :func:`init_dbnet`, :func:`init_rec`, :func:`init_cls`
+and :func:`init_picodet` return a ``{"params", "batch_stats"}`` tree with
+the paths and shapes the JAX package's ``LoreModel.init`` / ``DBNet.init``
+/ ``CTCRecModel.init`` / ``PPLCNetClassifier.init`` / ``PicoDet.init``
+give, filled with the
 flax initializers' kinds: lecun-normal conv / transposed-conv / dense
 kernels, zero biases, BN and LayerNorm scale/bias 1/0 and statistics 0/1;
 for LORE also he-normal DCN weights,
@@ -29,6 +30,7 @@ from ..models.lore.config import LoreConfig
 from ..models.lore.dla import (DeformConvBlock, DepthwiseUpsample,
                                bilinear_up_kernel)
 from ..models.lore.processor_model import RefNorm
+from ..models.picodet.config import PicoDetConfig
 from ..models.rec_ctc.config import RecConfig
 
 
@@ -159,6 +161,33 @@ def init_cls(cfg: ClsPulcConfig, seed: int = 0) -> Dict[str, Any]:
     with torch.device("meta"):
         model = PPLCNetClassifier(cfg)
     return _init_modules(model, seed)
+
+
+def init_picodet(cfg: PicoDetConfig, seed: int = 0) -> Dict[str, Any]:
+    """The PicoDet layout model's tree: conv kernels, SE and head biases
+    zero, BatchNorm leaves."""
+    from ..models.picodet.model import PicoDet
+
+    with torch.device("meta"):
+        model = PicoDet(cfg)
+    return _init_modules(model, seed)
+
+
+def set_batch_norm_scale(variables: Dict[str, Any], value: float
+                         ) -> Dict[str, Any]:
+    """Copy of ``variables`` with every BatchNorm ``scale`` set to
+    ``value``. Calibrated at scale 1, a deep stack of random convs (PicoDet:
+    some 60 layers) is chaotic: f32 rounding grows to 1e-3 of the heads,
+    and two f32 runs that sum in another order disagree by that much; at
+    0.2 they agree to 1e-6."""
+    out: Dict[str, Any] = {}
+    for path, arr in tree_leaves(variables):
+        a = np.asarray(arr, np.float32)
+        if path[0] == "params" and path[-1] == "scale" \
+                and ("bn",) == path[-2:-1]:
+            a = np.full_like(a, value)
+        _set(out, path, a)
+    return out
 
 
 def calibrate_batch_stats(model: nn.Module, variables: Dict[str, Any],

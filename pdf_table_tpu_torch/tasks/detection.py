@@ -17,7 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..engine.device import resolve_device, set_float_precision
+from ..engine.device import on_device, resolve_device, set_float_precision
 from ..engine.params import init_dbnet
 from ..models.dbnet.config import DbNetConfig
 from ..models.dbnet.model import DBNet
@@ -107,14 +107,16 @@ class OcrDetectionTask:
                                         num_iters=CC_ITERS)
 
     @torch.inference_mode()
-    def enqueue(self, canvas_u8: np.ndarray, shapes, bucket_hw
+    def enqueue(self, canvas_u8, shapes, bucket_hw
                 ) -> Tuple[torch.Tensor, Tuple[int, int]]:
-        """Upload one chunk and enqueue its device program; returns the
-        (not yet downloaded) packed boxes and the prob map's size."""
+        """Enqueue one chunk's device program on its canvases (a numpy
+        stack, uploaded here, or a tensor already on the device, used as it
+        is); returns the (not yet downloaded) packed boxes and the prob
+        map's size."""
         det_hw = self.det_size(bucket_hw)
         prob_hw = self.prob_size(det_hw)
         dev = self.device
-        canvas = torch.from_numpy(canvas_u8).to(dev)
+        canvas = on_device(canvas_u8, dev)
         valid = torch.from_numpy(
             self._valid_extents(shapes, bucket_hw, prob_hw)).to(dev)
         prob = self.model(self.normalize(canvas, det_hw))["prob"]

@@ -1,0 +1,172 @@
+"""Layout-analysis task, PicoDet (counterpart of
+pdf_table_tpu/tasks/layout.py, the page-batched path that
+``BatchPipeline`` runs: ``batch_enqueue_pages`` and ``batch_finish``).
+
+``enqueue`` takes the uint8 canvas stack of one chunk (numpy, or a tensor
+already on the task's device), resizes it to the model's 800x608 input with
+the antialiased bilinear weights of ``jax.image.resize``, normalizes, runs
+PicoDet, the GFL decode with a global top-k and the per-class fixed-point
+NMS, and returns the survivors (P, C, keep_top_k, 5) without downloading
+them. ``finish`` downloads them and builds each page's layout cells in
+canvas coordinates.
+"""
+
+from __future__ import annotations
+
+import functools
+import os
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..engine.device import on_device, resolve_device, set_float_precision
+from ..engine.params import init_picodet
+from ..entity.ocr_cell import OcrCell
+from ..models.picodet.config import PicoDetConfig
+from ..models.picodet.model import PicoDet
+from ..models.picodet.processor import (PicoDetPostProcessor,
+                                        device_decode_topk, device_nms_pack)
+
+Handle = Tuple[torch.Tensor, List[Dict[str, Any]]]
+
+
+@functools.lru_cache(maxsize=16)
+def resize_weights(n_in: int, n_out: int) -> np.ndarray:
+    """(n_in, n_out) f32 weights of ``jax.image.resize(..., "bilinear")``
+    along one axis (``scale_and_translate`` with the triangle kernel): on a
+    downscale the kernel is widened by 1 / scale, which antialiases; each
+    output's weights are normalized to sum to 1 and zeroed where its sample
+    point lies outside the input. Computed in f32 and rounded where XLA
+    rounds the jitted resize: the sample point as one fused multiply-add,
+    the constant kernel scale as a reciprocal (the weights then agree with
+    JAX's to 6e-8, against 1.5e-5 from the plain expression)."""
+    inv = np.float32(1.0 / (n_out / n_in))
+    kernel_scale = max(inv, np.float32(1.0))
+    half = np.arange(n_out, dtype=np.float32) + np.float32(0.5)
+    sample = (half.astype(np.float64) * np.float64(inv) - 0.5) \
+        .astype(np.float32)
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=np.float32)[:, None]) \
+        * np.float32(1.0 / kernel_scale)
+    w = np.maximum(np.float32(0.0), np.float32(1.0) - np.abs(x))
+    total = w.sum(axis=0, keepdims=True)
+    eps = 1000.0 * float(np.finfo(np.float32).eps)
+    w = np.where(np.abs(total) > eps, w / np.where(total != 0, total, 1), 0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], w, 0).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=16)
+def _resize_weights_on(n_in: int, n_out: int, device: torch.device
+                       ) -> torch.Tensor:
+    """:func:`resize_weights` on ``device``, uploaded once."""
+    return torch.from_numpy(resize_weights(n_in, n_out)).to(device)
+
+
+def resize_bilinear_aa(pages: torch.Tensor, out_hw: Tuple[int, int]
+                       ) -> torch.Tensor:
+    """uint8 (P, H, W, 3) -> f32 (P, Ho, Wo, 3) in 0..255: the separable
+    antialiased resize as two matmuls with :func:`resize_weights` (the
+    result is an NHWC view of NCHW memory)."""
+    _, H, W, _ = pages.shape
+    ho, wo = out_hw
+    wx = _resize_weights_on(W, wo, pages.device)
+    wy = _resize_weights_on(H, ho, pages.device)
+    x = pages.permute(0, 3, 1, 2).float()                # (P, 3, H, W)
+    x = torch.matmul(torch.matmul(x, wx).transpose(-1, -2), wy)
+    return x.permute(0, 3, 2, 1)                         # (P, Ho, Wo, 3)
+
+
+class OcrLayoutTask:
+    """PicoDet layout analysis on ``device`` (``cuda`` unless ``"cpu"`` is
+    asked for). Weights: ``variables`` (a flax-layout tree, see
+    convert/flax_bridge.py) or, when None, the seeded :func:`init_picodet`.
+    ``cfg_overrides`` go to ``PicoDetConfig``. On the CPU,
+    ``PDFTABLE_DEVICE_NMS=0`` selects the host route (``hard_nms`` over the
+    downloaded candidates), as in the JAX task; on a card the NMS always
+    runs on the device."""
+
+    task_name = "layout"
+
+    def __init__(self, model: str = "picodet", device=None,
+                 variables: Optional[Dict[str, Any]] = None,
+                 task_type: str = "en", **cfg_overrides):
+        if model != "picodet":
+            raise NotImplementedError(f"layout model {model!r} is not "
+                                      f"ported yet")
+        self.device = resolve_device(device)
+        set_float_precision()
+        self.model_config = cfg = PicoDetConfig(task_type=task_type,
+                                                **cfg_overrides)
+        self.post = PicoDetPostProcessor(cfg)
+        self.model = PicoDet(cfg).eval()
+        self.load_variables(variables if variables is not None
+                            else init_picodet(cfg, 0))
+        self.model.to(self.device)
+        self.mean = torch.tensor(cfg.norm_mean, device=self.device)
+        self.std = torch.tensor(cfg.norm_std, device=self.device)
+
+    def load_variables(self, variables: Dict[str, Any]) -> None:
+        """Load a flax-layout {"params", "batch_stats"} tree."""
+        from ..convert.flax_bridge import load_flax_variables
+
+        load_flax_variables(self.model, variables)
+
+    @property
+    def device_nms(self) -> bool:
+        return self.device.type == "cuda" \
+            or os.environ.get("PDFTABLE_DEVICE_NMS", "1") != "0"
+
+    # -- the device program, stage by stage -----------------------------------
+
+    def preprocess(self, pages: torch.Tensor) -> torch.Tensor:
+        """uint8 canvases (P, H, W, 3) on the device -> the normalized
+        model input (P, 800, 608, 3) f32."""
+        cfg = self.model_config
+        x = resize_bilinear_aa(pages, (cfg.img_height, cfg.img_width))
+        return (x / 255.0 - self.mean) / self.std
+
+    def decode(self, raw: Dict[str, Any]) -> torch.Tensor:
+        """Head maps -> top-k candidates [boxes | scores] (P, k, 4 + C)."""
+        return device_decode_topk(raw, self.model_config)
+
+    def nms(self, cand: torch.Tensor) -> torch.Tensor:
+        """Candidates -> survivors (P, C, keep_top_k, 5)."""
+        return device_nms_pack(cand[..., :4], cand[..., 4:],
+                               self.model_config)
+
+    @torch.inference_mode()
+    def enqueue(self, pages) -> Handle:
+        """One chunk's device program; returns the (not yet downloaded)
+        survivors, or the candidates on the host route, and per-page
+        metas (boxes decode in canvas coordinates)."""
+        pages = on_device(pages, self.device)
+        P, H, W = pages.shape[:3]
+        dev_nms = self.device_nms
+        metas = [{"org_shape": (H, W), "device_nms": dev_nms}
+                 for _ in range(P)]
+        out = self.decode(self.model(self.preprocess(pages)))
+        return (self.nms(out) if dev_nms else out), metas
+
+    # -- host side ------------------------------------------------------------
+
+    def finish(self, handle: torch.Tensor, metas: List[Dict[str, Any]]
+               ) -> List[List[OcrCell]]:
+        """Download an :meth:`enqueue` result -> layout cells per page."""
+        packed = handle.cpu().numpy()
+        out = []
+        for i, meta in enumerate(metas):
+            if meta["device_nms"]:
+                result = self.post.from_device_nms(packed[i],
+                                                   meta["org_shape"])
+            else:
+                result = self.post.from_candidates(
+                    packed[i, :, :4], packed[i, :, 4:], meta["org_shape"])
+            out.append(self.post.to_layout_cells(result))
+        return out
+
+    def batch_infer_from_pages(self, pages) -> List[List[OcrCell]]:
+        """``pages`` (P, H, W, 3) uint8 RGB canvases (numpy, or a tensor on
+        the task's device). Returns per page its layout cells in canvas
+        coordinates."""
+        return self.finish(*self.enqueue(pages))

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from ..engine.buckets import bucket_batch_size
-from ..engine.device import resolve_device, set_float_precision
+from ..engine.device import on_device, resolve_device, set_float_precision
 from ..engine.params import init_rec
 from ..models.rec_ctc.charset import Charset, resolve_charset
 from ..models.rec_ctc.config import RecConfig
@@ -304,7 +304,7 @@ class OcrRecognitionTask:
             raise ValueError(f"{len(quads_per_page)} quad lists for "
                              f"{pages.shape[0]} pages")
         groups = self.plan(quads_per_page)
-        pages = pages.to(self.device)
+        pages = on_device(pages, self.device)
         # every group is enqueued before the first download blocks
         pending = [self.enqueue(pages, g) for g in groups]
         packed = [p.cpu().numpy() for p in pending]

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ..engine.buckets import bucket_batch_size
-from ..engine.device import resolve_device, set_float_precision
+from ..engine.device import on_device, resolve_device, set_float_precision
 from ..engine.params import init_lore
 from ..models.lore.config import LoreConfig
 from ..models.lore.model import LoreModel, unpack_lore
@@ -129,8 +129,9 @@ class OcrTableStructureTask:
     def sub_batches(self, pages, regions: Sequence[Region]):
         """Yield (crop indices, meta per crop, normalized crops) for each
         sub-batch: grouped by resolution bucket, each group cut at a cap
-        that scales with the bucket's pixel ratio."""
-        pages_t = torch.as_tensor(pages).to(self.device)
+        that scales with the bucket's pixel ratio. A page tensor already on
+        the device is used as it is, not copied."""
+        pages_t = on_device(pages, self.device)
         plan = self._region_plan(regions)
         inp_h, inp_w = self.model_config.resolution
         base_cap = max(1, self.batch_size)

@@ -10,38 +10,47 @@ mapping back to page coords.
 from __future__ import annotations
 
 import html as html_mod
-from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-
-@dataclass
-class TextCell:
-    """A recognized text box in page coords (the slice of OcrCell the
-    matcher reads)."""
-
-    bbox: Tuple[float, float, float, float]
-    text: str = ""
-
-    @property
-    def x1(self) -> float:
-        return self.bbox[0]
-
-    @property
-    def y1(self) -> float:
-        return self.bbox[1]
-
-    @property
-    def y2(self) -> float:
-        return self.bbox[3]
-
-    @property
-    def height(self) -> float:
-        return max(0.0, self.bbox[3] - self.bbox[1])
+from ..entity.ocr_cell import OcrCell
+from . import ocr_fixes
 
 
-def assign_texts_to_cells(text_cells: Sequence[TextCell],
+def bbox_iou(a: Sequence[float], b: Sequence[float]) -> float:
+    ix1, iy1 = max(a[0], b[0]), max(a[1], b[1])
+    ix2, iy2 = min(a[2], b[2]), min(a[3], b[3])
+    iw, ih = max(0.0, ix2 - ix1), max(0.0, iy2 - iy1)
+    inter = iw * ih
+    if inter <= 0:
+        return 0.0
+    area_a = (a[2] - a[0]) * (a[3] - a[1])
+    area_b = (b[2] - b[0]) * (b[3] - b[1])
+    return inter / max(area_a + area_b - inter, 1e-9)
+
+
+def overlap_ratio(text_bbox: Sequence[float],
+                  cell_bbox: Sequence[float]) -> float:
+    """Fraction of the text box inside the cell."""
+    ix1, iy1 = max(text_bbox[0], cell_bbox[0]), max(text_bbox[1],
+                                                    cell_bbox[1])
+    ix2, iy2 = min(text_bbox[2], cell_bbox[2]), min(text_bbox[3],
+                                                    cell_bbox[3])
+    inter = max(0.0, ix2 - ix1) * max(0.0, iy2 - iy1)
+    area = max((text_bbox[2] - text_bbox[0])
+               * (text_bbox[3] - text_bbox[1]), 1e-9)
+    return inter / area
+
+
+def find_top1_match(text_cell: OcrCell,
+                    cell_bboxes: Sequence[Sequence[float]]) -> Optional[int]:
+    """Best structure cell for one text box (see
+    :func:`assign_texts_to_cells`)."""
+    return assign_texts_to_cells([text_cell], cell_bboxes)[0]
+
+
+def assign_texts_to_cells(text_cells: Sequence[OcrCell],
                           cell_bboxes: Sequence[Sequence[float]]
                           ) -> List[Optional[int]]:
     """Best structure cell per text box: overlap ratio >= 0.5 first, else
@@ -78,12 +87,12 @@ def assign_texts_to_cells(text_cells: Sequence[TextCell],
     return out
 
 
-def sort_reading_order(cells: List[TextCell]) -> List[TextCell]:
+def sort_reading_order(cells: List[OcrCell]) -> List[OcrCell]:
     """Top-to-bottom lines, left-to-right within a line."""
     if not cells:
         return []
     out = sorted(cells, key=lambda c: (c.y1, c.x1))
-    lines: List[List[TextCell]] = []
+    lines: List[List[OcrCell]] = []
     for c in out:
         for line in lines:
             ref = line[-1]
@@ -142,21 +151,31 @@ def cells_to_html(cells: List[Dict[str, Any]],
 
 
 class OcrTableToHtmlTask:
-    """(tsr_result, page text cells) -> HTML table string, cell path only
-    (the token path of SLANet/TableMaster is not ported yet)."""
+    """(tsr_result, page text cells) -> HTML table string, cell path only:
+    the token path of SLANet/TableMaster needs ``TableMatch``, which comes
+    with those models (ROADMAP.md Queue 1 item 8). ``ocr_post_process``
+    applies the per-cell OCR text fixes of :mod:`.ocr_fixes`."""
+
+    def __init__(self, ocr_post_process: bool = False):
+        self.ocr_post_process = ocr_post_process
+
+    def _fix(self, text: str) -> str:
+        return ocr_fixes.ocr_post_process(text) if self.ocr_post_process \
+            else text
 
     def __call__(self, tsr_result: Dict[str, Any],
-                 text_cells: Sequence[TextCell] = ()) -> str:
+                 text_cells: Sequence[OcrCell] = ()) -> str:
         if tsr_result.get("structure_tokens"):
             raise NotImplementedError(
-                "token-path table HTML is not ported yet")
+                "token-path table HTML needs TableMatch, which comes with "
+                "SLANet/TableMaster (ROADMAP.md Queue 1 item 8)")
         cells = tsr_result.get("cells", [])
         if not cells or not any("logic" in c for c in cells):
             return "<table></table>"
         ox, oy = tsr_result.get("offset", (0, 0))
         page_bboxes = [[c["bbox"][0] + ox, c["bbox"][1] + oy,
                         c["bbox"][2] + ox, c["bbox"][3] + oy] for c in cells]
-        assigned: Dict[int, List[TextCell]] = {}
+        assigned: Dict[int, List[OcrCell]] = {}
         for t, i in zip(text_cells,
                         assign_texts_to_cells(text_cells, page_bboxes)):
             if i is not None:
@@ -165,5 +184,6 @@ class OcrTableToHtmlTask:
         for i in range(len(cells)):
             inside = sort_reading_order(assigned.get(i, []))
             texts.append(html_mod.escape(
-                " ".join((t.text or "").strip() for t in inside).strip()))
+                " ".join(self._fix((t.text or "").strip())
+                         for t in inside).strip()))
         return cells_to_html(cells, texts)

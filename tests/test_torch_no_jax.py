@@ -3,7 +3,10 @@ imported: a fresh interpreter imports pdf_table_tpu_torch, runs the tiny
 wireless and wtw LORE slices on the CPU down to table HTML, the detection
 slice (full width, small detector input) down to page quads and the
 recognition lane (full width, 0/180 classifier on, an axis-aligned and a
-rotated quad) down to texts, and lists what got imported."""
+rotated quad) down to texts, and lists what got imported. A second fresh
+interpreter runs the layout lane (PicoDet, full backbone, small input) and
+the port's ``BatchPipeline.run`` over three pages, two buckets, with every
+lane on small configs and the 0/180 classifier on, down to page HTML."""
 
 import json
 import os
@@ -63,3 +66,60 @@ def test_slice_runs_without_jax():
     assert res == {"bad": [], "html": True, "wtw_html": True,
                    "quads": [[4, 2], [4, 2]], "texts": [["str", "str"]],
                    "scores": [2]}
+
+
+_PIPELINE_SCRIPT = r"""
+import json, sys
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from pdf_table_tpu_torch.tasks.layout import OcrLayoutTask
+tiny = dict(img_height=64, img_width=64, neck_channels=32, head_convs=1)
+layout = OcrLayoutTask(device="cpu", task_type="table", score_threshold=0.0,
+                       keep_top_k=2, **tiny)
+pages = np.full((2, 1280, 960, 3), 255, np.uint8)
+pages[:, ::40] = 20
+cells = layout.batch_infer_from_pages(pages)
+from pdf_table_tpu_torch.pipeline.batch_runner import BatchPipeline
+from pdf_table_tpu_torch.pipeline.system import OcrSystemConfig
+from pdf_table_tpu_torch.tasks.detection import OcrDetectionTask
+from pdf_table_tpu_torch.tasks.recognition import OcrRecognitionTask
+from pdf_table_tpu_torch.tasks.table_structure import OcrTableStructureTask
+bp = BatchPipeline(OcrSystemConfig(use_orientation_cls=False), batch_pages=2,
+                   device="cpu")
+bp.system._det = OcrDetectionTask(device="cpu", limit_side_len=64,
+                                  thresh=0.45, box_thresh=0.0)
+bp.system._layout = layout
+bp.system._rec = OcrRecognitionTask(device="cpu", width_buckets=(80,))
+bp.system._tsr = OcrTableStructureTask(
+    model="Lore", task_type="wireless", device="cpu", resolution=(64, 64),
+    max_objs=8, hidden_size=32, head_conv=16, tsfm_layers=1,
+    stacking_layers=1, num_heads=4, max_fmp_size=64, d_ff=64)
+orig = bp._boxes_finish
+bp._boxes_finish = lambda *a: [np.concatenate([q, np.array(
+    [[[70, 60], [300, 60], [300, 82], [70, 82]]], np.float32)])
+    for q in orig(*a)]
+imgs = [pages[0][:1200, :900], pages[1][:1000], pages[0][:1500, :1100]]
+out = bp.run([{"image": im, "page": i} for i, im in enumerate(imgs)])
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "pdf_table_tpu"))
+print(json.dumps({"bad": bad, "layout": [len(c) for c in cells],
+                  "pages": [o.page for o in out],
+                  "errors": [o.metric.get("error") for o in out],
+                  "html": [bool(o.page_html) for o in out],
+                  "texts": [len(o.text_cells) >= 1 for o in out],
+                  "cls": bp.system.rec_task.cls_task is not None}))
+"""
+
+
+def test_layout_and_pipeline_run_without_jax():
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    out = subprocess.run([sys.executable, "-c", _PIPELINE_SCRIPT], cwd=root,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"bad": [], "layout": [2, 2], "pages": [0, 1, 2],
+                   "errors": [None, None, None], "html": [True] * 3,
+                   "texts": [True] * 3, "cls": True}

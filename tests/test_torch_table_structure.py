@@ -19,8 +19,8 @@ from pdf_table_tpu_torch.engine.params import (init_lore,
                                                perturb_conv_offset_mask)
 from pdf_table_tpu_torch.models.lore.config import LoreConfig
 from pdf_table_tpu_torch.tasks.table_structure import OcrTableStructureTask
-from pdf_table_tpu_torch.tasks.table_to_html import (OcrTableToHtmlTask,
-                                                     TextCell)
+from pdf_table_tpu_torch.entity.ocr_cell import OcrCell as TOcrCell
+from pdf_table_tpu_torch.tasks.table_to_html import OcrTableToHtmlTask
 
 torch.set_num_threads(1)
 
@@ -124,6 +124,7 @@ def test_html_with_texts_matches_jax():
              ((102, 72, 136, 84), "line 1"), ((125, 62, 155, 82), "edge"),
              ((300, 300, 320, 310), "outside"), ((182, 92, 215, 106), "&")]
     want = JTableToHtml()(tsr, [OcrCell.from_bbox(b, t) for b, t in boxes])
-    got = OcrTableToHtmlTask()(tsr, [TextCell(b, t) for b, t in boxes])
+    got = OcrTableToHtmlTask()(tsr, [TOcrCell.from_bbox(b, t)
+                                     for b, t in boxes])
     assert got == want
     assert "a&lt;b" in got and "left right" in got
