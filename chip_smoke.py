@@ -85,7 +85,25 @@ Phases, each fatal on failure:
      idle share. On 2 of the pages the card is held against the same
      pipeline on the CPU: quads to 1 px, layout survivors equal, texts
      equal on at least 98 % of crops, page_html byte-equal where its
-     inputs are equal.
+     inputs are equal;
+ 10. train: LORE training at full width (LoreConfig.wtw(), f32, B = 4,
+     1024^2), K1 made differentiable by DeformConv2dFunction. (a) At the
+     7 DCN shapes of a wtw step (16 calls), the Function's forward and its
+     gradients (dx, doffset, dmask, dW, dbias) against autograd of the
+     plain version on the card, plus one bf16 shape each through K1 and
+     K2, also held on dyadic inputs against f64 autograd of
+     deform_conv2d_rounded (the backward's bf16 rounding points, to f32
+     round-off); forward and backward ms per DCN and per step beside
+     their bounds. (b) LoreTrainer on 4 synthetic wired tables, constant
+     schedule: the first step against the same step of a plain_dcn model
+     from the same tree (loss terms, the gradient norm, the unreached
+     leaves, the largest parameter difference after the step), every
+     params leaf with a finite gradient, K1 launched 16 times a counted
+     step (32 under remat, whose stage-by-stage checkpoints must lower
+     the step's memory), the loss falling over 8 steps on the one
+     batch, median step ms, images/s, peak memory, idle share of a traced
+     step. (c) save_train_state, restore into a fresh trainer: its next
+     step equals the live one bit for bit (deterministic algorithms on).
 Prints the card line, one {"kernels": [...]} line, and as the last line
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -199,6 +217,28 @@ PIPE_CPU_PAGES = 2
 PIPE_LORE_KW = dict(dtype="float32", vis_thresh=VIS_THRESH)
 PIPE_QUAD_TOL = 1.0
 PIPE_TEXT_MIN = 0.98
+# train phase: the wtw step at full width, f32, B = 4 (LoreTrainArgs'
+# default); the first step through the kernel against the plain-DCN model
+# (f32 on both sides, sums in another order): each loss term, the global
+# gradient norm; the Function's gradients against autograd of the plain
+# version per DCN shape (relative to each gradient's max), f32 and bf16
+# (autograd of the bf16 plain versions accumulates dx in bf16, and the
+# flat-kc dW sums corners rounded one by one)
+TRAIN_BATCH = 4
+TRAIN_STEPS = 8
+TRAIN_LR = 1e-4
+TRAIN_LOSS_TOL = 1e-5
+TRAIN_NORM_TOL = 1e-4
+TRAIN_GRAD_TOL = 1e-4
+TRAIN_BF16_GRAD_TOL = 3e-2
+# the bf16 backward on dyadic inputs against f64 autograd of
+# deform_conv2d_rounded (the rounding points written out as casts): the
+# rounded values agree exactly, the f32 gradients to round-off; the bf16
+# ones (dx, and dW through the Function) within bf16's unit roundoff, as a
+# correct rounding is
+TRAIN_ROUNDED_TOL = 1e-6
+BF16_ROUNDOFF = 2.0 ** -8
+TRAIN_BF16_SHAPE = (2, 64, 64, 64, 64)       # (B, H, W, Cin, Cout)
 
 
 class SmokeFailure(RuntimeError):
@@ -615,7 +655,7 @@ def phase_resize(gen):
 
 
 def kernels_line(rows, launches: dict, fk_rows, fk_launches: dict,
-                 rn_rows, rn_launches: dict) -> dict:
+                 rn_rows, rn_launches: dict, train_rows) -> dict:
     """One entry per TPU kernel. deform_conv2d (K1, the tap mode): times
     summed over the 16 DCN calls of one forward of the wireless slice's
     sub-batch (B=8 at 768^2, bf16), ``wtw_forward`` over the 11 tap-mode
@@ -630,7 +670,11 @@ def kernels_line(rows, launches: dict, fk_rows, fk_launches: dict,
     shape rule picks (the vector body; ``scalar_ms`` is the other body at
     the same shape, ``buckets`` both at the three page buckets).
     ``shapes`` lists every checked shape with its errors and, where timed,
-    its times."""
+    its times. K1's ``train`` is the training step's (B = 4 at 1024^2,
+    f32, 16 calls): the Function's forward and the plain backward summed
+    over the step beside their bounds, and its checked shapes, the bf16
+    gradient check's included (K2's ``train_shapes``: its bf16 gradient
+    check)."""
     keys = ("ms", "plain_ms", "bound_ms", "library_ms")
 
     def total(rs):
@@ -653,18 +697,36 @@ def kernels_line(rows, launches: dict, fk_rows, fk_launches: dict,
     rn_buckets = [{k: r[k] for k in ("canvas", "det", "ms", "scalar_ms",
                                      "eager_ms", "bound_ms", "x_bound")}
                   for r in rn_rows if "ms" in r]
+    t32 = [r for r in train_rows if r["dtype"] == "float32"]
+
+    def step_sum(get):
+        return sum(get(r) * r["calls_per_step"] for r in t32)
+
+    bwd = {k: step_sum(lambda r: r["backward"][k])
+           for k in ("ops_ms", "bytes_ms", "columns_bytes_ms")}
+    train = {
+        "launches_per_step": sum(r["calls_per_step"] for r in t32),
+        "forward_ms": step_sum(lambda r: r["forward_ms"]),
+        "forward_bound_ms": step_sum(lambda r: r["forward_bound_ms"]),
+        "backward_ms": step_sum(lambda r: r["backward_ms"]),
+        "backward_bound_ms": max(bwd["ops_ms"], bwd["bytes_ms"]),
+        "backward_bound_by": "operations"
+        if bwd["ops_ms"] >= bwd["bytes_ms"] else "bytes", **{
+            f"backward_{k}": v for k, v in bwd.items()},
+        "shapes": [r for r in train_rows if r["mode"] == "tap"]}
     return {"kernels": [{
         "name": "deform_conv2d", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES, "launches": sum(launches.values()),
         "launches_by_path": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows), **main,
+        "max_abs_err": max(r["max_abs_err"] for r in rows + t32), **main,
         "wtw_forward": wtw, "f32_forward": f32[768],
         "f32_buckets": {str(c): f32[c] for c in (512, 384)},
-        "shapes": rows}, {
+        "train": train, "shapes": rows}, {
         "name": "deform_conv2d_flat_kc", "route": "cuda", "source": SOURCE,
         "replaces": FK_REPLACES, "launches": sum(fk_launches.values()),
         "launches_by_path": fk_launches,
         "max_abs_err": max(r["max_abs_err"] for r in fk_rows), **fk,
+        "train_shapes": [r for r in train_rows if r["mode"] == "flat_kc"],
         "shapes": fk_rows}, {
         "name": "resize_normalize", "route": "cuda", "source": RN_SOURCE,
         "replaces": RN_REPLACES, "launches": sum(rn_launches.values()),
@@ -1821,6 +1883,365 @@ def phase_pipeline(card, layout_v):
     return launches
 
 
+def dcn_backward_bound(b, h, w, cin, cout):
+    """Least time for one f32 DCN backward: max(ops / f32 peak, bytes /
+    rate). Operations: dW = colsᵀ @ dout and dcols = dout @ W[t]ᵀ, 2 x 2 x
+    P x 9 x Cin x Cout. Bytes: x, offset, mask, W and dout read once, dx,
+    doffset, dmask, dW and dbias written once (``bytes_ms``); with the 9
+    tap columns (P x 9 x Cin f32) written and read once more, as an
+    unfused backward must (``columns_bytes_ms``)."""
+    px = b * h * w
+    flops = 4 * px * 9 * cin * cout
+    io = 2 * (px * cin * 4 + px * 27 * 4 + 9 * cin * cout * 4) \
+        + px * cout * 4 + cout * 4
+    cols = 2 * px * 9 * cin * 4
+    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    t_bytes = io / PEAK_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes), "ops_ms": t_ops,
+            "bytes_ms": t_bytes, "columns_bytes_ms": (io + cols)
+            / PEAK_BYTES * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def grad_errors(got, want) -> dict:
+    """Each gradient's max |got - want| over its max |want|."""
+    names = ("dx", "doffset", "dmask", "dweight", "dbias")
+    return {n: float((g.float() - w.float()).abs().max()
+                     / w.float().abs().max().clamp_min(1e-30))
+            for n, g, w in zip(names, got, want)}
+
+
+def dyadic_inputs(gen, b, h, w, cin, cout):
+    """bf16 DCN inputs and dout on coarse binary grids (x in 1/16 within
+    +-2, offsets in 1/8 px within +-2.5, the mask in 1/16, W in 1/64 within
+    +-1/2, dout in 1/8 within +-1): the sums the backward rounds to bf16
+    are exact in f32, so f64 rounds them the same way."""
+    import torch
+
+    def grid(shape, lo, hi, step):
+        return torch.randint(lo, hi + 1, shape, device="cuda",
+                             generator=gen).float() * step
+
+    args = (grid((b, h, w, cin), -32, 32, 1 / 16).bfloat16(),
+            grid((b, h, w, 18), -20, 20, 1 / 8),
+            grid((b, h, w, 9), 0, 16, 1 / 16),
+            grid((3, 3, cin, cout), -32, 32, 1 / 64).bfloat16(),
+            torch.randn(cout, device="cuda", generator=gen))
+    return args, grid((b, h, w, cout), -8, 8, 1 / 8)
+
+
+def rounding_points(args, gout, flat_kc, got):
+    """The bf16 backward's rounding points: ``got`` (the Function's
+    gradients) and the backward called with an f32 copy of W (dW before
+    its final rounding) against f64 autograd of deform_conv2d_rounded.
+    Returns each gradient's error: relative to its max for the f32 ones;
+    for dx and the Function's dW (bf16) the largest |error| over |want| in
+    units of 2^-8, at most 1 for a bf16 rounding of the f64 value."""
+    import torch
+
+    from pdf_table_tpu_torch.ops.deform_conv import (
+        deform_conv2d_backward_plain, deform_conv2d_rounded)
+
+    ts = [a.detach().double().requires_grad_() for a in args]
+    want = torch.autograd.grad(
+        deform_conv2d_rounded(*ts, flat_kc=flat_kc), ts, gout.double())
+    x, off, mask, wt, bias = args
+    dw32 = deform_conv2d_backward_plain(gout, x, off, mask, wt.float(), bias,
+                                        flat_kc=flat_kc)[3]
+
+    def rel(g, r):
+        return float((g.double() - r).abs().max()
+                     / r.abs().max().clamp_min(1e-30))
+
+    def ulps(g, r):
+        slack = TRAIN_ROUNDED_TOL * r.abs().max()
+        return float(((g.double() - r).abs() - slack).clamp_min(0).div(
+            r.abs().clamp_min(1e-30)).max() / BF16_ROUNDOFF)
+
+    return {"doffset": rel(got[1], want[1]), "dmask": rel(got[2], want[2]),
+            "dbias": rel(got[4], want[4]), "dweight_f32": rel(dw32, want[3]),
+            "dx_ulps": ulps(got[0], want[0]),
+            "dweight_ulps": ulps(got[3], want[3])}
+
+
+def phase_train_dcn(gen):
+    """The Function at the 7 DCN shapes of a wtw step (B = 4, 1024^2, f32)
+    and one bf16 shape each through K1 and K2: forward against the plain
+    version, gradients against autograd of the plain version; the bf16
+    shapes on dyadic inputs also against f64 autograd of
+    deform_conv2d_rounded (the backward's rounding points); forward and
+    backward ms per DCN."""
+    import torch
+
+    from pdf_table_tpu_torch.ops.deform_conv import (
+        deform_conv2d, deform_conv2d_backward_plain, deform_conv2d_chunked,
+        deform_conv2d_chunked_plain, deform_conv2d_plain, deform_conv2d_tap)
+    from pdf_table_tpu_torch.ops.kernels import launch_counts
+
+    def grads(fn, args, gout):
+        ts = [a.detach().requires_grad_() for a in args]
+        out = fn(*ts)
+        return out.detach(), torch.autograd.grad(out, ts, gout)
+
+    rows = []
+    cases = [(hw, ci, co, n, "float32", TRAIN_BATCH, "tap")
+             for hw, ci, co, n in DCN_SHAPES_1024]
+    b, h, w, ci, co = TRAIN_BF16_SHAPE
+    cases += [(h, ci, co, 0, "bfloat16", b, "tap"),
+              (h, ci, co, 0, "bfloat16", b, "flat_kc")]
+    for hw, cin, cout, calls, dname, B, mode in cases:
+        if dname == "float32":
+            args = dcn_inputs(gen, B, hw, hw, cin, cout, torch.float32)
+            gout = torch.randn(B, hw, hw, cout, device="cuda", generator=gen)
+        else:
+            args, gout = dyadic_inputs(gen, B, hw, hw, cin, cout)
+        fn, plain, name = (deform_conv2d, deform_conv2d_plain,
+                           "deform_conv2d")
+        if mode == "flat_kc":
+            fn, plain, name = (deform_conv2d_chunked,
+                               deform_conv2d_chunked_plain,
+                               "deform_conv2d_flat_kc")
+        elif dname == "bfloat16":
+            fn = deform_conv2d_tap
+        n0 = launch_counts[name]
+        got, g_k = grads(fn, args, gout)
+        torch.cuda.synchronize()
+        check(launch_counts[name] == n0 + 1, f"{name} did not launch once "
+              f"under grad mode")
+        want, g_p = grads(plain, args, gout)
+        tag = f"train {name} {B}x{hw}^2 {cin}->{cout} {dname}"
+        abs_err, rel = errors(got, want)
+        check(rel < TOL[dname], f"{tag}: forward rel err {rel:.3g}")
+        gerr = grad_errors(g_k, g_p)
+        tol = TRAIN_GRAD_TOL if dname == "float32" else TRAIN_BF16_GRAD_TOL
+        check(max(gerr.values()) < tol, f"{tag}: gradients {gerr}")
+        row = {"batch": B, "hw": hw, "cin": cin, "cout": cout,
+               "dtype": dname, "mode": mode, "calls_per_step": calls,
+               "max_abs_err": abs_err, "rel_err": rel, "grad_rel_err": gerr}
+        if dname == "bfloat16":
+            rp = rounding_points(args, gout, mode == "flat_kc", g_k)
+            row["rounding_points"] = rp
+            check(max(v for k, v in rp.items() if "ulps" not in k)
+                  < TRAIN_ROUNDED_TOL and rp["dx_ulps"] <= 1
+                  and rp["dweight_ulps"] <= 1,
+                  f"{tag}: the backward's rounding points {rp}")
+        del g_k, g_p, got, want
+        if dname == "float32":
+            with torch.no_grad():
+                fwd_ms = cuda_ms(lambda: deform_conv2d_tap(*args), 10)
+            bwd_ms = cuda_ms(lambda: deform_conv2d_backward_plain(
+                gout, *args), 5, 1)
+            row.update(forward_ms=fwd_ms, backward_ms=bwd_ms,
+                       forward_bound_ms=dcn_bound(B, hw, hw, cin, cout,
+                                                  dname)[0],
+                       backward=dcn_backward_bound(B, hw, hw, cin, cout))
+        rows.append(row)
+        del args, gout
+    torch.cuda.empty_cache()
+    return rows
+
+
+def train_tree(cfg):
+    """The seeded wtw tree with its offset convs perturbed (the deform
+    convs sample between pixels and outside the maps)."""
+    from pdf_table_tpu_torch.engine.params import (init_lore,
+                                                   perturb_conv_offset_mask)
+
+    return perturb_conv_offset_mask(init_lore(cfg, seed=0), seed=1)
+
+
+def new_trainer(cfg, tree, out_dir, **kw):
+    from pdf_table_tpu_torch.train.lore_trainer import (LoreTrainArgs,
+                                                        LoreTrainer)
+
+    args = dict(learning_rate=TRAIN_LR, lr_schedule="constant",
+                batch_size=TRAIN_BATCH, save_every=0, output_dir=out_dir)
+    args.update(kw)
+    tr = LoreTrainer(cfg, LoreTrainArgs(**args))
+    tr.init_state(tree)
+    return tr
+
+
+def phase_train(card, dcn_rows):
+    """LoreTrainer at full width on the card: the kernel step against the
+    plain-DCN step, gradients on every leaf, launches, the loss over
+    TRAIN_STEPS steps, step time and memory, then bit-exact resume. The
+    checkpoints go to a temporary directory, removed at the end."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as out_dir:
+        return train_steps(card, dcn_rows, out_dir)
+
+
+def train_steps(card, dcn_rows, out_dir):
+    import numpy as np
+    import torch
+
+    from pdf_table_tpu_torch.data.synthetic import SyntheticTableDataset
+    from pdf_table_tpu_torch.models.lore.config import LoreConfig
+    from pdf_table_tpu_torch.models.lore.dla import DeformConvBlock
+    from pdf_table_tpu_torch.ops.deform_conv import deform_conv2d_plain
+    from pdf_table_tpu_torch.ops.kernels import (KERNELS, launch_counts,
+                                                 reset_launch_counts)
+    from pdf_table_tpu_torch.train.optim import global_norm
+    from pdf_table_tpu_torch.train.train_step import value_and_grad
+
+    cfg = LoreConfig.wtw()
+    check(cfg.dtype == "float32", "the wtw config is not f32")
+    t0 = time.perf_counter()
+    tree = train_tree(cfg)
+    batch = SyntheticTableDataset(cfg, n=TRAIN_BATCH, seed=0).batch(
+        list(range(TRAIN_BATCH)))
+    data_s = time.perf_counter() - t0
+    kern = new_trainer(cfg, tree, out_dir)
+    plain = new_trainer(cfg, tree, out_dir)
+    for m in plain.model.modules():
+        if isinstance(m, DeformConvBlock):
+            m.dcn = deform_conv2d_plain
+    dev_batch = kern.to_device(batch)
+
+    # (b) the first step: kernel against plain, on the same tree and batch
+    res = {}
+    for name, tr in (("kernel", kern), ("plain", plain)):
+        losses, grads = value_and_grad(tr.apply, tr.loss, tr.state.params,
+                                       dev_batch)
+        unreached = sorted(k for k, g in grads.items() if g is None)
+        reached = [g for g in grads.values() if g is not None]
+        res[name] = {
+            "losses": {k: float(v) for k, v in losses.items()},
+            "norm": float(global_norm(reached)), "unreached": unreached,
+            "finite": all(bool(torch.isfinite(g).all()) for g in reached),
+            "zero_leaves": sorted(k for k, g in grads.items()
+                                  if g is not None and not bool(g.any()))}
+        del grads, reached
+        torch.cuda.empty_cache()
+    rk, rp = res["kernel"], res["plain"]
+    loss_err = {k: abs(rk["losses"][k] - v) / max(abs(v), 1e-30)
+                for k, v in rp["losses"].items()}
+    norm_err = abs(rk["norm"] - rp["norm"]) / rp["norm"]
+    n_leaves = len(kern.state.params)
+
+    # the counted step, then the plain step: parameters after one step
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    first = kern.train_step(batch)
+    torch.cuda.synchronize()
+    launches = {k: launch_counts[k] for k in KERNELS}
+    first_plain = plain.train_step(batch)
+    param_diff = max(float((kern.state.params[k] - p).detach().abs().max())
+                     for k, p in plain.state.params.items())
+    del plain
+    torch.cuda.empty_cache()
+
+    # the loss over TRAIN_STEPS steps on the one batch; step time, memory
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [first["loss"]], []
+    for _ in range(TRAIN_STEPS - 1):
+        t0 = time.perf_counter()
+        losses.append(kern.train_step(batch)["loss"])
+        step_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = statistics.median(step_s) * 1e3
+    prof = profile_run(lambda: kern.train_step(batch))
+    prof.pop("kernel_names")
+
+    # remat: the stages checkpointed; the recompute launches K1 again. The
+    # first step is counted and held to the kernel step; the second is
+    # timed and its memory read, as the steps above
+    remat = new_trainer(cfg, tree, out_dir, remat=True)
+    reset_launch_counts()
+    remat_first = remat.train_step(batch)
+    remat_launches = launch_counts["deform_conv2d"]
+    torch.cuda.synchronize()
+    remat_held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    remat.train_step(batch)
+    remat_ms = (time.perf_counter() - t0) * 1e3
+    remat_peak = torch.cuda.max_memory_allocated()
+    del remat
+    torch.cuda.empty_cache()
+
+    # (c) save, restore into a fresh trainer, one step each: bit for bit
+    ck = kern.save_train_state(os.path.join(out_dir, "train_state"))
+    back = new_trainer(cfg, tree, out_dir)
+    back.restore_train_state(ck)
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        live = kern.train_step(batch)
+        again = back.train_step(batch)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    resume_equal = live == again and kern.state.step == back.state.step \
+        and all(torch.equal(p, back.state.params[k])
+                for k, p in kern.state.params.items()) \
+        and all(torch.equal(kern.state.opt_state[n][k],
+                            back.state.opt_state[n][k])
+                for n in ("mu", "nu") for k in kern.state.params)
+
+    f32 = [r for r in dcn_rows if r["dtype"] == "float32"]
+
+    def per_step(key):
+        return sum(r[key] * r["calls_per_step"] for r in f32)
+
+    summary = {
+        "card": card, "config": "LoreConfig.wtw()", "dtype": cfg.dtype,
+        "batch": TRAIN_BATCH, "resolution": list(cfg.resolution),
+        "data_s": data_s, "launches": launches,
+        "remat_launches": remat_launches,
+        "first_step": {"kernel": rk, "plain": rp, "loss_rel_err": loss_err,
+                       "norm_rel_err": norm_err,
+                       "param_max_abs_diff": param_diff,
+                       "plain_step_loss": first_plain["loss"],
+                       "remat_step_loss": remat_first["loss"]},
+        "leaves": n_leaves, "losses": losses, "step_ms_median": step_ms,
+        "step_ms_min": min(step_s) * 1e3, "step_ms_max": max(step_s) * 1e3,
+        "images_per_s": TRAIN_BATCH / (step_ms / 1e3),
+        "peak_mem_gib": peak / 2 ** 30,
+        "step_mem_gib": (peak - held) / 2 ** 30,
+        "remat_peak_mem_gib": remat_peak / 2 ** 30,
+        "remat_step_mem_gib": (remat_peak - remat_held) / 2 ** 30,
+        "remat_step_ms": remat_ms,
+        "dcn_forward_ms_per_step": per_step("forward_ms"),
+        "dcn_backward_ms_per_step": per_step("backward_ms"),
+        "profile": prof, "resume_bit_exact": resume_equal,
+    }
+    print(json.dumps({"train": summary}))
+    check(all(e < TRAIN_LOSS_TOL for e in loss_err.values()),
+          f"train: kernel and plain loss terms differ: {loss_err}")
+    check(norm_err < TRAIN_NORM_TOL,
+          f"train: gradient norms differ by {norm_err:.3g}")
+    check(rk["finite"] and rp["finite"], "train: a gradient is not finite")
+    check(rk["unreached"] == rp["unreached"]
+          and all(".heads.st" in k or ".project." in k
+                  for k in rk["unreached"]),
+          f"train: leaves without a gradient: {rk['unreached'][:8]}")
+    check(not rk["zero_leaves"], f"train: zero gradients on "
+          f"{rk['zero_leaves'][:8]}")
+    check(launches["deform_conv2d"] == 16
+          and launches["deform_conv2d_flat_kc"] == 0
+          and launches["resize_normalize"] == 0,
+          f"train: a step launched {launches}, expected K1 16 times")
+    check(remat_launches == 32, f"train: a remat step launched K1 "
+          f"{remat_launches} times, expected 32")
+    check(abs(remat_first["loss"] - first["loss"])
+          <= TRAIN_LOSS_TOL * abs(first["loss"]),
+          f"train: the remat step's loss {remat_first['loss']} differs "
+          f"from the kernel step's {first['loss']}")
+    check(remat_peak - remat_held < peak - held,
+          f"train: remat did not lower the step's memory: "
+          f"{(remat_peak - remat_held) / 2 ** 30:.3f} GiB against "
+          f"{(peak - held) / 2 ** 30:.3f}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"train: the loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    check(resume_equal, "train: the restored step differs from the live one")
+    return launches
+
+
 def demangle(sym: str) -> str:
     """The kernel's name (and integer template arguments) in a mangled
     symbol: the length-prefixed identifier that ends in "kernel"."""
@@ -1869,6 +2290,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    # cuBLAS is deterministic only with a fixed workspace; the train
+    # phase's resume check runs under deterministic algorithms
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from pdf_table_tpu_torch.engine.device import set_float_precision
     from pdf_table_tpu_torch.ops.kernels import KERNELS, build
@@ -1896,17 +2320,22 @@ def main() -> int:
     phase_recognition(card)
     layout_v = phase_layout(card)
     pipe = phase_pipeline(card, layout_v)
+    train_rows = phase_train_dcn(gen)
+    train = phase_train(card, train_rows)
     check("jax" not in sys.modules and "pdf_table_tpu" not in sys.modules,
           "the port imported JAX or the JAX package")
     launches = {"lore_wireless": wireless["deform_conv2d"],
                 "lore_wtw": wtw["deform_conv2d"],
-                "pipeline": pipe["deform_conv2d"]}
+                "pipeline": pipe["deform_conv2d"],
+                "train": train["deform_conv2d"]}
     print(card)
     print(json.dumps(kernels_line(
         rows, launches, fk_rows,
         {"lore_wtw": wtw["deform_conv2d_flat_kc"],
-         "pipeline": pipe["deform_conv2d_flat_kc"]}, rn_rows,
-        {"detection": rn_launches, "pipeline": pipe["resize_normalize"]})))
+         "pipeline": pipe["deform_conv2d_flat_kc"],
+         "train": train["deform_conv2d_flat_kc"]}, rn_rows,
+        {"detection": rn_launches, "pipeline": pipe["resize_normalize"],
+         "train": train["resize_normalize"]}, train_rows)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

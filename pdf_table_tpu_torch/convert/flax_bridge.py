@@ -22,7 +22,8 @@ pdf_table_tpu/convert/torch_to_flax.py):
   deform-conv function takes as it is; ``bias`` and RefNorm ``alpha`` too.
 
 Inputs are nested dicts of numpy-convertible arrays; nothing here imports
-JAX.
+JAX. :func:`state_dict_to_flax` goes the other way (the trainer keeps its
+checkpoints in the flax layout, so that the inference tasks load them).
 """
 
 from __future__ import annotations
@@ -46,16 +47,57 @@ def tree_leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()
 
 
 def flax_leaf_to_torch(leaf: str, a: np.ndarray, transposed: bool = False
-                       ) -> Tuple[str, np.ndarray]:
-    """(flax param name, array) -> (torch param name, array);
+                       ) -> np.ndarray:
+    """The array of the flax param named ``leaf`` in the torch layout;
     ``transposed`` marks the kernel of a flax ``nn.ConvTranspose``."""
     if leaf == "kernel" and transposed:
-        return "weight", a.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+        return a.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
     if leaf == "kernel":
-        return "weight", (a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T)
-    if leaf in ("scale", "embedding"):
-        return "weight", a
-    return leaf, a
+        return a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+    return a
+
+
+def torch_leaf_to_flax(leaf: str, t: torch.Tensor, transposed: bool = False
+                       ) -> torch.Tensor:
+    """The inverse of :func:`flax_leaf_to_torch`."""
+    if leaf == "kernel" and transposed:
+        return t.flip(2, 3).permute(2, 3, 0, 1)
+    if leaf == "kernel":
+        return t.permute(2, 3, 1, 0) if t.dim() == 4 else t.T
+    return t
+
+
+def state_dict_name(path: Tuple[str, ...], collection: str = "params"
+                    ) -> str:
+    """The state_dict key of the flax leaf at ``path`` in ``collection``."""
+    if collection == "batch_stats":
+        name = _STATS[path[-1]]
+    else:
+        name = "weight" if path[-1] in ("kernel", "scale", "embedding") \
+            else path[-1]
+    return ".".join(path[:-1] + (name,))
+
+
+def state_dict_to_flax(sd: Mapping[str, torch.Tensor],
+                       like: Mapping[str, Any],
+                       transposed: AbstractSet[str] = frozenset()
+                       ) -> Dict[str, Any]:
+    """state_dict-named tensors -> a flax variables tree shaped like
+    ``like`` (its "params" and, where present, "batch_stats"), each leaf a
+    contiguous tensor in the flax layout on its own device. Every leaf of
+    ``like`` must be in ``sd``."""
+    out: Dict[str, Any] = {}
+    for col in ("params", "batch_stats"):
+        for path, _ in tree_leaves(like.get(col, {})):
+            t = sd[state_dict_name(path, col)]
+            if col == "params":
+                t = torch_leaf_to_flax(path[-1], t,
+                                       ".".join(path[:-1]) in transposed)
+            node = out.setdefault(col, {})
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = t.contiguous()
+    return out
 
 
 def flax_to_state_dict(variables: Mapping[str, Any],
@@ -65,14 +107,14 @@ def flax_to_state_dict(variables: Mapping[str, Any],
     ``transposed`` names the modules (dotted paths) that are flax
     ``nn.ConvTranspose``."""
     out: Dict[str, torch.Tensor] = {}
-    for path, arr in tree_leaves(variables["params"]):
-        name, a = flax_leaf_to_torch(path[-1], np.asarray(arr, np.float32),
-                                     ".".join(path[:-1]) in transposed)
-        out[".".join(path[:-1] + (name,))] = torch.from_numpy(
-            np.array(a, np.float32, order="C"))
-    for path, arr in tree_leaves(variables.get("batch_stats", {})):
-        out[".".join(path[:-1] + (_STATS[path[-1]],))] = torch.from_numpy(
-            np.array(arr, np.float32, order="C"))
+    for col in ("params", "batch_stats"):
+        for path, arr in tree_leaves(variables.get(col, {})):
+            a = np.asarray(arr, np.float32)
+            if col == "params":
+                a = flax_leaf_to_torch(path[-1], a,
+                                       ".".join(path[:-1]) in transposed)
+            out[state_dict_name(path, col)] = torch.from_numpy(
+                np.array(a, np.float32, order="C"))
     return out
 
 

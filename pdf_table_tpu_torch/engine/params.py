@@ -12,11 +12,19 @@ the bilinear upsample kernel, a zero ``conv_offset_mask`` and the -2.19
 ``hm_out`` bias. The numbers differ from a JAX PRNG init (another
 generator); the structure is the same, so the weight bridge moves either
 tree.
+
+:func:`save_params`, :func:`save_params_async` / :func:`wait_for_async_saves`
+and :func:`load_params` keep a tree (nested dicts of tensors, arrays and
+numbers) in the port's own format: ``torch.save`` of host tensors, one
+``tree.pt`` in the checkpoint directory. JAX's orbax directories are not
+read (orbax is not on the card's machine).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import os
+import threading
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -32,6 +40,76 @@ from ..models.lore.dla import (DeformConvBlock, DepthwiseUpsample,
 from ..models.lore.processor_model import RefNorm
 from ..models.picodet.config import PicoDetConfig
 from ..models.rec_ctc.config import RecConfig
+
+
+CKPT_FILE = "tree.pt"
+
+
+def _to_host(tree: Any) -> Any:
+    """The tree with every tensor and array as a host tensor (a copy)."""
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, np.ndarray):
+        return torch.from_numpy(np.array(tree))
+    return tree
+
+
+def _write(host_tree: Any, ckpt_dir: str) -> None:
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, CKPT_FILE)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(host_tree, tmp)
+    os.replace(tmp, path)
+
+
+def save_params(variables: Any, ckpt_dir: str) -> None:
+    """Write ``variables`` (any tree of dicts, tensors, arrays and numbers)
+    to ``ckpt_dir``, replacing what is there."""
+    _write(_to_host(variables), os.path.abspath(ckpt_dir))
+
+
+_pending: Optional[threading.Thread] = None
+_pending_error: list = []
+
+
+def save_params_async(variables: Any, ckpt_dir: str) -> threading.Thread:
+    """:func:`save_params` whose file write runs on a thread, so that the
+    next training steps overlap it; the device-to-host copy is made here,
+    so later in-place updates do not reach the checkpoint. One save is in
+    flight at a time. Call :func:`wait_for_async_saves` before reading the
+    checkpoint or exiting."""
+    global _pending
+    wait_for_async_saves()
+    host = _to_host(variables)
+    path = os.path.abspath(ckpt_dir)
+
+    def run():
+        try:
+            _write(host, path)
+        except Exception as e:  # re-raised by wait_for_async_saves
+            _pending_error.append(e)
+
+    _pending = threading.Thread(target=run, daemon=True)
+    _pending.start()
+    return _pending
+
+
+def wait_for_async_saves() -> None:
+    """Block until the save in flight is written; raise its error."""
+    global _pending
+    if _pending is not None:
+        _pending.join()
+        _pending = None
+    if _pending_error:
+        raise _pending_error.pop()
+
+
+def load_params(ckpt_dir: str) -> Any:
+    """The tree :func:`save_params` wrote, host tensors as leaves."""
+    return torch.load(os.path.join(os.path.abspath(ckpt_dir), CKPT_FILE),
+                      map_location="cpu", weights_only=True)
 
 
 def _set(tree: Dict[str, Any], path, value) -> None:

@@ -9,7 +9,7 @@ either path."""
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -145,6 +145,33 @@ class LoreModel(nn.Module):
         return torch.cat([fo["dets"], fo["scores"][..., None],
                           fo["valid"].float()[..., None], fo["centers"],
                           logi, stacked], dim=-1)
+
+    def train_forward(self, pixel_values: torch.Tensor, hm_ind: torch.Tensor,
+                      gt_dets: torch.Tensor, hm_mask: torch.Tensor,
+                      cc_match: Optional[torch.Tensor] = None
+                      ) -> Dict[str, torch.Tensor]:
+        """Teacher-forced training path: the regressor reads features
+        gathered at the ground-truth centres ``hm_ind`` (B, M) and corners
+        (``gt_dets`` (B, M, 8), rounded, or the deduplicated integer
+        positions ``cc_match`` (B, M, 4) when given), masked by ``hm_mask``.
+        BatchNorm runs on its stored statistics whatever ``self.training``
+        says, as the JAX step does (``train=False``); gradients still reach
+        its scale and bias. Returns ``heads`` (NHWC f32), ``hm`` (sigmoid),
+        ``logi`` and ``stacked_logi``."""
+        out = self.heads(pixel_values)
+        B, H, W, _ = out["hm"].shape
+        ax_feat = gather_feat(out["ax"].reshape(B, H * W, -1), hm_ind)
+        if cc_match is not None:
+            M = cc_match.shape[1]
+            cr = gather_feat(out["cr"].reshape(B, H * W, -1),
+                             cc_match.reshape(B, M * 4))
+            cr_feat = cr.reshape(B, M, 4, -1).sum(dim=2)
+        else:
+            cr_feat = gather_corner_features(out["cr"], gt_dets)
+        logi, stacked = self.processor(ax_feat + cr_feat, dets=gt_dets,
+                                       mask=hm_mask)
+        return {"heads": out, "hm": torch.sigmoid(out["hm"]), "logi": logi,
+                "stacked_logi": stacked if stacked is not None else logi}
 
     def forward_packed(self, pixel_values: torch.Tensor) -> torch.Tensor:
         """Normalized crops -> the packed (B, K, 20) output (layout

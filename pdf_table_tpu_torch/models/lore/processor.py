@@ -1,24 +1,104 @@
 """LORE pre/post processing (counterpart of
 pdf_table_tpu/models/lore/processor.py).
 
-Pre: CenterNet normalization constants (the crop warp itself runs on the
-device, ops/warp.py). Post: map K-slot device outputs back to image coords,
-round logical axes, filter by validity, emit {"cells": [{"bbox", "poly",
-"logic", "score"}]}, then snap cell edges to shared grid lines.
+Pre: the host preprocess of the training data, without cv2 (the inference
+crops are warped on the device, ops/warp.py): the upper-left (or centred)
+affine to the static resolution, BGR flip and CenterNet normalization.
+Post: map K-slot device outputs back to image coords, round logical axes,
+filter by validity, emit {"cells": [{"bbox", "poly", "logic", "score"}]},
+then snap cell edges to shared grid lines.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence
+from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 
 from .config import LoreConfig
 
 
+def invert_affine(mat: np.ndarray) -> np.ndarray:
+    """The inverse of a 2x3 affine in f64, as ``cv2.invertAffineTransform``
+    computes it."""
+    m = np.asarray(mat, np.float64)
+    d = m[0, 0] * m[1, 1] - m[0, 1] * m[1, 0]
+    d = 1.0 / d if d != 0 else 0.0
+    a11, a22 = m[1, 1] * d, m[0, 0] * d
+    a12, a21 = -m[0, 1] * d, -m[1, 0] * d
+    return np.array([[a11, a12, -a11 * m[0, 2] - a12 * m[1, 2]],
+                     [a21, a22, -a21 * m[0, 2] - a22 * m[1, 2]]])
+
+
+def warp_affine_linear(image: np.ndarray, mat: np.ndarray,
+                       size: Tuple[int, int]) -> np.ndarray:
+    """``cv2.warpAffine(image, mat, size, flags=cv2.INTER_LINEAR)`` on an
+    f32 (H, W, C) image, border constant 0, in numpy: destination pixel
+    (x, y) (no half-pixel centres) samples the source at ``inv(mat) @ (x, y,
+    1)``, computed in f32, bilinearly, corners outside the image reading 0.
+    OpenCV 5 computes f32 images' source coordinates in floating point (the
+    1/32-px fixed point of older releases is gone): this stays within 1e-3
+    grey levels of it on 0..255 images."""
+    h, w = image.shape[:2]
+    out_w, out_h = size
+    inv = invert_affine(mat).astype(np.float32)
+    xs = np.arange(out_w, dtype=np.float32)[None, :]
+    ys = np.arange(out_h, dtype=np.float32)[:, None]
+    sx = inv[0, 0] * xs + (inv[0, 1] * ys + inv[0, 2])
+    sy = inv[1, 0] * xs + (inv[1, 1] * ys + inv[1, 2])
+    x0 = np.floor(sx)
+    y0 = np.floor(sy)
+    ax = (sx - x0)[..., None]
+    ay = (sy - y0)[..., None]
+    x0 = x0.astype(np.int64)
+    y0 = y0.astype(np.int64)
+    src = np.asarray(image, np.float32)
+
+    def corner(dy, dx):
+        yy, xx = y0 + dy, x0 + dx
+        ok = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+        v = src[np.clip(yy, 0, h - 1), np.clip(xx, 0, w - 1)]
+        return v * ok[..., None]
+
+    one = np.float32(1)
+    return (corner(0, 0) * ((one - ax) * (one - ay))
+            + corner(0, 1) * (ax * (one - ay))) \
+        + (corner(1, 0) * ((one - ax) * ay) + corner(1, 1) * (ax * ay))
+
+
 class LorePreProcessor:
+    """``__call__(image)``: uint8 RGB (H, W, 3) -> {"image": (1, inp_h,
+    inp_w, 3) f32 normalized BGR, "meta": {c, s, org_shape, out_h,
+    out_w}}, the JAX package's cv2 preprocess (``processor.py:30-53``)."""
+
     MEAN = np.array([0.408, 0.447, 0.470], np.float32)
     STD = np.array([0.289, 0.274, 0.278], np.float32)
+
+    def __init__(self, config: LoreConfig):
+        self.config = config
+
+    def __call__(self, image: np.ndarray) -> Dict[str, Any]:
+        cfg = self.config
+        h, w = image.shape[:2]
+        inp_h, inp_w = cfg.resolution
+        s = max(h, w) * 1.0
+        scale = inp_w / s
+        if cfg.upper_left:
+            # [0, s] -> [0, inp], corner-anchored
+            mat = np.array([[scale, 0, 0], [0, scale, 0]], np.float32)
+            c = np.array([0.0, 0.0], np.float32)
+        else:
+            c = np.array([w / 2.0, h / 2.0], np.float32)
+            mat = np.array([[scale, 0, inp_w / 2 - scale * c[0]],
+                            [0, scale, inp_h / 2 - scale * c[1]]],
+                           np.float32)
+        warped = warp_affine_linear(image[:, :, ::-1].astype(np.float32),
+                                    mat, (inp_w, inp_h))
+        norm = (warped / 255.0 - self.MEAN) / self.STD
+        return {"image": norm[None].astype(np.float32),
+                "meta": {"c": c, "s": s, "org_shape": (h, w),
+                         "out_h": inp_h // cfg.down_ratio,
+                         "out_w": inp_w // cfg.down_ratio}}
 
 
 def merge_positions(vals: Sequence[float], tol: float = 5.0) -> List[float]:

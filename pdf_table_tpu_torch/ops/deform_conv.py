@@ -18,6 +18,12 @@ contraction in one pass), which differ only in where they round to bf16:
   :func:`deform_conv2d_chunked_plain`.
 
 Each kernel raises on what it does not take.
+
+On a CUDA tensor both modes run inside :class:`DeformConv2dFunction`
+(which records no graph under ``no_grad``), whose backward is
+:func:`deform_conv2d_backward_plain` in plain PyTorch (JAX computes the
+custom VJPs of ``deform_blend.py`` in XLA too: ``_tap_bwd`` :243,
+``_bwd`` :125).
 """
 
 from __future__ import annotations
@@ -133,12 +139,13 @@ def flat_kc_route(b: int, ho: int, wo: int, cin: int, k: int, cout: int,
 
 
 def _sample_points(offset: torch.Tensor, Ho: int, Wo: int, Kh: int, Kw: int,
-                   stride: Pair, padding: Pair, dilation: Pair):
-    """Sample coordinates (sy, sx), each (B, Ho, Wo, K) f32."""
+                   stride: Pair, padding: Pair, dilation: Pair,
+                   dtype: torch.dtype = torch.float32):
+    """Sample coordinates (sy, sx), each (B, Ho, Wo, K) in ``dtype``."""
     B = offset.shape[0]
     K = Kh * Kw
     dev = offset.device
-    f32 = torch.float32
+    f32 = dtype
     oy = torch.arange(Ho, device=dev, dtype=f32) * stride[0] - padding[0]
     ox = torch.arange(Wo, device=dev, dtype=f32) * stride[1] - padding[1]
     ky = torch.arange(Kh, device=dev, dtype=f32) * dilation[0]
@@ -210,6 +217,52 @@ def deform_conv2d_plain(x: torch.Tensor, offset: torch.Tensor,
     if bias is not None:
         out = out + bias.to(f32)
     return out
+
+
+def deform_conv2d_rounded(x: torch.Tensor, offset: torch.Tensor,
+                          mask: torch.Tensor, weight: torch.Tensor,
+                          bias: Optional[torch.Tensor] = None,
+                          stride: Pair = (1, 1), padding: Pair = (1, 1),
+                          dilation: Pair = (1, 1),
+                          flat_kc: bool = False) -> torch.Tensor:
+    """The DCN in x's dtype (f64 for a reference) with the kernel's bf16
+    roundings written out as casts: the column in tap mode (K1); each
+    corner weight and each corner's product in flat-kc mode (K2). Autograd
+    of a cast rounds the gradient at the same point, so autograd of this
+    function rounds where :func:`deform_conv2d_backward_plain` claims to
+    (``dcol``; the corner weights' gradients in flat-kc mode). On dyadic
+    inputs, whose sums at those points are exact in f32, the two agree to
+    f32 round-off."""
+    B, H, W, Cin = x.shape
+    Kh, Kw, _, Cout = weight.shape
+    Ho, Wo = _out_hw(H, W, Kh, Kw, stride, padding, dilation)
+    dt = x.dtype
+
+    def rnd(t):
+        return t.to(torch.bfloat16).to(dt)
+
+    sy, sx = _sample_points(offset.to(dt), Ho, Wo, Kh, Kw, stride, padding,
+                            dilation, dt)
+    y0, x0 = torch.floor(sy), torch.floor(sx)
+    wy, wx = sy - y0, sx - x0
+    yi, xi = y0.long(), x0.long()
+    bi = torch.arange(B, device=x.device).reshape(B, 1, 1)
+    m = mask.to(dt)
+    out = torch.zeros(B, Ho, Wo, Cout, device=x.device, dtype=dt)
+    for t in range(Kh * Kw):
+        col = 0
+        for dy, dx in _CORNERS:
+            yy, xx = yi[..., t] + dy, xi[..., t] + dx
+            ok = (yy >= 0) & (yy < H) & (xx >= 0) & (xx < W)
+            w = (wy[..., t] if dy else 1 - wy[..., t]) \
+                * (wx[..., t] if dx else 1 - wx[..., t]) * ok * m[..., t]
+            rows = x[bi, yy.clamp(0, H - 1), xx.clamp(0, W - 1)]
+            col = col + (rnd(rows * rnd(w)[..., None]) if flat_kc
+                         else rows * w[..., None])
+        if not flat_kc:
+            col = rnd(col)
+        out = out + col @ weight[t // Kw, t % Kw].to(dt)
+    return out if bias is None else out + bias.to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -439,18 +492,146 @@ def _device_type(x: torch.Tensor) -> str:
     return x.device.type
 
 
+# ---------------------------------------------------------------------------
+# the backward
+# ---------------------------------------------------------------------------
+
+
+def deform_conv2d_backward_plain(grad_out: torch.Tensor, x: torch.Tensor,
+                                 offset: torch.Tensor, mask: torch.Tensor,
+                                 weight: torch.Tensor,
+                                 bias: Optional[torch.Tensor] = None,
+                                 stride: Pair = (1, 1),
+                                 padding: Pair = (1, 1),
+                                 dilation: Pair = (1, 1),
+                                 flat_kc: bool = False):
+    """Gradients ``(dx, doffset, dmask, dweight, dbias)`` of the DCN for
+    ``grad_out`` (B, Ho, Wo, Cout), one tap at a time, in f32, each
+    returned in its input's dtype (``dbias`` None without a bias):
+
+    - ``dW[t] = colᵀ @ dout`` and ``dcol = dout @ W[t]ᵀ``, as JAX's
+      ``_tap_bwd`` (``deform_blend.py:243``);
+    - ``dx``: the adjoint of the 4-corner gather, each corner's weighted
+      ``dcol`` added at its pixel (``index_add_``), the out-of-image corners
+      weighted 0 as in :func:`tap_columns`;
+    - ``dmask`` and ``doffset`` from ``dcol · corner row`` and the
+      derivatives of the lerp weights; the gradient through ``floor`` is
+      zero, as in JAX.
+
+    For bf16 x it rounds where the plain versions round, so that it is the
+    gradient of what the kernel computes: in tap mode (K1) ``dW`` comes from
+    the column rounded once (:func:`tap_columns`); in flat-kc mode (K2,
+    ``flat_kc=True``) from each corner's rounded product, with the corner
+    weights rounded (:func:`flat_kc_chunks`); ``dcol`` is rounded, as
+    autograd of either plain version rounds it, and so is each corner
+    weight's gradient in flat-kc mode."""
+    B, H, W, Cin = x.shape
+    Kh, Kw, _, Cout = weight.shape
+    Ho, Wo = _out_hw(H, W, Kh, Kw, stride, padding, dilation)
+    K = Kh * Kw
+    P = B * Ho * Wo
+    f32 = torch.float32
+    low = x.dtype == torch.bfloat16
+
+    def rnd(t):
+        return t.to(x.dtype).to(f32) if low else t
+
+    g = grad_out.reshape(P, Cout).to(f32)
+    sy, sx = _sample_points(offset, Ho, Wo, Kh, Kw, stride, padding,
+                            dilation)
+    y0 = torch.floor(sy).reshape(P, K, 1)
+    x0 = torch.floor(sx).reshape(P, K, 1)
+    wy = sy.reshape(P, K, 1) - y0
+    wx = sx.reshape(P, K, 1) - x0
+    # the 4 corners along the last axis, in _CORNERS order
+    cy = torch.tensor([c[0] for c in _CORNERS], device=x.device)
+    cx = torch.tensor([c[1] for c in _CORNERS], device=x.device)
+    yy = y0.long() + cy
+    xx = x0.long() + cx
+    ok = ((yy >= 0) & (yy < H) & (xx >= 0) & (xx < W)).to(f32)
+    ly = torch.where(cy.bool(), wy, 1 - wy)                  # (P, K, 4)
+    lx = torch.where(cx.bool(), wx, 1 - wx)
+    lw = ly * lx * ok
+    m = mask.to(f32).reshape(P, K, 1)
+    w = lw * m
+    if flat_kc:
+        w = rnd(w)
+    row0 = (torch.arange(B, device=x.device) * (H * W)) \
+        .repeat_interleave(Ho * Wo)
+    idx = yy.clamp(0, H - 1) * W + xx.clamp(0, W - 1) + row0[:, None, None]
+    # d lerp / d sample coordinate: -1 for the near corner, +1 for the far
+    sign_y, sign_x = 2 * cy.to(f32) - 1, 2 * cx.to(f32) - 1
+    xf = x.reshape(B * H * W, Cin)
+    wmat = weight.to(f32).reshape(K, Cin, Cout)
+    dx = torch.zeros(B * H * W, Cin, device=x.device, dtype=f32)
+    dw = torch.empty(K, Cin, Cout, device=x.device, dtype=f32)
+    dm = torch.empty(P, K, device=x.device, dtype=f32)
+    doff = torch.empty(P, K, 2, device=x.device, dtype=f32)
+    for t in range(K):
+        dcol = rnd(g @ wmat[t].T)                              # (P, Cin)
+        it = idx[:, t].reshape(P * 4)
+        rows = xf.index_select(0, it).to(f32).reshape(P, 4, Cin)
+        wt = w[:, t, :, None]                                  # (P, 4, 1)
+        prod = rows * wt
+        col = (rnd(prod) if flat_kc else prod).sum(1)
+        if low and not flat_kc:
+            col = rnd(col)
+        dw[t] = col.T @ g
+        dx.index_add_(0, it, (dcol[:, None, :] * wt).reshape(P * 4, Cin))
+        dwc = (rows * dcol[:, None, :]).sum(2)   # d loss / d corner weight
+        if flat_kc:
+            dwc = rnd(dwc)
+        dm[:, t] = (dwc * lw[:, t]).sum(1)
+        dl = dwc * m[:, t] * ok[:, t]
+        doff[:, t, 0] = (dl * lx[:, t] * sign_y).sum(1)
+        doff[:, t, 1] = (dl * ly[:, t] * sign_x).sum(1)
+    dbias = None if bias is None else g.sum(0).to(bias.dtype)
+    return (dx.reshape(B, H, W, Cin).to(x.dtype),
+            doff.reshape(B, Ho, Wo, 2 * K).to(offset.dtype),
+            dm.reshape(B, Ho, Wo, K).to(mask.dtype),
+            dw.reshape(Kh, Kw, Cin, Cout).to(weight.dtype), dbias)
+
+
+class DeformConv2dFunction(torch.autograd.Function):
+    """The kernel on CUDA tensors, made differentiable: ``forward`` is one
+    launch of the tap mode (K1) or, with ``flat_kc``, the flat-kc mode
+    (K2); ``backward`` is :func:`deform_conv2d_backward_plain` in the same
+    mode (JAX's custom VJPs ``blend_matmul_tap`` / ``blend_matmul``,
+    ``deform_blend.py:229,114``)."""
+
+    @staticmethod
+    def forward(ctx, x, offset, mask, weight, bias, stride, padding,
+                dilation, flat_kc):
+        ctx.save_for_backward(x, offset, mask, weight, bias)
+        ctx.geometry = (stride, padding, dilation, flat_kc)
+        return _launch(flat_kc, x, offset, mask, weight, bias, stride,
+                       padding, dilation)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        x, offset, mask, weight, bias = ctx.saved_tensors
+        stride, padding, dilation, flat_kc = ctx.geometry
+        # the block permutes the output NHWC -> NCHW, so the gradient
+        # arrives strided
+        grads = deform_conv2d_backward_plain(
+            grad_out.contiguous(), x, offset, mask, weight, bias, stride,
+            padding, dilation, flat_kc)
+        return (*grads, None, None, None, None)
+
+
 def deform_conv2d_tap(x: torch.Tensor, offset: torch.Tensor,
                       mask: torch.Tensor, weight: torch.Tensor,
                       bias: Optional[torch.Tensor] = None,
                       stride: Pair = (1, 1), padding: Pair = (1, 1),
                       dilation: Pair = (1, 1)) -> torch.Tensor:
-    """The whole DCN in the kernel's tap mode (K1) on a CUDA tensor; the
-    plain version on a CPU tensor."""
+    """The whole DCN in the kernel's tap mode (K1) on a CUDA tensor,
+    differentiable; the plain version on a CPU tensor."""
     if _device_type(x) == "cpu":
         return deform_conv2d_plain(x, offset, mask, weight, bias, stride,
                                    padding, dilation)
-    return _launch(False, x, offset, mask, weight, bias, stride, padding,
-                   dilation)
+    return DeformConv2dFunction.apply(x, offset, mask, weight, bias,
+                                      tuple(stride), tuple(padding),
+                                      tuple(dilation), False)
 
 
 def deform_conv2d_chunked(x: torch.Tensor, offset: torch.Tensor,
@@ -459,14 +640,15 @@ def deform_conv2d_chunked(x: torch.Tensor, offset: torch.Tensor,
                           stride: Pair = (1, 1), padding: Pair = (1, 1),
                           dilation: Pair = (1, 1)) -> torch.Tensor:
     """The flat-kc route: the whole DCN, all taps, in one launch of the
-    kernel's flat-kc mode (K2) on a CUDA tensor; on a CPU tensor
-    :func:`deform_conv2d_chunked_plain` in JAX's tap chunks, which changes
-    only the order of the f32 sums."""
+    kernel's flat-kc mode (K2) on a CUDA tensor, differentiable; on a CPU
+    tensor :func:`deform_conv2d_chunked_plain` in JAX's
+    tap chunks, which changes only the order of the f32 sums."""
     if _device_type(x) == "cpu":
         return deform_conv2d_chunked_plain(x, offset, mask, weight, bias,
                                            stride, padding, dilation)
-    return _launch(True, x, offset, mask, weight, bias, stride, padding,
-                   dilation)
+    return DeformConv2dFunction.apply(x, offset, mask, weight, bias,
+                                      tuple(stride), tuple(padding),
+                                      tuple(dilation), True)
 
 
 def deform_conv2d(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,

@@ -6,7 +6,10 @@ recognition lane (full width, 0/180 classifier on, an axis-aligned and a
 rotated quad) down to texts, and lists what got imported. A second fresh
 interpreter runs the layout lane (PicoDet, full backbone, small input) and
 the port's ``BatchPipeline.run`` over three pages, two buckets, with every
-lane on small configs and the 0/180 classifier on, down to page HTML."""
+lane on small configs and the 0/180 classifier on, down to page HTML. A
+third runs the training slice: the LORE trainer on synthetic wired tables
+(``fit``, a checkpoint, a full-state save and restore), with neither JAX,
+flax, optax, orbax, cv2 nor PIL imported."""
 
 import json
 import os
@@ -123,3 +126,41 @@ def test_layout_and_pipeline_run_without_jax():
     assert res == {"bad": [], "layout": [2, 2], "pages": [0, 1, 2],
                    "errors": [None, None, None], "html": [True] * 3,
                    "texts": [True] * 3, "cls": True}
+
+
+_TRAIN_SCRIPT = r"""
+import json, sys, tempfile
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from pdf_table_tpu_torch.data.synthetic import SyntheticTableDataset
+from pdf_table_tpu_torch.models.lore.config import LoreConfig
+from pdf_table_tpu_torch.train.lore_trainer import LoreTrainArgs, LoreTrainer
+cfg = LoreConfig.wtw(resolution=(64, 64), max_objs=8, hidden_size=32,
+                     head_conv=16, tsfm_layers=1, stacking_layers=1,
+                     num_heads=4, max_fmp_size=64, d_ff=64)
+out = tempfile.mkdtemp()
+tr = LoreTrainer(cfg, LoreTrainArgs(batch_size=2, save_every=1,
+                                    lr_schedule="constant", output_dir=out),
+                 device="cpu")
+hist = tr.fit(SyntheticTableDataset(cfg, n=4), steps=2)
+ck = tr.save_train_state()
+tr2 = LoreTrainer(cfg, LoreTrainArgs(output_dir=out), device="cpu")
+tr2.restore_train_state(ck)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "flax", "optax", "orbax", "cv2", "PIL",
+    "pdf_table_tpu"))
+print(json.dumps({"bad": bad, "steps": len(hist), "step": tr2.state.step,
+                  "finite": all(np.isfinite(h["loss"]) for h in hist)}))
+"""
+
+
+def test_training_runs_without_jax():
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    out = subprocess.run([sys.executable, "-c", _TRAIN_SCRIPT], cwd=root,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"bad": [], "steps": 2, "step": 2, "finite": True}
