@@ -86,7 +86,34 @@ Phases, each fatal on failure:
      pipeline on the CPU: quads to 1 px, layout survivors equal, texts
      equal on at least 98 % of crops, page_html byte-equal where its
      inputs are equal;
- 10. train: LORE training at full width (LoreConfig.wtw(), f32, B = 4,
+ 10. tsr_slanet and tsr_master: OcrTableStructureTask(model="SLANet")
+     (488^2, LCNet 1.0, neck 96, hidden 256) and (model="TableMaster")
+     (480^2, D 512, 8 heads, ff 2024, N = 3), f32, T = 500 steps each, on
+     8 table regions of 4 synthetic pages resident on the card, through
+     batch_infer_from_pages: seeded trees calibrated on the card on the
+     task's own crops (SLANet: BatchNorm scale 0.2; TableMaster: its
+     variances x 4; the structure logits spread, TableMaster's <UKN>,
+     <SOS>, <PAD> out of reach), as the CPU tests' trees. The counted run
+     launches none of K1-K3 (the JAX lane reaches no Pallas kernel); crops/s
+     (median of runs), stage ms (crop + pre, encoder, decode, download,
+     host post), the decode's device launches, peak memory, idle share;
+     the card against the same port on the CPU on the first two crops
+     (one of each size): the inputs bit for bit, teacher-forced
+     probabilities and locs within 1e-4 (the CPU's greedy ids as the
+     teacher), greedy ids equal up to the CPU's first near-tie. Then
+     MtlTabNet: TableMaster's tree plus the
+     cell branch's parameters loads into the MtlTabNet task, whose
+     structure tokens must equal TableMaster's;
+ 11. pipeline arms: the pipeline phase's pages through BatchPipeline.run
+     with table_structure_model="SLANet" (16 pages) and then
+     "TableMaster" (8 pages, one chunk: its decodes are host-bound, some
+     2 s a sub-batch of 8) at full width, T = 500, on the trees of phase
+     10, built by the system from OcrSystemConfig.table_structure_kwargs:
+     a warm-up, one counted run (K3 once a chunk, K1 and K2 never, every
+     table a token result, every page with page_html), the median of the
+     timed runs (pages/s, lanes, peak memory), idle share; 2 pages (1 for
+     TableMaster) against the same pipeline on the CPU as in phase 9;
+ 12. train: LORE training at full width (LoreConfig.wtw(), f32, B = 4,
      1024^2), K1 made differentiable by DeformConv2dFunction. (a) At the
      7 DCN shapes of a wtw step (16 calls), the Function's forward and its
      gradients (dx, doffset, dmask, dW, dbias) against autograd of the
@@ -670,7 +697,9 @@ def kernels_line(rows, launches: dict, fk_rows, fk_launches: dict,
     shape rule picks (the vector body; ``scalar_ms`` is the other body at
     the same shape, ``buckets`` both at the three page buckets).
     ``shapes`` lists every checked shape with its errors and, where timed,
-    its times. K1's ``train`` is the training step's (B = 4 at 1024^2,
+    its times. ``launches_by_path`` names every counted path, the ones that
+    launch a kernel 0 times too (the token-model phases and arms launch K3
+    once a chunk of the detection lane and never K1 or K2). K1's ``train`` is the training step's (B = 4 at 1024^2,
     f32, 16 calls): the Function's forward and the plain backward summed
     over the step beside their bounds, and its checked shapes, the bf16
     gradient check's included (K2's ``train_shapes``: its bf16 gradient
@@ -930,16 +959,20 @@ def _trace(fn, activities):
     return wall_ms, events
 
 
-def profile_run(fn) -> dict:
+def profile_run(fn, full: bool = True) -> dict:
     """Two traces of one ``fn()`` each. The light one records device
     activity only, so its wall time carries little of the profiler's host
     cost: device busy time, wall time and the idle share of that one run.
-    The full one (host ops too) gives the top ops by device time, and its
+    The full one (host ops too; not with ``full=False``, which returns the
+    light one's numbers alone) gives the top ops by device time, and its
     own busy, wall and idle share."""
     from torch.profiler import ProfilerActivity
 
     wall, events = _trace(fn, [ProfilerActivity.CUDA])
     busy = sum(e.self_device_time_total for e in events) / 1e3
+    if not full:
+        return {"wall_ms": wall, "device_busy_ms": busy,
+                "idle_share": max(0.0, 1.0 - busy / wall) if busy else None}
     names = sorted({e.key for e in events})
     full_wall, full = _trace(fn, [ProfilerActivity.CPU,
                                   ProfilerActivity.CUDA])
@@ -1687,6 +1720,308 @@ def phase_layout(card):
     return tree
 
 
+# the token-model TSR phases (SLANet, TableMaster/MtlTabNet at full width,
+# 500 decode steps) on the LORE slice's 8 table regions of 4 pages
+TSR_PAGES = 4
+TSR_BOXES = ((70, 100, 880, 560), (70, 620, 880, 1150))
+TSR_RUNS = 5
+TSR_TEACHER_TOL = 1e-4  # card vs CPU: cuDNN and oneDNN sum in other orders
+TSR_TIE_GAP = 1e-4      # greedy ids compared up to the CPU's first near-tie
+TSR_CPU_CROPS = 2       # crops held against the CPU (one of each size)
+SLANET_BN_SCALE = 0.2   # LCNet: PicoDet's treatment (LAYOUT_BN_SCALE)
+SLANET_GAIN = 30.0      # structure logits spread (the CPU tests' trees)
+MASTER_VAR_GAIN = 4.0   # the residual encoder's variances, as the tests
+MASTER_GAIN = 10.0
+MASTER_SPECIAL_BIAS = -100.0   # <UKN>, <SOS>, <PAD>
+PIPE_TSR_RUNS = 3
+# the TableMaster arm decodes 16 crops a chunk at some 2 s a sub-batch of
+# 8 on the host's launches: one chunk of 8 pages, one page on the CPU
+PIPE_ARM_PAGES = {"SLANet": (PIPE_PAGES, PIPE_CPU_PAGES),
+                  "TableMaster": (8, 1)}
+PHASE_NAMES = {"SLANet": "tsr_slanet", "TableMaster": "tsr_master"}
+
+
+def tsr_inputs():
+    import numpy as np
+
+    pages = np.stack([make_page(i) for i in range(TSR_PAGES)])
+    regions = [(pi, box) for pi in range(TSR_PAGES) for box in TSR_BOXES]
+    return pages, regions
+
+
+def token_tree(model: str, dev_pages, regions, base=None):
+    """A seeded full-width tree for ``model`` calibrated on the card on the
+    task's own crops of ``regions``: SLANet with BatchNorm scale 0.2 and
+    its structure logits x SLANET_GAIN; TableMaster with its variances x
+    MASTER_VAR_GAIN, its class logits x MASTER_GAIN and <UKN>, <SOS>,
+    <PAD> out of reach (random weights emit <SOS> at every step
+    otherwise). MtlTabNet: ``base``, TableMaster's tree, plus the cell
+    branch's seeded parameters, so that its structure outputs must equal
+    TableMaster's."""
+    import torch
+
+    from pdf_table_tpu_torch.engine.params import (
+        calibrate_batch_stats, init_slanet, init_table_master,
+        scale_batch_variances, set_batch_norm_scale)
+    from pdf_table_tpu_torch.models.table_master.config import \
+        TableMasterConfig
+    from pdf_table_tpu_torch.models.table_master.vocab import (
+        MasterStructureVocab, load_pubtabnet_textline_alphabet)
+    from pdf_table_tpu_torch.tasks.table_structure import \
+        OcrTableStructureTask
+
+    if model == "MtlTabNet":
+        cfg = TableMasterConfig(variant="mtl_tabnet", cell_vocab_size=len(
+            load_pubtabnet_textline_alphabet()) + 4)
+        cell = init_table_master(cfg, 0)["params"]
+        params = dict(base["params"])
+        params.update({k: v for k, v in cell.items()
+                       if k.startswith(("cell", "fc_cell"))})
+        return {"params": params, "batch_stats": base["batch_stats"]}
+    task = OcrTableStructureTask(model=model, device="cuda")
+    cfg = task.model_config
+    (_sub, _metas, x), = task.sub_batches(dev_pages, regions)
+    net = task.model
+    if model == "SLANet":
+        net.forward = net.encode
+        tree = calibrate_batch_stats(
+            net, set_batch_norm_scale(init_slanet(cfg, 0), SLANET_BN_SCALE),
+            x)
+        tree["params"]["head"]["fc_struct1"] *= SLANET_GAIN
+    else:
+        net.forward = net.memory
+        tree = scale_batch_variances(calibrate_batch_stats(
+            net, init_table_master(cfg, 0), x), MASTER_VAR_GAIN)
+        tree["params"]["fc_cls"] *= MASTER_GAIN
+        v = MasterStructureVocab()
+        tree["params"]["fc_cls_b"][[v.unknown_id, v.sos_id, v.pad_id]] = \
+            MASTER_SPECIAL_BIAS
+    del net.forward
+    torch.cuda.synchronize()
+    return tree
+
+
+def near_tie(probs) -> int:
+    """First step whose top-1/top-2 gap is under TSR_TIE_GAP (the length
+    when none is)."""
+    import numpy as np
+
+    top2 = np.sort(probs, axis=-1)[..., -2:]
+    close = np.nonzero(top2[:, 1] - top2[:, 0] < TSR_TIE_GAP)[0]
+    return int(close[0]) if len(close) else len(probs)
+
+
+def split_decode(task):
+    """(encode, decode) of the task's model: SLANet's trunk + neck and
+    head, TableMaster's memory and decode."""
+    m = task.model
+    if task.model_name == "SLANet":
+        return m.encode, lambda f, teacher=None: m.head(f, teacher)
+    return m.memory, lambda f, teacher=None: m.decode(f, teacher)
+
+
+def device_launches(fn) -> int:
+    """Kernels launched on the card by one ``fn()``, from a device-only
+    trace."""
+    from torch.profiler import ProfilerActivity
+
+    _wall, events = _trace(fn, [ProfilerActivity.CUDA])
+    return sum(e.count for e in events)
+
+
+def tsr_stages(task, dev_pages, regions) -> dict:
+    """One sub-batch's stages, each timed alone (host_ms), and the
+    decode's launches."""
+    import torch
+
+    encode, decode = split_decode(task)
+    with torch.inference_mode():
+        (sub, metas, x), = task.sub_batches(dev_pages, regions)
+        feat = encode(x)
+        out = decode(feat)
+        packed = torch.cat([out["structure_probs"], out["loc_preds"]], -1)
+        packed_np = packed.cpu().numpy()
+        stages = {
+            "crop_pre": host_ms(lambda: list(task.sub_batches(dev_pages,
+                                                              regions))),
+            "encoder": host_ms(lambda: encode(x)),
+            "decode": host_ms(lambda: decode(feat), iters=3),
+            "download": host_ms(lambda: packed.cpu()),
+            "host_post": host_ms(lambda: [
+                task._post_one(packed_np[j:j + 1], m)
+                for j, m in enumerate(metas)]),
+        }
+        launches = device_launches(lambda: decode(feat))
+    steps = task.model_config.max_structure_len
+    return {"stage_ms": stages, "decode_launches": launches,
+            "decode_launches_per_step": launches / steps,
+            "crops": len(sub)}
+
+
+def tsr_agreement(task, cpu, dev_pages, pages, regions) -> dict:
+    """The card against the same port on the CPU on the first
+    TSR_CPU_CROPS crops (a full-width TableMaster encoder takes some 10 s
+    a crop on the card machine's CPU): the inputs bit for bit,
+    teacher-forced probabilities and locs (teacher: the CPU's greedy
+    ids), greedy ids up to the CPU's first near-tie. Each side encodes
+    once and decodes twice."""
+    import numpy as np
+    import torch
+
+    regions = regions[:TSR_CPU_CROPS]
+
+    def run(t, src, teacher=None):
+        encode, decode = split_decode(t)
+        (_s, _m, x), = t.sub_batches(src, regions)
+        feat = encode(x)
+        greedy = {k: v.cpu().numpy() for k, v in decode(feat).items()}
+        ids = torch.from_numpy(greedy["structure_probs"].argmax(-1))
+        forced = decode(feat, (ids if teacher is None else teacher)
+                        .to(x.device))
+        return (x.cpu(), greedy, {k: v.cpu().numpy()
+                                  for k, v in forced.items()}, ids)
+
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        xc, want, want_t, ids = run(cpu, pages)
+        cpu_s = time.perf_counter() - t0
+        x, got, got_t, _ = run(task, dev_pages, teacher=ids)
+    prefixes, equal = [], 0
+    for b in range(len(ids)):
+        t = near_tie(want["structure_probs"][b])
+        prefixes.append(t)
+        equal += bool((got["structure_probs"][b, :t].argmax(-1)
+                       == ids[b, :t].numpy()).all())
+    return {"inputs_equal": bool(torch.equal(x, xc)),
+            "teacher_probs_max_abs": float(np.abs(
+                got_t["structure_probs"] - want_t["structure_probs"]).max()),
+            "teacher_locs_max_abs": float(np.abs(
+                got_t["loc_preds"] - want_t["loc_preds"]).max()),
+            "greedy_prefixes": prefixes, "greedy_equal_crops": equal,
+            "crops": len(ids), "cpu_s": cpu_s,
+            "tokens_per_crop": [len(task.post.vocab.decode(r.tolist()))
+                                for r in ids]}
+
+
+def phase_tsr(card, model: str, pages, regions, base=None):
+    """``OcrTableStructureTask(model)`` at full width (T = 500) on 8 table
+    regions cut from the resident canvases, through
+    ``batch_infer_from_pages``: the counted run (no K1-K3 launch: the
+    lane reaches no Pallas kernel in JAX), crops/s (median of runs), stage
+    ms, the decode's launches, peak memory, idle share and agreement with
+    the same port on the CPU. Returns the tree and the launch counts."""
+    import numpy as np
+    import torch
+
+    from pdf_table_tpu_torch.ops.kernels import (KERNELS, launch_counts,
+                                                 reset_launch_counts)
+    from pdf_table_tpu_torch.tasks.table_structure import \
+        OcrTableStructureTask
+
+    t0 = time.perf_counter()
+    dev_pages = torch.from_numpy(pages).cuda()
+    tree = token_tree(model, dev_pages, regions, base)
+    task = OcrTableStructureTask(model=model, device="cuda", variables=tree)
+    build_s = time.perf_counter() - t0
+    cfg = task.model_config
+
+    # the main path, counted
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    results = task.batch_infer_from_pages(dev_pages, regions)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {k: launch_counts[k] for k in KERNELS}
+    check(sum(launches.values()) == 0,
+          f"the {model} lane launched {launches}")
+    kind = "slanet" if model == "SLANet" else "master"
+    vocab = set(task.post.vocab.tokens)
+    check(len(results) == len(regions)
+          and all(r["type"] == kind for r in results),
+          f"{model}: one {kind} result per region")
+    check(all(set(r["structure_tokens"]) <= vocab for r in results),
+          f"{model}: tokens outside the vocabulary")
+    check(all(np.isfinite(c["bbox"]).all() for r in results
+              for c in r["cells"]), f"{model}: cells are not finite")
+    check(sum(len(r["structure_tokens"]) for r in results) > 0,
+          f"{model}: no structure token")
+
+    torch.cuda.reset_peak_memory_stats()
+    run_s = []
+    for _ in range(TSR_RUNS):
+        t0 = time.perf_counter()
+        task.batch_infer_from_pages(dev_pages, regions)
+        run_s.append(time.perf_counter() - t0)
+    per_run = statistics.median(run_s)
+    peak = torch.cuda.max_memory_allocated()
+    stages = tsr_stages(task, dev_pages, regions)
+    prof = profile_run(lambda: task.batch_infer_from_pages(dev_pages,
+                                                           regions))
+    prof.pop("kernel_names")
+    cpu = OcrTableStructureTask(model=model, device="cpu", variables=tree)
+    agree = tsr_agreement(task, cpu, dev_pages, pages, regions)
+    summary = {
+        "card": card, "model": model, "variant": getattr(
+            cfg, "variant", "slanet"), "crops": len(regions),
+        "input": list(task.input_hw), "steps": cfg.max_structure_len,
+        "launches": launches, "model_build_s": build_s,
+        "first_run_s": first_s, "run_s_median": per_run,
+        "run_s_min": min(run_s), "run_s_max": max(run_s), "runs": len(run_s),
+        "crops_per_s": len(regions) / per_run,
+        "peak_mem_gib": peak / 2 ** 30, **stages, "profile": prof,
+        "tokens": [len(r["structure_tokens"]) for r in results],
+        "cells": [len(r["cells"]) for r in results],
+        "cpu": agree}
+    print(json.dumps({PHASE_NAMES[model]: summary}))
+    check(agree["inputs_equal"], f"{model}: the card's crops differ from "
+          f"the CPU's")
+    check(agree["teacher_probs_max_abs"] <= TSR_TEACHER_TOL
+          and agree["teacher_locs_max_abs"] <= TSR_TEACHER_TOL,
+          f"{model}: teacher-forced outputs differ from the CPU's: "
+          f"{agree['teacher_probs_max_abs']:.3g}, "
+          f"{agree['teacher_locs_max_abs']:.3g}")
+    check(agree["greedy_equal_crops"] == agree["crops"],
+          f"{model}: greedy ids differ from the CPU's before the first "
+          f"near-tie (prefixes {agree['greedy_prefixes']})")
+    return tree, results, launches
+
+
+def phase_mtl_tabnet(card, pages, regions, master_tree, master_results):
+    """MtlTabNet: TableMaster's tree plus the cell branch's parameters
+    loads into the MtlTabNet task, whose structure path must give
+    TableMaster's results (the cell branch is not decoded, as in JAX)."""
+    import torch
+
+    from pdf_table_tpu_torch.ops.kernels import (KERNELS, launch_counts,
+                                                 reset_launch_counts)
+    from pdf_table_tpu_torch.tasks.table_structure import \
+        OcrTableStructureTask
+
+    dev_pages = torch.from_numpy(pages).cuda()
+    tree = token_tree("MtlTabNet", dev_pages, regions, master_tree)
+    task = OcrTableStructureTask(model="MtlTabNet", device="cuda",
+                                 variables=tree)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    results = task.batch_infer_from_pages(dev_pages, regions)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {k: launch_counts[k] for k in KERNELS}
+    same = [a["structure_tokens"] == b["structure_tokens"]
+            for a, b in zip(results, master_results)]
+    print(json.dumps({"tsr_mtl_tabnet": {
+        "card": card, "variant": task.model_config.variant,
+        "cell_vocab_size": task.model_config.cell_vocab_size,
+        "launches": launches, "run_s": run_s,
+        "same_tokens_as_table_master": sum(same), "crops": len(same)}}))
+    check(sum(launches.values()) == 0, f"MtlTabNet launched {launches}")
+    check(all(same), "MtlTabNet's structure tokens differ from "
+          "TableMaster's on the same structure weights")
+    return launches
+
+
 def add_lines(quads, shapes):
     """bench.py's line grid (bench.py:90-121), copied: up to 30
     axis-aligned quads a page, after the detected ones."""
@@ -1709,12 +2044,14 @@ def add_lines(quads, shapes):
     return out
 
 
-def build_pipeline(device, trees):
+def build_pipeline(device, trees, tsr="Lore"):
     """The port's BatchPipeline with bench.py's configuration
     (bench.py:73-88): det thresholds, the table layout head, rec en, LORE
     wireless f32 with res_buckets="auto", no page orientation check, the
     0/180 textline classifier on; the line grid injected through
-    ``_boxes_finish``."""
+    ``_boxes_finish``. With ``tsr`` "SLANet" or "TableMaster" the system
+    builds that TSR task itself (full width, T = 500) on ``trees["tsr"]``
+    through ``OcrSystemConfig.table_structure_kwargs``."""
     from pdf_table_tpu_torch.pipeline.batch_runner import BatchPipeline
     from pdf_table_tpu_torch.pipeline.system import OcrSystemConfig
     from pdf_table_tpu_torch.tasks.cls_pulc import ClsImagePulcTask
@@ -1725,7 +2062,10 @@ def build_pipeline(device, trees):
         OcrTableStructureTask
 
     cfg = OcrSystemConfig(use_layout=True, use_table=True,
-                          use_orientation_cls=False)
+                          use_orientation_cls=False,
+                          table_structure_model=tsr)
+    if tsr != "Lore":
+        cfg.table_structure_kwargs = {"variables": trees["tsr"]}
     bp = BatchPipeline(cfg, batch_pages=8, device=device)
     s = bp.system
     s._det = OcrDetectionTask(model="PP-OCRv4_det", device=device, **DET_KW)
@@ -1735,9 +2075,10 @@ def build_pipeline(device, trees):
                                 device=device, variables=trees["rec"])
     s._line_cls = ClsImagePulcTask("textline_orientation", device=device,
                                    variables=trees["cls"])
-    s._tsr = OcrTableStructureTask(model="Lore", task_type="wireless",
-                                   device=device, variables=trees["lore"],
-                                   res_buckets="auto", **PIPE_LORE_KW)
+    if tsr == "Lore":
+        s._tsr = OcrTableStructureTask(model="Lore", task_type="wireless",
+                                       device=device, variables=trees["lore"],
+                                       res_buckets="auto", **PIPE_LORE_KW)
     orig = bp._boxes_finish
     bp._boxes_finish = lambda packed, shapes, bucket_hw, prob_hw: add_lines(
         orig(packed, shapes, bucket_hw, prob_hw), shapes)
@@ -1880,6 +2221,96 @@ def phase_pipeline(card, layout_v):
           f"texts equal on {cmp['text_share']:.3f} of crops")
     check(cmp["page_html_equal"] == cmp["page_html_checked"],
           "page_html differs where its inputs are equal")
+    return launches, trees
+
+
+def phase_pipeline_arm(card, trees, tsr: str, tsr_tree):
+    """The pipeline phase's run with ``tsr`` (SLANet or TableMaster at
+    full width, T = 500) in place of LORE, built by the system from
+    ``table_structure_model``: the same 16 pages, a warm-up, one counted
+    run (K3 once a chunk, K1 and K2 never), the median of timed runs
+    (pages/s, lanes, peak memory), idle share; 2 pages against the CPU."""
+    import re
+
+    import torch
+
+    from pdf_table_tpu_torch.ops.kernels import (KERNELS, launch_counts,
+                                                 reset_launch_counts)
+
+    n_pages, n_cpu = PIPE_ARM_PAGES[tsr]
+    imgs = [make_page(i) for i in range(n_pages)]
+    pages = [{"image": im, "page": i} for i, im in enumerate(imgs)]
+    trees = dict(trees, tsr=tsr_tree)
+    t0 = time.perf_counter()
+    bp = build_pipeline("cuda", trees, tsr)
+    bp.run(pages)                       # warm-up, builds the TSR task
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    check(bp.system.tsr_task.model_name == tsr, "the system built another "
+          "TSR model")
+    n_chunks = -(-n_pages // bp.batch_pages)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = bp.run(pages)
+    torch.cuda.synchronize()
+    counted_s = time.perf_counter() - t0
+    launches = {k: launch_counts[k] for k in KERNELS}
+    errors = [o.metric.get("error") for o in out if o.metric.get("error")]
+    check(len(out) == n_pages and not errors,
+          f"{tsr} pipeline: pages carry errors: {errors[:3]}")
+    check(all(o.page_html for o in out), f"{tsr} pipeline: a page has no "
+          f"page_html")
+    kind = "slanet" if tsr == "SLANet" else "master"
+    structs = [r for o in out for r in o.table_structures]
+    check(structs and all(r["type"] == kind for r in structs),
+          f"{tsr} pipeline: no table reached {tsr}")
+    check(launches["resize_normalize"] == n_chunks
+          and launches["deform_conv2d"] == 0
+          and launches["deform_conv2d_flat_kc"] == 0,
+          f"{tsr} pipeline launched {launches} for {n_chunks} chunks")
+
+    torch.cuda.reset_peak_memory_stats()
+    run_s, lanes = [], []
+    for _ in range(PIPE_TSR_RUNS):
+        t0 = time.perf_counter()
+        bp.run(pages)
+        run_s.append(time.perf_counter() - t0)
+        lanes.append(bp.last_stats)
+    per_run = statistics.median(run_s)
+    peak = torch.cuda.max_memory_allocated()
+    lane_ms = {k: statistics.median(st[k] for st in lanes) * 1e3
+               for k in lanes[0] if k != "n_pages"}
+    prof = profile_run(lambda: bp.run(pages), full=False)
+    few = pages[:n_cpu]
+    got = bp.run(few)
+    cpu = build_pipeline("cpu", trees, tsr)
+    t0 = time.perf_counter()
+    want = cpu.run(few)
+    cpu_s = time.perf_counter() - t0
+    cmp = pipeline_diff(got, want)
+    summary = {
+        "card": card, "tsr": tsr, "pages": n_pages, "chunks": n_chunks,
+        "launches": launches, "warm_up_s": warm_s, "counted_run_s": counted_s,
+        "run_s_median": per_run, "run_s_min": min(run_s),
+        "run_s_max": max(run_s), "runs": len(run_s),
+        "pages_per_s": n_pages / per_run,
+        "ms_per_page": per_run * 1e3 / n_pages, "lane_ms": lane_ms,
+        "peak_mem_gib": peak / 2 ** 30, "tables": len(structs),
+        "tokens": sum(len(r["structure_tokens"]) for r in structs),
+        "table_html_with_text": sum(
+            bool(re.search(r"<td[^>]*>[^<]+</td>", h))
+            for o in out for h in o.table_html),
+        "page_html_bytes": [len(o.page_html) for o in out[:4]],
+        "profile": prof, "cpu": {"run_s": cpu_s, **cmp}}
+    print(json.dumps({f"pipeline_{PHASE_NAMES[tsr][4:]}": summary}))
+    check(not [o for o in want if o.metric.get("error")],
+          f"the CPU {tsr} pipeline gave errors")
+    check(cmp["quads_same_count"] and cmp["quad_px"] <= PIPE_QUAD_TOL,
+          f"{tsr} pipeline: quads differ from the CPU's")
+    check(cmp["text_share"] >= PIPE_TEXT_MIN,
+          f"{tsr} pipeline: texts equal on {cmp['text_share']:.3f} of crops")
+    check(cmp["page_html_equal"] == cmp["page_html_checked"],
+          f"{tsr} pipeline: page_html differs where its inputs are equal")
     return launches
 
 
@@ -2319,23 +2750,38 @@ def main() -> int:
     rn_launches = phase_detection(card)
     phase_recognition(card)
     layout_v = phase_layout(card)
-    pipe = phase_pipeline(card, layout_v)
+    pipe, pipe_trees = phase_pipeline(card, layout_v)
+    tsr_pages, tsr_regions = tsr_inputs()
+    sla_tree, _, sla = phase_tsr(card, "SLANet", tsr_pages, tsr_regions)
+    tm_tree, tm_results, tm = phase_tsr(card, "TableMaster", tsr_pages,
+                                        tsr_regions)
+    mtl = phase_mtl_tabnet(card, tsr_pages, tsr_regions, tm_tree,
+                           tm_results)
+    pipe_sla = phase_pipeline_arm(card, pipe_trees, "SLANet", sla_tree)
+    pipe_tm = phase_pipeline_arm(card, pipe_trees, "TableMaster", tm_tree)
     train_rows = phase_train_dcn(gen)
     train = phase_train(card, train_rows)
     check("jax" not in sys.modules and "pdf_table_tpu" not in sys.modules,
           "the port imported JAX or the JAX package")
-    launches = {"lore_wireless": wireless["deform_conv2d"],
-                "lore_wtw": wtw["deform_conv2d"],
-                "pipeline": pipe["deform_conv2d"],
-                "train": train["deform_conv2d"]}
+
+    def by_path(name, **extra):
+        """A kernel's launches on every counted path that runs it or not:
+        the token-model phases and pipeline arms launch K3 once a chunk
+        (detection) and never K1 or K2."""
+        return {**extra, "pipeline": pipe[name], "tsr_slanet": sla[name],
+                "tsr_master": tm[name], "tsr_mtl_tabnet": mtl[name],
+                "pipeline_slanet": pipe_sla[name],
+                "pipeline_master": pipe_tm[name],
+                "train": train[name]}
+
     print(card)
     print(json.dumps(kernels_line(
-        rows, launches, fk_rows,
-        {"lore_wtw": wtw["deform_conv2d_flat_kc"],
-         "pipeline": pipe["deform_conv2d_flat_kc"],
-         "train": train["deform_conv2d_flat_kc"]}, rn_rows,
-        {"detection": rn_launches, "pipeline": pipe["resize_normalize"],
-         "train": train["resize_normalize"]}, train_rows)))
+        rows, by_path("deform_conv2d",
+                      lore_wireless=wireless["deform_conv2d"],
+                      lore_wtw=wtw["deform_conv2d"]), fk_rows,
+        by_path("deform_conv2d_flat_kc",
+                lore_wtw=wtw["deform_conv2d_flat_kc"]), rn_rows,
+        by_path("resize_normalize", detection=rn_launches), train_rows)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,12 +1,15 @@
 """Deterministic numpy-seeded initialization in the flax layout.
 
-:func:`init_lore`, :func:`init_dbnet`, :func:`init_rec`, :func:`init_cls`
-and :func:`init_picodet` return a ``{"params", "batch_stats"}`` tree with
-the paths and shapes the JAX package's ``LoreModel.init`` / ``DBNet.init``
-/ ``CTCRecModel.init`` / ``PPLCNetClassifier.init`` / ``PicoDet.init``
-give, filled with the
+:func:`init_lore`, :func:`init_dbnet`, :func:`init_rec`, :func:`init_cls`,
+:func:`init_picodet`, :func:`init_slanet` and :func:`init_table_master`
+return a ``{"params", "batch_stats"}`` tree with the paths and shapes the
+JAX package's ``LoreModel.init`` / ``DBNet.init`` / ``CTCRecModel.init`` /
+``PPLCNetClassifier.init`` / ``PicoDet.init`` / ``SLANet.init`` /
+``TableMaster.init`` give, filled with the
 flax initializers' kinds: lecun-normal conv / transposed-conv / dense
 kernels, zero biases, BN and LayerNorm scale/bias 1/0 and statistics 0/1;
+for the SLANet head and the TableMaster decoder's flat parameters
+xavier-uniform matrices, normal(0.02) embeddings, LayerNorm scales 1;
 for LORE also he-normal DCN weights,
 the bilinear upsample kernel, a zero ``conv_offset_mask`` and the -2.19
 ``hm_out`` bias. The numbers differ from a JAX PRNG init (another
@@ -40,6 +43,8 @@ from ..models.lore.dla import (DeformConvBlock, DepthwiseUpsample,
 from ..models.lore.processor_model import RefNorm
 from ..models.picodet.config import PicoDetConfig
 from ..models.rec_ctc.config import RecConfig
+from ..models.slanet.config import SLANetConfig
+from ..models.table_master.config import TableMasterConfig
 
 
 CKPT_FILE = "tree.pt"
@@ -251,6 +256,54 @@ def init_picodet(cfg: PicoDetConfig, seed: int = 0) -> Dict[str, Any]:
     return _init_modules(model, seed)
 
 
+def _init_flat(tree: Dict[str, Any], module: nn.Module, prefix: tuple,
+               rng: np.random.Generator) -> None:
+    """The flax-layout leaves of ``module``'s own raw parameters (the
+    SLANet head's and the TableMaster decoder's): (in, out) matrices
+    xavier-uniform, ``*embed`` tables normal(0.02), LayerNorm scales
+    (``*_ln{i}s``, ``fnorm_s``) 1, other vectors 0."""
+    for name, p in module.named_parameters(recurse=False):
+        shape = tuple(p.shape)
+        if len(shape) == 2 and "embed" in name:
+            a = rng.standard_normal(shape) * 0.02
+        elif len(shape) == 2:
+            limit = np.sqrt(6.0 / (shape[0] + shape[1]))
+            a = rng.uniform(-limit, limit, shape)
+        elif name == "fnorm_s" or ("_ln" in name and name.endswith("s")):
+            a = np.ones(shape)
+        else:
+            a = np.zeros(shape)
+        _set(tree["params"], prefix + (name,), a.astype(np.float32))
+
+
+def init_slanet(cfg: SLANetConfig, seed: int = 0) -> Dict[str, Any]:
+    """The SLANet tree: the PicoDet LCNet and CSP-PAN leaves, the head's
+    flat parameters."""
+    from ..models.slanet.model import SLANet
+
+    with torch.device("meta"):
+        model = SLANet(cfg)
+    tree = _init_modules(model, seed)
+    _init_flat(tree, model.head, ("head",),
+               np.random.default_rng([seed, 1]))
+    return tree
+
+
+def init_table_master(cfg: TableMasterConfig, seed: int = 0
+                      ) -> Dict[str, Any]:
+    """The TableMaster / MtlTabNet tree: the encoder's convs, BatchNorm and
+    context-block LayerNorms, ``mem_proj`` where C != D, the decoder's flat
+    parameters (the cell branch's too for ``variant="mtl_tabnet"`` with a
+    ``cell_vocab_size``)."""
+    from ..models.table_master.model import TableMaster
+
+    with torch.device("meta"):
+        model = TableMaster(cfg)
+    tree = _init_modules(model, seed)
+    _init_flat(tree, model, (), np.random.default_rng([seed, 1]))
+    return tree
+
+
 def set_batch_norm_scale(variables: Dict[str, Any], value: float
                          ) -> Dict[str, Any]:
     """Copy of ``variables`` with every BatchNorm ``scale`` set to
@@ -264,6 +317,23 @@ def set_batch_norm_scale(variables: Dict[str, Any], value: float
         if path[0] == "params" and path[-1] == "scale" \
                 and ("bn",) == path[-2:-1]:
             a = np.full_like(a, value)
+        _set(out, path, a)
+    return out
+
+
+def scale_batch_variances(variables: Dict[str, Any], gain: float
+                          ) -> Dict[str, Any]:
+    """Copy of ``variables`` with every BatchNorm ``var`` times ``gain``.
+    Calibrated as is, a deep random ReLU stack with residual blocks (DLA,
+    TableMaster's encoder) amplifies f32 rounding layer by layer (1e-4 of
+    the output between two f32 runs); with larger variances every residual
+    branch is damped (TableMaster's encoder at 480x480: 1e-5 from XLA's
+    with the variances doubled, 4e-6 at 4x)."""
+    out: Dict[str, Any] = {}
+    for path, arr in tree_leaves(variables):
+        a = np.asarray(arr, np.float32)
+        if path[0] == "batch_stats" and path[-1] == "var":
+            a = a * np.float32(gain)
         _set(out, path, a)
     return out
 

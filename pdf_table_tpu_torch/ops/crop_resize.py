@@ -1,0 +1,131 @@
+"""Table crops cut from resident pages and resized to uint8 exactly as
+``cv2.resize(crop, (nw, nh))`` (INTER_LINEAR) returns them: the device
+counterpart of the JAX task's host crop
+``pages[pi][int(y1):int(y2), int(x1):int(x2)]`` and the ``cv2.resize`` in
+SLANet's and TableMaster's pre-processors. The port never imports cv2.
+
+OpenCV resizes uint8 with 11-bit fixed-point coefficients: a source
+coordinate ``f = (d + 0.5) * (src / dst) - 0.5`` in f32 per output pixel,
+``w1 = round(frac(f) * 2048)``, ``w0 = round((1 - frac(f)) * 2048)``
+(each rounded on its own). The horizontal pass is exact in integers; the
+vertical one combines two rows as its vector code does:
+``((S0 >> 4) * b0 >> 16) + ((S1 >> 4) * b1 >> 16) + 2 >> 2``. Columns
+left of or beyond the source take one source column at full weight;
+rows outside are clamped with their weights kept. An exact 2x downscale,
+where OpenCV switches to its area path, gives the same bytes. Held to
+``cv2.resize`` bit for bit by tests/test_torch_crop_resize.py.
+
+:func:`resize_u8_plain` is the numpy reference of one image;
+:func:`crop_resize_u8` cuts and resizes a batch of windows of a page stack
+with torch integer ops, on whatever device the stack is (the same bytes on
+the CPU and the card). Output pixels beyond each crop's ``(nh, nw)`` are 0.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+COEF_SCALE = 2048          # 1 << INTER_RESIZE_COEF_BITS (11)
+
+Window = Tuple[int, int, int, int, int]   # page, x1, y1, x2, y2
+
+
+def linear_taps(src: int, dst: int, axis: str
+                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Source indices and fixed-point weights (i0, i1, w0, w1), int64 of
+    length ``dst``, along ``axis`` "x" or "y" (they differ at the edges,
+    as OpenCV's do)."""
+    scale = 1.0 / (dst / src)
+    f = ((np.arange(dst) + 0.5) * scale - 0.5).astype(np.float32)
+    s = np.floor(f)
+    f = (f - s).astype(np.float32)
+    s = s.astype(np.int64)
+    if axis == "x":
+        edge = (s < 0) | (s >= src - 1)
+        f = np.where(edge, np.float32(0), f)
+        s = np.clip(s, 0, src - 1)
+    w0 = np.rint((np.float32(1) - f) * np.float32(COEF_SCALE))
+    w1 = np.rint(f * np.float32(COEF_SCALE))
+    return (np.clip(s, 0, src - 1), np.clip(s + 1, 0, src - 1),
+            w0.astype(np.int64), w1.astype(np.int64))
+
+
+def _combine(p00, p01, p10, p11, a0, a1, b0, b1):
+    """The fixed-point blend of the four corner samples (any integer
+    arrays or tensors that broadcast)."""
+    s0 = p00 * a0 + p01 * a1
+    s1 = p10 * a0 + p11 * a1
+    return (((s0 >> 4) * b0 >> 16) + ((s1 >> 4) * b1 >> 16) + 2) >> 2
+
+
+def resize_u8_plain(img: np.ndarray, nh: int, nw: int) -> np.ndarray:
+    """``cv2.resize(img, (nw, nh))`` of an (H, W, C) uint8 image, in
+    numpy."""
+    h, w = img.shape[:2]
+    x0, x1, a0, a1 = linear_taps(w, nw, "x")
+    y0, y1, b0, b1 = linear_taps(h, nh, "y")
+    im = img.astype(np.int64)
+    out = _combine(im[y0][:, x0], im[y0][:, x1], im[y1][:, x0],
+                   im[y1][:, x1], a0[None, :, None], a1[None, :, None],
+                   b0[:, None, None], b1[:, None, None])
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def crop_taps(windows: Sequence[Window], sizes: Sequence[Tuple[int, int]],
+              out_hw: Tuple[int, int]) -> np.ndarray:
+    """Per crop the page index and the row and column taps in page
+    coordinates, padded to ``out_hw`` with zero weights: (N, 1 + 4 * th +
+    4 * tw) int32, one upload."""
+    th, tw = out_hw
+    out = np.zeros((len(windows), 1 + 4 * th + 4 * tw), np.int32)
+    for n, ((pi, x1, y1, x2, y2), (nh, nw)) in enumerate(zip(windows,
+                                                             sizes)):
+        rows = np.zeros((4, th), np.int64)
+        cols = np.zeros((4, tw), np.int64)
+        rows[:, :nh] = linear_taps(y2 - y1, nh, "y")
+        cols[:, :nw] = linear_taps(x2 - x1, nw, "x")
+        rows[:2] += y1
+        cols[:2] += x1
+        out[n, 0] = pi
+        out[n, 1:] = np.concatenate([rows.ravel(), cols.ravel()])
+    return out
+
+
+def crop_windows(pages_hw: Tuple[int, int], regions) -> list:
+    """``regions`` [(page, (x1, y1, x2, y2))] -> integer windows, cut as
+    ``page[int(y1):int(y2), int(x1):int(x2)]`` cuts them (ends clipped to
+    the page)."""
+    H, W = pages_hw
+    out = []
+    for pi, (x1, y1, x2, y2) in regions:
+        x1, y1 = int(x1), int(y1)
+        x2, y2 = min(int(x2), W), min(int(y2), H)
+        if x1 < 0 or y1 < 0 or x2 <= x1 or y2 <= y1:
+            raise ValueError(f"empty or negative crop window {(x1, y1, x2, y2)}")
+        out.append((int(pi), x1, y1, x2, y2))
+    return out
+
+
+def crop_resize_u8(pages: torch.Tensor, taps: torch.Tensor,
+                   out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Crops of ``pages`` (P, H, W, C) uint8 resized as ``cv2.resize``:
+    (N, th, tw, C) uint8, zero beyond each crop's size. ``taps`` is
+    :func:`crop_taps`'s table on the pages' device."""
+    th, tw = out_hw
+    n = taps.shape[0]
+    pidx = taps[:, 0].long().view(n, 1, 1)
+    rows = taps[:, 1:1 + 4 * th].view(n, 4, th)
+    cols = taps[:, 1 + 4 * th:].view(n, 4, tw)
+    y0, y1 = rows[:, 0].long()[..., None], rows[:, 1].long()[..., None]
+    x0, x1 = cols[:, 0].long()[:, None], cols[:, 1].long()[:, None]
+
+    def at(y, x):
+        return pages[pidx, y, x].int()            # (N, th, tw, C)
+
+    out = _combine(at(y0, x0), at(y0, x1), at(y1, x0), at(y1, x1),
+                   cols[:, 2, None, :, None], cols[:, 3, None, :, None],
+                   rows[:, 2, :, None, None], rows[:, 3, :, None, None])
+    return out.clamp_(0, 255).to(torch.uint8)

@@ -10,8 +10,8 @@ PDF stages are not ported (ROADMAP.md Queue 1 item 9).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional
 
 from ..entity.enums import HtmlContentType
 
@@ -23,7 +23,10 @@ class OcrSystemConfig:
     detect_model: str = "PP-OCRv4_det"
     recognizer_model: str = "PP-OCRv4_rec"
     layout_model: str = "picodet"           # picodet | none
+    # Lore | SLANet | TableMaster | MtlTabNet, and the TSR task's keyword
+    # arguments (its config fields, batch_size, variables)
     table_structure_model: str = "Lore"
+    table_structure_kwargs: Dict[str, Any] = field(default_factory=dict)
     lang: str = "en"
     task_type: str = "general"
     use_layout: bool = True
@@ -123,7 +126,8 @@ class OcrSystemTask:
         if self._tsr is None and self.config.use_table:
             from ..tasks.table_structure import OcrTableStructureTask
             self._tsr = OcrTableStructureTask(
-                model=self.config.table_structure_model, device=self.device)
+                model=self.config.table_structure_model, device=self.device,
+                **self.config.table_structure_kwargs)
         return self._tsr
 
     @property

@@ -1,14 +1,22 @@
-"""Table-structure-recognition task, LORE model (counterpart of
-pdf_table_tpu/tasks/table_structure.py, the ``Lore`` path).
+"""Table-structure-recognition task (counterpart of
+pdf_table_tpu/tasks/table_structure.py): the ``Lore``, ``SLANet``,
+``TableMaster`` and ``MtlTabNet`` models.
 
-``batch_infer_from_pages`` takes page images and table regions, samples
-every crop on the device (corner-anchored axis-aligned resample, BGR flip,
-CenterNet normalization), runs the LORE trunk, decode and logical-location
-regressor per resolution bucket and sub-batch, and post-processes each crop
-on the host into {"cells": [...]} in crop coordinates. Under ``wiz_rev``
-(``task_type="wtw"``, the default) a sub-batch runs detect-decode, the
-dense corner refine and re-sort, then the feature gathers and regressor,
-all on the device.
+``batch_infer_from_pages`` takes page images and table regions, cuts every
+crop on the device from the resident pages, runs the model per sub-batch,
+downloads each sub-batch once and post-processes each crop on the host.
+
+- LORE: corner-anchored axis-aligned resample, BGR flip, CenterNet
+  normalization; the trunk, decode and logical-location regressor per
+  resolution bucket and sub-batch, into {"cells": [...]} in crop
+  coordinates. Under ``wiz_rev`` (``task_type="wtw"``, the default) a
+  sub-batch runs detect-decode, the dense corner refine and re-sort, then
+  the feature gathers and regressor, all on the device.
+- SLANet, TableMaster / MtlTabNet (the token models): the integer window
+  of the region resized to uint8 as ``cv2.resize`` does
+  (ops/crop_resize.py), each model's normalize and pad, the encoder and
+  the 500-step greedy decode in sub-batches of ``batch_size``, into
+  {"structure_tokens", "cells", "type"} for the token path of table HTML.
 """
 
 from __future__ import annotations
@@ -20,13 +28,23 @@ import torch
 
 from ..engine.buckets import bucket_batch_size
 from ..engine.device import on_device, resolve_device, set_float_precision
-from ..engine.params import init_lore
+from ..engine.params import init_lore, init_slanet, init_table_master
 from ..models.lore.config import LoreConfig
 from ..models.lore.model import LoreModel, unpack_lore
 from ..models.lore.processor import LorePostProcessor, LorePreProcessor
+from ..models.slanet.config import SLANetConfig
+from ..models.slanet.model import SLANet
+from ..models.slanet.processor import SLANetPostProcessor, SLANetPreProcessor
+from ..models.table_master.config import TableMasterConfig
+from ..models.table_master.model import TableMaster
+from ..models.table_master.processor import (TableMasterPostProcessor,
+                                             TableMasterPreProcessor)
+from ..models.table_master.vocab import load_pubtabnet_textline_alphabet
+from ..ops.crop_resize import crop_resize_u8, crop_taps, crop_windows
 from ..ops.warp import resample_axis_aligned_crops
 
 Region = Tuple[int, Tuple[float, float, float, float]]
+TOKEN_MODELS = ("SLANet", "TableMaster", "MtlTabNet")
 
 
 def lore_config(task_type: str = "wtw", **kw) -> LoreConfig:
@@ -38,38 +56,75 @@ def lore_config(task_type: str = "wtw", **kw) -> LoreConfig:
 
 
 class OcrTableStructureTask:
-    """LORE table structure on ``device`` (``cuda`` unless ``"cpu"`` is
-    asked for). Weights: ``variables`` (a flax-layout tree, see
-    convert/flax_bridge.py) or, when None, the seeded :func:`init_lore`.
-    ``res_buckets`` ("auto" or a tuple of sides) runs small crops at a
-    smaller square resolution; ``batch_size`` caps a full-resolution
-    sub-batch."""
+    """Table structure on ``device`` (``cuda`` unless ``"cpu"`` is asked
+    for) with ``model`` "Lore", "SLANet", "TableMaster" or "MtlTabNet".
+    Weights: ``variables`` (a flax-layout tree, see convert/flax_bridge.py)
+    or, when None, the model's seeded ``init_*``. LORE: ``res_buckets``
+    ("auto" or a tuple of sides) runs small crops at a smaller square
+    resolution; ``batch_size`` caps a full-resolution sub-batch. The token
+    models run sub-batches of ``batch_size`` crops at their one input
+    size. ``config`` or the config fields in ``kw`` set the model."""
 
     task_name = "table_structure"
 
     def __init__(self, model: str = "Lore", task_type: str = "wtw",
-                 config: Optional[LoreConfig] = None,
+                 config: Optional[Any] = None,
                  res_buckets: Any = (), device=None, batch_size: int = 8,
                  variables: Optional[Dict[str, Any]] = None, **kw):
-        if model != "Lore":
+        if model != "Lore" and model not in TOKEN_MODELS:
             raise NotImplementedError(f"TSR model {model!r} is not ported "
                                       f"yet")
+        self.model_name = model
         self.device = resolve_device(device)
         set_float_precision()
+        self.batch_size = batch_size
+        if model == "Lore":
+            self._init_lore(config, task_type, res_buckets, **kw)
+        else:
+            self._init_token_model(config, **kw)
+        self.load_variables(variables if variables is not None
+                            else self._init_tree(self.model_config))
+        self.model.to(self.device)
+
+    def _init_lore(self, config, task_type, res_buckets, **kw) -> None:
         self.model_config = config or lore_config(task_type, **kw)
         cfg = self.model_config
         if res_buckets == "auto":
             self.res_buckets = (384, 512)
         else:
             self.res_buckets = tuple(res_buckets or ())
-        self.batch_size = batch_size
         self.post = LorePostProcessor(cfg)
         self.model = LoreModel(cfg).eval()
-        self.load_variables(variables if variables is not None
-                            else init_lore(cfg, 0))
-        self.model.to(self.device)
+        self._init_tree = init_lore
         self.mean = torch.as_tensor(LorePreProcessor.MEAN, device=self.device)
         self.std = torch.as_tensor(LorePreProcessor.STD, device=self.device)
+
+    def _init_token_model(self, config, **kw) -> None:
+        """SLANet, TableMaster or MtlTabNet (the MtlTabNet cell branch's
+        parameters are declared, so that its tree loads; the runner does
+        not decode cells, as in JAX)."""
+        if self.model_name == "SLANet":
+            self.model_config = cfg = config or SLANetConfig(**kw)
+            self.pre = SLANetPreProcessor(cfg)
+            self.post = SLANetPostProcessor(cfg)
+            self.model = SLANet(cfg).eval()
+            self._init_tree = init_slanet
+            self.input_hw = (cfg.table_max_len, cfg.table_max_len)
+            return
+        kw.setdefault("variant", "mtl_tabnet" if self.model_name
+                      == "MtlTabNet" else "table_master")
+        self.model_config = cfg = config or TableMasterConfig(**kw)
+        self.pre = TableMasterPreProcessor(cfg)
+        cell_charset = None
+        if cfg.variant == "mtl_tabnet":
+            # the PubTabNet textline alphabet + the master specials
+            cell_charset = load_pubtabnet_textline_alphabet()
+            if not cfg.cell_vocab_size:
+                cfg.cell_vocab_size = len(cell_charset) + 4
+        self.post = TableMasterPostProcessor(cfg, cell_charset=cell_charset)
+        self.model = TableMaster(cfg).eval()
+        self._init_tree = init_table_master
+        self.input_hw = tuple(cfg.img_size)
 
     def load_variables(self, variables: Dict[str, Any]) -> None:
         """Load a flax-layout {"params", "batch_stats"} tree."""
@@ -127,11 +182,15 @@ class OcrTableStructureTask:
         return (crops.flip(-1) / 255.0 - self.mean) / self.std
 
     def sub_batches(self, pages, regions: Sequence[Region]):
-        """Yield (crop indices, meta per crop, normalized crops) for each
-        sub-batch: grouped by resolution bucket, each group cut at a cap
-        that scales with the bucket's pixel ratio. A page tensor already on
+        """Yield (crop indices, meta per crop, model input) for each
+        sub-batch. LORE: grouped by resolution bucket, each group cut at a
+        cap that scales with the bucket's pixel ratio; the token models:
+        runs of ``batch_size`` in region order. A page tensor already on
         the device is used as it is, not copied."""
         pages_t = on_device(pages, self.device)
+        if self.model_name in TOKEN_MODELS:
+            yield from self._token_sub_batches(pages_t, regions)
+            return
         plan = self._region_plan(regions)
         inp_h, inp_w = self.model_config.resolution
         base_cap = max(1, self.batch_size)
@@ -145,22 +204,72 @@ class OcrTableStructureTask:
                 yield (sub, [plan[i]["meta"] for i in sub],
                        self._crops(pages_t, [plan[i] for i in sub], res))
 
+    def _token_sub_batches(self, pages_t: torch.Tensor,
+                           regions: Sequence[Region]):
+        """The token models' sub-batches: metas are the shape lists."""
+        windows = crop_windows(tuple(pages_t.shape[1:3]), regions)
+        plans = [self.pre.plan(y2 - y1, x2 - x1)
+                 for _, x1, y1, x2, y2 in windows]
+        cap = max(1, self.batch_size)
+        for s0 in range(0, len(windows), cap):
+            sub = list(range(s0, min(s0 + cap, len(windows))))
+            sizes = [plans[i][:2] for i in sub]
+            yield (sub, [plans[i][2] for i in sub],
+                   self._token_crops(pages_t, [windows[i] for i in sub],
+                                     sizes))
+
+    @torch.inference_mode()
+    def _token_crops(self, pages: torch.Tensor, windows, sizes
+                     ) -> torch.Tensor:
+        """Normalized NHWC model inputs of one sub-batch: the windows
+        resized to ``sizes`` as cv2.resize does, then the model's own
+        normalize and pad."""
+        taps = torch.from_numpy(crop_taps(windows, sizes, self.input_hw))
+        u8 = crop_resize_u8(pages, taps.to(self.device), self.input_hw)
+        if self.model_name == "SLANet":
+            return self.pre.normalize(u8, sizes)
+        return self.pre.normalize(u8)
+
+    def _forward_packed(self, x: torch.Tensor) -> torch.Tensor:
+        """One sub-batch's outputs as one tensor to download: LORE's
+        packed cells; the token models' probabilities and locs side by
+        side, (B, T, V + L)."""
+        if self.model_name == "Lore":
+            return self.model.forward_packed(x)
+        out = self.model(x)
+        return torch.cat([out["structure_probs"], out["loc_preds"]], dim=-1)
+
+    def _post_one(self, packed: np.ndarray, meta) -> Dict[str, Any]:
+        """One crop's host post from its (1, ...) slice of the
+        download."""
+        if self.model_name == "Lore":
+            return self.post(unpack_lore(packed), meta)
+        v = self.model.head.vocab_size if self.model_name == "SLANet" \
+            else self.model.vocab_size
+        raw = {"structure_probs": packed[..., :v],
+               "loc_preds": packed[..., v:]}
+        if self.model_name == "SLANet":
+            return self.post(raw, meta)
+        return self.post(raw, {"shape_list": meta})
+
     @torch.inference_mode()
     def batch_infer_from_pages(self, pages, regions: Sequence[Region]
                                ) -> List[Dict[str, Any]]:
         """``pages`` (P, H, W, 3) uint8 RGB (numpy or tensor); ``regions``
-        [(page_idx, (x1, y1, x2, y2))] in page coords. Returns one
-        {"cells": [...], "type": "lore"} per region."""
+        [(page_idx, (x1, y1, x2, y2))] in page coords. Returns one result
+        per region: {"cells": [...], "type": "lore"} for LORE,
+        {"structure_tokens", "cells", "score", "type"} for the token
+        models."""
         if not regions:
             return []
         # every sub-batch is enqueued before the first download blocks
-        pending = [(sub, metas, self.model.forward_packed(x))
+        pending = [(sub, metas, self._forward_packed(x))
                    for sub, metas, x in self.sub_batches(pages, regions)]
         results: List[Dict[str, Any]] = [{} for _ in regions]
         for sub, metas, packed in pending:
             packed_np = packed.cpu().numpy()
             for j, (i, meta) in enumerate(zip(sub, metas)):
-                results[i] = self.post(unpack_lore(packed_np[j:j + 1]), meta)
+                results[i] = self._post_one(packed_np[j:j + 1], meta)
         return results
 
     def __call__(self, image: np.ndarray) -> Dict[str, Any]:

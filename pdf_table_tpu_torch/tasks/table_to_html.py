@@ -1,10 +1,13 @@
-"""Table -> HTML for cell-path structure results (counterpart of the cell
-path of pdf_table_tpu/tasks/table_to_html.py): match text boxes to
-structure cells and walk the logical grid with rowspan/colspan.
+"""Table -> HTML (counterpart of pdf_table_tpu/tasks/table_to_html.py).
 
-TSR result schema: {"cells": [{"bbox": [x1, y1, x2, y2], "logic": [row_s,
-row_e, col_s, col_e]}], "offset": (x, y)}, bbox in crop coords, offset
-mapping back to page coords.
+Cell path (LORE): match text boxes to structure cells and walk the
+logical grid with rowspan/colspan; TSR result {"cells": [{"bbox": [x1, y1,
+x2, y2], "logic": [row_s, row_e, col_s, col_e]}], "offset": (x, y)}, bbox
+in crop coords, offset mapping back to page coords.
+
+Token path (SLANet, TableMaster / MtlTabNet): {"structure_tokens",
+"cells": [{"bbox"}], "type", "offset"} goes through ``TableMatch``
+(tasks/table_matcher.py); master results through its master route.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import numpy as np
 
 from ..entity.ocr_cell import OcrCell
 from . import ocr_fixes
+from .table_matcher import TableMatch
 
 
 def bbox_iou(a: Sequence[float], b: Sequence[float]) -> float:
@@ -151,10 +155,10 @@ def cells_to_html(cells: List[Dict[str, Any]],
 
 
 class OcrTableToHtmlTask:
-    """(tsr_result, page text cells) -> HTML table string, cell path only:
-    the token path of SLANet/TableMaster needs ``TableMatch``, which comes
-    with those models (ROADMAP.md Queue 1 item 8). ``ocr_post_process``
-    applies the per-cell OCR text fixes of :mod:`.ocr_fixes`."""
+    """(tsr_result, page text cells) -> HTML table string: cell-path
+    results through the logical grid, token-path results through
+    ``TableMatch``. ``ocr_post_process`` applies the per-cell OCR text
+    fixes of :mod:`.ocr_fixes` on the cell path."""
 
     def __init__(self, ocr_post_process: bool = False):
         self.ocr_post_process = ocr_post_process
@@ -166,9 +170,7 @@ class OcrTableToHtmlTask:
     def __call__(self, tsr_result: Dict[str, Any],
                  text_cells: Sequence[OcrCell] = ()) -> str:
         if tsr_result.get("structure_tokens"):
-            raise NotImplementedError(
-                "token-path table HTML needs TableMatch, which comes with "
-                "SLANet/TableMaster (ROADMAP.md Queue 1 item 8)")
+            return self._token_path(tsr_result, text_cells)
         cells = tsr_result.get("cells", [])
         if not cells or not any("logic" in c for c in cells):
             return "<table></table>"
@@ -187,3 +189,22 @@ class OcrTableToHtmlTask:
                 " ".join(self._fix((t.text or "").strip())
                          for t in inside).strip()))
         return cells_to_html(cells, texts)
+
+    @staticmethod
+    def _token_path(tsr_result: Dict[str, Any],
+                    text_cells: Sequence[OcrCell]) -> str:
+        ox, oy = tsr_result.get("offset", (0, 0))
+        pred_bboxes = [[c["bbox"][0] + ox, c["bbox"][1] + oy,
+                        c["bbox"][2] + ox, c["bbox"][3] + oy]
+                       for c in tsr_result.get("cells", [])]
+        dt_boxes = [list(t.bbox) for t in text_cells]
+        use_master = tsr_result.get("type") == "master"
+        if use_master:
+            # master text flows through <b>-folding and deal_bb, which
+            # work on raw inline tags: it goes in unescaped
+            texts = [(t.text or "").strip() for t in text_cells]
+        else:
+            texts = [html_mod.escape((t.text or "").strip())
+                     for t in text_cells]
+        return TableMatch(use_master=use_master)(
+            tsr_result["structure_tokens"], pred_bboxes, dt_boxes, texts)

@@ -10,10 +10,10 @@ port's code (``LorePostProcessor`` -> ``OcrTableToHtmlTask``) and must give
 tests/golden/expected/lore_snap.html byte for byte. The other cases cannot
 run through the port yet: the digital, flavor and pdf cases need the PDF
 reader and writer (``pdfio``) and the digital-page path (ROADMAP.md Queue 1
-item 9), the scanned cases the LineCell extractor, the two token cases
-``TableMatch`` / the TableMaster matcher (item 8), and the xlsx and compare
-cases ``utils/xlsx_writer.py`` and ``tasks/result_compare.py`` (item
-11)."""
+item 9), the scanned cases the LineCell extractor, and the xlsx and
+compare cases ``utils/xlsx_writer.py`` and ``tasks/result_compare.py``
+(item 11). The two token cases run through the port in
+tests/test_torch_table_match.py."""
 
 import os
 import sys
@@ -195,8 +195,18 @@ def test_match_helpers_match_jax():
 
 
 def test_token_path_raises_naming_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tt2h.OcrTableToHtmlTask()({"structure_tokens": ["<td></td>"]}, [])
+    """The token path raised, naming ROADMAP Queue 1 item 8, until SLANet
+    and TableMaster were ported; it now gives JAX's HTML for the result it
+    raised on, with and without text cells."""
+    tsr = {"structure_tokens": ["<td></td>"]}
+    assert tt2h.OcrTableToHtmlTask()(tsr, []) == \
+        jt2h.OcrTableToHtmlTask()(tsr, [])
+    tsr = dict(tsr, cells=[{"bbox": [0, 0, 40, 20]}], offset=(3, 4))
+    got = tt2h.OcrTableToHtmlTask()(
+        tsr, [TCell.from_bbox((5, 6, 40, 22), text="a<b")])
+    assert got == jt2h.OcrTableToHtmlTask()(
+        tsr, [JCell.from_bbox((5, 6, 40, 22), text="a<b")])
+    assert "<td>a&lt;b</td>" in got
 
 
 def _layout(cls, ctype, seed):

@@ -41,6 +41,7 @@ from pdf_table_tpu_torch.data.synthetic import make_table_sample
 from pdf_table_tpu_torch.engine.params import (calibrate_batch_stats,
                                                init_lore,
                                                perturb_conv_offset_mask,
+                                               scale_batch_variances,
                                                wait_for_async_saves)
 from pdf_table_tpu_torch.models.lore.config import LoreConfig
 from pdf_table_tpu_torch.models.lore.dla import DeformConvBlock
@@ -109,14 +110,9 @@ def _tree(batch):
     v = perturb_conv_offset_mask(init_lore(cfg, seed=0), seed=1)
     m = LoreModel(cfg)
     m.forward = m.heads
-    v = calibrate_batch_stats(m, v, torch.from_numpy(batch["image"]))
-    for path, a in tree_leaves(v["batch_stats"]):
-        if path[-1] == "var":
-            node = v["batch_stats"]
-            for k in path[:-1]:
-                node = node[k]
-            node["var"] = (a * VAR_GAIN).astype(np.float32)
-    return v
+    return scale_batch_variances(
+        calibrate_batch_stats(m, v, torch.from_numpy(batch["image"])),
+        VAR_GAIN)
 
 
 def _torch(batch):

@@ -9,7 +9,11 @@ the port's ``BatchPipeline.run`` over three pages, two buckets, with every
 lane on small configs and the 0/180 classifier on, down to page HTML. A
 third runs the training slice: the LORE trainer on synthetic wired tables
 (``fit``, a checkpoint, a full-state save and restore), with neither JAX,
-flax, optax, orbax, cv2 nor PIL imported."""
+flax, optax, orbax, cv2 nor PIL imported. A fourth runs the token models
+(SLANet, TableMaster, MtlTabNet at tiny configs: crops cut from the pages,
+the decode, the token path of table HTML) and ``BatchPipeline.run`` with
+``table_structure_model="SLANet"``, with neither JAX, flax, cv2 nor the JAX
+package imported."""
 
 import json
 import os
@@ -164,3 +168,71 @@ def test_training_runs_without_jax():
     assert out.returncode == 0, out.stderr[-2000:]
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res == {"bad": [], "steps": 2, "step": 2, "finite": True}
+
+
+_TOKEN_SCRIPT = r"""
+import json, sys
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from pdf_table_tpu_torch.entity.ocr_cell import OcrCell
+from pdf_table_tpu_torch.tasks.table_structure import OcrTableStructureTask
+from pdf_table_tpu_torch.tasks.table_to_html import OcrTableToHtmlTask
+pages = np.full((2, 150, 170, 3), 255, np.uint8)
+pages[:, ::15] = 20
+regions = [(0, (10, 20, 160, 120)), (1, (0, 0, 170, 150))]
+kw = {"SLANet": dict(table_max_len=64, hidden_size=32, max_structure_len=8),
+      "TableMaster": dict(img_size=(64, 64), d_model=32, decoder_layers=2,
+                          heads=4, ff_dim=64, max_structure_len=8)}
+kw["MtlTabNet"] = kw["TableMaster"]
+types, htmls = [], []
+for model, k in kw.items():
+    task = OcrTableStructureTask(model=model, device="cpu", **k)
+    for r in task.batch_infer_from_pages(pages, regions) + [task(pages[0])]:
+        types.append(r["type"])
+        r = dict(r, structure_tokens=["<tr>", "<td></td>", "</tr>"],
+                 cells=[{"bbox": [0, 0, 60, 20]}], offset=(0, 0))
+        htmls.append(OcrTableToHtmlTask()(
+            r, [OcrCell.from_bbox((5, 2, 55, 18), text="a&b")]))
+from pdf_table_tpu_torch.pipeline.batch_runner import BatchPipeline
+from pdf_table_tpu_torch.pipeline.system import OcrSystemConfig
+from pdf_table_tpu_torch.tasks.detection import OcrDetectionTask
+from pdf_table_tpu_torch.tasks.layout import OcrLayoutTask
+from pdf_table_tpu_torch.tasks.recognition import OcrRecognitionTask
+bp = BatchPipeline(OcrSystemConfig(
+    use_orientation_cls=False, use_textline_cls=False,
+    table_structure_model="SLANet", table_structure_kwargs=kw["SLANet"]),
+    batch_pages=2, device="cpu")
+bp.system._det = OcrDetectionTask(device="cpu", limit_side_len=64,
+                                  thresh=0.45, box_thresh=0.0)
+bp.system._layout = OcrLayoutTask(
+    device="cpu", task_type="table", score_threshold=0.0, keep_top_k=2,
+    img_height=64, img_width=64, neck_channels=32, head_convs=1)
+bp.system._rec = OcrRecognitionTask(device="cpu", width_buckets=(80,))
+page = np.full((1200, 900, 3), 255, np.uint8)
+page[300:700:40, 60:840] = 20
+out = bp.run([{"image": page, "page": 0}])
+bad = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "flax", "cv2", "pdf_table_tpu"))
+print(json.dumps({"bad": bad, "types": types,
+                  "cells": [h.split("<td>")[1].split("</td>")[0]
+                            for h in htmls],
+                  "errors": [o.metric.get("error") for o in out],
+                  "tsr": bp.system.tsr_task.model_name,
+                  "tables": [r["type"] for r in out[0].table_structures]}))
+"""
+
+
+def test_token_models_run_without_jax():
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    out = subprocess.run([sys.executable, "-c", _TOKEN_SCRIPT], cwd=root,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    tables = res.pop("tables")
+    assert res == {"bad": [], "types": ["slanet"] * 3 + ["master"] * 6,
+                   "cells": ["a&amp;b"] * 3 + ["a&b"] * 6,
+                   "errors": [None], "tsr": "SLANet"}
+    assert tables and set(tables) == {"slanet"}

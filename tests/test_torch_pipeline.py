@@ -19,7 +19,14 @@ leaves out).
 
 Held per page: the quads equal, the texts equal, the layout cells equal
 (labels and types; boxes within 1e-3 px of the model input, scores within
-1e-4), ``table_html`` and ``page_html`` byte-equal. Then the containment
+1e-4), ``table_html`` and ``page_html`` byte-equal. The same for a SLANet
+arm (``table_structure_model="SLANet"`` with its overrides through
+``OcrSystemConfig.table_structure_kwargs``; the full LCNet and neck at
+the 64x64 input and hidden 32 of tests/test_slanet.py, 24 decode steps,
+the tree of tests/test_torch_slanet.py calibrated on crops of the pages'
+ruled blocks; the JAX runner gets a JAX SLANet task on the same
+tree; no textline classifier): its tables go through the token path of
+table HTML, so its tokens and cells are equal too. Then the containment
 cases (an oversize page and a digital page each get an error output, the
 other pages are unharmed) and the residency of the canvases (one upload a
 chunk, the same tensor into every lane)."""
@@ -57,10 +64,13 @@ from pdf_table_tpu_torch.tasks.layout import (OcrLayoutTask,
                                               resize_bilinear_aa)
 from pdf_table_tpu_torch.tasks.recognition import (OcrRecognitionTask,
                                                    rec_config)
+from pdf_table_tpu_torch.models.slanet.config import SLANetConfig
+from pdf_table_tpu_torch.models.slanet.processor import SLANetPreProcessor
 from pdf_table_tpu_torch.tasks.table_structure import OcrTableStructureTask
 from test_torch_picodet import normalize, page, picodet_tree
 from test_torch_rec_model import perturb
 from test_torch_table_structure import TINY as LORE_TINY
+from test_torch_slanet import slanet_tree
 from test_torch_table_structure import _weights as lore_weights
 
 torch.set_num_threads(1)
@@ -73,6 +83,7 @@ LAYOUT = dict(img_height=64, img_width=64, neck_channels=32, head_convs=1)
 LAYOUT_BENCH = dict(task_type="table", score_threshold=0.05, keep_top_k=2)
 REC = dict(width_buckets=(80,))
 LINES = 8
+SLANET = dict(table_max_len=64, hidden_size=32, max_structure_len=24)
 
 
 def _page(seed, h, w):
@@ -184,9 +195,13 @@ def jax_pipeline(tasks, use_cls):
     return bp
 
 
-def port_pipeline(trees, use_cls):
+def port_pipeline(trees, use_cls, tsr_model="Lore", tsr_kwargs=None):
+    """The port's runner on the trees; for another TSR model than LORE the
+    system builds its TSR task from ``tsr_model`` and ``tsr_kwargs``."""
     cfg = OcrSystemConfig(use_layout=True, use_table=True,
-                          use_orientation_cls=False, use_textline_cls=use_cls)
+                          use_orientation_cls=False, use_textline_cls=use_cls,
+                          table_structure_model=tsr_model,
+                          table_structure_kwargs=tsr_kwargs or {})
     bp = tbr.BatchPipeline(cfg, batch_pages=2, device="cpu")
     s = bp.system
     s._det = OcrDetectionTask(model="PP-OCRv4_det", device="cpu",
@@ -196,9 +211,11 @@ def port_pipeline(trees, use_cls):
                               **LAYOUT)
     s._rec = OcrRecognitionTask(model="PP-OCRv4_rec", device="cpu",
                                 variables=trees["rec"], **REC)
-    s._tsr = OcrTableStructureTask(model="Lore", task_type="wireless",
-                                   config=LoreConfig.wireless(**LORE_TINY),
-                                   device="cpu", variables=trees["lore"])
+    if tsr_model == "Lore":
+        s._tsr = OcrTableStructureTask(
+            model="Lore", task_type="wireless",
+            config=LoreConfig.wireless(**LORE_TINY), device="cpu",
+            variables=trees["lore"])
     if use_cls:
         s._line_cls = ClsImagePulcTask("textline_orientation", device="cpu",
                                        variables=trees["cls"])
@@ -257,6 +274,52 @@ def test_outputs_match_jax(runs):
     assert any(re.search(r"<td[^>]*>[^<]+</td>", h)
                for g in got for h in g.table_html), "no text in a table"
     assert all(g.page_html for g in got)
+
+
+@pytest.fixture(scope="module")
+def slanet_runs(trees, jtasks):
+    cfg = SLANetConfig(**SLANET)
+    pre = SLANetPreProcessor(cfg)
+    x = np.stack([pre(p[p.shape[0] // 3 - 40:p.shape[0] // 3 + 200, 30:-30])
+                  ["image"][0] for p in PAGES])
+    tree = slanet_tree(cfg, x)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jts, "load_or_init", _as_np(tree))
+        jslanet = jts.OcrTableStructureTask(model="SLANet", **SLANET)
+        jslanet.ensure_built()
+    pages = [{"image": p, "page": i} for i, p in enumerate(PAGES)]
+    want = jax_pipeline(dict(jtasks, _tsr=jslanet), False).run(pages)
+    bp = port_pipeline(trees, False, "SLANet", dict(SLANET, variables=tree))
+    return bp, bp.run(pages), want
+
+
+def test_slanet_outputs_match_jax(slanet_runs):
+    bp, got, want = slanet_runs
+    assert bp.system.tsr_task.model_name == "SLANet"
+    assert bp.system.tsr_task.model_config.max_structure_len == 24
+    assert len(got) == len(want) == len(PAGES)
+    n_tables = n_tokens = 0
+    for g, w in zip(got, want):
+        assert g.metric == w.metric == {}
+        assert [c.text for c in g.text_cells] == \
+            [c.text for c in w.text_cells]
+        assert _layout_key(g.layout_cells) == _layout_key(w.layout_cells)
+        assert [r["type"] for r in g.table_structures] == \
+            [r["type"] for r in w.table_structures]
+        for a, b in zip(g.table_structures, w.table_structures):
+            assert a["structure_tokens"] == b["structure_tokens"]
+            assert a["offset"] == b["offset"]
+            np.testing.assert_allclose(
+                [c["bbox"] for c in a["cells"]],
+                [c["bbox"] for c in b["cells"]], atol=1e-3, rtol=0)
+            n_tokens += len(a["structure_tokens"])
+        assert g.table_html == w.table_html
+        assert g.page_html == w.page_html
+        n_tables += len(g.table_html)
+    assert n_tables >= len(PAGES), "no table reached SLANet"
+    assert n_tokens > 0
+    assert all(r["type"] == "slanet" for g in got
+               for r in g.table_structures)
 
 
 def test_texts_depend_on_the_crops(runs):
