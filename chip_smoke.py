@@ -113,7 +113,33 @@ Phases, each fatal on failure:
      table a token result, every page with page_html), the median of the
      timed runs (pages/s, lanes, peak memory), idle share; 2 pages (1 for
      TableMaster) against the same pipeline on the CPU as in phase 9;
- 12. train: LORE training at full width (LoreConfig.wtw(), f32, B = 4,
+ 12. tsr_centernet: OcrTableStructureTask(model="CenterNet") at full
+     width (1024^2, head_conv 256, K 300, MK 600, f32) on the 8 regions of
+     phase 10, resident on the card: a seeded tree (offset convs
+     perturbed, BatchNorm statistics calibrated on the crops and doubled,
+     head biases shaped so that cells pass the 0.3 threshold and vertices
+     snap); the counted run launches K1 at each of the trunk's 16 DCNs a
+     sub-batch (K2 and K3 never); one bf16 forward of the sub-batch of 8
+     prints K1's and K2's launches as the flat-kc route picks them; a
+     plain_dcn=True yardstick on the same tree and crops holds the heads;
+     the card against the same port on the CPU on 2 crops (inputs, heads,
+     the decode's cell and vertex slots up to the first near-tie of their
+     scores; the cells reported); crops/s, stage ms (pre, forward,
+     decode, download, host post), snapped vertices, peak memory, idle
+     share;
+ 13. tsr_lgpma: OcrTableStructureTask(model="Lgpma") at full width
+     (ResNet-50, FPN 256, max side 800, 512 proposals, fc 1024, mask_top
+     256, f32), one crop a forward, on the same regions: no K1-K3 launch
+     (JAX's lane reaches no Pallas kernel); crops/s, stage ms of one crop,
+     peak memory, idle share; the card against the CPU on 2 crops (inputs,
+     FPN levels, proposals up to the first near-tie, the bbox, LPMA and
+     GPMA heads on the CPU's RoIs, cells where the proposals are equal);
+ 14. pipeline_centernet: the pipeline arm of phase 11 with
+     table_structure_model="CenterNet" (16 pages; K3 once a chunk, K1 16
+     times a CenterNet sub-batch; one page against the CPU), then a
+     LoreAndLineCell run on the same pages (every table with merged
+     cells);
+ 15. train: LORE training at full width (LoreConfig.wtw(), f32, B = 4,
      1024^2), K1 made differentiable by DeformConv2dFunction. (a) At the
      7 DCN shapes of a wtw step (16 calls), the Function's forward and its
      gradients (dx, doffset, dmask, dW, dbias) against autograd of the
@@ -1737,8 +1763,11 @@ PIPE_TSR_RUNS = 3
 # the TableMaster arm decodes 16 crops a chunk at some 2 s a sub-batch of
 # 8 on the host's launches: one chunk of 8 pages, one page on the CPU
 PIPE_ARM_PAGES = {"SLANet": (PIPE_PAGES, PIPE_CPU_PAGES),
-                  "TableMaster": (8, 1)}
-PHASE_NAMES = {"SLANet": "tsr_slanet", "TableMaster": "tsr_master"}
+                  "TableMaster": (8, 1), "CenterNet": (PIPE_PAGES, 1)}
+PHASE_NAMES = {"SLANet": "tsr_slanet", "TableMaster": "tsr_master",
+               "CenterNet": "tsr_centernet"}
+ARM_KINDS = {"SLANet": "slanet", "TableMaster": "master",
+             "CenterNet": "center_net"}
 
 
 def tsr_inputs():
@@ -2049,9 +2078,12 @@ def build_pipeline(device, trees, tsr="Lore"):
     (bench.py:73-88): det thresholds, the table layout head, rec en, LORE
     wireless f32 with res_buckets="auto", no page orientation check, the
     0/180 textline classifier on; the line grid injected through
-    ``_boxes_finish``. With ``tsr`` "SLANet" or "TableMaster" the system
-    builds that TSR task itself (full width, T = 500) on ``trees["tsr"]``
-    through ``OcrSystemConfig.table_structure_kwargs``."""
+    ``_boxes_finish``. With ``tsr`` "SLANet", "TableMaster" or
+    "CenterNet" the system builds that TSR task itself (full width, T =
+    500) on ``trees["tsr"]`` through
+    ``OcrSystemConfig.table_structure_kwargs``; with "LoreAndLineCell" the
+    LORE task of the pipeline phase plus the line cells, on
+    ``trees["lore"]``."""
     from pdf_table_tpu_torch.pipeline.batch_runner import BatchPipeline
     from pdf_table_tpu_torch.pipeline.system import OcrSystemConfig
     from pdf_table_tpu_torch.tasks.cls_pulc import ClsImagePulcTask
@@ -2064,7 +2096,11 @@ def build_pipeline(device, trees, tsr="Lore"):
     cfg = OcrSystemConfig(use_layout=True, use_table=True,
                           use_orientation_cls=False,
                           table_structure_model=tsr)
-    if tsr != "Lore":
+    if tsr == "LoreAndLineCell":
+        cfg.table_structure_kwargs = dict(
+            task_type="wireless", variables=trees["lore"],
+            res_buckets="auto", **PIPE_LORE_KW)
+    elif tsr != "Lore":
         cfg.table_structure_kwargs = {"variables": trees["tsr"]}
     bp = BatchPipeline(cfg, batch_pages=8, device=device)
     s = bp.system
@@ -2226,10 +2262,14 @@ def phase_pipeline(card, layout_v):
 
 def phase_pipeline_arm(card, trees, tsr: str, tsr_tree):
     """The pipeline phase's run with ``tsr`` (SLANet or TableMaster at
-    full width, T = 500) in place of LORE, built by the system from
-    ``table_structure_model``: the same 16 pages, a warm-up, one counted
-    run (K3 once a chunk, K1 and K2 never), the median of timed runs
-    (pages/s, lanes, peak memory), idle share; 2 pages against the CPU."""
+    full width, T = 500, or Cycle-CenterNet at 1024^2, f32) in place of
+    LORE, built by the system from ``table_structure_model``: the same
+    pages, a warm-up, one counted run (K3 once a chunk; K1 16 times a
+    CenterNet sub-batch, else never; K2 never), the median of timed runs
+    (pages/s, lanes, peak memory), idle share; pages against the CPU. The
+    CenterNet arm then runs LoreAndLineCell on the same pages: every table
+    must carry merged cells. Returns the launch counts (and the
+    LoreAndLineCell run's under ``"lore_line_cell"``)."""
     import re
 
     import torch
@@ -2249,25 +2289,36 @@ def phase_pipeline_arm(card, trees, tsr: str, tsr_tree):
     check(bp.system.tsr_task.model_name == tsr, "the system built another "
           "TSR model")
     n_chunks = -(-n_pages // bp.batch_pages)
+    tsr_model = bp.system.tsr_task.model
+    forwards = []
+    if tsr == "CenterNet":
+        real_forward = tsr_model.forward_packed
+        tsr_model.forward_packed = lambda x: (forwards.append(x.shape[0]),
+                                              real_forward(x))[1]
     reset_launch_counts()
     t0 = time.perf_counter()
     out = bp.run(pages)
     torch.cuda.synchronize()
     counted_s = time.perf_counter() - t0
     launches = {k: launch_counts[k] for k in KERNELS}
+    if forwards:
+        del tsr_model.forward_packed
     errors = [o.metric.get("error") for o in out if o.metric.get("error")]
     check(len(out) == n_pages and not errors,
           f"{tsr} pipeline: pages carry errors: {errors[:3]}")
     check(all(o.page_html for o in out), f"{tsr} pipeline: a page has no "
           f"page_html")
-    kind = "slanet" if tsr == "SLANet" else "master"
+    kind = ARM_KINDS[tsr]
     structs = [r for o in out for r in o.table_structures]
     check(structs and all(r["type"] == kind for r in structs),
           f"{tsr} pipeline: no table reached {tsr}")
+    k1 = CN_DCNS * len(forwards) if tsr == "CenterNet" else 0
     check(launches["resize_normalize"] == n_chunks
-          and launches["deform_conv2d"] == 0
-          and launches["deform_conv2d_flat_kc"] == 0,
-          f"{tsr} pipeline launched {launches} for {n_chunks} chunks")
+          and launches["deform_conv2d"] == k1
+          and launches["deform_conv2d_flat_kc"] == 0
+          and (tsr != "CenterNet" or forwards),
+          f"{tsr} pipeline launched {launches} for {n_chunks} chunks and "
+          f"{len(forwards)} CenterNet sub-batches")
 
     torch.cuda.reset_peak_memory_stats()
     run_s, lanes = [], []
@@ -2290,18 +2341,24 @@ def phase_pipeline_arm(card, trees, tsr: str, tsr_tree):
     cmp = pipeline_diff(got, want)
     summary = {
         "card": card, "tsr": tsr, "pages": n_pages, "chunks": n_chunks,
-        "launches": launches, "warm_up_s": warm_s, "counted_run_s": counted_s,
+        "launches": launches, "tsr_sub_batches": forwards,
+        "warm_up_s": warm_s, "counted_run_s": counted_s,
         "run_s_median": per_run, "run_s_min": min(run_s),
         "run_s_max": max(run_s), "runs": len(run_s),
         "pages_per_s": n_pages / per_run,
         "ms_per_page": per_run * 1e3 / n_pages, "lane_ms": lane_ms,
         "peak_mem_gib": peak / 2 ** 30, "tables": len(structs),
-        "tokens": sum(len(r["structure_tokens"]) for r in structs),
+        "tokens": sum(len(r.get("structure_tokens", ())) for r in structs),
+        "cells": sum(len(r["cells"]) for r in structs),
         "table_html_with_text": sum(
             bool(re.search(r"<td[^>]*>[^<]+</td>", h))
             for o in out for h in o.table_html),
         "page_html_bytes": [len(o.page_html) for o in out[:4]],
         "profile": prof, "cpu": {"run_s": cpu_s, **cmp}}
+    if tsr == "CenterNet":
+        summary["lore_line_cell"] = lore_line_cell_run(trees, pages)
+        launches = dict(launches,
+                        lore_line_cell=summary["lore_line_cell"]["launches"])
     print(json.dumps({f"pipeline_{PHASE_NAMES[tsr][4:]}": summary}))
     check(not [o for o in want if o.metric.get("error")],
           f"the CPU {tsr} pipeline gave errors")
@@ -2311,6 +2368,498 @@ def phase_pipeline_arm(card, trees, tsr: str, tsr_tree):
           f"{tsr} pipeline: texts equal on {cmp['text_share']:.3f} of crops")
     check(cmp["page_html_equal"] == cmp["page_html_checked"],
           f"{tsr} pipeline: page_html differs where its inputs are equal")
+    return launches
+
+
+def lore_line_cell_run(trees, pages) -> dict:
+    """``table_structure_model="LoreAndLineCell"`` through the runner on
+    ``pages`` (the pipeline phase's LORE wireless f32 plus the line cells
+    of each window): every page without error and with page_html, every
+    table merged with cells."""
+    import torch
+
+    from pdf_table_tpu_torch.ops.kernels import (KERNELS, launch_counts,
+                                                 reset_launch_counts)
+
+    bp = build_pipeline("cuda", trees, "LoreAndLineCell")
+    bp.run(pages)                       # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = bp.run(pages)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {k: launch_counts[k] for k in KERNELS}
+    structs = [r for o in out for r in o.table_structures]
+    check(not [o for o in out if o.metric.get("error")]
+          and all(o.page_html for o in out),
+          "LoreAndLineCell pipeline: a page failed or has no page_html")
+    check(structs and all(r["type"] == "lore_line_cell_merge"
+                          and r["cells"] for r in structs),
+          "LoreAndLineCell pipeline: a table without merged cells")
+    return {"pages": len(pages), "run_s": run_s, "launches": launches,
+            "pages_per_s": len(pages) / run_s, "tables": len(structs),
+            "cells": [len(r["cells"]) for r in structs[:8]],
+            "lane_ms": {k: v * 1e3 for k, v in bp.last_stats.items()
+                        if k != "n_pages"}}
+
+
+# Cycle-CenterNet and LGPMA (the rest of table structure)
+CN_VAR_GAIN = 2.0       # calibrated DLA variances doubled (else chaotic)
+CN_QUAD = 3.0           # feature-map px: cell corners, vertex centres
+CN_CPU_CROPS = 2        # crops held against the CPU (one of each size)
+CN_INPUT_TOL = 1e-4     # card vs CPU: normalized inputs, max |diff|
+CN_HEADS_TOL = 1e-4     # card vs CPU: heads, max |diff| / max |head|
+CN_TIE_GAP = 1e-4       # decode slots compared up to the first near-tie
+CN_DECODE_TOL = 1e-3    # feature-map px and scores, on those slots
+CN_YARD_TOL = 1e-3      # f32 kernel vs plain-DCN yardstick, relative
+CN_RUNS = 5
+CN_DCNS = 16            # deform convs of one DLA trunk forward
+LGPMA_GAIN = 8.0        # the bbox head's class and delta logits spread
+LGPMA_RUNS = 2          # timed runs (the host post is seconds a run)
+LGPMA_CPU_CROPS = 2
+LGPMA_TOL = 1e-4        # card vs CPU: inputs (abs), maps and heads (rel)
+LGPMA_TIE_GAP = 1e-4    # proposals compared up to the first near-tie
+LGPMA_PROP_PX = 1e-2    # model-input px
+
+
+def centernet_tree(task, dev_pages, regions):
+    """A seeded full-width Cycle-CenterNet tree (offset convs perturbed),
+    BatchNorm statistics calibrated on the card on the task's first
+    sub-batch of crops and the variances doubled (calibrated as is, a
+    random DLA stack is chaotic); both heatmap channels at 0.5, so
+    that cells and vertices pass the 0.3 threshold; cell corners and each
+    vertex's centres at +-CN_QUAD feature-map px, so that vertices snap
+    (the CPU tests' tree)."""
+    import numpy as np
+    import torch
+
+    from pdf_table_tpu_torch.engine.params import (
+        calibrate_batch_stats, init_centernet, perturb_conv_offset_mask,
+        scale_batch_variances)
+
+    (_s, _m, x), *_ = task.sub_batches(dev_pages, regions)
+    net = task.model
+    net.forward = net.heads
+    tree = scale_batch_variances(calibrate_batch_stats(
+        net, perturb_conv_offset_mask(init_centernet(task.model_config, 0),
+                                      seed=1), x), CN_VAR_GAIN)
+    del net.forward
+    heads = tree["params"]["trunk"]["heads"]
+    heads["hm_out"]["bias"] = np.zeros(2, np.float32)
+    quad = CN_QUAD * np.array([1, 1, -1, 1, -1, -1, 1, -1], np.float32)
+    heads["v2c_out"]["bias"] = quad.copy()
+    heads["c2v_out"]["bias"] = -quad
+    torch.cuda.synchronize()
+    return tree
+
+
+def rel_err(got, want) -> float:
+    return float((got - want).abs().max()
+                 / want.abs().max().clamp_min(1e-6))
+
+
+def centernet_snaps(task, packed_np) -> int:
+    """Corners of cells above threshold that the vertex snap moves, over
+    the crops of a download."""
+    import numpy as np
+
+    from pdf_table_tpu_torch.models.center_net.model import unpack_centernet
+    from pdf_table_tpu_torch.models.center_net.processor import \
+        group_bbox_by_gbox
+
+    cfg = task.model_config
+    n = 0
+    for j in range(len(packed_np)):
+        raw = unpack_centernet(packed_np[j:j + 1], cfg.K)
+        b9 = np.concatenate([raw["dets"][0], raw["scores"][0][:, None]], 1)
+        out = group_bbox_by_gbox(b9.copy(), raw["gboxes"][0],
+                                 cfg.score_thresh, cfg.v2c_dist_thresh,
+                                 cfg.c2v_dist_thresh)
+        moved = (out[:, :8] != b9[:, :8]).reshape(-1, 4, 2).any(-1)
+        n += int(moved[b9[:, 8] >= cfg.score_thresh].sum())
+    return n
+
+
+def centernet_stages(task, dev_pages, regions) -> dict:
+    """One sub-batch's stages, each timed alone (host_ms)."""
+    import torch
+
+    with torch.inference_mode():
+        (sub, metas, x), *_ = task.sub_batches(dev_pages, regions)
+        heads = task.model.heads(x)
+        packed = task.model.forward_packed(x)
+        packed_np = packed.cpu().numpy()
+        return {
+            "pre": host_ms(lambda: list(task.sub_batches(dev_pages,
+                                                         regions[:len(sub)]))),
+            "forward": host_ms(lambda: task.model.heads(x)),
+            "decode": host_ms(lambda: task.model.decode(heads)),
+            "download": host_ms(lambda: packed.cpu()),
+            "host_post": host_ms(lambda: [
+                task._post_one(packed_np[j:j + 1], m)
+                for j, m in enumerate(metas)], iters=2),
+            "crops": len(sub)}
+
+
+def prefix_before_tie(scores, gap) -> int:
+    """Leading slots of a descending score list before its first near-tie
+    (two neighbours closer than ``gap``)."""
+    import numpy as np
+
+    close = np.flatnonzero(np.abs(np.diff(scores)) < gap)
+    return int(close[0]) if len(close) else len(scores)
+
+
+def centernet_agreement(task, cpu, dev_pages, pages, regions) -> dict:
+    """The card against the same port on the CPU on CN_CPU_CROPS crops:
+    the normalized inputs, the heads, and the decode: cell slots (dets,
+    scores) and vertex slots (gboxes) up to the CPU's first near-tie of
+    their scores, in score order. The cells after the host post are
+    compared whole and reported: their logic clusters every cell of the
+    crop, and the vertex snap takes the first qualifying vertex in score
+    order, so a near-tie anywhere can move them."""
+    import numpy as np
+    import torch
+
+    from pdf_table_tpu_torch.models.center_net.model import unpack_centernet
+
+    regions = regions[:CN_CPU_CROPS]
+    k = task.model_config.K
+    with torch.inference_mode():
+        (_s, _m, x), = task.sub_batches(dev_pages, regions)
+        (_s, _m, xc), = cpu.sub_batches(pages, regions)
+        ha, hc = task.model.heads(x), cpu.model.heads(xc)
+        inputs = float((x.cpu() - xc).abs().max())
+        heads = max(rel_err(ha[n].cpu(), hc[n]) for n in hc)
+        pa = task.model.forward_packed(x).cpu().numpy()
+        pc = cpu.model.forward_packed(xc).numpy()
+    out = {"inputs_max_abs": inputs, "heads_rel": heads,
+           "cells_compared": [], "vertices_compared": [],
+           "decode_max_abs": 0.0}
+    for j in range(len(regions)):
+        a, c = unpack_centernet(pa[j:j + 1], k), unpack_centernet(
+            pc[j:j + 1], k)
+        n = prefix_before_tie(c["scores"][0], CN_TIE_GAP)
+        m = prefix_before_tie(c["gboxes"][0, :, 10], CN_TIE_GAP)
+        out["cells_compared"].append(n)
+        out["vertices_compared"].append(m)
+        out["decode_max_abs"] = max(
+            out["decode_max_abs"],
+            float(np.abs(a["dets"][0, :n] - c["dets"][0, :n]).max(
+                initial=0.0)),
+            float(np.abs(a["scores"][0, :n] - c["scores"][0, :n]).max(
+                initial=0.0)),
+            float(np.abs(a["gboxes"][0, :m] - c["gboxes"][0, :m]).max(
+                initial=0.0)))
+    got = task.batch_infer_from_pages(dev_pages, regions)
+    t0 = time.perf_counter()
+    want = cpu.batch_infer_from_pages(pages, regions)
+    out["cpu_s"] = time.perf_counter() - t0
+    out["cells_card_cpu"] = [[len(g["cells"]), len(w["cells"])]
+                             for g, w in zip(got, want)]
+    out["cells_equal"] = [g == w for g, w in zip(got, want)]
+    return out
+
+
+def phase_tsr_centernet(card, pages, regions):
+    """``OcrTableStructureTask(model="CenterNet")`` at full width (1024^2,
+    head_conv 256, K 300, MK 600, f32) on the 8 table regions, resident on
+    the card, through ``batch_infer_from_pages``: the counted run (K1 at
+    every DCN of the trunk, 16 a sub-batch), a bf16 forward of the
+    sub-batch of 8 (K1's and K2's launches as the flat-kc route picks
+    them), the plain-DCN yardstick, crops/s, stage ms, peak memory, idle
+    share, snapped vertices and agreement with the same port on the CPU.
+    Returns the tree and the launch counts of the f32 run and the bf16
+    forward."""
+    import numpy as np
+    import torch
+
+    from pdf_table_tpu_torch.convert.flax_bridge import load_flax_variables
+    from pdf_table_tpu_torch.models.center_net.config import CenterNetConfig
+    from pdf_table_tpu_torch.models.center_net.model import CycleCenterNet
+    from pdf_table_tpu_torch.ops.kernels import (KERNELS, launch_counts,
+                                                 reset_launch_counts)
+    from pdf_table_tpu_torch.tasks.table_structure import \
+        OcrTableStructureTask
+
+    t0 = time.perf_counter()
+    dev_pages = torch.from_numpy(pages).cuda()
+    tree = centernet_tree(OcrTableStructureTask(model="CenterNet",
+                                                device="cuda"),
+                          dev_pages, regions)
+    task = OcrTableStructureTask(model="CenterNet", device="cuda",
+                                 variables=tree)
+    build_s = time.perf_counter() - t0
+    cfg = task.model_config
+    n_sub = len(list(task.sub_batches(dev_pages, regions)))
+
+    # the main path, counted
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    results = task.batch_infer_from_pages(dev_pages, regions)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {k: launch_counts[k] for k in KERNELS}
+    print(json.dumps({"tsr_centernet_launches": launches,
+                      "sub_batches": n_sub}))
+    check(launches["deform_conv2d"] == CN_DCNS * n_sub
+          and launches["deform_conv2d_flat_kc"] == 0
+          and launches["resize_normalize"] == 0,
+          f"CenterNet: launches {launches} for {n_sub} f32 sub-batches")
+    check(len(results) == len(regions)
+          and all(r["type"] == "center_net" for r in results),
+          "CenterNet: one center_net result per region")
+    check(all(np.isfinite(c["bbox"]).all() and len(c["logic"]) == 4
+              for r in results for c in r["cells"]),
+          "CenterNet: cells are not finite")
+    cells = [len(r["cells"]) for r in results]
+    check(sum(cells) > 0, "CenterNet: no cell passed the threshold")
+
+    torch.cuda.reset_peak_memory_stats()
+    run_s = []
+    for _ in range(CN_RUNS):
+        t0 = time.perf_counter()
+        task.batch_infer_from_pages(dev_pages, regions)
+        run_s.append(time.perf_counter() - t0)
+    per_run = statistics.median(run_s)
+    peak = torch.cuda.max_memory_allocated()
+    stages = centernet_stages(task, dev_pages, regions)
+    prof = profile_run(lambda: task.batch_infer_from_pages(dev_pages,
+                                                           regions))
+    prof.pop("kernel_names")
+
+    # one bf16 forward of the sub-batch of 8, counted
+    (_s, _m, x), *_ = task.sub_batches(dev_pages, regions)
+    bf16 = CycleCenterNet(CenterNetConfig(dtype="bfloat16")).eval()
+    load_flax_variables(bf16, tree)
+    bf16.to("cuda")
+    with torch.inference_mode():
+        bf16.forward_packed(x).cpu()             # warm-up
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        packed_bf16 = bf16.forward_packed(x).cpu().numpy()
+        torch.cuda.synchronize()
+    bf16_launches = {k: launch_counts[k] for k in KERNELS}
+    print(json.dumps({"tsr_centernet_bf16_launches": bf16_launches,
+                      "crops": int(x.shape[0])}))
+    check(bf16_launches["deform_conv2d"] > 0
+          and bf16_launches["deform_conv2d"]
+          + bf16_launches["deform_conv2d_flat_kc"] == CN_DCNS,
+          f"CenterNet bf16: launches {bf16_launches}")
+    check(np.isfinite(packed_bf16).all(), "CenterNet bf16: not finite")
+
+    # the plain-DCN yardstick on the same tree and crops
+    plain = CycleCenterNet(cfg, plain_dcn=True).eval()
+    load_flax_variables(plain, tree)
+    plain.to("cuda")
+    with torch.inference_mode():
+        ha = task.model.heads(x)
+        packed = task.model.forward_packed(x).cpu().numpy()
+        torch.cuda.synchronize()
+        before = dict(launch_counts)
+        hb = plain.heads(x)
+        torch.cuda.synchronize()
+        check(dict(launch_counts) == before,
+              "the plain yardstick launched a kernel")
+        yard = {k: rel_err(ha[k], hb[k]) for k in hb}
+    snaps = centernet_snaps(task, packed)
+    del plain, bf16
+
+    cpu = OcrTableStructureTask(model="CenterNet", device="cpu",
+                                variables=tree)
+    agree = centernet_agreement(task, cpu, dev_pages, pages, regions)
+    summary = {
+        "card": card, "model": "CenterNet", "resolution": list(
+            cfg.resolution), "head_conv": cfg.head_conv, "K": cfg.K,
+        "MK": cfg.MK, "dtype": cfg.dtype, "crops": len(regions),
+        "sub_batches": n_sub, "launches": launches,
+        "bf16_forward_launches": bf16_launches, "model_build_s": build_s,
+        "first_run_s": first_s, "run_s_median": per_run,
+        "run_s_min": min(run_s), "run_s_max": max(run_s), "runs": len(run_s),
+        "crops_per_s": len(regions) / per_run,
+        "peak_mem_gib": peak / 2 ** 30, "stage_ms": stages,
+        "profile": prof, "cells": cells, "snapped_vertices": snaps,
+        "yardstick_heads_rel": yard, "cpu": agree}
+    print(json.dumps({"tsr_centernet": summary}))
+    check(max(yard.values()) <= CN_YARD_TOL,
+          f"CenterNet: the kernel's heads differ from the plain DCN's: "
+          f"{yard}")
+    check(snaps > 0, "CenterNet: no vertex snapped")
+    check(agree["inputs_max_abs"] <= CN_INPUT_TOL,
+          f"CenterNet: inputs differ from the CPU's: "
+          f"{agree['inputs_max_abs']:.3g}")
+    check(agree["heads_rel"] <= CN_HEADS_TOL,
+          f"CenterNet: heads differ from the CPU's: {agree['heads_rel']:.3g}")
+    check(min(agree["cells_compared"]) > 0
+          and min(agree["vertices_compared"]) > 0
+          and agree["decode_max_abs"] <= CN_DECODE_TOL,
+          f"CenterNet: the decode differs from the CPU's before the first "
+          f"near-tie: {agree['decode_max_abs']:.3g} "
+          f"({agree['cells_compared']}, {agree['vertices_compared']})")
+    return tree, {"f32": launches, "bf16": bf16_launches}
+
+
+def lgpma_tree(task, dev_pages, regions):
+    """A seeded full-width LGPMA tree, BatchNorm statistics calibrated on
+    the card on the first crop, variances doubled, the bbox head's class
+    and delta logits spread x LGPMA_GAIN (the CPU tests' tree)."""
+    import torch
+
+    from pdf_table_tpu_torch.engine.params import (calibrate_batch_stats,
+                                                   init_lgpma,
+                                                   scale_batch_variances)
+
+    (_s, _m, x), *_ = task.sub_batches(dev_pages, regions)
+    net = task.model
+    net.forward = net.levels
+    tree = scale_batch_variances(calibrate_batch_stats(
+        net, init_lgpma(task.model_config, 0), x), 2.0)
+    del net.forward
+    for k in ("fc_cls", "fc_reg"):
+        tree["params"]["bbox_head"][k]["kernel"] *= LGPMA_GAIN
+    torch.cuda.synchronize()
+    return tree
+
+
+def lgpma_agreement(task, cpu, dev_pages, pages, regions) -> dict:
+    """The card against the same port on the CPU on LGPMA_CPU_CROPS crops:
+    the inputs, the FPN levels, the proposals up to the CPU's first
+    near-tie of objectness, the bbox, LPMA and GPMA heads on the CPU's
+    RoIs, and the cells (equal where the proposals are)."""
+    import torch
+
+    out = {"inputs_max_abs": 0.0, "levels_rel": 0.0, "heads_rel": 0.0,
+           "props_compared": [], "props_px": 0.0, "cells_equal": [],
+           "cpu_s": 0.0}
+    for region in regions[:LGPMA_CPU_CROPS]:
+        with torch.inference_mode():
+            (_s, (meta,), x), = task.sub_batches(dev_pages, [region])
+            (_s, _m, xc), = cpu.sub_batches(pages, [region])
+            out["inputs_max_abs"] = max(out["inputs_max_abs"], float(
+                (x.cpu() - xc).abs().max()))
+            t0 = time.perf_counter()
+            want = cpu.model(xc)
+            lc = cpu.model.levels(xc)
+            out["cpu_s"] += time.perf_counter() - t0
+            la = task.model.levels(x)
+            out["levels_rel"] = max([out["levels_rel"]] + [
+                rel_err(a.cpu(), c) for a, c in zip(la, lc)])
+            pa, _ = task.model.rpn(la, tuple(x.shape[1:3]))
+            _, sc = cpu.model.rpn(lc, tuple(xc.shape[1:3]))
+            n = prefix_before_tie(sc.numpy(), LGPMA_TIE_GAP)
+            out["props_compared"].append(n)
+            out["props_px"] = max(out["props_px"], float(
+                (pa[:n].cpu() - want["proposals"][0, :n]).abs().max()))
+            m = task.model
+            rois = want["proposals"][0].cuda()
+            cls, _ = m.bbox_head(m.extract(la, rois, 7))
+            masks = m.mask_head(m.extract(
+                la, want["mask_boxes"][0].cuda(), 14))
+            seg, reg = m.global_seg_head(la[0])
+            out["heads_rel"] = max([out["heads_rel"]] + [
+                rel_err(a.cpu(), want[k].reshape(a.shape))
+                for a, k in ((cls, "cls_probs"), (masks, "lpma_masks"),
+                             (seg, "gpma_seg"), (reg, "gpma_reg"))])
+            got_raw = {k: v.cpu().numpy()
+                       for k, v in task._forward_packed(x).items()}
+            want_raw = {k: want[k].numpy() for k in got_raw}
+        if n == len(sc):
+            out["cells_equal"].append(task.post(got_raw, meta)
+                                      == cpu.post(want_raw, meta))
+    return out
+
+
+def phase_tsr_lgpma(card, pages, regions):
+    """``OcrTableStructureTask(model="Lgpma")`` at full width (ResNet-50,
+    FPN 256, max side 800, 512 proposals, fc 1024, mask_top 256, f32), one
+    crop a forward, on the 8 table regions resident on the card: the
+    counted run launches none of K1-K3 (JAX's lane reaches no Pallas
+    kernel); crops/s, stage ms, peak memory, idle share and agreement with
+    the same port on the CPU. Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from pdf_table_tpu_torch.ops.kernels import (KERNELS, launch_counts,
+                                                 reset_launch_counts)
+    from pdf_table_tpu_torch.tasks.table_structure import \
+        OcrTableStructureTask
+
+    t0 = time.perf_counter()
+    dev_pages = torch.from_numpy(pages).cuda()
+    tree = lgpma_tree(OcrTableStructureTask(model="Lgpma", device="cuda"),
+                      dev_pages, regions)
+    task = OcrTableStructureTask(model="Lgpma", device="cuda",
+                                 variables=tree)
+    build_s = time.perf_counter() - t0
+    cfg = task.model_config
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    results = task.batch_infer_from_pages(dev_pages, regions)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {k: launch_counts[k] for k in KERNELS}
+    check(sum(launches.values()) == 0, f"the LGPMA lane launched {launches}")
+    check(len(results) == len(regions)
+          and all(r["type"] == "lgpma" for r in results),
+          "LGPMA: one lgpma result per region")
+    check(all(np.isfinite(c["bbox"]).all() for r in results
+              for c in r["cells"]), "LGPMA: cells are not finite")
+    cells = [len(r["cells"]) for r in results]
+    check(sum(cells) > 0, "LGPMA: no cell")
+
+    torch.cuda.reset_peak_memory_stats()
+    run_s = []
+    for _ in range(LGPMA_RUNS):
+        t0 = time.perf_counter()
+        task.batch_infer_from_pages(dev_pages, regions)
+        run_s.append(time.perf_counter() - t0)
+    per_run = statistics.median(run_s)
+    peak = torch.cuda.max_memory_allocated()
+    with torch.inference_mode():
+        (_s, (meta,), x), *_ = task.sub_batches(dev_pages, regions)
+        raw = task._forward_packed(x)
+        host = {k: v.cpu().numpy() for k, v in raw.items()}
+        stages = {
+            "pre": host_ms(lambda: next(iter(task.sub_batches(
+                dev_pages, regions[:1])))),
+            "forward": host_ms(lambda: task.model(x)),
+            "download": host_ms(lambda: {k: v.cpu()
+                                         for k, v in raw.items()}),
+            "host_post": host_ms(lambda: task._post_one(host, meta),
+                                 iters=2),
+            "input": list(x.shape[1:3])}
+    prof = profile_run(lambda: task.batch_infer_from_pages(
+        dev_pages, regions[:2]), full=False)
+    cpu = OcrTableStructureTask(model="Lgpma", device="cpu", variables=tree)
+    agree = lgpma_agreement(task, cpu, dev_pages, pages, regions)
+    summary = {
+        "card": card, "model": "Lgpma", "depth": cfg.backbone_depth,
+        "fpn": cfg.fpn_channels, "max_side": cfg.max_side,
+        "proposals": cfg.num_proposals, "fc": cfg.fc_dim,
+        "mask_top": cfg.mask_top, "dtype": cfg.dtype,
+        "crops": len(regions), "launches": launches,
+        "model_build_s": build_s, "first_run_s": first_s,
+        "run_s_median": per_run, "run_s_min": min(run_s),
+        "run_s_max": max(run_s), "runs": len(run_s),
+        "crops_per_s": len(regions) / per_run,
+        "peak_mem_gib": peak / 2 ** 30, "stage_ms_one_crop": stages,
+        "profile_two_crops": prof, "cells": cells, "cpu": agree}
+    print(json.dumps({"tsr_lgpma": summary}))
+    check(agree["inputs_max_abs"] <= LGPMA_TOL,
+          f"LGPMA: inputs differ from the CPU's: {agree['inputs_max_abs']}")
+    check(agree["levels_rel"] <= LGPMA_TOL and agree["heads_rel"]
+          <= LGPMA_TOL, f"LGPMA: maps or heads differ from the CPU's: "
+          f"{agree['levels_rel']:.3g}, {agree['heads_rel']:.3g}")
+    check(min(agree["props_compared"]) > 0
+          and agree["props_px"] <= LGPMA_PROP_PX,
+          f"LGPMA: proposals differ from the CPU's before the first "
+          f"near-tie: {agree['props_px']:.3g} px")
+    check(all(agree["cells_equal"]), "LGPMA: cells differ from the CPU's "
+          "on equal proposals")
     return launches
 
 
@@ -2759,6 +3308,9 @@ def main() -> int:
                            tm_results)
     pipe_sla = phase_pipeline_arm(card, pipe_trees, "SLANet", sla_tree)
     pipe_tm = phase_pipeline_arm(card, pipe_trees, "TableMaster", tm_tree)
+    cn_tree, cn = phase_tsr_centernet(card, tsr_pages, tsr_regions)
+    lg = phase_tsr_lgpma(card, tsr_pages, tsr_regions)
+    pipe_cn = phase_pipeline_arm(card, pipe_trees, "CenterNet", cn_tree)
     train_rows = phase_train_dcn(gen)
     train = phase_train(card, train_rows)
     check("jax" not in sys.modules and "pdf_table_tpu" not in sys.modules,
@@ -2766,12 +3318,18 @@ def main() -> int:
 
     def by_path(name, **extra):
         """A kernel's launches on every counted path that runs it or not:
-        the token-model phases and pipeline arms launch K3 once a chunk
-        (detection) and never K1 or K2."""
+        the token-model and LGPMA phases and the token pipeline arms
+        launch K3 once a chunk (detection) and never K1 or K2; CenterNet
+        runs K1 at every DCN (K2 too in bf16)."""
         return {**extra, "pipeline": pipe[name], "tsr_slanet": sla[name],
                 "tsr_master": tm[name], "tsr_mtl_tabnet": mtl[name],
                 "pipeline_slanet": pipe_sla[name],
                 "pipeline_master": pipe_tm[name],
+                "tsr_centernet": cn["f32"][name],
+                "tsr_centernet_bf16_forward": cn["bf16"][name],
+                "tsr_lgpma": lg[name], "pipeline_centernet": pipe_cn[name],
+                "pipeline_lore_line_cell":
+                    pipe_cn["lore_line_cell"][name],
                 "train": train[name]}
 
     print(card)

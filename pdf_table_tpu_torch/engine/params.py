@@ -1,16 +1,18 @@
 """Deterministic numpy-seeded initialization in the flax layout.
 
-:func:`init_lore`, :func:`init_dbnet`, :func:`init_rec`, :func:`init_cls`,
+:func:`init_lore`, :func:`init_centernet`, :func:`init_lgpma`,
+:func:`init_dbnet`, :func:`init_rec`, :func:`init_cls`,
 :func:`init_picodet`, :func:`init_slanet` and :func:`init_table_master`
 return a ``{"params", "batch_stats"}`` tree with the paths and shapes the
-JAX package's ``LoreModel.init`` / ``DBNet.init`` / ``CTCRecModel.init`` /
+JAX package's ``LoreModel.init`` / ``CycleCenterNet.init`` /
+``LGPMA.init`` / ``DBNet.init`` / ``CTCRecModel.init`` /
 ``PPLCNetClassifier.init`` / ``PicoDet.init`` / ``SLANet.init`` /
 ``TableMaster.init`` give, filled with the
 flax initializers' kinds: lecun-normal conv / transposed-conv / dense
 kernels, zero biases, BN and LayerNorm scale/bias 1/0 and statistics 0/1;
 for the SLANet head and the TableMaster decoder's flat parameters
 xavier-uniform matrices, normal(0.02) embeddings, LayerNorm scales 1;
-for LORE also he-normal DCN weights,
+for LORE and Cycle-CenterNet also he-normal DCN weights,
 the bilinear upsample kernel, a zero ``conv_offset_mask`` and the -2.19
 ``hm_out`` bias. The numbers differ from a JAX PRNG init (another
 generator); the structure is the same, so the weight bridge moves either
@@ -34,9 +36,11 @@ import torch
 from torch import nn
 
 from ..convert.flax_bridge import tree_leaves
+from ..models.center_net.config import CenterNetConfig
 from ..models.cls.config import ClsPulcConfig
 from ..models.dbnet.config import DbNetConfig
 from ..models.layers import BatchNorm
+from ..models.lgpma.config import LgpmaConfig
 from ..models.lore.config import LoreConfig
 from ..models.lore.dla import (DeformConvBlock, DepthwiseUpsample,
                                bilinear_up_kernel)
@@ -136,12 +140,12 @@ def _set_batch_norm(params, stats, path, c: int) -> None:
     _set(stats, path + ("var",), np.ones((c,), np.float32))
 
 
-def init_lore(cfg: LoreConfig, seed: int = 0) -> Dict[str, Any]:
-    from ..models.lore.model import LoreModel
-
+def _init_dla(model: nn.Module, seed: int) -> Dict[str, Any]:
+    """The tree of a model over the DLA trunk or LORE's ResNet detector:
+    conv and transposed-conv kernels (``conv_offset_mask`` zero), biases
+    zero but ``hm_out``'s -2.19, dense and embedding tables, BatchNorm,
+    he-normal DCN weights, the bilinear upsample kernels and RefNorm."""
     rng = np.random.default_rng(seed)
-    with torch.device("meta"):
-        model = LoreModel(cfg)
     params: Dict[str, Any] = {}
     stats: Dict[str, Any] = {}
 
@@ -151,8 +155,11 @@ def init_lore(cfg: LoreConfig, seed: int = 0) -> Dict[str, Any]:
     for mname, mod in model.named_modules():
         path = tuple(mname.split(".")) if mname else ()
         name = path[-1] if path else ""
-        if isinstance(mod, nn.Conv2d):
-            o, i, kh, kw = mod.weight.shape
+        if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
+            if isinstance(mod, nn.Conv2d):
+                o, i, kh, kw = mod.weight.shape
+            else:
+                i, o, kh, kw = mod.weight.shape
             kern = np.zeros((kh, kw, i, o), np.float32) \
                 if name == "conv_offset_mask" else \
                 normal((kh, kw, i, o), kh * kw * i)
@@ -184,6 +191,24 @@ def init_lore(cfg: LoreConfig, seed: int = 0) -> Dict[str, Any]:
             _set(params, path + ("alpha",), np.ones((mod.dim,), np.float32))
             _set(params, path + ("bias",), np.zeros((mod.dim,), np.float32))
     return {"params": params, "batch_stats": stats}
+
+
+def init_lore(cfg: LoreConfig, seed: int = 0) -> Dict[str, Any]:
+    """The LORE tree, for either detector (``cfg.backbone``)."""
+    from ..models.lore.model import LoreModel
+
+    with torch.device("meta"):
+        model = LoreModel(cfg)
+    return _init_dla(model, seed)
+
+
+def init_centernet(cfg: CenterNetConfig, seed: int = 0) -> Dict[str, Any]:
+    """The Cycle-CenterNet tree: the DLA trunk and its four heads."""
+    from ..models.center_net.model import CycleCenterNet
+
+    with torch.device("meta"):
+        model = CycleCenterNet(cfg)
+    return _init_dla(model, seed)
 
 
 def _init_modules(model: nn.Module, seed: int) -> Dict[str, Any]:
@@ -243,6 +268,16 @@ def init_cls(cfg: ClsPulcConfig, seed: int = 0) -> Dict[str, Any]:
 
     with torch.device("meta"):
         model = PPLCNetClassifier(cfg)
+    return _init_modules(model, seed)
+
+
+def init_lgpma(cfg: LgpmaConfig, seed: int = 0) -> Dict[str, Any]:
+    """The LGPMA tree: the ResNet, FPN, RPN, the dense bbox head and the
+    mask heads (the LPMA upsample a transposed conv)."""
+    from ..models.lgpma.model import LGPMA
+
+    with torch.device("meta"):
+        model = LGPMA(cfg)
     return _init_modules(model, seed)
 
 

@@ -1,11 +1,13 @@
 """Shared building blocks (counterpart of pdf_table_tpu/models/layers.py).
 
-What the LORE, DBNet, recognition and classifier slices use: ``ConvBNAct``
-(grouped for depthwise) with the torch/paddle symmetric ``k//2`` padding
-and BatchNorm eps 1e-5, an inference-mode ``BatchNorm`` whose parameter
-names the weight bridge maps one to one, the activation table,
-``make_divisible``, ``SEModule``, the PP-LCNet ``DepthwiseSeparable``, the
-MobileNetV3 ``InvertedResidual`` and the nearest ``upsample2x``.
+What the LORE, DBNet, recognition, classifier and LGPMA slices use:
+``ConvBNAct`` (grouped for depthwise) with the torch/paddle symmetric
+``k//2`` padding and BatchNorm eps 1e-5, an inference-mode ``BatchNorm``
+whose parameter names the weight bridge maps one to one, the activation
+table, ``make_divisible``, ``SEModule``, the PP-LCNet
+``DepthwiseSeparable``, the MobileNetV3 ``InvertedResidual``, the nearest
+``upsample2x`` and the ResNet family (``BasicBlock``, ``Bottleneck``,
+``ResNet``).
 Modules run NCHW (the models keep activations in ``channels_last`` memory
 format).
 """
@@ -160,3 +162,88 @@ def upsample_nearest(x: torch.Tensor, factor: int) -> torch.Tensor:
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:
     return upsample_nearest(x, 2)
+
+
+class BasicBlock(nn.Module):
+    """ResNet-18/34 basic block: two 3x3 ``ConvBNAct`` and a 1x1 ``down``
+    projection of the identity where the stride or width changes."""
+
+    def __init__(self, in_ch: int, features: int,
+                 stride: Tuple[int, int] = (1, 1)):
+        super().__init__()
+        self.conv1 = ConvBNAct(in_ch, features, (3, 3), stride)
+        self.conv2 = ConvBNAct(features, features, (3, 3), act=None)
+        self.down = ConvBNAct(in_ch, features, (1, 1), stride, act=None) \
+            if tuple(stride) != (1, 1) or in_ch != features else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        identity = x if self.down is None else self.down(x)
+        return torch.relu(self.conv2(self.conv1(x)) + identity)
+
+
+class Bottleneck(nn.Module):
+    """ResNet-50 bottleneck: 1x1 -> 3x3 (strided) -> 1x1 to
+    ``4 * features``, with the ``down`` projection as in
+    :class:`BasicBlock`."""
+
+    expansion = 4
+
+    def __init__(self, in_ch: int, features: int,
+                 stride: Tuple[int, int] = (1, 1)):
+        super().__init__()
+        out_c = features * self.expansion
+        self.conv1 = ConvBNAct(in_ch, features, (1, 1))
+        self.conv2 = ConvBNAct(features, features, (3, 3), stride)
+        self.conv3 = ConvBNAct(features, out_c, (1, 1), act=None)
+        self.down = ConvBNAct(in_ch, out_c, (1, 1), stride, act=None) \
+            if tuple(stride) != (1, 1) or in_ch != out_c else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        identity = x if self.down is None else self.down(x)
+        return torch.relu(self.conv3(self.conv2(self.conv1(x))) + identity)
+
+
+RESNET_LAYOUTS = {18: (BasicBlock, (2, 2, 2, 2)),
+                  34: (BasicBlock, (3, 4, 6, 3)),
+                  50: (Bottleneck, (3, 4, 6, 3))}
+
+
+def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
+    """3x3 max pool, stride 2, padding 1 (padded with -inf, as flax's
+    ``nn.max_pool`` with explicit padding)."""
+    return F.max_pool2d(x, 3, 2, 1)
+
+
+class ResNet(nn.Module):
+    """ResNet backbone returning the stride 4, 8, 16 and 32 maps
+    (torchvision layouts: 18 and 34 of basic blocks, 50 of bottlenecks):
+    a 7x7/2 ``stem``, the 3x3/2 max pool and ``layer{i}_{j}`` blocks."""
+
+    def __init__(self, depth: int = 18):
+        super().__init__()
+        if depth not in RESNET_LAYOUTS:
+            raise ValueError(f"unsupported resnet depth {depth}")
+        block, layers = RESNET_LAYOUTS[depth]
+        self.stem = ConvBNAct(3, 64, (7, 7), (2, 2))
+        in_ch = 64
+        self.names = []
+        for i, (w, n) in enumerate(zip((64, 128, 256, 512), layers)):
+            stage = []
+            for j in range(n):
+                stride = (2, 2) if i > 0 and j == 0 else (1, 1)
+                name = f"layer{i + 1}_{j}"
+                setattr(self, name, block(in_ch, w, stride))
+                in_ch = w * getattr(block, "expansion", 1)
+                stage.append(name)
+            self.names.append(stage)
+        self.out_channels = tuple(
+            w * getattr(block, "expansion", 1) for w in (64, 128, 256, 512))
+
+    def forward(self, x: torch.Tensor):
+        x = max_pool_3x3_s2(self.stem(x))
+        feats = []
+        for stage in self.names:
+            for name in stage:
+                x = getattr(self, name)(x)
+            feats.append(x)
+        return tuple(feats)

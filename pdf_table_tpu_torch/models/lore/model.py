@@ -16,11 +16,9 @@ from torch import nn
 
 from ...engine.device import compute_dtype
 from ...ops.centernet import decode_boxes_4ps, gather_feat
-from ...ops.deform_conv import deform_conv2d_plain
 from .config import LoreConfig
 from .corner_refine import refine_sort
-from .detector import DLASegDetector
-from .dla import DeformConvBlock, DepthwiseUpsample
+from .detector import build_detector, cast_detector
 from .processor_model import LoreProcessor
 
 # packed output layout: (name, width) along the last axis
@@ -44,29 +42,20 @@ def gather_corner_features(cr_map: torch.Tensor,
 
 
 class LoreModel(nn.Module):
-    """The detector computes in ``config.dtype`` as the flax modules do:
-    conv, DCN and upsample weights (and conv biases) take that dtype, while
-    BatchNorm parameters and statistics and the DCN biases stay f32. The
-    regressor is f32. ``plain_dcn=True`` runs every deform conv through its
-    plain PyTorch version (a yardstick run for the kernel)."""
+    """The detector (``config.backbone``: "dla34" or "resnet18") computes
+    in ``config.dtype`` as the flax modules do: conv, transposed-conv, DCN
+    and upsample weights (and conv biases) take that dtype, while BatchNorm
+    parameters and statistics and the DCN biases stay f32. The regressor
+    is f32. ``plain_dcn=True`` runs every deform conv through its plain
+    PyTorch version (a yardstick run for the kernel)."""
 
     def __init__(self, config: LoreConfig, plain_dcn: bool = False):
         super().__init__()
-        if config.backbone != "dla34":
-            raise NotImplementedError(
-                "the port runs the dla34 detector; resnet18 is not ported "
-                "yet")
         self.config = config
         self.dtype = compute_dtype(config.dtype)
-        self.detector = DLASegDetector(config)
+        self.detector = build_detector(config)
         self.processor = LoreProcessor(config)
-        for m in self.detector.modules():
-            if isinstance(m, (nn.Conv2d, DepthwiseUpsample)):
-                m.to(self.dtype)
-            elif isinstance(m, DeformConvBlock):
-                m.weight = nn.Parameter(m.weight.detach().to(self.dtype))
-                if plain_dcn:
-                    m.dcn = deform_conv2d_plain
+        cast_detector(self.detector, self.dtype, plain_dcn)
 
     def heads(self, pixel_values: torch.Tensor) -> Dict[str, torch.Tensor]:
         """pixel_values (B, H, W, 3) normalized, NHWC -> the detector's

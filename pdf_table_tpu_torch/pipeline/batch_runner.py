@@ -10,7 +10,9 @@ each bucket has one detector input size (limit-side rule, multiples of
 bucket and uploads each chunk's canvas stack once; it stays resident. Every
 chunk's layout and detection programs are enqueued from it before the first
 download blocks. Then, chunk by chunk: the layout finish, the table regions
-and LORE over crops cut from the resident stack; the detection finish and
+and the TSR model over crops cut from the resident stack (the table
+regions as the layout gives them, for every model: like the JAX runner,
+this one does not widen them for LineCell); the detection finish and
 recognition (with the 0/180 classifier when ``use_textline_cls``) over text
 crops cut from it; then each page's text cells, table HTML and page HTML.
 One CUDA stream, no host threads. A failure is contained to its page (HTML
@@ -201,9 +203,9 @@ class BatchPipeline:
         return cells_per_page, table_results, regions, owners
 
     def _tsr_from_regions(self, canv: torch.Tensor, prep):
-        """LORE over the table crops, cut from the resident canvases:
-        (layout cells, table results) per page; a table result is (bbox,
-        tsr result)."""
+        """The TSR task over the table crops, cut from the resident
+        canvases: (layout cells, table results) per page; a table result
+        is (bbox, tsr result)."""
         cells_per_page, table_results, regions, owners = prep
         if regions:
             results = self.system.tsr_task.batch_infer_from_pages(canv,

@@ -23,8 +23,9 @@ class OcrSystemConfig:
     detect_model: str = "PP-OCRv4_det"
     recognizer_model: str = "PP-OCRv4_rec"
     layout_model: str = "picodet"           # picodet | none
-    # Lore | SLANet | TableMaster | MtlTabNet, and the TSR task's keyword
-    # arguments (its config fields, batch_size, variables)
+    # Lore | LoreAndLineCell | CenterNet | Lgpma | LineCell | SLANet |
+    # TableMaster | MtlTabNet, and the TSR task's keyword arguments (its
+    # config fields, batch_size, variables)
     table_structure_model: str = "Lore"
     table_structure_kwargs: Dict[str, Any] = field(default_factory=dict)
     lang: str = "en"

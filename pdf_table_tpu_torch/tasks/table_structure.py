@@ -1,6 +1,7 @@
 """Table-structure-recognition task (counterpart of
-pdf_table_tpu/tasks/table_structure.py): the ``Lore``, ``SLANet``,
-``TableMaster`` and ``MtlTabNet`` models.
+pdf_table_tpu/tasks/table_structure.py): ``Lore``, ``LoreAndLineCell``,
+``CenterNet``, ``Lgpma``, ``LineCell``, ``SLANet``, ``TableMaster`` and
+``MtlTabNet``.
 
 ``batch_infer_from_pages`` takes page images and table regions, cuts every
 crop on the device from the resident pages, runs the model per sub-batch,
@@ -12,6 +13,20 @@ downloads each sub-batch once and post-processes each crop on the host.
   coordinates. Under ``wiz_rev`` (``task_type="wtw"``, the default) a
   sub-batch runs detect-decode, the dense corner refine and re-sort, then
   the feature gathers and regressor, all on the device.
+  ``LoreAndLineCell`` is LORE plus the line cells of each window (one
+  download of the windows, the host LineCell), merged by
+  :func:`merge_tsr_cells`.
+- Cycle-CenterNet: the integer window warped to 1024^2 as the JAX
+  pre-processor's ``cv2.warpAffine`` does, in sub-batches of
+  ``batch_size``; the trunk (its deform convs on the DCN kernel) and the
+  cell and vertex decode on the device; the vertex snap and logical
+  coordinates on the host.
+- LGPMA: one crop a forward (the JAX program takes one image): the window
+  resized as ``cv2.resize`` does, ImageNet normalization, the two-stage
+  detector and mask heads on the device, the pyramid refine and the
+  adjacency cliques on the host.
+- LineCell: the windows downloaded with one copy, the lines and the grid
+  cells on the host (no model).
 - SLANet, TableMaster / MtlTabNet (the token models): the integer window
   of the region resized to uint8 as ``cv2.resize`` does
   (ops/crop_resize.py), each model's normalize and pad, the encoder and
@@ -28,7 +43,18 @@ import torch
 
 from ..engine.buckets import bucket_batch_size
 from ..engine.device import on_device, resolve_device, set_float_precision
-from ..engine.params import init_lore, init_slanet, init_table_master
+from ..engine.params import (init_centernet, init_lgpma, init_lore,
+                             init_slanet, init_table_master)
+from ..models.center_net.config import CenterNetConfig
+from ..models.center_net.model import CycleCenterNet, unpack_centernet
+from ..models.center_net.processor import (CenterNetPostProcessor,
+                                           CenterNetPreProcessor,
+                                           assign_logical_coords)
+from ..models.lgpma.config import LgpmaConfig
+from ..models.lgpma.model import LGPMA
+from ..models.lgpma.processor import (LgpmaPostProcessor,
+                                      LgpmaPreProcessor)
+from ..models.line_cell.algo import extract_cells_from_image
 from ..models.lore.config import LoreConfig
 from ..models.lore.model import LoreModel, unpack_lore
 from ..models.lore.processor import LorePostProcessor, LorePreProcessor
@@ -42,9 +68,30 @@ from ..models.table_master.processor import (TableMasterPostProcessor,
 from ..models.table_master.vocab import load_pubtabnet_textline_alphabet
 from ..ops.crop_resize import crop_resize_u8, crop_taps, crop_windows
 from ..ops.warp import resample_axis_aligned_crops
+from .table_to_html import bbox_iou
 
 Region = Tuple[int, Tuple[float, float, float, float]]
 TOKEN_MODELS = ("SLANet", "TableMaster", "MtlTabNet")
+MODELS = ("Lore", "LoreAndLineCell", "CenterNet", "Lgpma",
+          "LineCell") + TOKEN_MODELS
+# the outputs of an LGPMA forward that its post-processor reads
+LGPMA_OUTPUTS = ("cls_probs", "det_boxes", "mask_idx", "lpma_masks")
+
+
+def merge_tsr_cells(primary: Dict[str, Any], secondary: Dict[str, Any],
+                    iou_thresh: float = 0.5) -> Dict[str, Any]:
+    """LORE and LineCell merged (a copy of the JAX function): the
+    secondary (line) cells, plus each primary (model) cell that no
+    secondary cell covers at ``iou_thresh``, with logical coordinates
+    derived again over the union."""
+    base = [dict(c) for c in secondary.get("cells", [])]
+    for c in primary.get("cells", []):
+        covered = any(bbox_iou(c["bbox"], b["bbox"]) >= iou_thresh
+                      for b in base)
+        if not covered:
+            base.append(dict(c))
+    assign_logical_coords(base)
+    return {"cells": base, "type": "lore_line_cell_merge"}
 
 
 def lore_config(task_type: str = "wtw", **kw) -> LoreConfig:
@@ -57,13 +104,15 @@ def lore_config(task_type: str = "wtw", **kw) -> LoreConfig:
 
 class OcrTableStructureTask:
     """Table structure on ``device`` (``cuda`` unless ``"cpu"`` is asked
-    for) with ``model`` "Lore", "SLANet", "TableMaster" or "MtlTabNet".
-    Weights: ``variables`` (a flax-layout tree, see convert/flax_bridge.py)
-    or, when None, the model's seeded ``init_*``. LORE: ``res_buckets``
-    ("auto" or a tuple of sides) runs small crops at a smaller square
-    resolution; ``batch_size`` caps a full-resolution sub-batch. The token
-    models run sub-batches of ``batch_size`` crops at their one input
-    size. ``config`` or the config fields in ``kw`` set the model."""
+    for) with ``model`` one of ``MODELS``. Weights: ``variables`` (a
+    flax-layout tree, see convert/flax_bridge.py) or, when None, the
+    model's seeded ``init_*`` (LineCell has none). LORE (and
+    LoreAndLineCell): ``res_buckets`` ("auto" or a tuple of sides) runs
+    small crops at a smaller square resolution; ``batch_size`` caps a
+    full-resolution sub-batch. CenterNet and the token models run
+    sub-batches of ``batch_size`` crops at their one input size, LGPMA one
+    crop at a time. ``config`` or the config fields in ``kw`` set the
+    model."""
 
     task_name = "table_structure"
 
@@ -71,15 +120,37 @@ class OcrTableStructureTask:
                  config: Optional[Any] = None,
                  res_buckets: Any = (), device=None, batch_size: int = 8,
                  variables: Optional[Dict[str, Any]] = None, **kw):
-        if model != "Lore" and model not in TOKEN_MODELS:
-            raise NotImplementedError(f"TSR model {model!r} is not ported "
-                                      f"yet")
+        if model not in MODELS:
+            raise NotImplementedError(
+                f"TSR model {model!r} is not ported (LineCellPdf needs the "
+                f"PDF reader, ROADMAP.md Queue 1 item 9)")
+        # merge mode: LORE cells fused with the line cells, as in JAX
+        self.merge_line_cell = model == "LoreAndLineCell"
+        if self.merge_line_cell:
+            model = "Lore"
         self.model_name = model
         self.device = resolve_device(device)
         set_float_precision()
         self.batch_size = batch_size
+        if model == "LineCell":
+            self.model_config = self.model = None
+            return
         if model == "Lore":
             self._init_lore(config, task_type, res_buckets, **kw)
+        elif model == "CenterNet":
+            self.model_config = cfg = config or CenterNetConfig(**kw)
+            self.pre = CenterNetPreProcessor(cfg)
+            self.post = CenterNetPostProcessor(cfg)
+            self.model = CycleCenterNet(cfg).eval()
+            self._init_tree = init_centernet
+        elif model == "Lgpma":
+            self.model_config = cfg = config or LgpmaConfig(**kw)
+            if cfg.dtype != "float32":
+                raise NotImplementedError("the port runs LGPMA in float32")
+            self.pre = LgpmaPreProcessor(cfg)
+            self.post = LgpmaPostProcessor(cfg)
+            self.model = LGPMA(cfg).eval()
+            self._init_tree = init_lgpma
         else:
             self._init_token_model(config, **kw)
         self.load_variables(variables if variables is not None
@@ -184,12 +255,19 @@ class OcrTableStructureTask:
     def sub_batches(self, pages, regions: Sequence[Region]):
         """Yield (crop indices, meta per crop, model input) for each
         sub-batch. LORE: grouped by resolution bucket, each group cut at a
-        cap that scales with the bucket's pixel ratio; the token models:
-        runs of ``batch_size`` in region order. A page tensor already on
-        the device is used as it is, not copied."""
+        cap that scales with the bucket's pixel ratio; CenterNet and the
+        token models: runs of ``batch_size`` in region order; LGPMA: one
+        crop each. A page tensor already on the device is used as it is,
+        not copied."""
         pages_t = on_device(pages, self.device)
         if self.model_name in TOKEN_MODELS:
             yield from self._token_sub_batches(pages_t, regions)
+            return
+        if self.model_name == "CenterNet":
+            yield from self._centernet_sub_batches(pages_t, regions)
+            return
+        if self.model_name == "Lgpma":
+            yield from self._lgpma_sub_batches(pages_t, regions)
             return
         plan = self._region_plan(regions)
         inp_h, inp_w = self.model_config.resolution
@@ -203,6 +281,36 @@ class OcrTableStructureTask:
                 sub = idx[s0:s0 + cap]
                 yield (sub, [plan[i]["meta"] for i in sub],
                        self._crops(pages_t, [plan[i] for i in sub], res))
+
+    def _centernet_sub_batches(self, pages_t: torch.Tensor,
+                               regions: Sequence[Region]):
+        """Cycle-CenterNet's sub-batches: the integer windows warped to
+        the model's resolution and normalized."""
+        windows = crop_windows(tuple(pages_t.shape[1:3]), regions)
+        plans = [self.pre.plan(y2 - y1, x2 - x1)
+                 for _, x1, y1, x2, y2 in windows]
+        cap = max(1, self.batch_size)
+        for s0 in range(0, len(windows), cap):
+            sub = list(range(s0, min(s0 + cap, len(windows))))
+            with torch.inference_mode():
+                x = self.pre.normalize(self.pre.warp_crops(
+                    pages_t, [windows[i] for i in sub],
+                    np.stack([plans[i][0] for i in sub])))
+            yield sub, [plans[i][1] for i in sub], x
+
+    def _lgpma_sub_batches(self, pages_t: torch.Tensor,
+                           regions: Sequence[Region]):
+        """LGPMA's one-crop sub-batches: the window resized as
+        ``cv2.resize`` does to its multiple-of-32 size, normalized."""
+        windows = crop_windows(tuple(pages_t.shape[1:3]), regions)
+        for i, (pi, x1, y1, x2, y2) in enumerate(windows):
+            nh, nw, meta = self.pre.plan(y2 - y1, x2 - x1)
+            taps = torch.from_numpy(crop_taps([windows[i]], [(nh, nw)],
+                                              (nh, nw)))
+            with torch.inference_mode():
+                u8 = crop_resize_u8(pages_t, taps.to(self.device), (nh, nw))
+                x = self.pre.normalize(u8)
+            yield [i], [meta], x
 
     def _token_sub_batches(self, pages_t: torch.Tensor,
                            regions: Sequence[Region]):
@@ -230,20 +338,28 @@ class OcrTableStructureTask:
             return self.pre.normalize(u8, sizes)
         return self.pre.normalize(u8)
 
-    def _forward_packed(self, x: torch.Tensor) -> torch.Tensor:
-        """One sub-batch's outputs as one tensor to download: LORE's
-        packed cells; the token models' probabilities and locs side by
-        side, (B, T, V + L)."""
-        if self.model_name == "Lore":
+    def _forward_packed(self, x: torch.Tensor):
+        """One sub-batch's outputs to download: LORE's packed cells;
+        CenterNet's packed cells and vertices; LGPMA's outputs that its
+        post reads; the token models' probabilities and locs side by side,
+        (B, T, V + L)."""
+        if self.model_name in ("Lore", "CenterNet"):
             return self.model.forward_packed(x)
         out = self.model(x)
+        if self.model_name == "Lgpma":
+            return {k: out[k] for k in LGPMA_OUTPUTS}
         return torch.cat([out["structure_probs"], out["loc_preds"]], dim=-1)
 
-    def _post_one(self, packed: np.ndarray, meta) -> Dict[str, Any]:
-        """One crop's host post from its (1, ...) slice of the
-        download."""
+    def _post_one(self, packed, meta) -> Dict[str, Any]:
+        """One crop's host post from its (1, ...) slice of the download
+        (LGPMA: the whole download, a dict of arrays)."""
         if self.model_name == "Lore":
             return self.post(unpack_lore(packed), meta)
+        if self.model_name == "CenterNet":
+            return self.post(unpack_centernet(packed,
+                                              self.model_config.K), meta)
+        if self.model_name == "Lgpma":
+            return self.post(packed, meta)
         v = self.model.head.vocab_size if self.model_name == "SLANet" \
             else self.model.vocab_size
         raw = {"structure_probs": packed[..., :v],
@@ -252,24 +368,55 @@ class OcrTableStructureTask:
             return self.post(raw, meta)
         return self.post(raw, {"shape_list": meta})
 
+    def host_windows(self, pages, regions: Sequence[Region]
+                     ) -> List[np.ndarray]:
+        """The regions' integer windows as host uint8 arrays, cut on the
+        pages' device and downloaded with one copy."""
+        pages_t = torch.as_tensor(pages)
+        windows = crop_windows(tuple(pages_t.shape[1:3]), regions)
+        flat = torch.cat([pages_t[pi, y1:y2, x1:x2].reshape(-1)
+                          for pi, x1, y1, x2, y2 in windows]).cpu().numpy()
+        out, o = [], 0
+        for _, x1, y1, x2, y2 in windows:
+            n = (y2 - y1) * (x2 - x1) * 3
+            out.append(flat[o:o + n].reshape(y2 - y1, x2 - x1, 3))
+            o += n
+        return out
+
     @torch.inference_mode()
     def batch_infer_from_pages(self, pages, regions: Sequence[Region]
                                ) -> List[Dict[str, Any]]:
         """``pages`` (P, H, W, 3) uint8 RGB (numpy or tensor); ``regions``
         [(page_idx, (x1, y1, x2, y2))] in page coords. Returns one result
-        per region: {"cells": [...], "type": "lore"} for LORE,
-        {"structure_tokens", "cells", "score", "type"} for the token
-        models."""
+        per region: {"cells": [...], "type"} ("lore",
+        "lore_line_cell_merge", "center_net", "lgpma", "line_cell"), and
+        for the token models {"structure_tokens", "cells", "score",
+        "type"}."""
         if not regions:
             return []
+        if self.model_name == "LineCell":
+            return [extract_cells_from_image(w)
+                    for w in self.host_windows(pages, regions)]
         # every sub-batch is enqueued before the first download blocks
         pending = [(sub, metas, self._forward_packed(x))
                    for sub, metas, x in self.sub_batches(pages, regions)]
+        line_cells = None
+        if self.merge_line_cell:
+            # host line cells while the card runs LORE
+            line_cells = [extract_cells_from_image(w)
+                          for w in self.host_windows(pages, regions)]
         results: List[Dict[str, Any]] = [{} for _ in regions]
         for sub, metas, packed in pending:
+            if isinstance(packed, dict):
+                host = {k: v.cpu().numpy() for k, v in packed.items()}
+                results[sub[0]] = self._post_one(host, metas[0])
+                continue
             packed_np = packed.cpu().numpy()
             for j, (i, meta) in enumerate(zip(sub, metas)):
                 results[i] = self._post_one(packed_np[j:j + 1], meta)
+        if line_cells is not None:
+            results = [merge_tsr_cells(r, lc)
+                       for r, lc in zip(results, line_cells)]
         return results
 
     def __call__(self, image: np.ndarray) -> Dict[str, Any]:

@@ -13,7 +13,10 @@ flax, optax, orbax, cv2 nor PIL imported. A fourth runs the token models
 (SLANet, TableMaster, MtlTabNet at tiny configs: crops cut from the pages,
 the decode, the token path of table HTML) and ``BatchPipeline.run`` with
 ``table_structure_model="SLANet"``, with neither JAX, flax, cv2 nor the JAX
-package imported."""
+package imported. A fifth builds and runs the rest of table structure
+(CenterNet, Lgpma, LineCell, LoreAndLineCell and a ``resnet18`` LORE, at
+tiny configs) on a page with two regions, with neither JAX, flax, cv2 nor
+the JAX package imported."""
 
 import json
 import os
@@ -236,3 +239,48 @@ def test_token_models_run_without_jax():
                    "cells": ["a&amp;b"] * 3 + ["a&b"] * 6,
                    "errors": [None], "tsr": "SLANet"}
     assert tables and set(tables) == {"slanet"}
+
+
+_REST_SCRIPT = r"""
+import json, sys
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from pdf_table_tpu_torch.tasks.table_structure import OcrTableStructureTask
+from pdf_table_tpu_torch.tasks.table_to_html import OcrTableToHtmlTask
+lore = dict(resolution=(64, 64), max_objs=8, hidden_size=32, head_conv=16,
+            tsfm_layers=1, stacking_layers=1, num_heads=4, max_fmp_size=64,
+            d_ff=64)
+kw = {"CenterNet": dict(resolution=(64, 64), head_conv=16, K=8, MK=16),
+      "Lgpma": dict(backbone_depth=18, fpn_channels=32, rpn_pre_topk=32,
+                    num_proposals=16, mask_top=8, fc_dim=64, max_side=64),
+      "LineCell": {},
+      "LoreAndLineCell": dict(lore, task_type="wireless"),
+      "Lore": dict(lore, task_type="wireless", backbone="resnet18")}
+pages = np.full((1, 150, 170, 3), 255, np.uint8)
+pages[:, 10:140:20, 10:160] = 20
+pages[:, 10:141, 10:160:25] = 20
+regions = [(0, (5, 5, 165, 145)), (0, (30, 20, 120, 100))]
+types, html = [], []
+for model, k in kw.items():
+    task = OcrTableStructureTask(model=model, device="cpu", **k)
+    for r in task.batch_infer_from_pages(pages, regions):
+        types.append(r["type"])
+        html.append(OcrTableToHtmlTask()(r, []).startswith("<table"))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "flax", "cv2", "pdf_table_tpu"))
+print(json.dumps({"bad": bad, "types": types, "html": all(html)}))
+"""
+
+
+def test_rest_of_table_structure_runs_without_jax():
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    out = subprocess.run([sys.executable, "-c", _REST_SCRIPT], cwd=root,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"bad": [], "html": True, "types": [
+        "center_net"] * 2 + ["lgpma"] * 2 + ["line_cell"] * 2
+        + ["lore_line_cell_merge"] * 2 + ["lore"] * 2}

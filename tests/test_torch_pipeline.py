@@ -26,7 +26,15 @@ the 64x64 input and hidden 32 of tests/test_slanet.py, 24 decode steps,
 the tree of tests/test_torch_slanet.py calibrated on crops of the pages'
 ruled blocks; the JAX runner gets a JAX SLANet task on the same
 tree; no textline classifier): its tables go through the token path of
-table HTML, so its tokens and cells are equal too. Then the containment
+table HTML, so its tokens and cells are equal too. The same for the
+CenterNet, LineCell and LoreAndLineCell arms (tiny configs of their own
+tests, the system building the task from ``table_structure_model`` and
+``table_structure_kwargs``): cells equal (logic; boxes within 1e-3 px
+of the 64-px model input),
+``table_html`` and ``page_html`` byte-equal. The Lgpma arm runs with the
+layout's ``keep_top_k=1`` and ``batch_pages=1``, one table region a
+chunk: JAX's runner cannot run two LGPMA crops of different sizes in one
+chunk. Then the containment
 cases (an oversize page and a digital page each get an error output, the
 other pages are unharmed) and the residency of the canvases (one upload a
 chunk, the same tensor into every lane)."""
@@ -44,14 +52,18 @@ import pdf_table_tpu.tasks.detection as jdet
 import pdf_table_tpu.tasks.layout as jlayout
 import pdf_table_tpu.tasks.recognition as jrec
 import pdf_table_tpu.tasks.table_structure as jts
+from pdf_table_tpu.models.center_net import CenterNetConfig as JCenterNetConfig
+from pdf_table_tpu.models.lgpma import LgpmaConfig as JLgpmaConfig
 from pdf_table_tpu.models.lore.config import LoreConfig as JLoreConfig
 from pdf_table_tpu.pipeline.system import OcrSystemConfig as JSystemConfig
 from pdf_table_tpu_torch.engine.params import (calibrate_batch_stats,
                                                init_cls, init_dbnet,
                                                init_rec)
 from pdf_table_tpu_torch.models.cls.config import ClsPulcConfig
+from pdf_table_tpu_torch.models.center_net.config import CenterNetConfig
 from pdf_table_tpu_torch.models.cls.model import PPLCNetClassifier
 from pdf_table_tpu_torch.models.dbnet.config import DbNetConfig
+from pdf_table_tpu_torch.models.lgpma.config import LgpmaConfig
 from pdf_table_tpu_torch.models.lore.config import LoreConfig
 from pdf_table_tpu_torch.models.picodet.config import PicoDetConfig
 from pdf_table_tpu_torch.models.rec_ctc.model import CTCRecModel
@@ -67,6 +79,9 @@ from pdf_table_tpu_torch.tasks.recognition import (OcrRecognitionTask,
 from pdf_table_tpu_torch.models.slanet.config import SLANetConfig
 from pdf_table_tpu_torch.models.slanet.processor import SLANetPreProcessor
 from pdf_table_tpu_torch.tasks.table_structure import OcrTableStructureTask
+from test_torch_center_net import shaped_tree as centernet_tree
+from test_torch_lgpma import TINY as LGPMA_TINY
+from test_torch_lgpma import lgpma_tree
 from test_torch_picodet import normalize, page, picodet_tree
 from test_torch_rec_model import perturb
 from test_torch_table_structure import TINY as LORE_TINY
@@ -84,6 +99,7 @@ LAYOUT_BENCH = dict(task_type="table", score_threshold=0.05, keep_top_k=2)
 REC = dict(width_buckets=(80,))
 LINES = 8
 SLANET = dict(table_max_len=64, hidden_size=32, max_structure_len=24)
+CENTERNET = dict(resolution=(64, 64), head_conv=16, K=8, MK=16)
 
 
 def _page(seed, h, w):
@@ -183,10 +199,10 @@ def jax_tasks(trees):
     return tasks
 
 
-def jax_pipeline(tasks, use_cls):
+def jax_pipeline(tasks, use_cls, batch_pages=2):
     cfg = JSystemConfig(use_layout=True, use_table=True,
                         use_orientation_cls=False, use_textline_cls=use_cls)
-    bp = jbr.BatchPipeline(cfg, batch_pages=2, device_crops=True,
+    bp = jbr.BatchPipeline(cfg, batch_pages=batch_pages, device_crops=True,
                            upload_codec="rgb")
     for name, t in tasks.items():
         if name != "_line_cls" or use_cls:
@@ -320,6 +336,104 @@ def test_slanet_outputs_match_jax(slanet_runs):
     assert n_tokens > 0
     assert all(r["type"] == "slanet" for g in got
                for r in g.table_structures)
+
+
+def _tsr_arm(model, trees):
+    """(JAX TSR task, the port's table_structure_kwargs, layout overrides)
+    of a model arm, on one tree."""
+    x = np.stack([p[p.shape[0] // 3 - 40:p.shape[0] // 3 + 200, 30:870]
+                  for p in PAGES])
+    if model == "CenterNet":
+        cfg = CenterNetConfig(**CENTERNET)
+        task = OcrTableStructureTask(model="CenterNet", device="cpu",
+                                     config=cfg)
+        regions = [(i, (0, 0, x.shape[2], x.shape[1])) for i in range(3)]
+        (_s, _m, crops), = list(task.sub_batches(x, regions))
+        tree = centernet_tree(cfg, crops)
+        jcfg, kw = JCenterNetConfig(**CENTERNET), dict(CENTERNET)
+    elif model == "Lgpma":
+        cfg = LgpmaConfig(**LGPMA_TINY)
+        task = OcrTableStructureTask(model="Lgpma", device="cpu",
+                                     config=cfg)
+        (_s, _m, crops), *_ = list(task.sub_batches(
+            x, [(0, (0, 0, x.shape[2], x.shape[1]))]))
+        tree = lgpma_tree(cfg, crops)
+        jcfg, kw = JLgpmaConfig(**LGPMA_TINY), dict(LGPMA_TINY)
+    elif model == "LoreAndLineCell":
+        tree = trees["lore"]
+        jcfg = JLoreConfig.wireless(**LORE_TINY)
+        kw = dict(task_type="wireless",
+                  config=LoreConfig.wireless(**LORE_TINY))
+    else:
+        tree, jcfg, kw = None, None, {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jts, "load_or_init", _as_np(tree))
+        jtsr = jts.OcrTableStructureTask(model=model, config=jcfg,
+                                         **({"task_type": "wireless"}
+                                            if model == "LoreAndLineCell"
+                                            else {}))
+        jtsr.ensure_built()
+    if tree is not None:
+        kw["variables"] = tree
+    return jtsr, kw
+
+
+@pytest.fixture(scope="module",
+                params=["CenterNet", "LineCell", "LoreAndLineCell", "Lgpma"])
+def tsr_runs(request, trees, jtasks):
+    model = request.param
+    jtsr, kw = _tsr_arm(model, trees)
+    jt = dict(jtasks, _tsr=jtsr)
+    bp = port_pipeline(trees, False, model, kw)
+    batch_pages = 2
+    if model == "Lgpma":
+        # one table region a chunk, see the module docstring
+        batch_pages = bp.batch_pages = 1
+        one = dict(LAYOUT_BENCH, keep_top_k=1)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(jlayout, "load_or_init", _as_np(trees["layout"]))
+            jt["_layout"] = jlayout.OcrLayoutTask(model="picodet", **one,
+                                                  **LAYOUT)
+            jt["_layout"].ensure_built()
+        bp.system._layout = OcrLayoutTask(model="picodet", device="cpu",
+                                          variables=trees["layout"], **one,
+                                          **LAYOUT)
+    pages = [{"image": p, "page": i} for i, p in enumerate(PAGES)]
+    want = jax_pipeline(jt, False, batch_pages).run(pages)
+    return model, bp, bp.run(pages), want
+
+
+def test_tsr_arms_match_jax(tsr_runs):
+    model, bp, got, want = tsr_runs
+    kind = {"CenterNet": "center_net", "LineCell": "line_cell",
+            "LoreAndLineCell": "lore_line_cell_merge", "Lgpma": "lgpma"}
+    assert bp.system.tsr_task.model_name == \
+        ("Lore" if model == "LoreAndLineCell" else model)
+    assert len(got) == len(want) == len(PAGES)
+    n_tables = n_cells = 0
+    for g, w in zip(got, want):
+        assert g.metric == w.metric == {}
+        assert [c.text for c in g.text_cells] == \
+            [c.text for c in w.text_cells]
+        assert _layout_key(g.layout_cells) == _layout_key(w.layout_cells)
+        assert len(g.table_structures) == len(w.table_structures)
+        for a, b in zip(g.table_structures, w.table_structures):
+            assert a["type"] == b["type"] == kind[model]
+            assert a["offset"] == b["offset"]
+            assert [c["logic"] for c in a["cells"]] == \
+                [c["logic"] for c in b["cells"]]
+            # model-input px: every arm's input is 64 px a side here
+            page_px = max(g.image_shape) / 64
+            np.testing.assert_allclose(
+                np.asarray([c["bbox"] for c in a["cells"]]).reshape(-1, 4),
+                np.asarray([c["bbox"] for c in b["cells"]]).reshape(-1, 4),
+                atol=BOX_ATOL * page_px, rtol=0)
+            n_cells += len(a["cells"])
+        assert g.table_html == w.table_html
+        assert g.page_html == w.page_html
+        n_tables += len(g.table_html)
+    assert n_tables >= len(PAGES), f"no table reached {model}"
+    assert n_cells > 0
 
 
 def test_texts_depend_on_the_crops(runs):
