@@ -139,7 +139,44 @@ Phases, each fatal on failure:
      times a CenterNet sub-batch; one page against the CPU), then a
      LoreAndLineCell run on the same pages (every table with merged
      cells);
- 15. train: LORE training at full width (LoreConfig.wtw(), f32, B = 4,
+ 15. layout_docx: OcrLayoutTask(model="DocXLayout") at full width
+     (768^2, head_conv 256, top_k 100, f32) on the detection phase's 8
+     canvases, resident on the card: each canvas warped to 768^2 as the
+     JAX pre-processor's cv2.warpAffine does, one forward of the 8, the
+     4-point decode on the card, the polygon NMS on the host. A seeded
+     tree (offset convs perturbed, BatchNorm statistics calibrated on the
+     warped canvases and doubled, heatmap biases at 0 with the "table"
+     class lifted, the wh bias a +-20 px quad). The counted run launches K1
+     16 times a forward (the f32 body) and K2 and K3 never; pages/s, stage
+     ms (warp + normalize, forward, decode, download, host pnms), peak
+     memory, idle share and K1's share of the forward's device time; one
+     bf16 forward prints K1's and K2's launches as the flat-kc route
+     picks them; a plain_dcn=True yardstick holds the heads; 2 canvases
+     against the same port on the CPU (the warped input, the heads, the
+     cells up to the first near-tie of their scores);
+ 16. pipeline_docx: the pipeline phase's 16 pages through
+     BatchPipeline.run with layout_model="DocXLayout" on that tree and
+     LORE wireless f32: a warm-up, one counted run (K3 once a chunk, K1 16
+     times for each DocXLayout forward and each LORE sub-batch, K2 never,
+     tables through LORE), a timed run, idle share; one page against the
+     same pipeline on the CPU (layout cells up to the first near-tie);
+ 17. det_backbones: OcrDetectionTask with db_resnet18, db_resnet50 and
+     db_proxylessnas at full width, f32, on the detection phase's 8 pages
+     (one chunk, 960x720, the modelscope normalization on K3): seeded
+     trees calibrated on the card (variances doubled), the threshold at
+     the 80th percentile of the first page's map; per model the counted
+     run (K3 once a chunk, K1 and K2 never), pages/s, forward ms,
+     peak memory, idle share, the prob maps on K3's input against a
+     yardstick on resize_normalize_plain's, and 2 pages' quads against
+     the same port on the CPU (equal where the uint8 maps are);
+ 18. rec_backbones: OcrRecognitionTask with CRNN, ConvNextViT (every crop
+     warped to 804 px, three 300 px chunks, their logits joined before
+     the decode) and LightweightEdge at full width, f32, with the
+     recognition phase's 0/180 classifier, canvases and quads: per model
+     the counted run (no K1-K3 launch; the JAX lane reaches no Pallas
+     kernel), crops/s, forward ms, peak memory, idle share, and the
+     packed decode of 2 pages' crops against the same port on the CPU;
+ 19. train: LORE training at full width (LoreConfig.wtw(), f32, B = 4,
      1024^2), K1 made differentiable by DeformConv2dFunction. (a) At the
      7 DCN shapes of a wtw step (16 calls), the Function's forward and its
      gradients (dx, doffset, dmask, dW, dbias) against autograd of the
@@ -1659,7 +1696,8 @@ def phase_layout(card):
     from pdf_table_tpu_torch.ops.kernels import (launch_counts,
                                                  reset_launch_counts)
     from pdf_table_tpu_torch.pipeline.batch_runner import pack_pages
-    from pdf_table_tpu_torch.tasks.layout import OcrLayoutTask
+    from pdf_table_tpu_torch.tasks.layout import (DOCX_SUB_BATCH,
+                                                  OcrLayoutTask)
 
     (bucket, g), = pack_pages([make_page(i)
                                for i in range(DET_PAGES)]).items()
@@ -1750,7 +1788,7 @@ def phase_layout(card):
 # 500 decode steps) on the LORE slice's 8 table regions of 4 pages
 TSR_PAGES = 4
 TSR_BOXES = ((70, 100, 880, 560), (70, 620, 880, 1150))
-TSR_RUNS = 5
+TSR_RUNS = 3
 TSR_TEACHER_TOL = 1e-4  # card vs CPU: cuDNN and oneDNN sum in other orders
 TSR_TIE_GAP = 1e-4      # greedy ids compared up to the CPU's first near-tie
 TSR_CPU_CROPS = 2       # crops held against the CPU (one of each size)
@@ -2863,6 +2901,668 @@ def phase_tsr_lgpma(card, pages, regions):
     return launches
 
 
+# DocXLayout and the rest of the backbones
+DOCX_VAR_GAIN = 2.0     # calibrated DLA variances doubled (else chaotic)
+DOCX_QUAD = 20.0        # feature-map px: the wh bias, boxes overlap
+# the "table" class lifted: one table a page reaches into the page (the
+# random heads peak in the warp's zero padding beside it)
+DOCX_TABLE_BIAS = 0.3
+DOCX_RUNS = 3
+DOCX_CPU_PAGES = 2
+DOCX_INPUT_TOL = 1e-4   # card vs CPU: normalized inputs, max |diff|
+DOCX_HEADS_TOL = 1e-4   # card vs CPU: heads, max |diff| / max |head|
+DOCX_YARD_TOL = 1e-3    # f32 kernel vs plain-DCN yardstick, relative
+DOCX_TIE_GAP = 1e-4     # cells compared up to the first near-tie
+DOCX_BOX_PX = 1e-2      # canvas px, on those cells
+DOCX_SCORE_TOL = 1e-4
+DOCX_PIPE_PAGES = 16
+DOCX_PIPE_CPU_PAGES = 1
+DET_MODELS = ("db_resnet18", "db_resnet50", "db_proxylessnas")
+DETB_VAR_GAIN = 2.0     # calibrated ResNet / NAS variances doubled
+DETB_RUNS = 5
+DETB_THRESH_QUANTILE = 0.8
+DETB_CPU_PAGES = 2
+REC_MODELS = ("CRNN", "ConvNextViT", "LightweightEdge")
+# the CTC head's kernel gain and whether its bias is zeroed (CRNN's LSTMs
+# squash its features to some 1e-2), as the CPU tests' trees
+RECB_HEAD = {"CRNN": (5.0, True), "ConvNextViT": (0.2, False),
+             "LightweightEdge": (0.2, False)}
+RECB_GAMMA = 0.1        # ConvNext layer scale (1e-6 at init)
+RECB_RUNS = 3
+RECB_CPU_PAGES = 2      # pages whose crops are held against the CPU
+K1_KERNELS = ("deform_conv_f32_kernel", "dcn_wgmma_kernel")
+
+
+def docx_tree(task, dev_pages):
+    """A seeded full-width DocXLayout tree (offset convs perturbed),
+    BatchNorm statistics calibrated on the card on the task's own warped
+    canvases and the variances doubled; the 11 layout and 2 column
+    heatmaps at 0.5 (the "table" class at sigmoid(DOCX_TABLE_BIAS)), the
+    wh bias a +-DOCX_QUAD px quad, so that detections pass 0.3 and the
+    polygon NMS suppresses (the CPU tests' tree)."""
+    import numpy as np
+    import torch
+
+    from pdf_table_tpu_torch.engine.params import (
+        calibrate_batch_stats, init_docx_layout, perturb_conv_offset_mask,
+        scale_batch_variances)
+
+    with torch.inference_mode():
+        x = task.preprocess(dev_pages)
+    net = task.model
+    net.forward = net.heads
+    tree = scale_batch_variances(calibrate_batch_stats(
+        net, perturb_conv_offset_mask(init_docx_layout(task.model_config, 0),
+                                      seed=1), x.clone()), DOCX_VAR_GAIN)
+    del net.forward
+    heads = tree["params"]["dla"]["heads"]
+    heads["hm_out"]["bias"] = np.zeros(11, np.float32)
+    heads["hm_out"]["bias"][7] = DOCX_TABLE_BIAS
+    heads["hm_sub_out"]["bias"] = np.zeros(2, np.float32)
+    heads["wh_out"]["bias"] = DOCX_QUAD * np.array(
+        [1, 1, -1, 1, -1, -1, 1, -1], np.float32)
+    torch.cuda.synchronize()
+    return tree
+
+
+def docx_cells_agree(got, want) -> dict:
+    """Layout cells per page of two runs, compared up to the first
+    near-tie of ``want``'s scores (they come in score order): how many
+    were compared, labels equal, worst box px and score difference."""
+    import numpy as np
+
+    out = {"compared": [], "cells": [], "labels_equal": True,
+           "box_px": 0.0, "score": 0.0}
+    for g, w in zip(got, want):
+        n = prefix_before_tie(np.asarray([c.score for c in w]),
+                              DOCX_TIE_GAP)
+        out["compared"].append(min(n, len(g)))
+        out["cells"].append([len(g), len(w)])
+        for a, b in zip(g[:n], w[:n]):
+            out["labels_equal"] &= (a.label, a.cell_type.name) == \
+                (b.label, b.cell_type.name)
+            out["box_px"] = max(out["box_px"], float(
+                np.abs(np.subtract(a.bbox, b.bbox)).max()))
+            out["score"] = max(out["score"], abs(a.score - b.score))
+    return out
+
+
+def k1_device_share(fn) -> dict:
+    """K1's device ms in one traced ``fn()`` and its share of the device
+    busy time."""
+    from torch.profiler import ProfilerActivity
+
+    wall, events = _trace(fn, [ProfilerActivity.CUDA])
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    k1 = sum(e.self_device_time_total for e in events
+             if any(k in e.key for k in K1_KERNELS)) / 1e3
+    return {"wall_ms": wall, "device_busy_ms": busy, "k1_ms": k1,
+            "k1_share": k1 / busy if busy else None}
+
+
+def docx_stages(task, dev_pages) -> dict:
+    """The chunk's stages, each timed alone (host_ms)."""
+    import torch
+
+    from pdf_table_tpu_torch.models.docx_layout.model import unpack_docx
+
+    with torch.inference_mode():
+        x = task.preprocess(dev_pages)
+        heads = task.forward(x)
+        handle, metas = task.enqueue(dev_pages)
+        packed = handle.cpu().numpy()
+        k = task.model_config.top_k
+        return {
+            "warp_normalize": host_ms(lambda: task.preprocess(dev_pages)),
+            "forward": host_ms(lambda: task.forward(x)),
+            "decode": host_ms(lambda: task.decode(heads)),
+            "download": host_ms(lambda: handle.cpu()),
+            "host_pnms": host_ms(lambda: [
+                task.post.to_layout_cells(task.post(unpack_docx(
+                    packed[i], k), m)) for i, m in enumerate(metas)],
+                iters=2)}
+
+
+def phase_layout_docx(card):
+    """``OcrLayoutTask(model="DocXLayout")`` at full width (768^2,
+    head_conv 256, f32) on the detection phase's 8 canvases, resident on
+    the card: the counted run (K1 at each of the trunk's 16 DCNs a forward,
+    K2 and K3 never), pages/s, stage ms, peak memory, idle share and K1's
+    share of the device time; one bf16 forward (K1's and K2's launches as
+    the flat-kc route picks them); the plain-DCN yardstick; 2 canvases
+    against the same port on the CPU. Returns the tree and the launch
+    counts of the f32 run and the bf16 forward."""
+    import numpy as np
+    import torch
+
+    from pdf_table_tpu_torch.convert.flax_bridge import load_flax_variables
+    from pdf_table_tpu_torch.models.docx_layout.config import \
+        DocXLayoutConfig
+    from pdf_table_tpu_torch.models.docx_layout.model import DocXLayoutModel
+    from pdf_table_tpu_torch.ops.kernels import (KERNELS, launch_counts,
+                                                 reset_launch_counts)
+    from pdf_table_tpu_torch.pipeline.batch_runner import pack_pages
+    from pdf_table_tpu_torch.tasks.layout import (DOCX_SUB_BATCH,
+                                                  OcrLayoutTask)
+
+    (bucket, g), = pack_pages([make_page(i)
+                               for i in range(DET_PAGES)]).items()
+    canvases = g["images"]
+    dev_pages = torch.from_numpy(canvases).cuda()
+    t0 = time.perf_counter()
+    tree = docx_tree(OcrLayoutTask(model="DocXLayout", device="cuda"),
+                     dev_pages)
+    task = OcrLayoutTask(model="DocXLayout", device="cuda", variables=tree)
+    build_s = time.perf_counter() - t0
+    cfg = task.model_config
+    n_sub = -(-len(canvases) // DOCX_SUB_BATCH)
+
+    # the main path, counted
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    cells = task.batch_infer_from_pages(dev_pages)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {k: launch_counts[k] for k in KERNELS}
+    print(json.dumps({"layout_docx_launches": launches,
+                      "forwards": n_sub}))
+    check(launches["deform_conv2d"] == CN_DCNS * n_sub
+          and launches["deform_conv2d_flat_kc"] == 0
+          and launches["resize_normalize"] == 0,
+          f"DocXLayout: launches {launches} for {n_sub} f32 forwards")
+    check(len(cells) == len(canvases) and all(cells),
+          "DocXLayout: a page without layout cells")
+    H, W = bucket
+    check(all(0 <= c.bbox[0] <= c.bbox[2] <= W and 0 <= c.bbox[1]
+              <= c.bbox[3] <= H for p in cells for c in p),
+          "DocXLayout: cells outside their canvas")
+    labels = sorted({c.label for p in cells for c in p})
+
+    torch.cuda.reset_peak_memory_stats()
+    run_s = []
+    for _ in range(DOCX_RUNS):
+        t0 = time.perf_counter()
+        task.batch_infer_from_pages(dev_pages)
+        run_s.append(time.perf_counter() - t0)
+    per_run = statistics.median(run_s)
+    peak = torch.cuda.max_memory_allocated()
+    stages = docx_stages(task, dev_pages)
+    prof = profile_run(lambda: task.batch_infer_from_pages(dev_pages),
+                       full=False)
+    with torch.inference_mode():
+        x = task.preprocess(dev_pages)
+        share = k1_device_share(lambda: task.forward(x))
+
+    # one bf16 forward of the 8 canvases, counted
+    bf16 = DocXLayoutModel(DocXLayoutConfig(dtype="bfloat16")).eval()
+    load_flax_variables(bf16, tree)
+    bf16.to("cuda")
+    with torch.inference_mode():
+        bf16.forward_packed(x).cpu()             # warm-up
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        packed_bf16 = bf16.forward_packed(x).cpu().numpy()
+        torch.cuda.synchronize()
+    bf16_launches = {k: launch_counts[k] for k in KERNELS}
+    print(json.dumps({"layout_docx_bf16_launches": bf16_launches,
+                      "pages": int(x.shape[0])}))
+    check(bf16_launches["deform_conv2d"] > 0
+          and bf16_launches["deform_conv2d"]
+          + bf16_launches["deform_conv2d_flat_kc"] == CN_DCNS
+          and bf16_launches["resize_normalize"] == 0,
+          f"DocXLayout bf16: launches {bf16_launches}")
+    check(np.isfinite(packed_bf16).all(), "DocXLayout bf16: not finite")
+    del bf16
+
+    # the plain-DCN yardstick on the same tree and inputs
+    plain = DocXLayoutModel(cfg, plain_dcn=True).eval()
+    load_flax_variables(plain, tree)
+    plain.to("cuda")
+    with torch.inference_mode():
+        ha = task.model.heads(x)
+        torch.cuda.synchronize()
+        before = dict(launch_counts)
+        hb = plain.heads(x)
+        torch.cuda.synchronize()
+        check(dict(launch_counts) == before,
+              "the plain yardstick launched a kernel")
+        yard = {k: rel_err(ha[k], hb[k]) for k in hb}
+    del plain, ha, hb
+
+    # the card against the same port on the CPU
+    cpu = OcrLayoutTask(model="DocXLayout", device="cpu", variables=tree)
+    few = canvases[:DOCX_CPU_PAGES]
+    metas = [dict(task.pre.plan(H, W)[1]) for _ in range(len(few))]
+    with torch.inference_mode():
+        xa = task.preprocess(dev_pages[:DOCX_CPU_PAGES])
+        xc = cpu.preprocess(torch.from_numpy(few))
+        inputs = float((xa.cpu() - xc).abs().max())
+        ha = task.forward(xa)
+        t0 = time.perf_counter()
+        hc = cpu.forward(xc)
+        cpu_s = time.perf_counter() - t0
+        heads = max(rel_err(ha[n].cpu(), hc[n]) for n in hc)
+        got = [r["layout_cells"]
+               for r in task.results(task.decode(ha), metas)]
+        want = [r["layout_cells"]
+                for r in cpu.results(cpu.decode(hc), metas)]
+    agree = docx_cells_agree(got, want)
+    summary = {
+        "card": card, "model": "DocXLayout", "resolution": list(
+            cfg.resolution), "head_conv": cfg.head_conv, "top_k": cfg.top_k,
+        "dtype": cfg.dtype, "pages": len(canvases), "canvas": list(bucket),
+        "forwards": n_sub, "launches": launches,
+        "bf16_forward_launches": bf16_launches, "model_build_s": build_s,
+        "first_run_s": first_s, "run_s_median": per_run,
+        "run_s_min": min(run_s), "run_s_max": max(run_s), "runs": len(run_s),
+        "pages_per_s": len(canvases) / per_run,
+        "peak_mem_gib": peak / 2 ** 30, "stage_ms": stages, "profile": prof,
+        "forward_k1": share, "cells": [len(p) for p in cells],
+        "labels": labels, "yardstick_heads_rel": yard,
+        "cpu": {"inputs_max_abs": inputs, "heads_rel": heads,
+                "forward_s": cpu_s, **agree}}
+    print(json.dumps({"layout_docx": summary}))
+    check(max(yard.values()) <= DOCX_YARD_TOL,
+          f"DocXLayout: the kernel's heads differ from the plain DCN's: "
+          f"{yard}")
+    check(inputs <= DOCX_INPUT_TOL,
+          f"DocXLayout: inputs differ from the CPU's: {inputs:.3g}")
+    check(heads <= DOCX_HEADS_TOL,
+          f"DocXLayout: heads differ from the CPU's: {heads:.3g}")
+    check(min(agree["compared"]) > 0 and agree["labels_equal"]
+          and agree["box_px"] <= DOCX_BOX_PX
+          and agree["score"] <= DOCX_SCORE_TOL,
+          f"DocXLayout: cells differ from the CPU's before the first "
+          f"near-tie: {agree}")
+    return tree, {"f32": launches, "bf16": bf16_launches}
+
+
+def phase_pipeline_docx(card, trees, tree):
+    """The pipeline phase's 16 pages through ``BatchPipeline.run`` with
+    ``layout_model="DocXLayout"`` (full width, f32, on ``tree``) and LORE
+    wireless: a warm-up, one counted run (K3 once a chunk, K1 16 times a
+    DocXLayout forward and a LORE sub-batch, K2 never), a timed run
+    (pages/s, lanes, peak memory), idle share; one page against the same
+    pipeline on the CPU."""
+    import torch
+
+    from pdf_table_tpu_torch.ops.kernels import (KERNELS, launch_counts,
+                                                 reset_launch_counts)
+    from pdf_table_tpu_torch.tasks.layout import OcrLayoutTask
+
+    imgs = [make_page(i) for i in range(DOCX_PIPE_PAGES)]
+    pages = [{"image": im, "page": i} for i, im in enumerate(imgs)]
+
+    def build(device):
+        bp = build_pipeline(device, trees)
+        bp.system.config.layout_model = "DocXLayout"
+        bp.system._layout = OcrLayoutTask(model="DocXLayout", device=device,
+                                          variables=tree)
+        return bp
+
+    t0 = time.perf_counter()
+    bp = build("cuda")
+    bp.run(pages)                       # warm-up
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    n_chunks = -(-DOCX_PIPE_PAGES // bp.batch_pages)
+    counted = {"layout": [], "lore": []}
+    models = {"layout": (bp.system.layout_task.model, "heads"),
+              "lore": (bp.system.tsr_task.model, "forward_packed")}
+    for key, (m, fn) in models.items():
+        setattr(m, fn, (lambda r, k: lambda x: (
+            counted[k].append(x.shape[0]), r(x))[1])(getattr(m, fn), key))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = bp.run(pages)
+    torch.cuda.synchronize()
+    counted_s = time.perf_counter() - t0
+    launches = {k: launch_counts[k] for k in KERNELS}
+    for m, fn in models.values():
+        delattr(m, fn)
+    errors = [o.metric.get("error") for o in out if o.metric.get("error")]
+    check(len(out) == DOCX_PIPE_PAGES and not errors,
+          f"DocXLayout pipeline: pages carry errors: {errors[:3]}")
+    check(all(o.page_html for o in out),
+          "DocXLayout pipeline: a page has no page_html")
+    n_tables = sum(len(o.table_structures) for o in out)
+    check(n_tables > 0 and counted["lore"],
+          "DocXLayout pipeline: no table reached LORE")
+    forwards = len(counted["layout"]) + len(counted["lore"])
+    check(len(counted["layout"]) == n_chunks
+          and launches["resize_normalize"] == n_chunks
+          and launches["deform_conv2d"] == CN_DCNS * forwards
+          and launches["deform_conv2d_flat_kc"] == 0,
+          f"DocXLayout pipeline launched {launches} for {n_chunks} chunks, "
+          f"{counted}")
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bp.run(pages)
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    lane_ms = {k: v * 1e3 for k, v in bp.last_stats.items()
+               if k != "n_pages"}
+    prof = profile_run(lambda: bp.run(pages), full=False)
+    few = pages[:DOCX_PIPE_CPU_PAGES]
+    got = bp.run(few)
+    cpu = build("cpu")
+    t0 = time.perf_counter()
+    want = cpu.run(few)
+    cpu_s = time.perf_counter() - t0
+    cmp = pipeline_diff(got, want)
+    cmp["layout"] = docx_cells_agree([o.layout_cells for o in got],
+                                     [o.layout_cells for o in want])
+    summary = {
+        "card": card, "layout": "DocXLayout", "tsr": "Lore",
+        "pages": DOCX_PIPE_PAGES, "chunks": n_chunks, "launches": launches,
+        "layout_forwards": counted["layout"],
+        "lore_sub_batches": counted["lore"], "warm_up_s": warm_s,
+        "counted_run_s": counted_s, "run_s": run_s,
+        "pages_per_s": DOCX_PIPE_PAGES / run_s,
+        "ms_per_page": run_s * 1e3 / DOCX_PIPE_PAGES, "lane_ms": lane_ms,
+        "peak_mem_gib": peak / 2 ** 30, "tables": n_tables,
+        "layout_cells": sum(len(o.layout_cells) for o in out),
+        "profile": prof, "cpu": {"run_s": cpu_s, **cmp}}
+    print(json.dumps({"pipeline_docx": summary}))
+    check(not [o for o in want if o.metric.get("error")],
+          "the CPU DocXLayout pipeline gave errors")
+    check(cmp["quads_same_count"] and cmp["quad_px"] <= PIPE_QUAD_TOL,
+          "DocXLayout pipeline: quads differ from the CPU's")
+    lay = cmp["layout"]
+    check(min(lay["compared"]) > 0 and lay["labels_equal"]
+          and lay["box_px"] <= DOCX_BOX_PX
+          and lay["score"] <= DOCX_SCORE_TOL,
+          f"DocXLayout pipeline: layout cells differ from the CPU's: {lay}")
+    check(cmp["text_share"] >= PIPE_TEXT_MIN,
+          f"DocXLayout pipeline: texts equal on {cmp['text_share']:.3f} of "
+          f"crops")
+    check(cmp["page_html_equal"] == cmp["page_html_checked"],
+          "DocXLayout pipeline: page_html differs where its inputs are "
+          "equal")
+    return launches
+
+
+def det_backbone_tree(task, canvases):
+    """A seeded full-width tree of ``task``'s DBNet, BatchNorm statistics
+    calibrated on the card on the chunk's detector input, variances
+    doubled (a deep random ReLU stack is chaotic otherwise)."""
+    import torch
+
+    from pdf_table_tpu_torch.engine.params import (calibrate_batch_stats,
+                                                   init_dbnet,
+                                                   scale_batch_variances)
+
+    (_idx, _shapes, bucket, canv), = list(task.chunks(canvases))
+    with torch.inference_mode():
+        x = task.normalize(torch.from_numpy(canv).cuda(),
+                           task.det_size(bucket))
+    return scale_batch_variances(calibrate_batch_stats(
+        task.model, init_dbnet(task.model_config, 0), x.clone()),
+        DETB_VAR_GAIN)
+
+
+def phase_det_backbones(card):
+    """``OcrDetectionTask`` with ``db_resnet18``, ``db_resnet50`` and
+    ``db_proxylessnas`` at full width, f32, on the detection phase's 8
+    pages (one chunk, 960x720 detector input, modelscope normalization on
+    K3), the threshold at the 80th percentile of the first page's map:
+    per model the counted run (K3 once a chunk, K1 and K2 never),
+    pages/s, forward ms, peak memory, the yardstick on
+    resize_normalize_plain's input, and the quads of 2 pages against the
+    same port on the CPU (equal where the uint8 maps are). Returns the
+    launch counts summed over the three."""
+    import numpy as np
+    import torch
+
+    from pdf_table_tpu_torch.ops.kernels import (KERNELS, launch_counts,
+                                                 reset_launch_counts)
+    from pdf_table_tpu_torch.tasks.detection import OcrDetectionTask
+
+    pages = [make_page(i) for i in range(DET_PAGES)]
+    total = {k: 0 for k in KERNELS}
+    results = {}
+    for model in DET_MODELS:
+        t0 = time.perf_counter()
+        probe = OcrDetectionTask(model=model, device="cuda", **DET_KW)
+        tree = det_backbone_tree(probe, pages)
+        del probe
+        task = OcrDetectionTask(model=model, device="cuda", variables=tree,
+                                **DET_KW)
+        # the threshold at the 80th percentile of the first page's map:
+        # above the bench's, a random map joins into a page-wide component
+        (_i, _s, bucket, canv), = list(task.chunks(pages))
+        with torch.inference_mode():
+            x = task.normalize(torch.from_numpy(canv).cuda(),
+                               task.det_size(bucket))
+            u8 = task.quantize(task.model(x)["prob"])
+        kw = dict(DET_KW, thresh=float(u8[0].float().quantile(
+            DETB_THRESH_QUANTILE)) / 255.0)
+        task.model_config.thresh = kw["thresh"]
+        build_s = time.perf_counter() - t0
+        n_chunks = sum(1 for _ in task.chunks(pages))
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        quads = task.batch_infer_from_pages(pages)
+        torch.cuda.synchronize()
+        launches = {k: launch_counts[k] for k in KERNELS}
+        for k in KERNELS:
+            total[k] += launches[k]
+        check(launches["resize_normalize"] == n_chunks
+              and launches["deform_conv2d"] == 0
+              and launches["deform_conv2d_flat_kc"] == 0,
+              f"{model}: launches {launches} for {n_chunks} chunks")
+        check(all(q.dtype == np.float32 and q.shape[1:] == (4, 2)
+                  and np.isfinite(q).all() for q in quads),
+              f"{model}: quads are not finite (n, 4, 2) f32")
+        torch.cuda.reset_peak_memory_stats()
+        run_s = []
+        for _ in range(DETB_RUNS):
+            t0 = time.perf_counter()
+            task.batch_infer_from_pages(pages)
+            run_s.append(time.perf_counter() - t0)
+        per_run = statistics.median(run_s)
+        peak = torch.cuda.max_memory_allocated()
+        with torch.inference_mode():
+            fwd = host_ms(lambda: task.model(x))
+        prof = profile_run(lambda: task.batch_infer_from_pages(pages),
+                           full=False)
+        yard = det_yardstick(task, pages)
+        # 2 pages against the same port on the CPU: the quads are equal
+        # where the two uint8 maps are
+        cpu = OcrDetectionTask(model=model, device="cpu", variables=tree,
+                               **kw)
+        few = pages[:DETB_CPU_PAGES]
+        with torch.inference_mode():
+            (_i, _s, b2, c2), = list(task.chunks(few))
+            ua = task.quantize(task.model(task.normalize(
+                torch.from_numpy(c2).cuda(), task.det_size(b2)))["prob"])
+            uc = cpu.quantize(cpu.model(cpu.normalize(
+                torch.from_numpy(c2), cpu.det_size(b2)))["prob"])
+            same_map = [bool(torch.equal(ua[j].cpu(), uc[j]))
+                        for j in range(len(few))]
+        got = task.batch_infer_from_pages(few)
+        t0 = time.perf_counter()
+        want = cpu.batch_infer_from_pages(few)
+        cpu_s = time.perf_counter() - t0
+        quads_equal = [bool(np.array_equal(a, b)) for a, b in zip(got, want)]
+        results[model] = {
+            "card": card, "backbone": task.model_config.backbone,
+            "inner_channels": task.model_config.inner_channels,
+            "pages": len(pages), "chunks": n_chunks, "launches": launches,
+            "thresh": kw["thresh"], "model_build_s": build_s,
+            "run_s_median": per_run,
+            "run_s_min": min(run_s), "run_s_max": max(run_s),
+            "runs": len(run_s), "pages_per_s": len(pages) / per_run,
+            "forward_ms": fwd, "peak_mem_gib": peak / 2 ** 30,
+            "profile": prof, "quads_per_page": [len(q) for q in quads],
+            "yardstick": yard,
+            "cpu": {"run_s": cpu_s, "u8_maps_equal": same_map,
+                    "quads_equal": quads_equal,
+                    "quads_card_cpu": [[len(a), len(b)]
+                                       for a, b in zip(got, want)]}}
+        print(json.dumps({f"det_backbones_{model}": results[model]}))
+        check(yard["input"] <= RN_TOL,
+              f"{model}: det input differs: {yard['input']:.3g}")
+        check(yard["prob"] <= DET_PROB_TOL,
+              f"{model}: prob differs: {yard['prob']:.3g}")
+        check(yard["u8_share"] <= DET_U8_SHARE,
+              f"{model}: u8 maps differ in {yard['u8_share']:.3g} of pixels")
+        check(yard["cc_equal"] and yard["cc_mean_rel"] <= CC_MEAN_RTOL,
+              f"{model}: device boxes differ from the CPU's")
+        check(all(q for q, s in zip(quads_equal, same_map) if s)
+              and all(abs(len(a) - len(b)) <= 1
+                      for a, b in zip(got, want)),
+              f"{model}: quads differ from the CPU's: "
+              f"{results[model]['cpu']}")
+        del task, cpu, tree
+        torch.cuda.empty_cache()
+    return total
+
+
+def rec_backbone_tree(model, canvases):
+    """A seeded full-width tree of ``model``: biases and norms as
+    initialized, the CTC head's kernel x RECB_HEAD's gain (CRNN's bias
+    zeroed), ConvNext's layer scale RECB_GAMMA, BatchNorm statistics
+    calibrated on the card on 16 strips 32 px tall of the first two
+    canvases, normalized as the lane normalizes."""
+    import torch
+
+    from pdf_table_tpu_torch.convert.flax_bridge import tree_leaves
+    from pdf_table_tpu_torch.engine.params import (calibrate_batch_stats,
+                                                   init_rec)
+    from pdf_table_tpu_torch.models.rec_ctc.model import CTCRecModel
+    from pdf_table_tpu_torch.tasks.recognition import rec_config
+
+    cfg = rec_config(model=model)
+    v = init_rec(cfg, 0)
+    gain, zero_bias = RECB_HEAD[model]
+    v["params"]["ctc_head"]["kernel"] = v["params"]["ctc_head"]["kernel"] \
+        * gain
+    if zero_bias:
+        v["params"]["ctc_head"]["bias"][:] = 0.0
+    for path, a in tree_leaves(v):
+        if path[-1] == "gamma":
+            a[...] = RECB_GAMMA
+    strips = torch.stack([torch.from_numpy(canvases[p, y:y + 32, 70:370])
+                          for p in range(2)
+                          for y in range(54, 54 + 36 * 8, 36)]).float().cuda()
+    if model == "ConvNextViT":
+        x = (0.299 * strips[..., 0] + 0.587 * strips[..., 1]
+             + 0.114 * strips[..., 2])[..., None] / 255.0
+    else:
+        x = strips / 127.5 - 1.0
+    return calibrate_batch_stats(CTCRecModel(cfg).cuda(), v, x)
+
+
+def phase_rec_backbones(card):
+    """``OcrRecognitionTask`` with ``CRNN``, ``ConvNextViT`` (its three
+    300 px chunks a crop) and ``LightweightEdge`` at full width, f32, with
+    the recognition phase's 0/180 classifier, canvases and quads: per model
+    the counted run (no K1-K3 launch), crops/s, forward ms, peak memory,
+    idle share, and the packed decode of the first RECB_CPU_PAGES pages'
+    crops against the same port on the CPU.
+    Returns the launch counts summed over the three."""
+    import numpy as np
+    import torch
+
+    from pdf_table_tpu_torch.ops.kernels import (KERNELS, launch_counts,
+                                                 reset_launch_counts)
+    from pdf_table_tpu_torch.tasks.recognition import (OcrRecognitionTask,
+                                                       unpack_rec)
+
+    pp, pp_cpu, canvases, quads = rec_setup()
+    cls, cls_cpu = pp.cls_task, pp_cpu.cls_task
+    del pp, pp_cpu
+    dev_pages = torch.from_numpy(canvases).cuda()
+    cpu_pages = torch.from_numpy(canvases)
+    n_crops = sum(len(q) for q in quads)
+    total = {k: 0 for k in KERNELS}
+    for model in REC_MODELS:
+        t0 = time.perf_counter()
+        tree = rec_backbone_tree(model, canvases)
+        task = OcrRecognitionTask(model=model, device="cuda", variables=tree,
+                                  cls_task=cls)
+        build_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        texts, scores = task.batch_infer_from_pages(dev_pages, quads)
+        torch.cuda.synchronize()
+        launches = {k: launch_counts[k] for k in KERNELS}
+        for k in KERNELS:
+            total[k] += launches[k]
+        check(sum(launches.values()) == 0,
+              f"{model}: the recognition lane launched {launches}")
+        chars = set(task.charset.id_to_char[1:])
+        check([len(t) for t in texts] == [len(q) for q in quads]
+              and all(isinstance(t, str) and set(t) <= chars
+                      for p in texts for t in p),
+              f"{model}: one text of the charset per quad")
+        check(len({t for p in texts for t in p}) > n_crops // 2,
+              f"{model}: the texts do not depend on the crops")
+        torch.cuda.reset_peak_memory_stats()
+        run_s = []
+        for _ in range(RECB_RUNS):
+            t0 = time.perf_counter()
+            task.batch_infer_from_pages(dev_pages, quads)
+            run_s.append(time.perf_counter() - t0)
+        per_run = statistics.median(run_s)
+        peak = torch.cuda.max_memory_allocated()
+        groups = task.plan(quads)
+        with torch.inference_mode():
+            crops = [task.orient(*task.cut(dev_pages, g, task.upload(g)))
+                     for g in groups]
+            fwd = host_ms(lambda: [task.logits(c) for c in crops])
+            few = quads[:RECB_CPU_PAGES]
+            few_groups = task.plan(few)
+            got = [task.enqueue(dev_pages, g).cpu().numpy()
+                   for g in few_groups]
+        prof = profile_run(lambda: task.batch_infer_from_pages(dev_pages,
+                                                               quads),
+                           full=False)
+        cpu = OcrRecognitionTask(model=model, device="cpu", variables=tree,
+                                 cls_task=cls_cpu)
+        t0 = time.perf_counter()
+        want = [cpu.enqueue(cpu_pages, g).numpy() for g in cpu.plan(few)]
+        cpu_s = time.perf_counter() - t0
+        n_few = sum(len(q) for q in few)
+        equal = conf_err = 0
+        for g, a, b in zip(few_groups, got, want):
+            (ia, ka, ca), (ib, kb, cb) = (unpack_rec(a, g["n"]),
+                                          unpack_rec(b, g["n"]))
+            same = (ia == ib).all(1) & (ka == kb).all(1)
+            equal += int(same.sum())
+            if same.any():
+                conf_err = max(conf_err, float(np.abs(ca - cb)[same].max()))
+        cfg = task.model_config
+        summary = {
+            "card": card, "model": model, "backbone": cfg.backbone,
+            "img_height": cfg.img_height,
+            "width": [g["bucket"] for g in groups],
+            "steps": int(got[0].shape[1] // 2), "crops": n_crops,
+            "groups": [(g["bucket"], g["aa"], g["n"]) for g in groups],
+            "launches": launches, "model_build_s": build_s,
+            "run_s_median": per_run, "run_s_min": min(run_s),
+            "run_s_max": max(run_s), "runs": len(run_s),
+            "crops_per_s": n_crops / per_run, "forward_ms": fwd,
+            "peak_mem_gib": peak / 2 ** 30, "profile": prof,
+            "sample_texts": texts[0][:2],
+            "cpu": {"run_s": cpu_s, "crops": n_few, "equal_crops": equal,
+                    "equal_share": equal / n_few,
+                    "conf_max_abs": conf_err}}
+        print(json.dumps({f"rec_backbones_{model}": summary}))
+        check(equal / n_few >= REC_EQUAL_MIN,
+              f"{model}: only {equal} of {n_few} crops decode as on the "
+              f"CPU")
+        check(conf_err <= REC_CONF_TOL,
+              f"{model}: confidences differ from the CPU's: {conf_err:.3g}")
+        del task, cpu, tree
+        torch.cuda.empty_cache()
+    return total
+
+
 def dcn_backward_bound(b, h, w, cin, cout):
     """Least time for one f32 DCN backward: max(ops / f32 peak, bytes /
     rate). Operations: dW = colsᵀ @ dout and dcols = dout @ W[t]ᵀ, 2 x 2 x
@@ -3311,6 +4011,10 @@ def main() -> int:
     cn_tree, cn = phase_tsr_centernet(card, tsr_pages, tsr_regions)
     lg = phase_tsr_lgpma(card, tsr_pages, tsr_regions)
     pipe_cn = phase_pipeline_arm(card, pipe_trees, "CenterNet", cn_tree)
+    docx_tree_v, docx = phase_layout_docx(card)
+    pipe_docx = phase_pipeline_docx(card, pipe_trees, docx_tree_v)
+    det_b = phase_det_backbones(card)
+    rec_b = phase_rec_backbones(card)
     train_rows = phase_train_dcn(gen)
     train = phase_train(card, train_rows)
     check("jax" not in sys.modules and "pdf_table_tpu" not in sys.modules,
@@ -3320,7 +4024,8 @@ def main() -> int:
         """A kernel's launches on every counted path that runs it or not:
         the token-model and LGPMA phases and the token pipeline arms
         launch K3 once a chunk (detection) and never K1 or K2; CenterNet
-        runs K1 at every DCN (K2 too in bf16)."""
+        and DocXLayout run K1 at every DCN (K2 too in bf16); the DBNet
+        backbones launch K3 once a chunk, the recognizers nothing."""
         return {**extra, "pipeline": pipe[name], "tsr_slanet": sla[name],
                 "tsr_master": tm[name], "tsr_mtl_tabnet": mtl[name],
                 "pipeline_slanet": pipe_sla[name],
@@ -3330,6 +4035,10 @@ def main() -> int:
                 "tsr_lgpma": lg[name], "pipeline_centernet": pipe_cn[name],
                 "pipeline_lore_line_cell":
                     pipe_cn["lore_line_cell"][name],
+                "layout_docx": docx["f32"][name],
+                "layout_docx_bf16_forward": docx["bf16"][name],
+                "pipeline_docx": pipe_docx[name],
+                "det_backbones": det_b[name], "rec_backbones": rec_b[name],
                 "train": train[name]}
 
     print(card)

@@ -19,7 +19,16 @@ pdf_table_tpu/convert/torch_to_flax.py):
   ``weight``/``bias``/``running_mean``/``running_var``; LayerNorm
   ``scale``/``bias`` -> ``weight``/``bias``;
 - the DCN ``weight`` (3, 3, Cin, Cout) keeps the JAX layout, which the
-  deform-conv function takes as it is; ``bias`` and RefNorm ``alpha`` too.
+  deform-conv function takes as it is; ``bias`` and RefNorm ``alpha`` too,
+  and the other raw leaves (PReLU ``negative_slope``, ConvNext ``gamma``,
+  ``pos_embed``, DBNet's ``depthwise_kernel`` / ``depthwise_bias``);
+- flax's ``OptimizedLSTMCell`` pair of a bidirectional LSTM
+  (``fwd_cell`` / ``bwd_cell`` under one parent, gates ``i{g}`` on the
+  input without a bias, ``h{g}`` on the hidden state with one, g in i, f,
+  g, o) -> the parent's ``lstm`` (an ``nn.LSTM``): ``weight_ih_l0`` the
+  four input kernels stacked in that order, ``weight_hh_l0`` and
+  ``bias_hh_l0`` the hidden ones, ``bias_ih_l0`` zero; ``bwd_cell`` is the
+  ``_reverse`` half (:func:`fuse_lstm_cells`).
 
 Inputs are nested dicts of numpy-convertible arrays; nothing here imports
 JAX. :func:`state_dict_to_flax` goes the other way (the trainer keeps its
@@ -30,10 +39,14 @@ from __future__ import annotations
 
 from typing import AbstractSet, Any, Dict, Iterator, Mapping, Tuple
 
+import re
+
 import numpy as np
 import torch
 
 _STATS = {"mean": "running_mean", "var": "running_var"}
+_LSTM_LEAF = re.compile(
+    r"^(.*)\.(fwd|bwd)_cell\.([ih])([ifgo])\.(weight|bias)$")
 
 
 def tree_leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()
@@ -118,13 +131,39 @@ def flax_to_state_dict(variables: Mapping[str, Any],
     return out
 
 
+def fuse_lstm_cells(sd: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+    """``sd`` with each flax LSTM cell's per-gate leaves (already in the
+    torch layout, ``{parent}.{fwd,bwd}_cell.{i,h}{i,f,g,o}.{weight,bias}``)
+    replaced by the packed ``{parent}.lstm`` weights of ``nn.LSTM``."""
+    cells: Dict[Tuple[str, str], Dict[str, torch.Tensor]] = {}
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in sd.items():
+        m = _LSTM_LEAF.match(k)
+        if m is None:
+            out[k] = v
+            continue
+        parent, direction, side, gate, leaf = m.groups()
+        cells.setdefault((parent, direction), {})[side + gate + leaf] = v
+    for (parent, direction), g in cells.items():
+        sfx = "_l0" if direction == "fwd" else "_l0_reverse"
+        w_ih = torch.cat([g[f"i{c}weight"] for c in "ifgo"])
+        out[f"{parent}.lstm.weight_ih{sfx}"] = w_ih
+        out[f"{parent}.lstm.weight_hh{sfx}"] = torch.cat(
+            [g[f"h{c}weight"] for c in "ifgo"])
+        out[f"{parent}.lstm.bias_ih{sfx}"] = torch.zeros(w_ih.shape[0])
+        out[f"{parent}.lstm.bias_hh{sfx}"] = torch.cat(
+            [g[f"h{c}bias"] for c in "ifgo"])
+    return out
+
+
 def load_flax_variables(model: torch.nn.Module,
                         variables: Mapping[str, Any]) -> None:
     """Copy a flax variables tree into ``model`` in place, keeping each
     parameter's device and dtype. Every key must match both ways."""
-    sd = flax_to_state_dict(variables, {
+    sd = fuse_lstm_cells(flax_to_state_dict(variables, {
         name for name, m in model.named_modules()
-        if isinstance(m, torch.nn.ConvTranspose2d)})
+        if isinstance(m, torch.nn.ConvTranspose2d)}))
     own = model.state_dict()
     missing = sorted(set(own) - set(sd))
     extra = sorted(set(sd) - set(own))

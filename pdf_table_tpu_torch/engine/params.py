@@ -1,15 +1,18 @@
 """Deterministic numpy-seeded initialization in the flax layout.
 
-:func:`init_lore`, :func:`init_centernet`, :func:`init_lgpma`,
-:func:`init_dbnet`, :func:`init_rec`, :func:`init_cls`,
+:func:`init_lore`, :func:`init_centernet`, :func:`init_docx_layout`,
+:func:`init_lgpma`, :func:`init_dbnet`, :func:`init_rec`, :func:`init_cls`,
 :func:`init_picodet`, :func:`init_slanet` and :func:`init_table_master`
 return a ``{"params", "batch_stats"}`` tree with the paths and shapes the
 JAX package's ``LoreModel.init`` / ``CycleCenterNet.init`` /
-``LGPMA.init`` / ``DBNet.init`` / ``CTCRecModel.init`` /
+``DocXLayoutModel.init`` / ``LGPMA.init`` / ``DBNet.init`` (every
+backbone) / ``CTCRecModel.init`` (every backbone) /
 ``PPLCNetClassifier.init`` / ``PicoDet.init`` / ``SLANet.init`` /
 ``TableMaster.init`` give, filled with the
 flax initializers' kinds: lecun-normal conv / transposed-conv / dense
-kernels, zero biases, BN and LayerNorm scale/bias 1/0 and statistics 0/1;
+kernels (LSTM gates too), zero biases, BN and LayerNorm scale/bias 1/0 and
+statistics 0/1, PReLU slopes 0.25, ConvNext ``gamma`` 1e-6, he-normal
+depthwise 2x2 upsample kernels, a normal(0.02) ViT position table;
 for the SLANet head and the TableMaster decoder's flat parameters
 xavier-uniform matrices, normal(0.02) embeddings, LayerNorm scales 1;
 for LORE and Cycle-CenterNet also he-normal DCN weights,
@@ -39,14 +42,18 @@ from ..convert.flax_bridge import tree_leaves
 from ..models.center_net.config import CenterNetConfig
 from ..models.cls.config import ClsPulcConfig
 from ..models.dbnet.config import DbNetConfig
+from ..models.dbnet.model import DwPwConvTranspose
+from ..models.docx_layout.config import DocXLayoutConfig
 from ..models.layers import BatchNorm
 from ..models.lgpma.config import LgpmaConfig
 from ..models.lore.config import LoreConfig
 from ..models.lore.dla import (DeformConvBlock, DepthwiseUpsample,
                                bilinear_up_kernel)
 from ..models.lore.processor_model import RefNorm
+from ..models.nas_layers import PReLU
 from ..models.picodet.config import PicoDetConfig
 from ..models.rec_ctc.config import RecConfig
+from ..models.rec_ctc.model import ConvNextBlock, ConvNextViTBackbone
 from ..models.slanet.config import SLANetConfig
 from ..models.table_master.config import TableMasterConfig
 
@@ -211,16 +218,63 @@ def init_centernet(cfg: CenterNetConfig, seed: int = 0) -> Dict[str, Any]:
     return _init_dla(model, seed)
 
 
+def init_docx_layout(cfg: DocXLayoutConfig, seed: int = 0
+                     ) -> Dict[str, Any]:
+    """The DocXLayout tree: the DLA trunk and its six layout heads."""
+    from ..models.docx_layout.model import DocXLayoutModel
+
+    with torch.device("meta"):
+        model = DocXLayoutModel(cfg)
+    return _init_dla(model, seed)
+
+
+LSTM_GATES = "ifgo"
+
+
+def _init_lstm(rng, params, path, mod: nn.LSTM) -> None:
+    """flax's two ``OptimizedLSTMCell`` of a bidirectional ``nn.LSTM``
+    named ``lstm``: under its parent, ``fwd_cell`` / ``bwd_cell`` with
+    input gates ``i{g}`` (kernel) and hidden gates ``h{g}`` (kernel,
+    bias)."""
+    n_in, h = mod.input_size, mod.hidden_size
+    for cell in ("fwd_cell", "bwd_cell"):
+        for g in LSTM_GATES:
+            _set(params, path[:-1] + (cell, f"i{g}", "kernel"),
+                 _normal(rng, (n_in, h), n_in))
+            _set(params, path[:-1] + (cell, f"h{g}", "kernel"),
+                 _normal(rng, (h, h), h))
+            _set(params, path[:-1] + (cell, f"h{g}", "bias"),
+                 np.zeros((h,), np.float32))
+
+
 def _init_modules(model: nn.Module, seed: int) -> Dict[str, Any]:
     """The tree of a model built from convs (kernels (kh, kw, In/groups,
     Out)), transposed convs (kernels (kh, kw, In, Out)), dense layers
-    (kernels (In, Out)), BatchNorm and LayerNorm; biases zero."""
+    (kernels (In, Out)), BatchNorm, LayerNorm, bidirectional LSTMs,
+    PReLU and the raw parameters of ConvNext blocks, the ViT position
+    table and the depthwise 2x2 upsample; biases zero."""
     rng = np.random.default_rng(seed)
     params: Dict[str, Any] = {}
     stats: Dict[str, Any] = {}
     for mname, mod in model.named_modules():
         path = tuple(mname.split(".")) if mname else ()
-        if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
+        if isinstance(mod, nn.LSTM):
+            _init_lstm(rng, params, path, mod)
+        elif isinstance(mod, PReLU):
+            _set(params, path + ("negative_slope",), np.float32(0.25))
+        elif isinstance(mod, ConvNextBlock):
+            _set(params, path + ("gamma",),
+                 np.full(mod.gamma.shape, 1e-6, np.float32))
+        elif isinstance(mod, ConvNextViTBackbone):
+            _set(params, path + ("pos_embed",), (rng.standard_normal(
+                tuple(mod.pos_embed.shape)) * 0.02).astype(np.float32))
+        elif isinstance(mod, DwPwConvTranspose):
+            c = mod.depthwise_bias.shape[0]
+            _set(params, path + ("depthwise_kernel",),
+                 _normal(rng, (2, 2, c), 4, gain=2.0))
+            _set(params, path + ("depthwise_bias",),
+                 np.zeros((c,), np.float32))
+        elif isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
             if isinstance(mod, nn.Conv2d):
                 o, i, kh, kw = mod.weight.shape
             else:
@@ -243,8 +297,9 @@ def _init_modules(model: nn.Module, seed: int) -> Dict[str, Any]:
 
 
 def init_dbnet(cfg: DbNetConfig, seed: int = 0) -> Dict[str, Any]:
-    """The DBNet tree: conv and transposed-conv kernels, SE biases zero,
-    BatchNorm leaves."""
+    """The DBNet tree, for every backbone: conv and transposed-conv
+    kernels, SE biases zero, BatchNorm leaves; the NAS slopes and the
+    depthwise upsample's kernels and biases."""
     from ..models.dbnet.model import DBNet
 
     with torch.device("meta"):
@@ -253,8 +308,10 @@ def init_dbnet(cfg: DbNetConfig, seed: int = 0) -> Dict[str, Any]:
 
 
 def init_rec(cfg: RecConfig, seed: int = 0) -> Dict[str, Any]:
-    """The CTC recognizer's tree (``svtr_lcnet``): conv kernels, SE biases,
-    dense kernels and biases, LayerNorm and BatchNorm leaves."""
+    """The CTC recognizer's tree, for every backbone: conv kernels, SE
+    biases, dense kernels and biases, LayerNorm and BatchNorm leaves; the
+    LSTM cells, ConvNext ``gamma``, the ViT position table and the NAS
+    slopes."""
     from ..models.rec_ctc.model import CTCRecModel
 
     with torch.device("meta"):

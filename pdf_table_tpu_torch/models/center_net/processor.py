@@ -5,9 +5,12 @@ Pre, on the device from the resident pages: the JAX pre-processor takes
 the crop ``page[y1:y2, x1:x2]`` and runs ``cv2.warpAffine`` of its BGR f32
 copy with the centred scale matrix (INTER_LINEAR, border 0), then the
 CenterNet normalization. OpenCV 5 samples f32 images at float source
-coordinates: ``inv(M) @ (u, v, 1)`` in f32 with the inverse in f64, no
-1/32-px quantization. :func:`warp_crops` samples the same points from the
-page, corners outside the crop reading 0.
+coordinates: ``inv(M) @ (u, v, 1)`` with the inverse in f64, its f32
+coefficients applied per row (``ay * v + by``, two roundings) and along
+the row (``ax * u + bx``, one fused multiply-add), no 1/32-px
+quantization.
+:func:`warp_crops` samples the same points from the page, corners outside
+the crop reading 0.
 
 Post, on the host: :func:`group_bbox_by_gbox` (the vertex snap, in
 vectorized numpy with the JAX loop's first-match rule),
@@ -62,11 +65,15 @@ class CenterNetPreProcessor:
         f32 = torch.float32
         n = len(windows)
         win = torch.as_tensor(np.asarray(windows, np.int64), device=dev)
+        # OpenCV's rounding of the f32 coefficients: per row y it takes
+        # ay * v + by (two roundings), then along the row one fused
+        # multiply-add ax * u + bx (the exact f64 value, rounded once)
         c = torch.as_tensor(coefs, device=dev)
         pi, x1, y1, x2, y2 = win.unbind(1)
-        u = torch.arange(inp_w, dtype=f32, device=dev)
+        u = torch.arange(inp_w, dtype=torch.float64, device=dev)
         v = torch.arange(inp_h, dtype=f32, device=dev)
-        sx = c[:, 0:1] * u[None] + c[:, 1:2]               # (N, inp_w)
+        sx = (c[:, 0:1].double() * u[None]
+              + c[:, 1:2].double()).float()              # (N, inp_w)
         sy = c[:, 2:3] * v[None] + c[:, 3:4]               # (N, inp_h)
         x0f, y0f = torch.floor(sx), torch.floor(sy)
         ax = (sx - x0f)[:, None, :, None]

@@ -1,11 +1,17 @@
-"""DBNet, the PP-OCRv4 detector (counterpart of
-pdf_table_tpu/models/dbnet/model.py, the ``mobilenetv3`` backbone).
+"""DBNet (counterpart of pdf_table_tpu/models/dbnet/model.py), on its
+three families of backbone:
 
-MobileNetV3-0.5 backbone -> RSE-FPN neck (concat at stride 4) -> DB
-binarize head (conv, two 2x2/2 transposed convs) -> prob map. Modules keep
-the flax submodule names, so the weight bridge maps the JAX tree one to
-one. ``DBNet`` takes NHWC images, as the JAX module does, and runs them as
-a ``channels_last`` NCHW view.
+- ``mobilenetv3`` (PP-OCRv4): MobileNetV3-0.5 -> RSE-FPN neck (concat at
+  stride 4) -> DB binarize head (conv, two 2x2/2 transposed convs);
+- ``resnet18`` / ``resnet50`` (ModelScope): ResNet -> the SegDetector
+  ``FPN`` (models/layers.py) -> the same binarize head;
+- ``proxylessnas``: the searched ``CompactNasBackbone`` -> the
+  ``LightSegFuse`` sum of 1x1 laterals -> ``LightSegHead`` (depthwise
+  separable convs, the 2x2/2 depthwise upsample a broadcast multiply).
+
+Each gives the prob map. Modules keep the flax submodule names, so the
+weight bridge maps the JAX tree one to one. ``DBNet`` takes NHWC images,
+as the JAX module does, and runs them as a ``channels_last`` NCHW view.
 """
 
 from __future__ import annotations
@@ -15,8 +21,10 @@ from typing import Dict, List, Sequence
 import torch
 from torch import nn
 
-from ..layers import (BatchNorm, ConvBNAct, InvertedResidual, SEModule,
-                      make_divisible, upsample2x, upsample_nearest)
+from ..layers import (FPN, BatchNorm, ConvBNAct, InvertedResidual, ResNet,
+                      SEModule, make_divisible, upsample2x,
+                      upsample_nearest)
+from ..nas_layers import build_plan, run_plan
 from .config import DbNetConfig
 
 
@@ -133,6 +141,127 @@ class BinarizeHead(nn.Module):
         return torch.sigmoid(self.up2(x))[:, 0]
 
 
+# The searched CompactDetBackbone plan: (kind, kernels, expand, stride,
+# out, residual) or ("se", squeeze); the SE slots carry an identity
+# shortcut and tap the stride 4, 8, 16 and 32 maps.
+DBNAS_PLAN = (
+    ("rep", ((3, 3), (5, 5)), 2, (2, 2), 32, False),
+    ("rep", ((1, 1), (3, 3), (5, 5)), 2, (1, 1), 32, True),
+    ("rep", ((1, 1), (3, 3), (5, 5)), 2, (1, 1), 32, True),
+    ("rep", ((1, 1), (3, 3), (5, 5)), 2, (1, 1), 32, True),
+    ("rep", ((1, 1), (3, 3), (5, 5)), 2, (1, 1), 32, True),
+    ("se", 2),
+    ("rep", ((3, 3), (5, 5)), 4, (2, 2), 64, False),
+    ("rep", ((3, 3), (5, 5)), 4, (1, 1), 64, True),
+    ("rep", ((1, 1), (3, 3), (5, 5)), 4, (1, 1), 64, True),
+    ("rep", ((1, 1), (3, 3), (5, 5)), 4, (1, 1), 64, True),
+    ("rep", ((3, 3), (5, 5)), 4, (1, 1), 64, True),
+    ("se", 8),
+    ("rep", ((3, 3), (5, 5)), 4, (2, 2), 96, False),
+    ("rep", ((1, 1), (3, 3), (5, 5)), 4, (1, 1), 96, True),
+    ("rep", ((3, 3), (5, 5)), 4, (1, 1), 96, True),
+    ("rep", ((1, 1), (3, 3), (5, 5)), 4, (1, 1), 96, True),
+    ("rep", ((1, 1), (3, 3), (5, 5)), 4, (1, 1), 96, True),
+    ("se", 8),
+    ("mb", ((5, 5),), 4, (2, 2), 128, False),
+    ("rep", ((1, 1), (3, 3), (5, 5)), 4, (1, 1), 128, True),
+    ("rep", ((1, 1), (3, 3), (5, 5)), 4, (1, 1), 128, True),
+    ("rep", ((1, 1), (3, 3), (5, 5)), 4, (1, 1), 128, True),
+    ("rep", ((3, 3), (5, 5)), 4, (1, 1), 128, True),
+    ("se", 8),
+)
+
+
+class CompactNasBackbone(nn.Module):
+    """3x3/2 ReLU stem to 32 channels, then the DBNAS_PLAN blocks; the
+    maps after the four SE slots (strides 4, 8, 16, 32)."""
+
+    out_channels = (32, 64, 96, 128)
+
+    def __init__(self):
+        super().__init__()
+        self.first_conv = ConvBNAct(3, 32, (3, 3), (2, 2), act="relu")
+        build_plan(self, DBNAS_PLAN, 32)
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        return run_plan(self, DBNAS_PLAN, self.first_conv(x),
+                        se_residual=True)[1]
+
+
+class DwPwConv(nn.Module):
+    """Depthwise k + BatchNorm + relu + pointwise 1x1, no biases."""
+
+    def __init__(self, in_ch: int, features: int, kernel: int):
+        super().__init__()
+        self.depthwise = nn.Conv2d(in_ch, in_ch, kernel,
+                                   padding=kernel // 2, groups=in_ch,
+                                   bias=False)
+        self.bn1 = BatchNorm(in_ch)
+        self.pointwise = nn.Conv2d(in_ch, features, 1, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.pointwise(torch.relu(self.bn1(self.depthwise(x))))
+
+
+class DwPwConvTranspose(nn.Module):
+    """The per-channel 2x2/2 transposed conv as a broadcast multiply (each
+    pixel becomes a 2x2 block weighted by its channel's kernel) plus its
+    bias, BatchNorm + relu, a biased pointwise 1x1. ``depthwise_kernel``
+    keeps flax's (2, 2, C) layout."""
+
+    def __init__(self, in_ch: int, features: int):
+        super().__init__()
+        self.depthwise_kernel = nn.Parameter(torch.zeros(2, 2, in_ch))
+        self.depthwise_bias = nn.Parameter(torch.zeros(in_ch))
+        self.bn1 = BatchNorm(in_ch)
+        self.pointwise = nn.Conv2d(in_ch, features, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, C, H, W = x.shape
+        w = self.depthwise_kernel.permute(2, 0, 1).reshape(1, C, 1, 2, 1, 2)
+        y = (x[:, :, :, None, :, None] * w).reshape(B, C, 2 * H, 2 * W)
+        y = y + self.depthwise_bias[None, :, None, None]
+        return self.pointwise(torch.relu(self.bn1(y)))
+
+
+class LightSegFuse(nn.Module):
+    """Per-level 1x1 laterals, nearest upsample to stride 4, summed in the
+    order p5 + p4 + p3 + p2."""
+
+    def __init__(self, in_channels: Sequence[int], inner: int = 64):
+        super().__init__()
+        for lvl, c in zip((2, 3, 4, 5), in_channels):
+            self.add_module(f"in{lvl}", nn.Conv2d(c, inner, 1, bias=False))
+
+    def forward(self, feats: Sequence[torch.Tensor]) -> torch.Tensor:
+        c2, c3, c4, c5 = feats
+        return upsample_nearest(self.in5(c5), 8) \
+            + upsample_nearest(self.in4(c4), 4) + upsample2x(self.in3(c3)) \
+            + self.in2(c2)
+
+
+class LightSegHead(nn.Module):
+    """DwPwConv k5 -> BatchNorm relu -> DwPwConvTranspose -> BatchNorm
+    relu -> DwPwConvTranspose to 1 channel -> sigmoid: prob (B, H, W)."""
+
+    def __init__(self, in_ch: int, inner: int, dw_kernel: int = 5):
+        super().__init__()
+        q = inner // 4
+        self.dwpw = DwPwConv(in_ch, q, dw_kernel)
+        self.bn_a = BatchNorm(q)
+        self.up1 = DwPwConvTranspose(q, q)
+        self.bn_b = BatchNorm(q)
+        self.up2 = DwPwConvTranspose(q, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = torch.relu(self.bn_a(self.dwpw(x)))
+        x = torch.relu(self.bn_b(self.up1(x)))
+        return torch.sigmoid(self.up2(x).float())[:, 0]
+
+
+BACKBONES = ("mobilenetv3", "resnet18", "resnet50", "proxylessnas")
+
+
 class DBNet(nn.Module):
     """The detector. ``forward(images)`` takes NHWC float images and returns
     {"prob": (B, H, W) f32}, as the JAX module's inference call does."""
@@ -140,16 +269,26 @@ class DBNet(nn.Module):
     def __init__(self, config: DbNetConfig):
         super().__init__()
         cfg = config
-        if cfg.backbone != "mobilenetv3":
-            raise NotImplementedError(
-                f"DBNet backbone {cfg.backbone!r} is not ported yet")
+        if cfg.backbone not in BACKBONES:
+            raise ValueError(f"unknown DBNet backbone {cfg.backbone!r}")
         if cfg.dtype != "float32":
             raise NotImplementedError(
-                f"the DBNet detector runs float32 only, not {cfg.dtype!r}")
+                f"the DBNet detector ({cfg.backbone}) runs float32 only, not "
+                f"{cfg.dtype!r} (ROADMAP.md Queue 1 item 6)")
         self.config = cfg
-        self.backbone = MobileNetV3Det()
-        self.neck = RSEFPN(self.backbone.out_channels, cfg.inner_channels)
-        self.binarize = BinarizeHead(cfg.inner_channels, cfg.inner_channels)
+        inner = cfg.inner_channels
+        if cfg.backbone == "mobilenetv3":
+            self.backbone = MobileNetV3Det()
+            self.neck = RSEFPN(self.backbone.out_channels, inner)
+        elif cfg.backbone == "proxylessnas":
+            self.backbone = CompactNasBackbone()
+            self.neck = LightSegFuse(self.backbone.out_channels, inner)
+            self.binarize = LightSegHead(inner, inner)
+            return
+        else:
+            self.backbone = ResNet(int(cfg.backbone[len("resnet"):]))
+            self.neck = FPN(self.backbone.out_channels, inner)
+        self.binarize = BinarizeHead(inner, inner)
 
     def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         x = images.permute(0, 3, 1, 2)   # NHWC memory read as channels_last

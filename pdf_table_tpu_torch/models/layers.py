@@ -6,8 +6,8 @@ What the LORE, DBNet, recognition, classifier and LGPMA slices use:
 whose parameter names the weight bridge maps one to one, the activation
 table, ``make_divisible``, ``SEModule``, the PP-LCNet
 ``DepthwiseSeparable``, the MobileNetV3 ``InvertedResidual``, the nearest
-``upsample2x`` and the ResNet family (``BasicBlock``, ``Bottleneck``,
-``ResNet``).
+``upsample2x`` and ``upsample_to``, the ResNet family (``BasicBlock``,
+``Bottleneck``, ``ResNet``) and DBNet's SegDetector ``FPN``.
 Modules run NCHW (the models keep activations in ``channels_last`` memory
 format).
 """
@@ -74,18 +74,20 @@ class BatchNorm(nn.Module):
 
 
 class ConvBNAct(nn.Module):
-    """Conv2d (no bias, ``groups`` for depthwise) + BatchNorm + activation.
-    Strided convs keep the symmetric ``k//2`` padding too."""
+    """Conv2d (``groups`` for depthwise; a bias where ``bias``) + BatchNorm
+    + activation. Strided convs keep the symmetric ``k//2`` padding too;
+    an even kernel side gets none (CRNN's (2, 1) ``VALID`` conv)."""
 
     def __init__(self, in_ch: int, features: int,
                  kernel: Tuple[int, int] = (3, 3),
                  stride: Tuple[int, int] = (1, 1),
-                 act: Optional[str] = "relu", groups: int = 1):
+                 act: Optional[str] = "relu", groups: int = 1,
+                 bias: bool = False):
         super().__init__()
         kh, kw = kernel
         self.conv = nn.Conv2d(in_ch, features, kernel, stride=stride,
                               padding=((kh - 1) // 2, (kw - 1) // 2),
-                              groups=groups, bias=False)
+                              groups=groups, bias=bias)
         self.bn = BatchNorm(features)
         self.act = ACTS[act]
 
@@ -162,6 +164,13 @@ def upsample_nearest(x: torch.Tensor, factor: int) -> torch.Tensor:
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:
     return upsample_nearest(x, 2)
+
+
+def upsample_to(x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
+    """Nearest resize of an NCHW tensor to ``hw``: output ``i`` reads
+    input ``floor((i + 0.5) * in / out)``, as ``jax.image.resize``'s
+    "nearest" does."""
+    return F.interpolate(x, size=tuple(hw), mode="nearest-exact")
 
 
 class BasicBlock(nn.Module):
@@ -247,3 +256,31 @@ class ResNet(nn.Module):
                 x = getattr(self, name)(x)
             feats.append(x)
         return tuple(feats)
+
+
+class FPN(nn.Module):
+    """DBNet's SegDetector neck over C2..C5: 1x1 laterals ``in{2..5}`` with
+    top-down nearest 2x adds, 3x3 smooths ``out{2..5}`` to a quarter of
+    the width each, concatenated at stride 4 in the order o2, o3, o4, o5
+    (the last three resized to o2's size). No biases."""
+
+    def __init__(self, in_channels, out_features: int = 256):
+        super().__init__()
+        f, q = out_features, out_features // 4
+        for lvl, c in zip((2, 3, 4, 5), in_channels):
+            self.add_module(f"in{lvl}", nn.Conv2d(c, f, 1, bias=False))
+        for lvl in (5, 4, 3, 2):
+            self.add_module(f"out{lvl}",
+                            nn.Conv2d(f, q, 3, padding=1, bias=False))
+
+    def forward(self, feats) -> torch.Tensor:
+        c2, c3, c4, c5 = feats
+        p5 = self.in5(c5)
+        p4 = self.in4(c4) + upsample2x(p5)
+        p3 = self.in3(c3) + upsample2x(p4)
+        p2 = self.in2(c2) + upsample2x(p3)
+        o2 = self.out2(p2)
+        hw = o2.shape[2:]
+        return torch.cat([o2, upsample_to(self.out3(p3), hw),
+                          upsample_to(self.out4(p4), hw),
+                          upsample_to(self.out5(p5), hw)], dim=1)

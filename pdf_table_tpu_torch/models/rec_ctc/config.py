@@ -3,8 +3,9 @@ pdf_table_tpu/models/rec_ctc/config.py).
 
 The default is the PP-OCRv4 recognizer (``svtr_lcnet``: PP-LCNet conv
 stages + SVTR global-mixer blocks + CTC head), registered as
-``PP-OCRv4_rec`` in the JAX package. The ``crnn`` and ``convnext_vit``
-constructors are kept as data; the port's model runs ``svtr_lcnet`` only.
+``PP-OCRv4_rec`` in the JAX package; ``crnn`` and ``convnext_vit`` have
+their constructors, ``lightweight_edge`` is built by
+tasks/recognition.py's name table as the JAX registry builds it.
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ from typing import Tuple
 
 @dataclass
 class RecConfig:
-    backbone: str = "svtr_lcnet"   # crnn | svtr_lcnet | convnext_vit
+    # crnn | svtr_lcnet | convnext_vit | lightweight_edge
+    backbone: str = "svtr_lcnet"
     # input geometry: PP rec = (3, 48, W); CRNN/ConvNextViT = gray (1, 32, W)
     img_channels: int = 3
     img_height: int = 48

@@ -20,9 +20,11 @@ from ..entity.enums import HtmlContentType
 class OcrSystemConfig:
     """Routing flags."""
 
+    # PP-OCRv4_det | db_resnet18 | db_resnet50 | db_proxylessnas
     detect_model: str = "PP-OCRv4_det"
+    # PP-OCRv4_rec | CRNN | ConvNextViT | LightweightEdge
     recognizer_model: str = "PP-OCRv4_rec"
-    layout_model: str = "picodet"           # picodet | none
+    layout_model: str = "picodet"           # picodet | DocXLayout | none
     # Lore | LoreAndLineCell | CenterNet | Lgpma | LineCell | SLANet |
     # TableMaster | MtlTabNet, and the TSR task's keyword arguments (its
     # config fields, batch_size, variables)

@@ -1,6 +1,9 @@
-"""Text-detection task, PP-OCRv4 DBNet (counterpart of
+"""Text-detection task, DBNet (counterpart of
 pdf_table_tpu/tasks/detection.py and of the detection lane of
-pdf_table_tpu/pipeline/batch_runner.py::BatchPipeline).
+pdf_table_tpu/pipeline/batch_runner.py::BatchPipeline): ``PP-OCRv4_det``
+(MobileNetV3, imagenet normalization) and ModelScope's ``db_resnet18``,
+``db_resnet50`` and ``db_proxylessnas`` (BGR, mean subtracted, / 255), the
+configs of the JAX registry (models/registry.py).
 
 ``batch_infer_from_pages`` groups pages by canvas bucket and runs each
 chunk of up to 8 canvases as one device program: the resize+normalize
@@ -44,24 +47,43 @@ NORM = {
 Chunk = Tuple[List[int], List[Tuple[int, int]], Tuple[int, int], np.ndarray]
 
 
+def det_config(model: str = "PP-OCRv4_det", **kw) -> DbNetConfig:
+    """The config of a registered detector name, as the JAX registry
+    builds it."""
+    if model == "PP-OCRv4_det":
+        return DbNetConfig.ppocr(**kw)
+    if model == "db_proxylessnas":
+        kw.setdefault("inner_channels", 64)
+    backbone = {"db_resnet18": "resnet18", "db_resnet50": "resnet50",
+                "db_proxylessnas": "proxylessnas"}.get(model)
+    if backbone is None:
+        raise NotImplementedError(f"detection model {model!r} is not "
+                                  f"ported")
+    return DbNetConfig(backbone=backbone, **kw)
+
+
 class OcrDetectionTask:
-    """PP-OCRv4 text detection on ``device`` (``cuda`` unless ``"cpu"`` is
+    """DBNet text detection on ``device`` (``cuda`` unless ``"cpu"`` is
     asked for). Weights: ``variables`` (a flax-layout tree, see
     convert/flax_bridge.py) or, when None, the seeded :func:`init_dbnet`.
     ``half_res_probs`` max-pools the prob map 2x2 before quantizing, as
-    the JAX pipeline does; ``cfg_overrides`` go to ``DbNetConfig.ppocr``."""
+    the JAX pipeline does; ``cfg_overrides`` go to :func:`det_config`.
+    Every backbone takes the detector size of the limit-side rule
+    (``det_input_size``), as the JAX batched lane does."""
 
     task_name = "detection"
 
     def __init__(self, model: str = "PP-OCRv4_det", device=None,
                  variables: Optional[Dict[str, Any]] = None,
                  half_res_probs: bool = True, **cfg_overrides):
-        if model != "PP-OCRv4_det":
-            raise NotImplementedError(f"detection model {model!r} is not "
-                                      f"ported yet")
+        self.model_name = model
+        self.model_config = cfg = det_config(model, **cfg_overrides)
+        if cfg.dtype != "float32":
+            raise NotImplementedError(
+                f"detection model {model!r} runs float32 only (bf16 is "
+                f"ROADMAP.md Queue 1 item 6)")
         self.device = resolve_device(device)
         set_float_precision()
-        self.model_config = cfg = DbNetConfig.ppocr(**cfg_overrides)
         self.half_res_probs = half_res_probs
         self.norm = NORM[cfg.norm_style]
         self.model = DBNet(cfg).eval()

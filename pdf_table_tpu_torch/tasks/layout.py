@@ -1,14 +1,23 @@
-"""Layout-analysis task, PicoDet (counterpart of
+"""Layout-analysis task, PicoDet and DocXLayout (counterpart of
 pdf_table_tpu/tasks/layout.py, the page-batched path that
 ``BatchPipeline`` runs: ``batch_enqueue_pages`` and ``batch_finish``).
 
 ``enqueue`` takes the uint8 canvas stack of one chunk (numpy, or a tensor
-already on the task's device), resizes it to the model's 800x608 input with
-the antialiased bilinear weights of ``jax.image.resize``, normalizes, runs
-PicoDet, the GFL decode with a global top-k and the per-class fixed-point
-NMS, and returns the survivors (P, C, keep_top_k, 5) without downloading
-them. ``finish`` downloads them and builds each page's layout cells in
-canvas coordinates.
+already on the task's device) and returns the chunk's device result
+without downloading it; ``finish`` downloads it and builds each page's
+layout cells in canvas coordinates.
+
+- PicoDet: the stack resized to the model's 800x608 input with the
+  antialiased bilinear weights of ``jax.image.resize``, normalized,
+  PicoDet, the GFL decode with a global top-k and the per-class
+  fixed-point NMS; the survivors (P, C, keep_top_k, 5).
+- DocXLayout (``"DocXLayout"`` or ``"docx_layout"``): each canvas warped
+  to 768^2 as the JAX pre-processor's ``cv2.warpAffine`` of its BGR copy
+  does, normalized, the DLA trunk (its 16 deform convs on the DCN kernel)
+  in sub-batches of ``DOCX_SUB_BATCH`` and the 4-point decode; the slots
+  (P, top_k + 20, 10). The host scales them back, thresholds, runs the
+  polygon NMS and labels the cells. The JAX runner downloads the canvases
+  and runs the cv2 path once per page instead.
 """
 
 from __future__ import annotations
@@ -21,14 +30,22 @@ import numpy as np
 import torch
 
 from ..engine.device import on_device, resolve_device, set_float_precision
-from ..engine.params import init_picodet
+from ..engine.params import init_docx_layout, init_picodet
 from ..entity.ocr_cell import OcrCell
+from ..models.center_net.processor import CenterNetPreProcessor
+from ..models.docx_layout.config import DocXLayoutConfig
+from ..models.docx_layout.model import DocXLayoutModel, unpack_docx
+from ..models.docx_layout.processor import DocXLayoutPostProcessor
 from ..models.picodet.config import PicoDetConfig
 from ..models.picodet.model import PicoDet
 from ..models.picodet.processor import (PicoDetPostProcessor,
                                         device_decode_topk, device_nms_pack)
 
 Handle = Tuple[torch.Tensor, List[Dict[str, Any]]]
+DOCX_MODELS = ("DocXLayout", "docx_layout")
+# DocXLayout pages per forward: a runner chunk's
+DOCX_SUB_BATCH = 8
+MODELS = ("picodet",) + DOCX_MODELS
 
 
 @functools.lru_cache(maxsize=16)
@@ -78,33 +95,55 @@ def resize_bilinear_aa(pages: torch.Tensor, out_hw: Tuple[int, int]
 
 
 class OcrLayoutTask:
-    """PicoDet layout analysis on ``device`` (``cuda`` unless ``"cpu"`` is
-    asked for). Weights: ``variables`` (a flax-layout tree, see
-    convert/flax_bridge.py) or, when None, the seeded :func:`init_picodet`.
-    ``cfg_overrides`` go to ``PicoDetConfig``. On the CPU,
-    ``PDFTABLE_DEVICE_NMS=0`` selects the host route (``hard_nms`` over the
-    downloaded candidates), as in the JAX task; on a card the NMS always
-    runs on the device."""
+    """Layout analysis on ``device`` (``cuda`` unless ``"cpu"`` is asked
+    for), ``model`` one of ``MODELS``. Weights: ``variables`` (a
+    flax-layout tree, see convert/flax_bridge.py) or, when None, the
+    model's seeded ``init_*``. ``config`` or ``cfg_overrides`` set
+    ``PicoDetConfig`` (with ``task_type``) or ``DocXLayoutConfig`` (which
+    ignores ``task_type``, as the JAX task does). On the CPU,
+    ``PDFTABLE_DEVICE_NMS=0`` selects PicoDet's host route (``hard_nms``
+    over the downloaded candidates), as in the JAX task; on a card the NMS
+    always runs on the device."""
 
     task_name = "layout"
 
     def __init__(self, model: str = "picodet", device=None,
                  variables: Optional[Dict[str, Any]] = None,
-                 task_type: str = "en", **cfg_overrides):
-        if model != "picodet":
-            raise NotImplementedError(f"layout model {model!r} is not "
-                                      f"ported yet")
+                 task_type: str = "en", config: Optional[Any] = None,
+                 **cfg_overrides):
+        if model not in MODELS:
+            raise NotImplementedError(
+                f"layout model {model!r} is not ported (the port has "
+                f"{', '.join(MODELS)})")
         self.device = resolve_device(device)
         set_float_precision()
-        self.model_config = cfg = PicoDetConfig(task_type=task_type,
-                                                **cfg_overrides)
-        self.post = PicoDetPostProcessor(cfg)
-        self.model = PicoDet(cfg).eval()
+        if model in DOCX_MODELS:
+            self.model_name = "DocXLayout"
+            self.model_config = cfg = config or DocXLayoutConfig(
+                **cfg_overrides)
+            # Cycle-CenterNet's warp and normalize are DocXLayout's: the
+            # same centred matrix, sampling and MEAN / STD; a canvas is
+            # the window (p, 0, 0, W, H)
+            self.pre = CenterNetPreProcessor(cfg)
+            self.post = DocXLayoutPostProcessor(cfg)
+            self.model = DocXLayoutModel(cfg).eval()
+            init = init_docx_layout
+        else:
+            self.model_name = "picodet"
+            self.model_config = cfg = config or PicoDetConfig(
+                task_type=task_type, **cfg_overrides)
+            self.post = PicoDetPostProcessor(cfg)
+            self.model = PicoDet(cfg).eval()
+            init = init_picodet
+            self.mean = torch.tensor(cfg.norm_mean, device=self.device)
+            self.std = torch.tensor(cfg.norm_std, device=self.device)
         self.load_variables(variables if variables is not None
-                            else init_picodet(cfg, 0))
+                            else init(cfg, 0))
         self.model.to(self.device)
-        self.mean = torch.tensor(cfg.norm_mean, device=self.device)
-        self.std = torch.tensor(cfg.norm_std, device=self.device)
+
+    @property
+    def docx(self) -> bool:
+        return self.model_name == "DocXLayout"
 
     def load_variables(self, variables: Dict[str, Any]) -> None:
         """Load a flax-layout {"params", "batch_stats"} tree."""
@@ -114,20 +153,40 @@ class OcrLayoutTask:
 
     @property
     def device_nms(self) -> bool:
-        return self.device.type == "cuda" \
-            or os.environ.get("PDFTABLE_DEVICE_NMS", "1") != "0"
+        return not self.docx and (
+            self.device.type == "cuda"
+            or os.environ.get("PDFTABLE_DEVICE_NMS", "1") != "0")
 
     # -- the device program, stage by stage -----------------------------------
 
     def preprocess(self, pages: torch.Tensor) -> torch.Tensor:
         """uint8 canvases (P, H, W, 3) on the device -> the normalized
-        model input (P, 800, 608, 3) f32."""
+        model input: PicoDet's (P, 800, 608, 3), DocXLayout's (P, 768,
+        768, 3) BGR warp, both f32."""
+        if self.docx:
+            P, H, W = pages.shape[:3]
+            coef, _ = self.pre.plan(H, W)
+            return self.pre.normalize(self.pre.warp_crops(
+                pages, [(i, 0, 0, W, H) for i in range(P)],
+                np.tile(coef, (P, 1))))
         cfg = self.model_config
         x = resize_bilinear_aa(pages, (cfg.img_height, cfg.img_width))
         return (x / 255.0 - self.mean) / self.std
 
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The model's head maps: DocXLayout in sub-batches of
+        ``DOCX_SUB_BATCH``, joined."""
+        if not self.docx:
+            return self.model(x)
+        outs = [self.model.heads(x[s:s + DOCX_SUB_BATCH])
+                for s in range(0, x.shape[0], DOCX_SUB_BATCH)]
+        return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+
     def decode(self, raw: Dict[str, Any]) -> torch.Tensor:
-        """Head maps -> top-k candidates [boxes | scores] (P, k, 4 + C)."""
+        """Head maps -> PicoDet's top-k candidates [boxes | scores] (P, k,
+        4 + C), or DocXLayout's slots (P, top_k + 20, 10)."""
+        if self.docx:
+            return self.model.decode(raw)
         return device_decode_topk(raw, self.model_config)
 
     def nms(self, cand: torch.Tensor) -> torch.Tensor:
@@ -138,35 +197,63 @@ class OcrLayoutTask:
     @torch.inference_mode()
     def enqueue(self, pages) -> Handle:
         """One chunk's device program; returns the (not yet downloaded)
-        survivors, or the candidates on the host route, and per-page
-        metas (boxes decode in canvas coordinates)."""
+        PicoDet survivors (the candidates on the host route) or
+        DocXLayout slots, and per-page metas (boxes decode in canvas
+        coordinates)."""
         pages = on_device(pages, self.device)
         P, H, W = pages.shape[:3]
+        out = self.decode(self.forward(self.preprocess(pages)))
+        if self.docx:
+            meta = self.pre.plan(H, W)[1]
+            return out, [dict(meta) for _ in range(P)]
         dev_nms = self.device_nms
         metas = [{"org_shape": (H, W), "device_nms": dev_nms}
                  for _ in range(P)]
-        out = self.decode(self.model(self.preprocess(pages)))
         return (self.nms(out) if dev_nms else out), metas
 
     # -- host side ------------------------------------------------------------
 
-    def finish(self, handle: torch.Tensor, metas: List[Dict[str, Any]]
-               ) -> List[List[OcrCell]]:
-        """Download an :meth:`enqueue` result -> layout cells per page."""
+    def results(self, handle: torch.Tensor, metas: List[Dict[str, Any]]
+                ) -> List[Dict[str, Any]]:
+        """Download an :meth:`enqueue` result -> each page's post-processor
+        result with its ``layout_cells``."""
         packed = handle.cpu().numpy()
         out = []
         for i, meta in enumerate(metas):
-            if meta["device_nms"]:
+            if self.docx:
+                result = self.post(unpack_docx(packed[i],
+                                               self.model_config.top_k),
+                                   meta)
+            elif meta["device_nms"]:
                 result = self.post.from_device_nms(packed[i],
                                                    meta["org_shape"])
             else:
                 result = self.post.from_candidates(
                     packed[i, :, :4], packed[i, :, 4:], meta["org_shape"])
-            out.append(self.post.to_layout_cells(result))
+            result["layout_cells"] = self.post.to_layout_cells(result)
+            out.append(result)
         return out
+
+    def finish(self, handle: torch.Tensor, metas: List[Dict[str, Any]]
+               ) -> List[List[OcrCell]]:
+        """Download an :meth:`enqueue` result -> layout cells per page."""
+        return [r["layout_cells"] for r in self.results(handle, metas)]
 
     def batch_infer_from_pages(self, pages) -> List[List[OcrCell]]:
         """``pages`` (P, H, W, 3) uint8 RGB canvases (numpy, or a tensor on
         the task's device). Returns per page its layout cells in canvas
         coordinates."""
         return self.finish(*self.enqueue(pages))
+
+    def __call__(self, image: np.ndarray) -> Dict[str, Any]:
+        """DocXLayout on one image (H, W, 3) uint8 RGB: the page path with
+        the image as the page, {"bboxs", "subfield_dets", "layout_cells"}
+        in image coordinates. The JAX task warps it with cv2 on the host;
+        the same sample points are taken here on the device. PicoDet's
+        per-image path (the cv2 ``PicoDetPreProcessor``) is not ported."""
+        if not self.docx:
+            raise NotImplementedError(
+                "the per-image PicoDet path is not ported (ROADMAP.md "
+                "Queue 1 item 7)")
+        return self.results(*self.enqueue(
+            np.ascontiguousarray(image)[None]))[0]

@@ -1,7 +1,13 @@
-"""Text-recognition task, PP-OCRv4 SVTR-LCNet (counterpart of
-pdf_table_tpu/tasks/recognition.py and of the fused device recognition lane
-of pdf_table_tpu/pipeline/batch_runner.py::BatchPipeline,
-``_recognize_all_device``).
+"""Text-recognition task (counterpart of pdf_table_tpu/tasks/recognition.py
+and of the fused device recognition lane of
+pdf_table_tpu/pipeline/batch_runner.py::BatchPipeline,
+``_recognize_all_device``): ``PP-OCRv4_rec`` (SVTR-LCNet, 48 px),
+``CRNN`` and ``LightweightEdge`` (32 px, the same lane), and
+``ConvNextViT`` (32 px: every crop warped to the full 804 px width, cut
+into three 300 px chunks that overlap by 48 px, their logits joined along
+time before the decode). ConvNextViT scales its input by ``1 / 255``, the
+others by ``x / 127.5 - 1``. The ModelScope recognizers decode with the
+built-in ``en`` charset, as the JAX config's default does.
 
 ``batch_infer_from_pages`` takes the uint8 page canvases of one chunk
 (numpy, or a tensor already on the device) and the text quads of every
@@ -49,9 +55,28 @@ PAD_MAT = np.eye(3, dtype=np.float32)[None]
 Group = Dict[str, Any]
 
 
-def rec_config(lang: str = "en", **kw) -> RecConfig:
-    """The ``PP-OCRv4_rec`` config: lang-keyed, the charset comes from the
-    lang's dict file and the vocab size follows it."""
+REC_MODELS = ("PP-OCRv4_rec", "CRNN", "ConvNextViT", "LightweightEdge")
+
+
+def rec_config(lang: str = "en", model: str = "PP-OCRv4_rec",
+               **kw) -> RecConfig:
+    """The config of a registered recognizer name, as the JAX registry
+    builds it. ``PP-OCRv4_rec`` is lang-keyed: the charset comes from the
+    lang's dict file and the vocab size follows it; the ModelScope
+    recognizers ignore ``lang``."""
+    if model == "CRNN":
+        return RecConfig.crnn(**kw)
+    if model == "ConvNextViT":
+        return RecConfig.convnext_vit(**kw)
+    if model == "LightweightEdge":
+        base = dict(backbone="lightweight_edge", img_channels=3,
+                    img_height=32, img_width=320)
+        base.update(kw)
+        return RecConfig(**base)
+    if model != "PP-OCRv4_rec":
+        raise NotImplementedError(f"recognition model {model!r} is not "
+                                  f"ported (the port has "
+                                  f"{', '.join(REC_MODELS)})")
     if lang != "en" and "charset_name" not in kw:
         kw["charset_name"] = lang
         kw.setdefault("vocab_size", len(resolve_charset(lang)))
@@ -69,11 +94,11 @@ def unpack_rec(packed: np.ndarray, real_n: int
 
 
 class OcrRecognitionTask:
-    """PP-OCRv4 text recognition on ``device`` (``cuda`` unless ``"cpu"``
-    is asked for). Weights: ``variables`` (a flax-layout tree, see
-    convert/flax_bridge.py) or, when None, the seeded :func:`init_rec`.
-    ``cls_task`` is the 0/180 textline classifier (a
-    :class:`ClsImagePulcTask` on the same device) or None for no
+    """Text recognition on ``device`` (``cuda`` unless ``"cpu"`` is asked
+    for), ``model`` one of ``REC_MODELS``. Weights: ``variables`` (a
+    flax-layout tree, see convert/flax_bridge.py) or, when None, the
+    seeded :func:`init_rec`. ``cls_task`` is the 0/180 textline classifier
+    (a :class:`ClsImagePulcTask` on the same device) or None for no
     orientation check. ``cfg_overrides`` go to :func:`rec_config`."""
 
     task_name = "recognition"
@@ -83,9 +108,13 @@ class OcrRecognitionTask:
                  cls_task: Optional[ClsImagePulcTask] = None,
                  charset: Optional[Charset] = None,
                  single_rec_bucket: bool = True, **cfg_overrides):
-        if model != "PP-OCRv4_rec":
-            raise NotImplementedError(f"recognition model {model!r} is not "
-                                      f"ported yet")
+        self.model_name = model
+        self.model_config = cfg = rec_config(model=model, **cfg_overrides)
+        if cfg.dtype != "float32":
+            raise NotImplementedError(
+                f"recognition model {model!r} runs float32 only (bf16 is "
+                f"ROADMAP.md Queue 1 item 7)")
+        self.convnext = cfg.backbone == "convnext_vit"
         self.device = resolve_device(device)
         set_float_precision()
         if cls_task is not None and cls_task.device != self.device:
@@ -93,7 +122,6 @@ class OcrRecognitionTask:
                              f"the recognizer on {self.device}")
         self.cls_task = cls_task
         self.single_rec_bucket = single_rec_bucket
-        self.model_config = cfg = rec_config(**cfg_overrides)
         self.pre = RecPreProcessor(cfg)
         self.post = RecPostProcessor(cfg, charset=charset)
         self.model = CTCRecModel(cfg).eval()
@@ -138,7 +166,11 @@ class OcrRecognitionTask:
         hh = np.maximum.reduce([
             np.linalg.norm(qs[:, 0] - qs[:, 3], axis=1),
             np.linalg.norm(qs[:, 1] - qs[:, 2], axis=1), ones])
-        if self.single_rec_bucket:
+        if self.convnext:
+            # warped to the full width, cut into the chunks on the device
+            buckets = np.full(len(qs), 3 * cfg.chunk_width
+                              - 2 * cfg.chunk_overlap, np.int32)
+        elif self.single_rec_bucket:
             buckets = np.full(len(qs), cfg.width_buckets[-1], np.int32)
         else:
             buckets = np.asarray(
@@ -246,8 +278,20 @@ class OcrRecognitionTask:
 
     def logits(self, crops: torch.Tensor) -> torch.Tensor:
         """Crops in 0..255 -> CTC logits (nb, T, V): ``x / 127.5 - 1``,
-        then the recognizer."""
-        return self.model(crops / 127.5 - 1.0)
+        then the recognizer; ConvNextViT: the crops' luma cut into three
+        overlapping chunks, each ``/ 255`` through the recognizer, their
+        logits joined along time (nb, 3 T, V)."""
+        if not self.convnext:
+            return self.model(crops / 127.5 - 1.0)
+        cfg = self.model_config
+        cw, step = cfg.chunk_width, cfg.chunk_width - cfg.chunk_overlap
+        y = 0.299 * crops[..., 0] + 0.587 * crops[..., 1] \
+            + 0.114 * crops[..., 2]
+        chunks = torch.stack([y[:, :, s:s + cw]
+                              for s in (0, step, 2 * step)], dim=1)
+        logits = self.model(chunks.reshape(-1, y.shape[1], cw)[..., None]
+                            / 255.0)
+        return logits.reshape(crops.shape[0], -1, logits.shape[-1])
 
     def pack(self, logits: torch.Tensor) -> torch.Tensor:
         """CTC greedy decode, packed ``[ids | keep | round(conf * 1e6)]``

@@ -263,3 +263,26 @@ def test_task_matches_jax(tasks):
         one = ttask(np.ascontiguousarray(pages[pi][y1:y2, x1:x2]))
         _same_cells(one, w)
     assert compared > 0
+
+
+@pytest.mark.parametrize("res,hw", [(96, (170, 130)), (96, (130, 170)),
+                                    (1024, (170, 130)), (768, (411, 333))])
+def test_warp_coordinates_round_once_as_cv2(res, hw):
+    """OpenCV takes the source x as one fused multiply-add of its f32
+    coefficients and y in two roundings; another rounding puts a sample a
+    few 1e-6 px off, some 1e-3 grey levels on a ruled page's edges (the x
+    of 170 x 130 at 96^2, the y of 130 x 170)."""
+    h, w = hw
+    page = np.full((1, h, w, 3), 255, np.uint8)
+    page[0, 5::14, 10:-10] = 40
+    page[0, 20:-20, 7::11] = (30, 90, 200)
+    pre = tproc.CenterNetPreProcessor(CenterNetConfig(resolution=(res, res)))
+    coef, _ = pre.plan(h, w)
+    got = pre.warp_crops(torch.from_numpy(page), [(0, 0, 0, w, h)],
+                         coef[None])[0].numpy()
+    s = max(h, w)
+    mat = np.array([[res / s, 0, res / 2 - res / s * w / 2],
+                    [0, res / s, res / 2 - res / s * h / 2]], np.float32)
+    want = cv2.warpAffine(page[0, :, :, ::-1].astype(np.float32), mat,
+                          (res, res))
+    np.testing.assert_allclose(got, want, rtol=0, atol=GREY_TOL)

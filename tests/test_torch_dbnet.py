@@ -116,5 +116,10 @@ def test_make_divisible_matches_jax():
 @pytest.mark.parametrize("backbone", ["resnet18", "resnet50",
                                       "proxylessnas"])
 def test_other_backbones_are_not_ported(backbone):
+    """Every backbone builds in f32 (the ModelScope ones since the ninth
+    slice, tests/test_torch_dbnet_backbones.py); none is ported in bf16
+    (ROADMAP.md Queue 1 item 6), and the error names the backbone."""
+    assert DBNet(DbNetConfig.ppocr(backbone=backbone)).config.backbone \
+        == backbone
     with pytest.raises(NotImplementedError, match=backbone):
-        DBNet(DbNetConfig.ppocr(backbone=backbone))
+        DBNet(DbNetConfig.ppocr(backbone=backbone, dtype="bfloat16"))

@@ -165,8 +165,11 @@ def test_bench_arguments_and_device_policy(monkeypatch):
             cfg.num_classes) == ("table", 0.05, 2, 1)
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         OcrLayoutTask(device="cpu", dtype="bfloat16", **TINY)
+    # DocXLayout is ported since the ninth slice
+    # (tests/test_torch_docx_layout.py); another name raises, naming the
+    # models the port has
     with pytest.raises(NotImplementedError, match="DocXLayout"):
-        OcrLayoutTask(model="DocXLayout", device="cpu")
+        OcrLayoutTask(model="layoutlmv3", device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         OcrLayoutTask(**TINY)

@@ -16,7 +16,14 @@ the decode, the token path of table HTML) and ``BatchPipeline.run`` with
 package imported. A fifth builds and runs the rest of table structure
 (CenterNet, Lgpma, LineCell, LoreAndLineCell and a ``resnet18`` LORE, at
 tiny configs) on a page with two regions, with neither JAX, flax, cv2 nor
-the JAX package imported."""
+the JAX package imported. A sixth runs the rest of the backbones:
+DocXLayout (tiny config) through ``batch_infer_from_pages`` and
+``__call__``, the three ModelScope DBNets (full width, small detector
+input), the CRNN, ConvNextViT and LightweightEdge recognizers (full width,
+0/180 classifier on) and ``BatchPipeline.run`` with
+``layout_model="DocXLayout"``, ``detect_model="db_resnet18"`` and
+``recognizer_model="CRNN"`` down to page HTML, with neither JAX, flax, cv2
+nor the JAX package imported."""
 
 import json
 import os
@@ -284,3 +291,74 @@ def test_rest_of_table_structure_runs_without_jax():
     assert res == {"bad": [], "html": True, "types": [
         "center_net"] * 2 + ["lgpma"] * 2 + ["line_cell"] * 2
         + ["lore_line_cell_merge"] * 2 + ["lore"] * 2}
+
+
+_BACKBONE_SCRIPT = r"""
+import json, sys
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from pdf_table_tpu_torch.tasks.cls_pulc import ClsImagePulcTask
+from pdf_table_tpu_torch.tasks.detection import OcrDetectionTask
+from pdf_table_tpu_torch.tasks.layout import OcrLayoutTask
+from pdf_table_tpu_torch.tasks.recognition import OcrRecognitionTask
+docx = dict(resolution=(64, 64), head_conv=16)
+layout = OcrLayoutTask(model="DocXLayout", device="cpu", **docx)
+pages = np.full((2, 160, 120, 3), 255, np.uint8)
+pages[:, 10:150:12, 10:110] = 30
+cells = layout.batch_infer_from_pages(pages)
+one = layout(pages[0])
+det = {m: OcrDetectionTask(model=m, device="cpu", limit_side_len=64,
+                           thresh=0.45, box_thresh=0.0)
+       for m in ("db_resnet18", "db_resnet50", "db_proxylessnas")}
+quads = {m: [q.shape[1:] for q in t.batch_infer_from_pages(list(pages))]
+         for m, t in det.items()}
+cls = ClsImagePulcTask("textline_orientation", device="cpu")
+boxes = [np.array([[[5, 10], [110, 10], [110, 24], [5, 24]],
+                   [[8, 40], [100, 46], [98, 60], [6, 54]]], np.float32)] * 2
+texts = {}
+for m in ("CRNN", "ConvNextViT", "LightweightEdge"):
+    rec = OcrRecognitionTask(model=m, device="cpu", cls_task=cls)
+    texts[m] = [len(t) for t in rec.batch_infer_from_pages(pages, boxes)[0]]
+from pdf_table_tpu_torch.pipeline.batch_runner import BatchPipeline
+from pdf_table_tpu_torch.pipeline.system import OcrSystemConfig
+bp = BatchPipeline(OcrSystemConfig(
+    layout_model="DocXLayout", detect_model="db_resnet18",
+    recognizer_model="CRNN", use_orientation_cls=False,
+    use_textline_cls=False, table_structure_model="LineCell"),
+    batch_pages=2, device="cpu")
+bp.system._det = det["db_resnet18"]
+bp.system._layout = layout
+page = np.full((1200, 900, 3), 255, np.uint8)
+page[300:700:40, 60:840] = 20
+out = bp.run([{"image": page, "page": 0}])
+bad = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "flax", "cv2", "pdf_table_tpu"))
+print(json.dumps({"bad": bad, "pages": len(cells),
+                  "one": sorted(one), "quads": quads, "texts": texts,
+                  "errors": [o.metric.get("error") for o in out],
+                  "html": bool(out[0].page_html),
+                  "models": [bp.system.layout_task.model_name,
+                             bp.system.det_task.model_name,
+                             bp.system.rec_task.model_name]}))
+"""
+
+
+def test_backbones_run_without_jax():
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    out = subprocess.run([sys.executable, "-c", _BACKBONE_SCRIPT], cwd=root,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    quads = res.pop("quads")
+    assert res == {"bad": [], "pages": 2,
+                   "one": ["bboxs", "layout_cells", "subfield_dets"],
+                   "texts": {m: [2, 2] for m in (
+                       "CRNN", "ConvNextViT", "LightweightEdge")},
+                   "errors": [None], "html": True,
+                   "models": ["DocXLayout", "db_resnet18", "CRNN"]}
+    assert {m: q for m, q in quads.items()} == {
+        m: [[4, 2], [4, 2]] for m in (
+            "db_resnet18", "db_resnet50", "db_proxylessnas")}

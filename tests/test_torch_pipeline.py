@@ -34,7 +34,14 @@ of the 64-px model input),
 ``table_html`` and ``page_html`` byte-equal. The Lgpma arm runs with the
 layout's ``keep_top_k=1`` and ``batch_pages=1``, one table region a
 chunk: JAX's runner cannot run two LGPMA crops of different sizes in one
-chunk. Then the containment
+chunk. The DocXLayout arm (``layout_model="DocXLayout"``, the tiny
+64x64 DLA of tests/test_torch_docx_layout.py calibrated on the pages'
+canvases, with the LORE TSR) holds the same per page, its layout cells
+up to the first near-tie of their scores. The backbone arm
+(``detect_model="db_resnet18"``, full width at the 96-px detector input,
+and ``recognizer_model="ConvNextViT"`` at full width, its three-chunk
+decode, with the classifier) holds the quads, texts, layout cells and HTML
+per page. Then the containment
 cases (an oversize page and a digital page each get an error output, the
 other pages are unharmed) and the residency of the canvases (one upload a
 chunk, the same tensor into every lane)."""
@@ -79,7 +86,14 @@ from pdf_table_tpu_torch.tasks.recognition import (OcrRecognitionTask,
 from pdf_table_tpu_torch.models.slanet.config import SLANetConfig
 from pdf_table_tpu_torch.models.slanet.processor import SLANetPreProcessor
 from pdf_table_tpu_torch.tasks.table_structure import OcrTableStructureTask
+from pdf_table_tpu_torch.engine.params import scale_batch_variances
+from pdf_table_tpu_torch.models.dbnet.model import DBNet
+from pdf_table_tpu_torch.models.docx_layout.config import DocXLayoutConfig
 from test_torch_center_net import shaped_tree as centernet_tree
+from test_torch_docx_layout import docx_tree
+from test_torch_docx_layout import same_cells as same_docx_cells
+from test_torch_rec_backbones import HEAD as REC_HEAD
+from test_torch_rec_backbones import GAMMA as CNV_GAMMA
 from test_torch_lgpma import TINY as LGPMA_TINY
 from test_torch_lgpma import lgpma_tree
 from test_torch_picodet import normalize, page, picodet_tree
@@ -434,6 +448,136 @@ def test_tsr_arms_match_jax(tsr_runs):
         n_tables += len(g.table_html)
     assert n_tables >= len(PAGES), f"no table reached {model}"
     assert n_cells > 0
+
+
+DOCX = dict(resolution=(64, 64), head_conv=16)
+DOCX_TABLE_BIAS = 1.0
+
+
+@pytest.fixture(scope="module")
+def docx_runs(trees, jtasks):
+    """The DocXLayout arm: the same runner with the JAX and port layout
+    tasks swapped for DocXLayout on one tiny tree."""
+    cfg = DocXLayoutConfig(**DOCX)
+    task = OcrLayoutTask(model="DocXLayout", device="cpu", config=cfg)
+    with torch.no_grad():
+        x = torch.cat([task.preprocess(torch.from_numpy(g["images"]))
+                       for g in tbr.pack_pages(PAGES).values()])
+    tree = docx_tree(cfg, x)
+    # the "table" class lifted, so that some survivors are tables
+    tree["params"]["dla"]["heads"]["hm_out"]["bias"][7] = DOCX_TABLE_BIAS
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jlayout, "load_or_init", _as_np(tree))
+        jdocx = jlayout.OcrLayoutTask(model="DocXLayout", **DOCX)
+        jdocx.ensure_built()
+    pages = [{"image": p, "page": i} for i, p in enumerate(PAGES)]
+    jbp = jax_pipeline(dict(jtasks, _layout=jdocx), False)
+    jbp.system.config.layout_model = "DocXLayout"
+    want = jbp.run(pages)
+    bp = port_pipeline(trees, False)
+    bp.system.config.layout_model = "DocXLayout"
+    bp.system._layout = OcrLayoutTask(model="DocXLayout", device="cpu",
+                                      variables=tree, **DOCX)
+    return bp, bp.run(pages), want
+
+
+def test_docx_layout_outputs_match_jax(docx_runs):
+    bp, got, want = docx_runs
+    assert bp.system.layout_task.model_name == "DocXLayout"
+    assert len(got) == len(want) == len(PAGES)
+    n_tables = n_labels = 0
+    for g, w in zip(got, want):
+        assert g.metric == w.metric == {}
+        np.testing.assert_array_equal(
+            np.asarray([c.poly for c in g.text_cells]),
+            np.asarray([c.poly for c in w.text_cells]))
+        assert [c.text for c in g.text_cells] == \
+            [c.text for c in w.text_cells]
+        assert same_docx_cells(g.layout_cells, w.layout_cells) > 0
+        assert g.table_html == w.table_html
+        assert g.page_html == w.page_html
+        n_tables += len(g.table_html)
+        n_labels += len({c.label for c in g.layout_cells})
+    assert n_tables >= 1, "no table reached LORE"
+    assert n_labels > len(PAGES)
+
+
+def _backbone_trees(trees):
+    """db_resnet18 calibrated on the pages' detector input (variances
+    doubled); ConvNextViT as tests/test_torch_rec_backbones.py builds it,
+    calibrated on chunk-wide strips of the pages."""
+    det = OcrDetectionTask(model="db_resnet18", device="cpu", **DET)
+    with torch.no_grad():
+        x = torch.cat([det.normalize(torch.from_numpy(g["images"]),
+                                     det.det_size(b))
+                       for b, g in tbr.pack_pages(PAGES).items()])
+    det_v = scale_batch_variances(calibrate_batch_stats(
+        DBNet(det.model_config), init_dbnet(det.model_config, 0), x), 2.0)
+    cfg = rec_config(model="ConvNextViT")
+    rec_v = perturb(init_rec(cfg, seed=0), seed=1)
+    rec_v["params"]["ctc_head"]["kernel"] *= REC_HEAD["ConvNextViT"][0]
+    for blk in rec_v["params"]["backbone"].values():
+        if isinstance(blk, dict) and "gamma" in blk:
+            blk["gamma"][:] = CNV_GAMMA
+    st = torch.from_numpy(np.stack(
+        [p[y:y + 32, 60:360] for p in PAGES for y in (60, 240, 420)])
+    ).float()
+    grey = (0.299 * st[..., 0] + 0.587 * st[..., 1] + 0.114 * st[..., 2])
+    rec_v = calibrate_batch_stats(CTCRecModel(cfg), rec_v,
+                                  grey[..., None] / 255.0)
+    return det_v, rec_v
+
+
+@pytest.fixture(scope="module")
+def backbone_runs(trees, jtasks):
+    """db_resnet18 + ConvNextViT with the classifier, the rest as the main
+    arm."""
+    det_v, rec_v = _backbone_trees(trees)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jdet, "load_or_init", _as_np(det_v))
+        mp.setattr(jrec, "load_or_init", _as_np(rec_v))
+        jt = dict(jtasks,
+                  _det=jdet.OcrDetectionTask(model="db_resnet18", **DET,
+                                             **DET_BENCH),
+                  _rec=jrec.OcrRecognitionTask(model="ConvNextViT"))
+        jt["_det"].ensure_built()
+        jt["_rec"].ensure_built()
+    pages = [{"image": p, "page": i} for i, p in enumerate(PAGES)]
+    jbp = jax_pipeline(jt, True)
+    want = jbp.run(pages)
+    bp = port_pipeline(trees, True)
+    cfg = bp.system.config
+    cfg.detect_model, cfg.recognizer_model = "db_resnet18", "ConvNextViT"
+    bp.system._det = OcrDetectionTask(model="db_resnet18", device="cpu",
+                                      variables=det_v, **DET, **DET_BENCH)
+    bp.system._rec = OcrRecognitionTask(model="ConvNextViT", device="cpu",
+                                        variables=rec_v)
+    return bp, bp.run(pages), want
+
+
+def test_backbone_arm_matches_jax(backbone_runs):
+    bp, got, want = backbone_runs
+    assert bp.system.det_task.model_config.backbone == "resnet18"
+    assert bp.system.rec_task.model_config.backbone == "convnext_vit"
+    assert len(got) == len(want) == len(PAGES)
+    n_texts = 0
+    for g, w in zip(got, want):
+        assert g.metric == w.metric == {}
+        np.testing.assert_array_equal(
+            np.asarray([c.poly for c in g.text_cells]),
+            np.asarray([c.poly for c in w.text_cells]))
+        assert [c.text for c in g.text_cells] == \
+            [c.text for c in w.text_cells]
+        np.testing.assert_allclose([c.score for c in g.text_cells],
+                                   [c.score for c in w.text_cells],
+                                   atol=1e-5, rtol=0)
+        assert _layout_key(g.layout_cells) == _layout_key(w.layout_cells)
+        assert g.table_html == w.table_html
+        assert g.page_html == w.page_html
+        n_texts += len(g.text_cells)
+    assert n_texts > LINES * len(PAGES), "no detected quad"
+    texts = [c.text for g in got for c in g.text_cells]
+    assert len(set(texts)) > len(texts) // 2
 
 
 def test_texts_depend_on_the_crops(runs):

@@ -185,5 +185,10 @@ def test_block_table_and_config_match_jax():
 @pytest.mark.parametrize("backbone", ["crnn", "convnext_vit",
                                       "lightweight_edge"])
 def test_other_backbones_are_not_ported(backbone):
+    """Every backbone builds in f32 since the ninth slice
+    (tests/test_torch_rec_backbones.py); none is ported in bf16 (ROADMAP.md
+    Queue 1 item 7), and the error names the backbone."""
+    assert CTCRecModel(RecConfig(backbone=backbone)).config.backbone \
+        == backbone
     with pytest.raises(NotImplementedError, match=backbone):
-        CTCRecModel(RecConfig(backbone=backbone))
+        CTCRecModel(RecConfig(backbone=backbone, dtype="bfloat16"))
