@@ -86,6 +86,21 @@ Phases, each fatal on failure:
      pipeline on the CPU: quads to 1 px, layout survivors equal, texts
      equal on at least 98 % of crops, page_html byte-equal where its
      inputs are equal;
+ 9b. pipeline_digital: 8 PDF pages written with the port's PdfWriter
+     (three wired tables, two tables on a page, a text-only page, a merged
+     header, an A3 landscape page that is scaled to fit 2048x1536, a page
+     authored rotated by 90 degrees) and read with the port's reader,
+     built here with make and g++, interleaved with 8 raster pages of the
+     same canvas size, through the pipeline phase's BatchPipeline.run
+     (mixed chunks; the runner renders the digital pages where PIL
+     imports, else they carry render_page_vector's image): a warm-up, one
+     counted run (K3 once a chunk, K1 16 times a LORE sub-batch of the
+     raster pages' tables, K2 never; only the rotated page errors, naming
+     ROADMAP item 17; the A3 page scaled), timed runs (pages/s, lanes with
+     pdf_text, reader and render ms a page, peak memory), idle share;
+     every digital page against the same pipeline on the CPU: vector text
+     cells equal, table_html equal wherever the layout's table regions
+     are (the count printed);
  10. tsr_slanet and tsr_master: OcrTableStructureTask(model="SLANet")
      (488^2, LCNet 1.0, neck 96, hidden 256) and (model="TableMaster")
      (480^2, D 512, 8 heads, ff 2024, N = 3), f32, T = 500 steps each, on
@@ -307,6 +322,11 @@ PIPE_CPU_PAGES = 2
 PIPE_LORE_KW = dict(dtype="float32", vis_thresh=VIS_THRESH)
 PIPE_QUAD_TOL = 1.0
 PIPE_TEXT_MIN = 0.98
+# pipeline_digital: 8 raster pages of the digital pages' canvas bucket
+# beside the 8 digital pages; timed runs after the warm-up and the counted
+# run
+DIGITAL_RASTER = 8
+DIGITAL_RUNS = 2
 # train phase: the wtw step at full width, f32, B = 4 (LoreTrainArgs'
 # default); the first step through the kernel against the plain-DCN model
 # (f32 on both sides, sums in another order): each loss term, the global
@@ -3285,6 +3305,238 @@ def phase_pipeline_docx(card, trees, tree):
     return launches
 
 
+def digital_pdf():
+    """Eight letter and A3 pages written with the port's PdfWriter: three
+    wired tables of different shapes, two tables on one page, a text-only
+    page, a merged-header table, an A3 landscape page (2382x1684 px at 144
+    dpi: scaled to fit the 2048x1536 bucket) and a page authored rotated
+    by 90 degrees. -> (PDF bytes, index of the A3 page, of the rotated
+    one)."""
+    from pdf_table_tpu_torch.pdfio import PdfWriter
+
+    w = PdfWriter()
+    for k, (cols, rows) in enumerate(((4, 4), (3, 7), (6, 3))):
+        p = w.add_page(612, 792)
+        for i in range(3):
+            p.text(60, 740 - 20 * i, f"Page {k} paragraph line {i}, text "
+                   f"before the table.")
+        p.table(60, 660, [460 / cols] * cols, 24,
+                [[f"r{r}c{c}" for c in range(cols)] for r in range(rows)])
+        p.text(60, 640 - 24 * rows, "A closing line under the table.")
+    p = w.add_page(612, 792)
+    p.text(60, 750, "Two tables on one page.")
+    p.table(60, 700, [90, 90], 22, [["k", "v"], ["a", "1"], ["b", "2"]])
+    p.text(60, 600, "A paragraph between the tables.")
+    p.table(60, 560, [70, 70, 70], 22,
+            [["x", "y", "z"], ["1", "2", "3"], ["4", "5", "6"]])
+    p = w.add_page(612, 792)
+    for i in range(24):
+        p.text(60, 740 - 26 * i, f"Text-only line {i}: no table on this "
+               f"page, only running text.")
+    p = w.add_page(612, 792)
+    p.text(60, 740, "A merged header.")
+    for y in (700, 676, 652):
+        p.line(60, y, 360, y, lw=0.8)
+    for x in (60, 360):
+        p.line(x, 652, x, 700, lw=0.8)
+    p.line(210, 652, 210, 676, lw=0.8)
+    p.text(180, 684, "HEAD", size=10)
+    p.text(100, 660, "left", size=10)
+    p.text(260, 660, "right", size=10)
+    a3 = len(w.pages)
+    p = w.add_page(1191, 842)
+    p.text(60, 800, "An A3 landscape page above the largest bucket.")
+    p.table(60, 760, [180] * 6, 28,
+            [[f"a{r}{c}" for c in range(6)] for r in range(8)], size=11)
+    rot = len(w.pages)
+    p = w.add_page(612, 792)
+    for i in range(8):
+        p.ops.append(f"BT /F1 11 Tf 0 1 -1 0 {100 + 40 * i} 120 Tm "
+                     f"(a line written rotated {i}) Tj ET")
+    return w.tobytes(), a3, rot
+
+
+def digital_cells(cells) -> list:
+    return [(c.bbox, c.text, c.cell_type.name) for c in cells]
+
+
+def table_regions(cells) -> list:
+    return [c.bbox for c in cells if c.cell_type.name == "TABLE"]
+
+
+def phase_pipeline_digital(card, trees):
+    """Digital PDF pages (``digital_pdf``) read with the port's reader
+    (built here) through ``BatchPipeline.run`` with the pipeline phase's
+    configuration and trees, interleaved with 8 raster pages of the same
+    canvas bucket, so that chunks mix them: a warm-up, one counted run (K3
+    once a chunk, K1 16 times a LORE sub-batch of the raster pages' tables,
+    K2 never), timed runs (pages/s, lanes), idle share; every digital
+    page against the same pipeline on the CPU. Where PIL imports, the
+    runner renders the digital pages (``render_page``); without it they
+    carry the image of ``render_page_vector``."""
+    import numpy as np
+    import torch
+
+    from pdf_table_tpu_torch.ops.kernels import (KERNELS, launch_counts,
+                                                 reset_launch_counts)
+    from pdf_table_tpu_torch.pdfio import (PdfDocument, render_page,
+                                           render_page_vector)
+    from pdf_table_tpu_torch.pdfio.reader import build_native
+
+    t0 = time.perf_counter()
+    build_native()
+    reader_build_s = time.perf_counter() - t0
+    data, a3, rot = digital_pdf()
+    t0 = time.perf_counter()
+    doc = PdfDocument.open(data)
+    pdf_pages = [doc.load_page(i) for i in range(doc.page_count)]
+    reader_ms = (time.perf_counter() - t0) * 1e3 / len(pdf_pages)
+    t0 = time.perf_counter()
+    vector = [render_page_vector(doc, pg) for pg in pdf_pages]
+    vector_ms = (time.perf_counter() - t0) * 1e3 / len(pdf_pages)
+    try:
+        import PIL  # noqa: F401
+        has_pil = True
+        t0 = time.perf_counter()
+        for pg in pdf_pages:
+            render_page(doc, pg)
+        render_ms = (time.perf_counter() - t0) * 1e3 / len(pdf_pages)
+    except ImportError:
+        has_pil, render_ms = False, None
+
+    def digital(i):
+        page = {"pdf_page": pdf_pages[i], "pdf_doc": doc}
+        if not has_pil:
+            page["image"] = vector[i]
+        return page
+
+    h, w = vector[0].shape[:2]
+    raster = [make_page(100 + i, h, w) for i in range(DIGITAL_RASTER)]
+    pages = []
+    for i in range(max(len(pdf_pages), len(raster))):
+        if i < len(raster):
+            pages.append({"image": raster[i]})
+        if i < len(pdf_pages):
+            pages.append(digital(i))
+    for i, p in enumerate(pages):
+        p["page"] = i
+    is_digital = ["pdf_page" in p for p in pages]
+    rot_i = [i for i, p in enumerate(pages)
+             if p.get("pdf_page") is pdf_pages[rot]][0]
+    a3_i = [i for i, p in enumerate(pages)
+            if p.get("pdf_page") is pdf_pages[a3]][0]
+
+    bp = build_pipeline("cuda", trees)
+    t0 = time.perf_counter()
+    bp.run(pages)                       # warm-up
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    tsr_model = bp.system.tsr_task.model
+    forwards = []
+    real_forward = tsr_model.forward_packed
+    tsr_model.forward_packed = lambda x: (forwards.append(x.shape[0]),
+                                          real_forward(x))[1]
+    chunks = []
+    real_chunks = bp._chunks
+
+    def counted_chunks(images):
+        cs = real_chunks(images)
+        chunks.extend(len(c["indices"]) for c in cs)
+        return cs
+
+    bp._chunks = counted_chunks
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = bp.run(pages)
+    torch.cuda.synchronize()
+    counted_s = time.perf_counter() - t0
+    launches = {k: launch_counts[k] for k in KERNELS}
+    del tsr_model.forward_packed, bp._chunks
+    check(len(out) == len(pages), "pipeline_digital: one output per page")
+    errors = {i: o.metric.get("error") for i, o in enumerate(out)
+              if o.metric.get("error")}
+    check(list(errors) == [rot_i] and "Queue 1 item 17" in errors[rot_i]
+          and out[rot_i].is_pdf,
+          f"pipeline_digital: errors {errors} (only the rotated page, "
+          f"naming item 17)")
+    check(all(o.page_html for i, o in enumerate(out) if i != rot_i),
+          "pipeline_digital: a page has no page_html")
+    check([o.is_pdf for o in out] == is_digital,
+          "pipeline_digital: is_pdf differs from the pages' kind")
+    big = out[a3_i]
+    check(big.image_shape[0] <= 2048 and big.image_shape[1] <= 1536
+          and big.pdf_scale == big.image_shape[0] / pdf_pages[a3].height,
+          f"pipeline_digital: the A3 page is {big.image_shape}, "
+          f"pdf_scale {big.pdf_scale}")
+    n_digital_tables = sum(len(o.table_html) for o in out if o.is_pdf)
+    check(n_digital_tables >= 6,
+          f"pipeline_digital: {n_digital_tables} digital tables")
+    check(forwards and sum(len(o.table_structures)
+                           for o in out if not o.is_pdf) > 0,
+          "pipeline_digital: no raster table reached LORE")
+    check(launches["resize_normalize"] == len(chunks)
+          and launches["deform_conv2d"] == 16 * len(forwards)
+          and launches["deform_conv2d_flat_kc"] == 0,
+          f"pipeline_digital launched {launches} for {len(chunks)} chunks "
+          f"and {len(forwards)} LORE sub-batches")
+
+    torch.cuda.reset_peak_memory_stats()
+    run_s, lanes = [], []
+    for _ in range(DIGITAL_RUNS):
+        t0 = time.perf_counter()
+        bp.run(pages)
+        run_s.append(time.perf_counter() - t0)
+        lanes.append(bp.last_stats)
+    per_run = statistics.median(run_s)
+    peak = torch.cuda.max_memory_allocated()
+    lane_ms = {k: statistics.median(st[k] for st in lanes) * 1e3
+               for k in lanes[0] if k != "n_pages"}
+    prof = profile_run(lambda: bp.run(pages), full=False)
+
+    # every digital page against the same pipeline on the CPU
+    only = [i for i, d in enumerate(is_digital) if d]
+    cpu = build_pipeline("cpu", trees)
+    t0 = time.perf_counter()
+    want = cpu.run([pages[i] for i in only])
+    cpu_s = time.perf_counter() - t0
+    got = [out[i] for i in only]
+    cells_equal = regions_equal = tables_equal = 0
+    for g, wt in zip(got, want):
+        cells_equal += digital_cells(g.text_cells) == \
+            digital_cells(wt.text_cells)
+        ga, wa = table_regions(g.layout_cells), table_regions(wt.layout_cells)
+        same = len(ga) == len(wa) and (not ga or float(np.abs(
+            np.subtract(ga, wa)).max()) <= LAYOUT_BOX_TOL)
+        regions_equal += same
+        tables_equal += same and g.table_html == wt.table_html
+    summary = {
+        "card": card, "pages": len(pages), "digital_pages": len(only),
+        "raster_pages": len(raster), "chunks": chunks,
+        "launches": launches, "lore_sub_batches": forwards,
+        "pil": has_pil, "reader_build_s": reader_build_s,
+        "reader_ms_per_page": reader_ms,
+        "render_vector_ms_per_page": vector_ms,
+        "render_ms_per_page": render_ms, "warm_up_s": warm_s,
+        "counted_run_s": counted_s, "run_s_median": per_run,
+        "runs": len(run_s), "pages_per_s": len(pages) / per_run,
+        "lane_ms": lane_ms, "peak_mem_gib": peak / 2 ** 30,
+        "digital_tables": n_digital_tables,
+        "a3_image_shape": list(big.image_shape), "profile": prof,
+        "cpu": {"run_s": cpu_s, "digital_pages": len(got),
+                "text_cells_equal": cells_equal,
+                "layout_regions_equal": regions_equal,
+                "table_html_equal_where_regions_equal": tables_equal}}
+    print(json.dumps({"pipeline_digital": summary}))
+    check(cells_equal == len(got),
+          f"pipeline_digital: vector text cells equal to the CPU's on "
+          f"{cells_equal} of {len(got)} digital pages")
+    check(tables_equal == regions_equal,
+          "pipeline_digital: table_html differs from the CPU's where the "
+          "layout regions are equal")
+    return launches
+
+
 def det_backbone_tree(task, canvases):
     """A seeded full-width tree of ``task``'s DBNet, BatchNorm statistics
     calibrated on the card on the chunk's detector input, variances
@@ -4000,6 +4252,7 @@ def main() -> int:
     phase_recognition(card)
     layout_v = phase_layout(card)
     pipe, pipe_trees = phase_pipeline(card, layout_v)
+    pipe_digital = phase_pipeline_digital(card, pipe_trees)
     tsr_pages, tsr_regions = tsr_inputs()
     sla_tree, _, sla = phase_tsr(card, "SLANet", tsr_pages, tsr_regions)
     tm_tree, tm_results, tm = phase_tsr(card, "TableMaster", tsr_pages,
@@ -4022,11 +4275,15 @@ def main() -> int:
 
     def by_path(name, **extra):
         """A kernel's launches on every counted path that runs it or not:
-        the token-model and LGPMA phases and the token pipeline arms
-        launch K3 once a chunk (detection) and never K1 or K2; CenterNet
+        the digital pipeline launches K3 once a chunk and K1 on its raster
+        pages' LORE sub-batches; the token-model and LGPMA phases and the
+        token pipeline arms launch K3 once a chunk (detection) and never
+        K1 or K2; CenterNet
         and DocXLayout run K1 at every DCN (K2 too in bf16); the DBNet
         backbones launch K3 once a chunk, the recognizers nothing."""
-        return {**extra, "pipeline": pipe[name], "tsr_slanet": sla[name],
+        return {**extra, "pipeline": pipe[name],
+                "pipeline_digital": pipe_digital[name],
+                "tsr_slanet": sla[name],
                 "tsr_master": tm[name], "tsr_mtl_tabnet": mtl[name],
                 "pipeline_slanet": pipe_sla[name],
                 "pipeline_master": pipe_tm[name],

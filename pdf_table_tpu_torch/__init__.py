@@ -8,3 +8,20 @@ PyTorch version beside it that the CPU path and the tests use.
 """
 
 __version__ = "0.1.0"
+
+__all__ = ["__version__", "read_pdf", "OcrSystemTask", "OcrSystemConfig",
+           "BatchPipeline"]
+
+
+def __getattr__(name):
+    """Lazy re-exports of the public API, as the JAX package's."""
+    if name == "read_pdf":
+        from .pdf_table import read_pdf
+        return read_pdf
+    if name in ("OcrSystemTask", "OcrSystemConfig"):
+        from .pipeline import system
+        return getattr(system, name)
+    if name == "BatchPipeline":
+        from .pipeline.batch_runner import BatchPipeline
+        return BatchPipeline
+    raise AttributeError(name)

@@ -1,6 +1,7 @@
 """Geometric primitives (counterpart of ``Point`` in
-pdf_table_tpu/entity/geometry.py; the line algebra there serves the
-classical extraction layer, which is not ported)."""
+pdf_table_tpu/entity/geometry.py). The line algebra there is not copied:
+nothing the port runs uses it, the classical extraction (``pdf_table/``,
+``read_pdf``) included."""
 
 from __future__ import annotations
 

@@ -28,11 +28,16 @@ NET_CONFIG = [
 
 class PPLCNetClassifier(nn.Module):
     """``forward`` takes NHWC images (B, H, W, 3) already normalized and
-    returns f32 class probabilities (B, class_num)."""
+    returns f32 class probabilities (B, class_num). A config of another
+    dtype than float32 raises."""
 
     def __init__(self, config: ClsPulcConfig):
         super().__init__()
         cfg = self.config = config
+        if cfg.dtype != "float32":
+            raise NotImplementedError(
+                f"the PP-LCNet classifier runs float32 only, not "
+                f"{cfg.dtype!r} (ROADMAP.md Queue 1 item 7)")
         s = cfg.scale
         c = make_divisible(16 * s)
         self.stem = ConvBNAct(3, c, (3, 3), (2, 2), act="hardswish")

@@ -35,17 +35,23 @@ def warp_affine_linear(image: np.ndarray, mat: np.ndarray,
     """``cv2.warpAffine(image, mat, size, flags=cv2.INTER_LINEAR)`` on an
     f32 (H, W, C) image, border constant 0, in numpy: destination pixel
     (x, y) (no half-pixel centres) samples the source at ``inv(mat) @ (x, y,
-    1)``, computed in f32, bilinearly, corners outside the image reading 0.
-    OpenCV 5 computes f32 images' source coordinates in floating point (the
-    1/32-px fixed point of older releases is gone): this stays within 1e-3
-    grey levels of it on 0..255 images."""
+    1)``, bilinearly, corners outside the image reading 0. OpenCV 5 samples
+    f32 images at float source coordinates (the 1/32-px fixed point of
+    older releases is gone) and rounds them as
+    ``models/center_net/processor.py::warp_crops`` does: the inverse in f64,
+    its f32 coefficients applied per row (``a01 * y + a02``, two roundings)
+    and along the row (``a00 * x`` plus the row term, one fused
+    multiply-add); the same for y. Held to ``cv2.warpAffine`` within 1e-4
+    grey levels on 0..255 images (tests/test_torch_lore_train.py)."""
     h, w = image.shape[:2]
     out_w, out_h = size
     inv = invert_affine(mat).astype(np.float32)
-    xs = np.arange(out_w, dtype=np.float32)[None, :]
+    xs = np.arange(out_w, dtype=np.float64)[None, :]
     ys = np.arange(out_h, dtype=np.float32)[:, None]
-    sx = inv[0, 0] * xs + (inv[0, 1] * ys + inv[0, 2])
-    sy = inv[1, 0] * xs + (inv[1, 1] * ys + inv[1, 2])
+    row_x = inv[0, 1] * ys + inv[0, 2]
+    row_y = inv[1, 1] * ys + inv[1, 2]
+    sx = (np.float64(inv[0, 0]) * xs + row_x).astype(np.float32)
+    sy = (np.float64(inv[1, 0]) * xs + row_y).astype(np.float32)
     x0 = np.floor(sx)
     y0 = np.floor(sy)
     ax = (sx - x0)[..., None]

@@ -63,14 +63,20 @@ def _combine(p00, p01, p10, p11, a0, a1, b0, b1):
 
 def resize_u8_plain(img: np.ndarray, nh: int, nw: int) -> np.ndarray:
     """``cv2.resize(img, (nw, nh))`` of an (H, W, C) uint8 image, in
-    numpy."""
+    numpy: the two source rows of each output row, then their horizontal
+    sums, in int32 (each term of the blend stays below 2^27)."""
     h, w = img.shape[:2]
     x0, x1, a0, a1 = linear_taps(w, nw, "x")
     y0, y1, b0, b1 = linear_taps(h, nh, "y")
-    im = img.astype(np.int64)
-    out = _combine(im[y0][:, x0], im[y0][:, x1], im[y1][:, x0],
-                   im[y1][:, x1], a0[None, :, None], a1[None, :, None],
-                   b0[:, None, None], b1[:, None, None])
+    a0, a1 = (a.astype(np.int32)[None, :, None] for a in (a0, a1))
+
+    def row_sums(rows):
+        return rows[:, x0].astype(np.int32) * a0 \
+            + rows[:, x1].astype(np.int32) * a1
+
+    s0, s1 = row_sums(img[y0]), row_sums(img[y1])
+    b0, b1 = (b.astype(np.int32)[:, None, None] for b in (b0, b1))
+    out = (((s0 >> 4) * b0 >> 16) + ((s1 >> 4) * b1 >> 16) + 2) >> 2
     return np.clip(out, 0, 255).astype(np.uint8)
 
 
@@ -129,3 +135,100 @@ def crop_resize_u8(pages: torch.Tensor, taps: torch.Tensor,
                    cols[:, 2, None, :, None], cols[:, 3, None, :, None],
                    rows[:, 2, :, None, None], rows[:, 3, :, None, None])
     return out.clamp_(0, 255).to(torch.uint8)
+
+
+def _area_linear_taps(src: int, dst: int, axis: str
+                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                 np.ndarray]:
+    """:func:`linear_taps` with OpenCV's INTER_AREA coefficients, which it
+    takes when one axis enlarges: ``s = floor(d * src / dst)``, ``f = (d +
+    1) - (s + 1) * dst / src`` (f64, then f32), its fraction, 0 where not
+    positive."""
+    inv = dst / src
+    scale = 1.0 / inv
+    d = np.arange(dst)
+    s = np.floor(d * scale).astype(np.int64)
+    f = ((d + 1) - (s + 1) * inv).astype(np.float32)
+    f = np.where(f <= 0, np.float32(0), f - np.floor(f)).astype(np.float32)
+    if axis == "x":
+        edge = s >= src - 1
+        f = np.where(edge, np.float32(0), f)
+        s = np.minimum(s, src - 1)
+    w0 = np.rint((np.float32(1) - f) * np.float32(COEF_SCALE))
+    w1 = np.rint(f * np.float32(COEF_SCALE))
+    return (np.clip(s, 0, src - 1), np.clip(s + 1, 0, src - 1),
+            w0.astype(np.int64), w1.astype(np.int64))
+
+
+def _area_tab(src: int, dst: int) -> Tuple[np.ndarray, np.ndarray,
+                                           np.ndarray]:
+    """OpenCV's ``computeResizeAreaTab``: (destination, source, weight f32)
+    entries, in its order."""
+    scale = src / dst
+    di, si, al = [], [], []
+    for d in range(dst):
+        f1 = d * scale
+        f2 = f1 + scale
+        cell = min(scale, src - f1)
+        s2 = min(int(np.floor(f2)), src - 1)
+        s1 = min(int(np.ceil(f1)), s2)
+        if s1 - f1 > 1e-3:
+            di.append(d), si.append(s1 - 1), al.append((s1 - f1) / cell)
+        for s in range(s1, s2):
+            di.append(d), si.append(s), al.append(1.0 / cell)
+        if f2 - s2 > 1e-3:
+            di.append(d), si.append(s2)
+            al.append(min(min(f2 - s2, 1.0), cell) / cell)
+    return (np.asarray(di, np.int64), np.asarray(si, np.int64),
+            np.asarray(al, np.float64).astype(np.float32))
+
+
+def _area_sum_rows(img: np.ndarray, tab, dst: int) -> np.ndarray:
+    """Weighted sums over axis 1 of ``img`` (f32 accumulation in the
+    table's order): (rows, dst, C) f32."""
+    di, si, al = tab
+    out = np.zeros((img.shape[0], dst) + img.shape[2:], np.float32)
+    # entries of one destination are consecutive: take them slot by slot
+    start = np.searchsorted(di, np.arange(dst))
+    slot = np.arange(len(di)) - start[di]
+    for k in range(int(slot.max()) + 1 if len(slot) else 0):
+        m = slot == k
+        out[:, di[m]] += img[:, si[m]].astype(np.float32) * al[m][None, :,
+                                                                  None]
+    return out
+
+
+def resize_area_u8_plain(img: np.ndarray, nh: int, nw: int) -> np.ndarray:
+    """``cv2.resize(img, (nw, nh), interpolation=cv2.INTER_AREA)`` of an
+    (H, W, C) uint8 image, in numpy. OpenCV shrinks by an integer factor in
+    both axes with plain box means (``sum * (1 / area)`` in f32, rounded to
+    even; an exact 2x as ``(sum + 2) >> 2``), by any other factor in both
+    axes with its f32 area tables, and emulates the rest with its
+    fixed-point bilinear path on area coefficients."""
+    h, w = img.shape[:2]
+    sx, sy = w / nw, h / nh
+    if sx >= 1 and sy >= 1:
+        ix, iy = int(round(sx)), int(round(sy))
+        if abs(sx - ix) < np.finfo(np.float64).eps \
+                and abs(sy - iy) < np.finfo(np.float64).eps:
+            blocks = img[:nh * iy, :nw * ix].astype(np.int64).reshape(
+                nh, iy, nw, ix, -1).sum((1, 3))
+            if ix == 2 and iy == 2:
+                out = (blocks + 2) >> 2
+            else:
+                out = np.rint(blocks.astype(np.float32)
+                              * np.float32(1.0 / (ix * iy)))
+            return out.reshape(nh, nw, *img.shape[2:]).astype(np.uint8)
+        rows = _area_sum_rows(img, _area_tab(w, nw), nw)
+        di, si, al = _area_tab(h, nh)
+        acc = np.zeros((nh,) + rows.shape[1:], np.float32)
+        for d, s, a in zip(di, si, al):
+            acc[d] += a * rows[s]
+        return np.clip(np.rint(acc), 0, 255).astype(np.uint8)
+    x0, x1, a0, a1 = _area_linear_taps(w, nw, "x")
+    y0, y1, b0, b1 = _area_linear_taps(h, nh, "y")
+    im = img.astype(np.int64)
+    out = _combine(im[y0][:, x0], im[y0][:, x1], im[y1][:, x0],
+                   im[y1][:, x1], a0[None, :, None], a1[None, :, None],
+                   b0[:, None, None], b1[:, None, None])
+    return np.clip(out, 0, 255).astype(np.uint8)

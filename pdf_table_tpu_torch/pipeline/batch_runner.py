@@ -1,10 +1,24 @@
 """The batched page pipeline (counterpart of
 pdf_table_tpu/pipeline/batch_runner.py): page canvases and
-``BatchPipeline.run`` over raster pages on one card.
+``BatchPipeline.run`` over raster and digital PDF pages on one card.
 
 Pages are padded with white into the smallest fitting canvas bucket, and
 each bucket has one detector input size (limit-side rule, multiples of
-32), so a chunk of pages is one fixed-shape device program.
+32), so a chunk of pages is one fixed-shape device program. A page larger
+than the largest bucket is first scaled to fit, on the host, with
+OpenCV's INTER_LINEAR arithmetic (``ops/crop_resize.py::resize_u8_plain``),
+as the JAX runner does with ``cv2.resize``: its output's image, shape and
+``pdf_scale`` are those of the scaled page.
+
+A page is its ``image`` or, for a page that carries a ``pdf_page`` and no
+image, the page rendered by ``pdfio.render_page`` (``render_dpi``). A page
+whose ``pdf_page`` has text is digital: its text cells come from the PDF's
+vector text (``tasks/pdf_text.py``), its tables from the vector lines on
+the host (LineCellPdf, ``_digital_tables``), never from the TSR model; its
+canvas still joins the chunks of the raster pages, so that detection and
+layout run over it on the card, and its detected quads are dropped before
+recognition. A digital page authored rotated by 90 degrees needs the
+serial per-page system, which is not ported: it gets an error output.
 
 ``BatchPipeline.run`` packs the pages into chunks of ``batch_pages`` of one
 bucket and uploads each chunk's canvas stack once; it stays resident. Every
@@ -15,9 +29,10 @@ regions as the layout gives them, for every model: like the JAX runner,
 this one does not widen them for LineCell); the detection finish and
 recognition (with the 0/180 classifier when ``use_textline_cls``) over text
 crops cut from it; then each page's text cells, table HTML and page HTML.
-One CUDA stream, no host threads. A failure is contained to its page (HTML
-assembly) or its chunk (the lanes): those pages get an error output, the
-rest of the batch goes on; nothing is re-run elsewhere.
+One CUDA stream, no host threads. A failure is contained to its page
+(rendering, vector text, HTML assembly) or its chunk (the lanes): those
+pages get an error output, the rest of the batch goes on; nothing is re-run
+elsewhere.
 """
 
 from __future__ import annotations
@@ -31,6 +46,8 @@ import torch
 
 from ..entity.enums import HtmlContentType
 from ..entity.ocr_cell import OcrCell
+from ..ops.crop_resize import resize_u8_plain
+from ..tasks.pdf_text import check_pdf_text_need_rotate90
 from .output import OcrSystemModelOutput
 from .system import OcrSystemConfig, OcrSystemTask, filter_figure_tables
 
@@ -59,21 +76,32 @@ def det_input_size(bucket: Tuple[int, int], limit_side_len: int
     return nh, nw
 
 
+def fit_page(img: np.ndarray) -> np.ndarray:
+    """A page larger than the largest canvas bucket scaled to fit, as the
+    JAX runner scales it (``cv2.resize`` INTER_LINEAR to ``max(1, int(w *
+    s))`` x ``max(1, int(h * s))``); any other page as it is."""
+    h, w = img.shape[:2]
+    b = pick_page_bucket(h, w)
+    if h <= b[0] and w <= b[1]:
+        return img
+    s = min(b[0] / h, b[1] / w)
+    nh, nw = max(1, int(h * s)), max(1, int(w * s))
+    logger.warning("page (%dx%d) exceeds the largest canvas bucket %s: "
+                   "scaling to %dx%d", h, w, b, nh, nw)
+    return resize_u8_plain(img, nh, nw)
+
+
 def pack_pages(images: Sequence[np.ndarray]
                ) -> Dict[Tuple[int, int], Dict]:
     """Group uint8 HWC pages by canvas bucket, padded with white:
     {bucket: {"indices": [...], "images": (n, H, W, 3) uint8, "shapes":
-    [(h, w), ...]}}. A page larger than the largest bucket raises: the JAX
-    package scales it down with cv2 first, which the port does not carry
-    yet."""
+    [(h, w), ...]}}. A page larger than the largest bucket is scaled to fit
+    first (:func:`fit_page`)."""
     groups: Dict[Tuple[int, int], Dict] = {}
     for i, img in enumerate(images):
+        img = fit_page(img)
         h, w = img.shape[:2]
         b = pick_page_bucket(h, w)
-        if h > b[0] or w > b[1]:
-            raise ValueError(
-                f"page {i} ({h}x{w}) exceeds the largest canvas bucket {b}; "
-                f"scale it to fit first")
         g = groups.setdefault(b, {"indices": [], "images": [], "shapes": []})
         canvas = np.full((b[0], b[1], 3), 255, np.uint8)
         canvas[:h, :w] = img
@@ -93,33 +121,27 @@ def _error_output(page: int, exc: Exception,
     return out
 
 
-def raster_image(page: Dict[str, Any]) -> np.ndarray:
-    """The page's uint8 RGB image, for the raster pages this runner takes.
-    A digital page (one carrying a ``pdf_page``) and a page larger than the
-    largest canvas bucket raise, naming the ROADMAP item that brings
-    them."""
-    if page.get("pdf_page") is not None:
-        raise NotImplementedError(
-            "digital PDF pages are not ported yet (ROADMAP.md Queue 1 "
-            "item 9)")
+def page_image(page: Dict[str, Any], dpi: int = 144) -> np.ndarray:
+    """The page's uint8 RGB image: its ``image``, else its ``pdf_page``
+    rendered at ``dpi`` (``pdfio.render_page``, with its ``pdf_doc``),
+    scaled to fit the largest canvas bucket (:func:`fit_page`)."""
     img = page.get("image")
     if img is None:
-        raise ValueError("the page carries no image")
+        if page.get("pdf_page") is None:
+            raise ValueError("the page carries neither an image nor a "
+                             "pdf_page")
+        from ..pdfio.render import render_page
+        img = render_page(page.get("pdf_doc"), page["pdf_page"], dpi=dpi)
     img = np.asarray(img)
     if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
         raise ValueError(f"page images are (H, W, 3) uint8, got "
                          f"{img.shape} {img.dtype}")
-    h, w = img.shape[:2]
-    b = pick_page_bucket(h, w)
-    if h > b[0] or w > b[1]:
-        raise NotImplementedError(
-            f"the page ({h}x{w}) exceeds the largest canvas bucket {b}; its "
-            f"rescale needs a resize without cv2 (ROADMAP.md Queue 1 item 6)")
-    return img
+    return fit_page(img)
 
 
 class BatchPipeline:
-    """Raster pages -> ``OcrSystemModelOutput`` per page, on one card
+    """Raster and digital pages -> ``OcrSystemModelOutput`` per page, on one
+    card
     (``device``: ``cuda`` unless ``"cpu"`` is asked for). The tasks are
     ``self.system``'s; ``system._det/_layout/_rec/_tsr/_line_cls`` may be
     assigned, and ``_boxes_finish`` overridden (bench.py injects its line
@@ -171,10 +193,16 @@ class BatchPipeline:
                                            chunk["bucket"])
         return canv, lh, det
 
-    def _layout_regions_for_chunk(self, page_shapes, layout_handle):
+    def _layout_regions_for_chunk(self, page_shapes, layout_handle,
+                                  digital_info: Optional[Dict[int, tuple]]
+                                  = None):
         """Block on the layout download, build the layout cells and the
         table regions: (cells per page, table results per page, regions,
-        owners) for :meth:`_tsr_from_regions`."""
+        owners) for :meth:`_tsr_from_regions`. ``digital_info`` maps the
+        chunk positions of digital pages to (pdf_page, pdf_scale): their
+        tables come from the vector lines on the host
+        (:meth:`_digital_tables`), not from the TSR model."""
+        digital_info = digital_info or {}
         n = len(page_shapes)
         if layout_handle is None:
             cells_per_page = [[] for _ in range(n)]
@@ -182,14 +210,20 @@ class BatchPipeline:
             cells_per_page = self.system.layout_task.finish(*layout_handle)
         table_results: List[List] = [[] for _ in range(n)]
         tsr = self.system.tsr_task if self.system.config.use_table else None
-        if tsr is None:
+        if tsr is None and not digital_info:
             return cells_per_page, table_results, [], []
         regions, owners = [], []
         for pi, ((ph, pw), cells) in enumerate(zip(page_shapes,
                                                    cells_per_page)):
-            kept = {tuple(b) for b in filter_figure_tables(
+            tbs = filter_figure_tables(
                 cells, [c.bbox for c in cells
-                        if c.cell_type == HtmlContentType.TABLE])}
+                        if c.cell_type == HtmlContentType.TABLE])
+            if pi in digital_info and self.system.config.use_table:
+                pdf_page, pdf_scale = digital_info[pi]
+                table_results[pi] = self._digital_tables(pdf_page,
+                                                         pdf_scale, tbs)
+                continue
+            kept = {tuple(b) for b in tbs}
             for c in cells:
                 if c.cell_type != HtmlContentType.TABLE \
                         or tuple(c.bbox) not in kept:
@@ -201,6 +235,34 @@ class BatchPipeline:
                     regions.append((pi, (x1, y1, x2, y2)))
                     owners.append((pi, c.bbox, (x1, y1)))
         return cells_per_page, table_results, regions, owners
+
+    @staticmethod
+    def _digital_tables(pdf_page, pdf_scale: float, table_bboxes) -> List:
+        """Vector-line table cells of one digital page: a result per
+        layout table region that holds lines (regions inside an embedded
+        image skipped), else one per cluster of the page's own lines."""
+        from ..models.line_cell import (detect_table_regions,
+                                        extract_cells_from_pdf_page)
+        from ..tasks.pdf_text import table_bbox_is_pdf_image
+
+        out: List = []
+        if pdf_page.segs is None or not (pdf_page.segs or pdf_page.rects):
+            return out
+        for tb in table_bboxes or ():
+            if table_bbox_is_pdf_image(tb, pdf_page, pdf_scale):
+                continue   # a figure detected as a table
+            r = extract_cells_from_pdf_page(pdf_page, pdf_scale, bbox=tb)
+            if r["cells"]:
+                r["offset"] = (0, 0)
+                out.append((tb, r))
+        if not out:
+            # for a digital page the vector lines are ground truth, a
+            # layout proposal is not
+            for region in detect_table_regions(pdf_page, pdf_scale):
+                r = {"cells": region["cells"], "type": "line_cell_pdf",
+                     "offset": (0, 0)}
+                out.append((region["bbox"], r))
+        return out
 
     def _tsr_from_regions(self, canv: torch.Tensor, prep):
         """The TSR task over the table crops, cut from the resident
@@ -233,13 +295,18 @@ class BatchPipeline:
         return rec.batch_infer_from_pages(canv, quads)
 
     def _page_output(self, page: Dict[str, Any], i: int, image: np.ndarray,
-                     quads, texts, scores, layout_cells,
-                     table_results) -> OcrSystemModelOutput:
-        out = OcrSystemModelOutput(page=page.get("page", i), is_pdf=False)
+                     text_cells, layout_cells, table_results,
+                     pdf_scale: Optional[float] = None
+                     ) -> OcrSystemModelOutput:
+        """One page's output; ``pdf_scale`` is given for a digital page."""
+        out = OcrSystemModelOutput(page=page.get("page", i),
+                                   is_pdf=pdf_scale is not None)
         out.image = image
         out.image_shape = image.shape[:2]
-        out.text_cells = [OcrCell.from_poly(q, text=t, score=s)
-                          for q, t, s in zip(quads, texts, scores)]
+        if pdf_scale is not None:
+            out.pdf_page = page["pdf_page"]
+            out.pdf_scale = pdf_scale
+        out.text_cells = text_cells
         out.layout_cells = layout_cells
         out.table_structures = [r for _, r in table_results]
         table_regions = []
@@ -251,28 +318,70 @@ class BatchPipeline:
             out.text_cells, table_regions, page_width=float(image.shape[1]))
         return out
 
+    def _vector_text(self, pages, digital, images, results):
+        """The vector text cells and ``pdf_scale`` (image px per PDF unit)
+        of each digital page; a failure errors its page only."""
+        cells, scales = {}, {}
+        for i in digital:
+            pg = pages[i]["pdf_page"]
+            try:
+                scale = images[i].shape[0] / pg.height if pg.height else 1.0
+                cells[i] = self.system.pdf_text_task(pg, scale)
+                scales[i] = scale
+            except Exception as e:
+                logger.exception("page %s vector text failed", i)
+                results[i] = _error_output(pages[i].get("page", i), e,
+                                           is_pdf=True)
+        return cells, scales
+
     # -- run --------------------------------------------------------------------
 
     def run(self, pages: Sequence[Dict[str, Any]]
             ) -> List[OcrSystemModelOutput]:
-        """``pages``: [{'image': (H, W, 3) uint8 RGB, 'page': n}]. Returns
-        one output per page, in order. ``last_stats`` gets the seconds of
-        each lane on the host clock (cumulative over chunks; a lane's time
-        includes its wait for the device) and the total."""
+        """``pages``: [{'image': (H, W, 3) uint8 RGB, 'page': n}] or
+        [{'pdf_page': PdfPage, 'pdf_doc': PdfDocument, 'page': n}] (with or
+        without an 'image'). Returns one output per page, in order.
+        ``last_stats`` gets the seconds of each lane on the host clock
+        (cumulative over chunks; a lane's time includes its wait for the
+        device) and the total."""
         t_start = time.perf_counter()
         stats = {k: 0.0 for k in (
-            "h2d_enqueue", "layout_lane", "tsr_lane", "det_wait_d2h",
-            "det_host_post", "rec_lane", "html")}
+            "rasterize", "pdf_text", "h2d_enqueue", "layout_lane",
+            "tsr_lane", "det_wait_d2h", "det_host_post", "rec_lane", "html")}
         results: List[Optional[OcrSystemModelOutput]] = [None] * len(pages)
         images: Dict[int, np.ndarray] = {}
+        dpi = self.system.config.render_dpi
+        t0 = time.perf_counter()
         for i, p in enumerate(pages):
             try:
-                images[i] = raster_image(p)
+                images[i] = page_image(p, dpi)
             except Exception as e:
+                logger.exception("page %s rasterize failed", i)
                 results[i] = _error_output(p.get("page", i), e,
                                            is_pdf=p.get("pdf_page")
                                            is not None)
-        raster = sorted(images)
+        stats["rasterize"] = time.perf_counter() - t0
+
+        # a page whose pdf_page has text is digital; one authored rotated
+        # needs the serial per-page system
+        digital = []
+        for i in sorted(images):
+            pg = pages[i].get("pdf_page")
+            if pg is None or not getattr(pg, "texts", None):
+                continue
+            if check_pdf_text_need_rotate90(pg):
+                results[i] = _error_output(pages[i].get("page", i),
+                                           NotImplementedError(
+                    "a digital page authored rotated by 90 degrees runs "
+                    "the serial per-page system, which is not ported yet "
+                    "(ROADMAP.md Queue 1 item 17)"), is_pdf=True)
+                continue
+            digital.append(i)
+        t0 = time.perf_counter()
+        pdf_cells, pdf_scales = self._vector_text(pages, digital, images,
+                                                  results)
+        stats["pdf_text"] = time.perf_counter() - t0
+        batched = [i for i in sorted(images) if results[i] is None]
 
         def timed(key, fn, *args):
             t = time.perf_counter()
@@ -284,7 +393,7 @@ class BatchPipeline:
         # every chunk's upload and programs go into the queue before the
         # first download blocks
         pending = []
-        for chunk in self._chunks([images[i] for i in raster]):
+        for chunk in self._chunks([images[i] for i in batched]):
             try:
                 pending.append((chunk, timed("h2d_enqueue",
                                              self._enqueue_chunk, chunk),
@@ -293,36 +402,49 @@ class BatchPipeline:
                 logger.exception("chunk upload/enqueue failed")
                 pending.append((chunk, None, e))
         for chunk, handles, err in pending:
-            idx = [raster[gi] for gi in chunk["indices"]]
+            idx = [batched[gi] for gi in chunk["indices"]]
+            digital_info = {k: (pages[i]["pdf_page"], pdf_scales[i])
+                            for k, i in enumerate(idx) if i in pdf_scales}
             if err is None:
                 try:
                     canv, lh, (packed, prob_hw) = handles
                     prep = timed("layout_lane",
                                  self._layout_regions_for_chunk,
-                                 chunk["shapes"], lh)
+                                 chunk["shapes"], lh, digital_info)
                     layout_cells, table_results = timed(
                         "tsr_lane", self._tsr_from_regions, canv, prep)
                     arr = timed("det_wait_d2h", lambda: packed.cpu().numpy())
                     quads = timed("det_host_post", self._boxes_finish, arr,
                                   chunk["shapes"], chunk["bucket"], prob_hw)
+                    # digital pages take their vector text: no text crops
+                    for k in digital_info:
+                        quads[k] = np.zeros((0, 4, 2), np.float32)
                     texts, scores = timed("rec_lane", self._recognize_chunk,
                                           canv, quads)
                 except Exception as e:
                     logger.exception("chunk failed")
                     err = e
             if err is not None:
-                for i in idx:
-                    results[i] = _error_output(pages[i].get("page", i), err)
+                for k, i in enumerate(idx):
+                    results[i] = _error_output(pages[i].get("page", i), err,
+                                               is_pdf=k in digital_info)
                 continue
             t0 = time.perf_counter()
             for k, i in enumerate(idx):
                 try:
+                    if k in digital_info:
+                        text_cells = pdf_cells[i]
+                    else:
+                        text_cells = [OcrCell.from_poly(q, text=t, score=sc)
+                                      for q, t, sc in zip(quads[k], texts[k],
+                                                          scores[k])]
                     results[i] = self._page_output(
-                        pages[i], i, images[i], quads[k], texts[k],
-                        scores[k], layout_cells[k], table_results[k])
+                        pages[i], i, images[i], text_cells, layout_cells[k],
+                        table_results[k], pdf_scales.get(i))
                 except Exception as e:
                     logger.exception("page %s HTML assembly failed", i)
-                    results[i] = _error_output(pages[i].get("page", i), e)
+                    results[i] = _error_output(pages[i].get("page", i), e,
+                                               is_pdf=k in digital_info)
             stats["html"] += time.perf_counter() - t0
         stats["total"] = time.perf_counter() - t_start
         stats["n_pages"] = float(len(pages))

@@ -1,11 +1,12 @@
 """The system's configuration and its tasks (counterpart of the parts of
 pdf_table_tpu/pipeline/system.py that the batched runner uses:
 ``OcrSystemConfig``, ``widen_table_regions``, ``filter_figure_tables`` and
-the lazy task properties of ``OcrSystemTask``).
+the lazy task properties of ``OcrSystemTask``, the vector text of digital
+PDF pages among them).
 
 Every task is built on the system's ``device`` (``cuda`` unless ``"cpu"`` is
-asked for). The serial per-page ``OcrSystemTask.__call__`` and the digital
-PDF stages are not ported (ROADMAP.md Queue 1 item 9).
+asked for). The serial per-page ``OcrSystemTask.__call__`` is not ported
+(ROADMAP.md Queue 1 item 17).
 """
 
 from __future__ import annotations
@@ -25,8 +26,8 @@ class OcrSystemConfig:
     # PP-OCRv4_rec | CRNN | ConvNextViT | LightweightEdge
     recognizer_model: str = "PP-OCRv4_rec"
     layout_model: str = "picodet"           # picodet | DocXLayout | none
-    # Lore | LoreAndLineCell | CenterNet | Lgpma | LineCell | SLANet |
-    # TableMaster | MtlTabNet, and the TSR task's keyword arguments (its
+    # Lore | LoreAndLineCell | CenterNet | Lgpma | LineCell | LineCellPdf |
+    # SLANet | TableMaster | MtlTabNet, and the TSR task's keyword arguments (its
     # config fields, batch_size, variables)
     table_structure_model: str = "Lore"
     table_structure_kwargs: Dict[str, Any] = field(default_factory=dict)
@@ -94,6 +95,7 @@ class OcrSystemTask:
         self._layout = None
         self._tsr = None
         self._line_cls = None
+        self._pdf_text = None
         self._table_html = None
         self._to_html = None
 
@@ -140,6 +142,13 @@ class OcrSystemTask:
             self._line_cls = ClsImagePulcTask(
                 task_type="textline_orientation", device=self.device)
         return self._line_cls
+
+    @property
+    def pdf_text_task(self):
+        if self._pdf_text is None:
+            from ..tasks.pdf_text import OcrPdfTextTask
+            self._pdf_text = OcrPdfTextTask()
+        return self._pdf_text
 
     @property
     def table_html_task(self):

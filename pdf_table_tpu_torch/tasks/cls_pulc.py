@@ -33,7 +33,9 @@ class ClsImagePulcTask:
                  **cfg_overrides):
         if task_type != "textline_orientation":
             raise NotImplementedError(
-                f"PULC task {task_type!r} is not ported yet")
+                f"PULC task {task_type!r} is not ported yet (the page "
+                f"orientation classifier comes with the per-page system, "
+                f"ROADMAP.md Queue 1 item 17)")
         self.device = resolve_device(device)
         set_float_precision()
         self.model_config = cfg = ClsPulcConfig.for_task(task_type,

@@ -1,7 +1,9 @@
 """Table-structure-recognition task (counterpart of
 pdf_table_tpu/tasks/table_structure.py): ``Lore``, ``LoreAndLineCell``,
-``CenterNet``, ``Lgpma``, ``LineCell``, ``SLANet``, ``TableMaster`` and
-``MtlTabNet``.
+``CenterNet``, ``Lgpma``, ``LineCell`` (and ``LineCellPdf``, the same task
+here as in the JAX dispatcher: the vector lines of digital pages are read
+by the runner, ``pipeline/batch_runner.py::_digital_tables``), ``SLANet``,
+``TableMaster`` and ``MtlTabNet``.
 
 ``batch_infer_from_pages`` takes page images and table regions, cuts every
 crop on the device from the resident pages, runs the model per sub-batch,
@@ -73,7 +75,7 @@ from .table_to_html import bbox_iou
 Region = Tuple[int, Tuple[float, float, float, float]]
 TOKEN_MODELS = ("SLANet", "TableMaster", "MtlTabNet")
 MODELS = ("Lore", "LoreAndLineCell", "CenterNet", "Lgpma",
-          "LineCell") + TOKEN_MODELS
+          "LineCell", "LineCellPdf") + TOKEN_MODELS
 # the outputs of an LGPMA forward that its post-processor reads
 LGPMA_OUTPUTS = ("cls_probs", "det_boxes", "mask_idx", "lpma_masks")
 
@@ -121,9 +123,10 @@ class OcrTableStructureTask:
                  res_buckets: Any = (), device=None, batch_size: int = 8,
                  variables: Optional[Dict[str, Any]] = None, **kw):
         if model not in MODELS:
-            raise NotImplementedError(
-                f"TSR model {model!r} is not ported (LineCellPdf needs the "
-                f"PDF reader, ROADMAP.md Queue 1 item 9)")
+            raise ValueError(f"unknown TSR model {model!r}; expected one "
+                             f"of {MODELS}")
+        if model == "LineCellPdf":
+            model = "LineCell"
         # merge mode: LORE cells fused with the line cells, as in JAX
         self.merge_line_cell = model == "LoreAndLineCell"
         if self.merge_line_cell:

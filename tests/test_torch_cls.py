@@ -146,3 +146,12 @@ def test_runs_on_cuda_by_default(monkeypatch):
 def test_other_tasks_are_not_ported(task_type):
     with pytest.raises(NotImplementedError, match=task_type):
         ClsImagePulcTask(task_type, device="cpu")
+
+
+def test_a_bf16_config_raises_naming_the_roadmap_item():
+    """The classifier runs float32 only: a bf16 config raises rather than
+    running f32 silently."""
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        ClsImagePulcTask(TASK, device="cpu", dtype="bfloat16")
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        PPLCNetClassifier(ClsPulcConfig.for_task(TASK, dtype="bfloat16"))

@@ -145,8 +145,18 @@ def test_pack_pages_matches_jax():
 
 
 def test_oversize_page_raises():
-    with pytest.raises(ValueError, match="largest canvas bucket"):
-        tbr.pack_pages([np.zeros((2100, 800, 3), np.uint8)])
+    """An oversize page no longer raises: ``pack_pages`` scales it to fit
+    the largest bucket as the JAX package's does (cv2.resize), bit for
+    bit."""
+    rng = np.random.default_rng(0)
+    pages = [rng.integers(0, 256, (2100, 800, 3), dtype=np.uint8),
+             rng.integers(0, 256, (4096, 3072, 3), dtype=np.uint8)]
+    got = tbr.pack_pages(pages)
+    want = jbr.pack_pages(pages)
+    assert sorted(got) == sorted(want) == [(2048, 1536)]
+    g, w = got[(2048, 1536)], want[(2048, 1536)]
+    assert g["shapes"] == w["shapes"] == [(2048, 780), (2048, 1536)]
+    np.testing.assert_array_equal(g["images"], w["images"])
 
 
 def test_runs_on_cuda_by_default(monkeypatch):

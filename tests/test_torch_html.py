@@ -7,13 +7,16 @@ alignment, paragraphs, tables and images in reading order),
 
 Of the golden corpus (tests/golden/cases.py), ``lore_snap`` runs through the
 port's code (``LorePostProcessor`` -> ``OcrTableToHtmlTask``) and must give
-tests/golden/expected/lore_snap.html byte for byte. The other cases cannot
-run through the port yet: the digital, flavor and pdf cases need the PDF
-reader and writer (``pdfio``) and the digital-page path (ROADMAP.md Queue 1
-item 9), the scanned cases the LineCell extractor, and the xlsx and
-compare cases ``utils/xlsx_writer.py`` and ``tasks/result_compare.py``
-(item 11). The two token cases run through the port in
-tests/test_torch_table_match.py."""
+tests/golden/expected/lore_snap.html byte for byte; so must the three
+scanned cases (``scanned_wired``, ``scanned_deskew``, ``scanned_rot90``:
+the raster grid through the port's LineCell ``extract_cells_from_image``
+and ``OcrTableToHtmlTask``, as ``run_scanned_case`` runs them). The two
+token cases run through the port in tests/test_torch_table_match.py, the
+four flavor cases in tests/test_torch_read_pdf.py. The eight digital cases
+run through the CLI (ROADMAP.md Queue 1 item 11); their pages are held to
+the JAX runner in tests/test_torch_digital_pipeline.py. The xlsx and
+compare cases need ``utils/xlsx_writer.py`` and
+``tasks/result_compare.py`` (item 11)."""
 
 import os
 import sys
@@ -271,3 +274,22 @@ def test_golden_lore_snap_through_the_port():
     r["offset"] = (0, 0)
     got = tt2h.OcrTableToHtmlTask()(r, texts)
     assert got == cases.load_expected("lore_snap")
+
+
+@pytest.mark.parametrize("name", sorted(cases.SCANNED_CASES))
+def test_golden_scanned_cases_through_the_port(name):
+    from pdf_table_tpu_torch.models.line_cell import extract_cells_from_image
+
+    r = extract_cells_from_image(
+        cases.make_scanned_grid(cases.SCANNED_CASES[name]))
+    assert r["cells"]
+    texts = []
+    for cell in sorted(r["cells"],
+                       key=lambda c: (c["logic"][0], c["logic"][2])):
+        x1, y1, x2, y2 = cell["bbox"]
+        texts.append(TCell.from_bbox(
+            (x1 + 10, y1 + 14, x1 + 74, y1 + 32),
+            text=f"r{cell['logic'][0]}c{cell['logic'][2]}", score=0.99))
+    r["offset"] = (0, 0)
+    got = tt2h.OcrTableToHtmlTask()(r, texts)
+    assert got == cases.load_expected(name)

@@ -23,7 +23,11 @@ input), the CRNN, ConvNextViT and LightweightEdge recognizers (full width,
 0/180 classifier on) and ``BatchPipeline.run`` with
 ``layout_model="DocXLayout"``, ``detect_model="db_resnet18"`` and
 ``recognizer_model="CRNN"`` down to page HTML, with neither JAX, flax, cv2
-nor the JAX package imported."""
+nor the JAX package imported. A seventh runs the digital lane: it writes a
+PDF with the port's writer, reads it with the port's reader, runs
+``BatchPipeline.run`` on the digital page carrying the image of the
+vector-and-image half of the renderer, and ``read_pdf(flavor="pdf")``,
+with neither JAX, flax, cv2, PIL nor the JAX package imported."""
 
 import json
 import os
@@ -362,3 +366,55 @@ def test_backbones_run_without_jax():
     assert {m: q for m, q in quads.items()} == {
         m: [[4, 2], [4, 2]] for m in (
             "db_resnet18", "db_resnet50", "db_proxylessnas")}
+
+
+_DIGITAL_SCRIPT = r"""
+import json, sys
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from pdf_table_tpu_torch import read_pdf
+from pdf_table_tpu_torch.pdfio import (PdfDocument, PdfWriter,
+                                       render_page_vector)
+from pdf_table_tpu_torch.pipeline.batch_runner import BatchPipeline
+from pdf_table_tpu_torch.pipeline.system import OcrSystemConfig
+from pdf_table_tpu_torch.tasks.detection import OcrDetectionTask
+w = PdfWriter()
+p = w.add_page(300, 200)
+p.text(20, 190, "A page of vector text.", size=9)
+p.table(20, 180, [80, 80, 80], 30, [["h1", "h2", "h3"], ["a", "b", "c"]])
+data = w.tobytes()
+doc = PdfDocument.open(data)
+page = doc.load_page(0)
+bp = BatchPipeline(OcrSystemConfig(
+    layout_model="none", use_orientation_cls=False, use_textline_cls=False,
+    table_structure_model="LineCellPdf"), device="cpu")
+bp.system._det = OcrDetectionTask(device="cpu", limit_side_len=64,
+                                  thresh=0.45, box_thresh=0.0)
+img = render_page_vector(doc, page)
+out = bp.run([{"image": img, "pdf_page": page, "pdf_doc": doc, "page": 0}])
+tables = read_pdf(data, flavor="pdf")
+bad = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "flax", "cv2", "PIL", "pdf_table_tpu"))
+print(json.dumps({"bad": bad, "is_pdf": out[0].is_pdf,
+                  "error": out[0].metric.get("error"),
+                  "texts": sorted(c.text for c in out[0].text_cells),
+                  "table_html": out[0].table_html,
+                  "read_pdf": [t.data for t in tables]}))
+"""
+
+
+def test_digital_lane_runs_without_jax():
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    out = subprocess.run([sys.executable, "-c", _DIGITAL_SCRIPT], cwd=root,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["bad"] == [] and res["is_pdf"] and res["error"] is None
+    assert res["texts"] == sorted(["A page of vector text.", "h1", "h2",
+                                   "h3", "a", "b", "c"])
+    assert len(res["table_html"]) == 1 and ">h2</td>" in \
+        res["table_html"][0]
+    assert res["read_pdf"] == [[["h1", "h2", "h3"], ["a", "b", "c"]]]
