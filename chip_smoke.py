@@ -25,9 +25,13 @@ Phases, each fatal on failure:
      the shape (and the default route must be the shape rule's); both
      bodies timed at the three buckets, the plain version and
      F.interpolate + normalize at the detection slice's shape, beside the
-     bound; K1's f32 body (bench.py's default dtype) at every wireless DCN
-     of a sub-batch of 8 at 768^2, 512^2 and 384^2, timed beside its bound
-     and torch.matmul of the built f32 columns;
+     bound; K1's f32 body (bench.py's default dtype; 3xTF32 on the
+     tensor cores) at every wireless DCN of a sub-batch of 8 at 768^2,
+     512^2 and 384^2 and every DCN of one at 1024^2: against the plain
+     version, against deform_conv2d_3xtf32_plain (its own rounding points)
+     and against an f64 evaluation of the same columns (at most twice the
+     plain f32 version's error there), timed beside its bounds (3xTF32 and
+     the CUDA cores' f32 peak) and torch.matmul of the built f32 columns;
   4. LORE wireless slice: OcrTableStructureTask(model="Lore",
      task_type="wireless", dtype="bfloat16") at full LORE width over 4
      synthetic 1224x950 pages with 2 table regions each, on numpy-seeded
@@ -82,7 +86,9 @@ Phases, each fatal on failure:
      one counted run (K3 once a chunk, K1 16 times a LORE sub-batch, no
      page with an error, every page with page_html, tables through LORE),
      then the median of the timed runs: pages/s, per-lane ms, peak memory,
-     idle share. On 2 of the pages the card is held against the same
+     idle share, K1's device ms (its trace must show the f32 body,
+     dcn_tf32_kernel, as CenterNet's, DocXLayout's and the training
+     step's must). On 2 of the pages the card is held against the same
      pipeline on the CPU: quads to 1 px, layout survivors equal, texts
      equal on at least 98 % of crops, page_html byte-equal where its
      inputs are equal;
@@ -141,7 +147,7 @@ Phases, each fatal on failure:
      the decode's cell and vertex slots up to the first near-tie of their
      scores; the cells reported); crops/s, stage ms (pre, forward,
      decode, download, host post), snapped vertices, peak memory, idle
-     share;
+     share and K1's share of the forward's device time;
  13. tsr_lgpma: OcrTableStructureTask(model="Lgpma") at full width
      (ResNet-50, FPN 256, max side 800, 512 proposals, fc 1024, mask_top
      256, f32), one crop a forward, on the same regions: no K1-K3 launch
@@ -222,7 +228,9 @@ import subprocess
 import sys
 import time
 
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM, dense
+# H100 SXM, dense; "float32" on the CUDA cores, "3xtf32" the f32 body's
+# three tf32 products on the tensor cores (494.7 TFLOP/s tf32 / 3)
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "3xtf32": 494.7e12 / 3}
 PEAK_BYTES = 3.35e12
 REPLACES = "pdf_table_tpu/ops/pallas/deform_blend.py:190"
 SOURCE = "pdf_table_tpu_torch/ops/kernels/csrc/deform_conv.cu"
@@ -250,6 +258,14 @@ FK_CALLS = 5     # stride-4 DCNs per wtw forward, one launch each
 # the plain chunked version: the same bf16 products, f32 sums in another
 # order. f32: the same operands, f32 sums in another order.
 TOL = {"bfloat16": 1e-3, "float32": 1e-4}
+# K1's f32 body against deform_conv2d_3xtf32_plain (the same tf32 split
+# of the same columns and W; f32 sums in another order: tensor-core groups
+# of 8 per K step against torch's matmul, each some 3e-7 of max |out| from
+# exact at the LORE depths), max |err| / max |plain out|; and against an
+# f64 evaluation of the same f32 columns, at most F64_RATIO times the plain
+# f32 version's error there
+TF32_TOL = 2e-6
+F64_RATIO = 2.0
 FK_TOL = 1e-4
 # either mode against the plain version on the same inputs cast to f32:
 # the bf16 roundings of the column (K1) or of w4 and each corner's
@@ -449,17 +465,22 @@ def host_ms(fn, iters: int = 5) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def dcn_bound(b, h, w, cin, cout, dtype: str, corners: int = 1):
+def dcn_bound(b, h, w, cin, cout, dtype: str, corners: int = 1,
+              peak: str = ""):
     """Least time for one DCN call: max(ops / peak, compulsory bytes /
     rate). Bytes: x, offset, mask, W and bias read once, the f32 output
     written once; operations: the contraction, ``corners`` times as deep
-    where each corner is contracted on its own (flat-kc mode)."""
+    where each corner is contracted on its own (flat-kc mode), at the
+    ``peak`` rate of PEAK_FLOPS (default: bf16's for bf16, the 3xTF32
+    rate for f32, as the f32 body computes)."""
     esize = 2 if dtype == "bfloat16" else 4
     px = b * h * w
     flops = 2 * px * 9 * corners * cin * cout
     nbytes = (px * cin * esize + px * 18 * 4 + px * 9 * 4
               + 9 * cin * cout * esize + cout * 4 + px * cout * 4)
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    rate = PEAK_FLOPS[peak or ("bfloat16" if dtype == "bfloat16"
+                               else "3xtf32")]
+    t_ops = flops / rate * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), t_ops, t_bytes
 
@@ -494,15 +515,46 @@ def f32_rel_err(got, args) -> float:
                                            bias))[1]
 
 
-def tiling(b, h, w, cout, flat_kc) -> dict:
+def tiling(b, h, w, cin, cout, flat_kc, dtype="bfloat16") -> dict:
     import torch
 
-    from pdf_table_tpu_torch.ops.deform_conv import kernel_tiling
+    from pdf_table_tpu_torch.ops.deform_conv import (kernel_tiling,
+                                                     kernel_tiling_f32)
 
-    n, wgs, splits = kernel_tiling(
-        b * h * w, cout, flat_kc,
-        torch.cuda.get_device_properties(0).multi_processor_count)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if dtype == "float32":
+        n, wgs, splits, tg = kernel_tiling_f32(b * h * w, cout, cin, 9, sms)
+        return {"n_tile": n, "pixels_per_block": 64 * wgs,
+                "cout_splits": splits, "taps_per_group": tg}
+    n, wgs, splits = kernel_tiling(b * h * w, cout, flat_kc, sms)
     return {"n_tile": n, "pixels_per_block": 64 * wgs, "cout_splits": splits}
+
+
+def f32_body_errors(got, plain, args) -> dict:
+    """K1's f32 body against its plain twin at its own rounding points
+    (deform_conv2d_3xtf32_plain), and the body and the plain f32 version
+    against an f64 evaluation of the same f32 columns (max |err| over max
+    |f64 out|)."""
+    from pdf_table_tpu_torch.ops.deform_conv import (
+        deform_conv2d_3xtf32_plain, tap_columns)
+
+    x, off, mask, wt, bias = args
+    cin, cout = wt.shape[2:]
+    wd = wt.reshape(9, cin, cout).double()
+    ref = None
+    for t, col in enumerate(tap_columns(x, off, mask, (3, 3))):
+        part = col.double() @ wd[t]
+        ref = part if ref is None else ref.add_(part)
+    ref = ref.add_(bias.double()).reshape(got.shape)
+    scale = float(ref.abs().max())
+    out = {"f64_err": float((got.double() - ref).abs().max()) / scale,
+           "plain_f64_err": float((plain.double() - ref).abs().max())
+           / scale}
+    del ref
+    out["f64_ratio"] = out["f64_err"] / out["plain_f64_err"]
+    out["tf32_plain_rel_err"] = errors(got, deform_conv2d_3xtf32_plain(
+        *args))[1]
+    return out
 
 
 def timed(row, fn, plain, library, bound) -> None:
@@ -536,12 +588,15 @@ def phase_kernels(gen):
         cases += [(side, hw * side // 768, ci, co, n, "bfloat16", 2)
                   for hw, ci, co, n in DCN_SHAPES_768]
     cases.append((768, 48, 256, 128, 2, "float32", 2))
-    # the f32 body (bench.py's default dtype, the pipeline phase's LORE)
-    # at every wireless DCN of a sub-batch of 8, at 768^2 and the 384/512
-    # buckets
+    # the f32 body (bench.py's default dtype, the pipeline phase's LORE,
+    # DocXLayout) at every wireless DCN of a sub-batch of 8, at 768^2 and
+    # the 384/512 buckets, and at every DCN of a 1024^2 sub-batch of 8
+    # (Cycle-CenterNet's and wtw's f32 path)
     for side in (768, 384, 512):
         cases += [(side, hw * side // 768, ci, co, n, "float32", MAIN_BATCH)
                   for hw, ci, co, n in DCN_SHAPES_768]
+    cases += [(1024, hw, ci, co, n, "float32", MAIN_BATCH)
+              for hw, ci, co, n in DCN_SHAPES_1024]
     cases += [(768, hw, ci, co, n, "bfloat16", MAIN_BATCH)
               for hw, ci, co, n in DCN_SHAPES_768]
     cases += [(1024, hw, ci, co, n, "bfloat16", MAIN_BATCH)
@@ -557,19 +612,28 @@ def phase_kernels(gen):
         torch.cuda.synchronize()
         check(launch_counts["deform_conv2d"] == n0 + 1,
               "deform_conv2d did not count its launch")
-        abs_err, rel = errors(got, deform_conv2d_plain(*args))
+        plain = deform_conv2d_plain(*args)
+        abs_err, rel = errors(got, plain)
         tag = f"deform_conv2d {crop} {hw}^2 {cin}->{cout} {dname} B={B}"
         check(rel < TOL[dname], f"{tag}: rel err {rel:.3g} >= {TOL[dname]}")
         row = {"crop": crop, "hw": hw, "cin": cin, "cout": cout, "batch": B,
                "dtype": dname, "calls_per_forward": calls,
                "route": "flat_kc" if flat_kc else "tap",
-               "tiling": tiling(B, hw, hw, cout, False),
+               "tiling": tiling(B, hw, hw, cin, cout, False, dname),
                "max_abs_err": abs_err, "rel_err": rel}
         if dname == "bfloat16":
             row["f32_rel_err"] = f32_rel_err(got, args)
             check(row["f32_rel_err"] < F32_TOL, f"{tag}: against f32 "
                   f"{row['f32_rel_err']:.3g} >= {F32_TOL}")
-        del got
+        else:
+            row.update(f32_body_errors(got, plain, args))
+            check(row["tf32_plain_rel_err"] < TF32_TOL, f"{tag}: against "
+                  f"deform_conv2d_3xtf32_plain {row['tf32_plain_rel_err']:.3g}"
+                  f" >= {TF32_TOL}")
+            check(row["f64_ratio"] <= F64_RATIO, f"{tag}: against f64 "
+                  f"{row['f64_err']:.3g}, {row['f64_ratio']:.3g} times the "
+                  f"plain f32 version's {row['plain_f64_err']:.3g}")
+        del got, plain
         if B == MAIN_BATCH or dname == "float32":
             x, off, mask, wt, _ = args
             cols = torch.cat(list(tap_columns(x, off, mask, (3, 3))),
@@ -579,6 +643,10 @@ def phase_kernels(gen):
                   lambda: deform_conv2d_plain(*args),
                   lambda: torch.matmul(cols, wl),
                   dcn_bound(B, hw, hw, cin, cout, dname))
+            if dname == "float32":
+                row["bound_3xtf32_ms"] = row["bound_ms"]
+                row["bound_cuda_core_ms"] = dcn_bound(
+                    B, hw, hw, cin, cout, dname, peak="float32")[0]
             del cols
         rows.append(row)
         del args
@@ -641,7 +709,7 @@ def phase_flat_kc(gen):
         row = {"batch": B, "h": H, "w": W, "cin": cin, "cout": cout,
                "flat_kc_route": flat_kc_route(B, H, W, cin, 9, cout,
                                               torch.bfloat16),
-               "tiling": tiling(B, H, W, cout, True),
+               "tiling": tiling(B, H, W, cin, cout, True),
                "max_abs_err": abs_err, "rel_err": rel,
                "f32_rel_err": f32_rel_err(got, args)}
         check(row["f32_rel_err"] < F32_TOL, f"{tag}: against f32 "
@@ -770,9 +838,11 @@ def kernels_line(rows, launches: dict, fk_rows, fk_launches: dict,
     summed over the 16 DCN calls of one forward of the wireless slice's
     sub-batch (B=8 at 768^2, bf16), ``wtw_forward`` over the 11 tap-mode
     calls of one wtw forward (B=8 at 1024^2), ``f32_forward`` and
-    ``f32_buckets`` over the 16 calls of one f32 wireless forward of 8
-    crops at 768^2, 512^2 and 384^2 (the f32 body, which the pipeline
-    phase runs); launches over the counted runs of the paths that run it
+    ``f32_buckets`` over the 16 calls of one f32 forward of 8 crops at
+    768^2, 512^2 and 384^2 (wireless) and 1024^2 (wtw, Cycle-CenterNet):
+    the f32 body, which the pipeline phase runs, its ``bound_ms`` at the
+    3xTF32 rate and ``bound_cuda_core_ms`` at the CUDA cores' f32 peak;
+    launches over the counted runs of the paths that run it
     (``launches_by_path``, here and for the other two). deform_conv2d_flat_kc
     (K2, the flat-kc mode): times over its 5 calls in one wtw forward (the
     stride-4 DCNs). resize_normalize (K3): one call at the detection
@@ -789,9 +859,9 @@ def kernels_line(rows, launches: dict, fk_rows, fk_launches: dict,
     check)."""
     keys = ("ms", "plain_ms", "bound_ms", "library_ms")
 
-    def total(rs):
+    def total(rs, extra=()):
         sums = {k: sum(r[k] * r["calls_per_forward"] for r in rs)
-                for k in keys + ("ops_ms", "bytes_ms")}
+                for k in keys + extra + ("ops_ms", "bytes_ms")}
         sums["bound_by"] = "operations" \
             if sums.pop("ops_ms") >= sums.pop("bytes_ms") else "bytes"
         return sums
@@ -802,8 +872,9 @@ def kernels_line(rows, launches: dict, fk_rows, fk_launches: dict,
     wtw = total([r for r in bf16 if r["crop"] == 1024
                  and r["route"] == "tap"])
     f32 = {crop: total([r for r in rows if r["batch"] == MAIN_BATCH
-                        and r["dtype"] == "float32" and r["crop"] == crop])
-           for crop in (768, 512, 384)}
+                        and r["dtype"] == "float32" and r["crop"] == crop],
+                       ("bound_cuda_core_ms",))
+           for crop in (768, 512, 384, 1024)}
     fk = total([r for r in fk_rows if "ms" in r])
     rn = next(r for r in rn_rows if "plain_ms" in r)
     rn_buckets = [{k: r[k] for k in ("canvas", "det", "ms", "scalar_ms",
@@ -832,7 +903,7 @@ def kernels_line(rows, launches: dict, fk_rows, fk_launches: dict,
         "launches_by_path": launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows + t32), **main,
         "wtw_forward": wtw, "f32_forward": f32[768],
-        "f32_buckets": {str(c): f32[c] for c in (512, 384)},
+        "f32_buckets": {str(c): f32[c] for c in (512, 384, 1024)},
         "train": train, "shapes": rows}, {
         "name": "deform_conv2d_flat_kc", "route": "cuda", "source": SOURCE,
         "replaces": FK_REPLACES, "launches": sum(fk_launches.values()),
@@ -1048,7 +1119,8 @@ def profile_run(fn, full: bool = True) -> dict:
     cost: device busy time, wall time and the idle share of that one run.
     The full one (host ops too; not with ``full=False``, which returns the
     light one's numbers alone) gives the top ops by device time, and its
-    own busy, wall and idle share."""
+    own busy, wall and idle share; K1's device ms come from the light
+    one."""
     from torch.profiler import ProfilerActivity
 
     wall, events = _trace(fn, [ProfilerActivity.CUDA])
@@ -1062,8 +1134,11 @@ def profile_run(fn, full: bool = True) -> dict:
     full_busy = sum(e.self_device_time_total for e in full) / 1e3
     top = sorted(full, key=lambda e: e.self_device_time_total,
                  reverse=True)[:12]
+    k1 = sum(e.self_device_time_total for e in events
+             if any(k in e.key for k in K1_KERNELS)) / 1e3
     return {"wall_ms": wall, "device_busy_ms": busy,
             "idle_share": max(0.0, 1.0 - busy / wall) if busy else None,
+            "k1_device_ms": k1,
             "full_trace": {"wall_ms": full_wall, "device_busy_ms": full_busy,
                            "idle_share": max(0.0, 1.0 - full_busy
                                              / full_wall)},
@@ -1071,6 +1146,15 @@ def profile_run(fn, full: bool = True) -> dict:
                          "device_ms": e.self_device_time_total / 1e3,
                          "calls": e.count} for e in top],
             "kernel_names": names}
+
+
+def f32_body_traced(prof: dict, tag: str) -> dict:
+    """``prof`` without its kernel names, after checking that the f32 DCNs
+    of the traced run went through K1's 3xTF32 body."""
+    names = prof.pop("kernel_names")
+    check(any("dcn_tf32_kernel" in n for n in names),
+          f"{tag}: the trace shows no dcn_tf32_kernel")
+    return prof
 
 
 # kernel launches per sub-batch of 8 full-resolution crops: the wireless
@@ -2275,8 +2359,7 @@ def phase_pipeline(card, layout_v):
     peak = torch.cuda.max_memory_allocated()
     lane_ms = {k: statistics.median(st[k] for st in lanes) * 1e3
                for k in lanes[0] if k != "n_pages"}
-    prof = profile_run(lambda: bp.run(pages))
-    prof.pop("kernel_names")
+    prof = f32_body_traced(profile_run(lambda: bp.run(pages)), "pipeline")
 
     # 2 pages on the card against the same pipeline on the CPU
     few = pages[:PIPE_CPU_PAGES]
@@ -2684,12 +2767,14 @@ def phase_tsr_centernet(card, pages, regions):
     per_run = statistics.median(run_s)
     peak = torch.cuda.max_memory_allocated()
     stages = centernet_stages(task, dev_pages, regions)
-    prof = profile_run(lambda: task.batch_infer_from_pages(dev_pages,
-                                                           regions))
-    prof.pop("kernel_names")
+    prof = f32_body_traced(profile_run(
+        lambda: task.batch_infer_from_pages(dev_pages, regions)),
+        "tsr_centernet")
 
     # one bf16 forward of the sub-batch of 8, counted
     (_s, _m, x), *_ = task.sub_batches(dev_pages, regions)
+    with torch.inference_mode():
+        share = k1_device_share(lambda: task.model.heads(x))
     bf16 = CycleCenterNet(CenterNetConfig(dtype="bfloat16")).eval()
     load_flax_variables(bf16, tree)
     bf16.to("cuda")
@@ -2738,9 +2823,11 @@ def phase_tsr_centernet(card, pages, regions):
         "run_s_min": min(run_s), "run_s_max": max(run_s), "runs": len(run_s),
         "crops_per_s": len(regions) / per_run,
         "peak_mem_gib": peak / 2 ** 30, "stage_ms": stages,
-        "profile": prof, "cells": cells, "snapped_vertices": snaps,
-        "yardstick_heads_rel": yard, "cpu": agree}
+        "profile": prof, "forward_k1": share, "cells": cells,
+        "snapped_vertices": snaps, "yardstick_heads_rel": yard, "cpu": agree}
     print(json.dumps({"tsr_centernet": summary}))
+    check(share["f32_body"], "CenterNet: the forward's trace shows no "
+          "dcn_tf32_kernel")
     check(max(yard.values()) <= CN_YARD_TOL,
           f"CenterNet: the kernel's heads differ from the plain DCN's: "
           f"{yard}")
@@ -2950,7 +3037,10 @@ RECB_HEAD = {"CRNN": (5.0, True), "ConvNextViT": (0.2, False),
 RECB_GAMMA = 0.1        # ConvNext layer scale (1e-6 at init)
 RECB_RUNS = 3
 RECB_CPU_PAGES = 2      # pages whose crops are held against the CPU
-K1_KERNELS = ("deform_conv_f32_kernel", "dcn_wgmma_kernel")
+# K1's kernels: the f32 body (its weight split and tap-group sum passes
+# with it) and the bf16 body
+K1_KERNELS = ("dcn_tf32_kernel", "stage_weight_tf32_kernel",
+              "reduce_tf32_kernel", "dcn_wgmma_kernel")
 
 
 def docx_tree(task, dev_pages):
@@ -3008,8 +3098,8 @@ def docx_cells_agree(got, want) -> dict:
 
 
 def k1_device_share(fn) -> dict:
-    """K1's device ms in one traced ``fn()`` and its share of the device
-    busy time."""
+    """K1's device ms in one traced ``fn()``, its share of the device busy
+    time, and whether its f32 body ran."""
     from torch.profiler import ProfilerActivity
 
     wall, events = _trace(fn, [ProfilerActivity.CUDA])
@@ -3017,7 +3107,8 @@ def k1_device_share(fn) -> dict:
     k1 = sum(e.self_device_time_total for e in events
              if any(k in e.key for k in K1_KERNELS)) / 1e3
     return {"wall_ms": wall, "device_busy_ms": busy, "k1_ms": k1,
-            "k1_share": k1 / busy if busy else None}
+            "k1_share": k1 / busy if busy else None,
+            "f32_body": any("dcn_tf32_kernel" in e.key for e in events)}
 
 
 def docx_stages(task, dev_pages) -> dict:
@@ -3183,6 +3274,8 @@ def phase_layout_docx(card):
         "cpu": {"inputs_max_abs": inputs, "heads_rel": heads,
                 "forward_s": cpu_s, **agree}}
     print(json.dumps({"layout_docx": summary}))
+    check(share["f32_body"], "DocXLayout: the forward's trace shows no "
+          "dcn_tf32_kernel")
     check(max(yard.values()) <= DOCX_YARD_TOL,
           f"DocXLayout: the kernel's heads differ from the plain DCN's: "
           f"{yard}")
@@ -4076,8 +4169,8 @@ def train_steps(card, dcn_rows, out_dir):
         step_s.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated()
     step_ms = statistics.median(step_s) * 1e3
-    prof = profile_run(lambda: kern.train_step(batch))
-    prof.pop("kernel_names")
+    prof = f32_body_traced(profile_run(lambda: kern.train_step(batch)),
+                           "train")
 
     # remat: the stages checkpointed; the recompute launches K1 again. The
     # first step is counted and held to the kernel step; the second is
@@ -4192,11 +4285,12 @@ def demangle(sym: str) -> str:
 
 def ptxas_report(libs) -> list:
     """Registers and spills of every kernel function, from each library's
-    nvcc log (``-Xptxas -v``), and the bf16 deform-conv body's dynamic
-    shared memory per (mode, channel tile, warpgroups)."""
+    nvcc log (``-Xptxas -v``), and the deform-conv bodies' dynamic shared
+    memory per (mode or f32, channel tile, pixel warpgroups)."""
     import re
 
-    from pdf_table_tpu_torch.ops.deform_conv import _smem_bytes
+    from pdf_table_tpu_torch.ops.deform_conv import (_smem_bytes,
+                                                     _smem_bytes_f32)
 
     report = []
     for name, lib in libs.items():
@@ -4210,9 +4304,12 @@ def ptxas_report(libs) -> list:
                 report[-1]["ptxas"] = line.split(":", 1)[1].strip()
             elif fn and "spill" in line:
                 report[-1]["spills"] = line.strip()
-    report.append({"source": "deform_conv", "dynamic_smem_bytes": {
-        f"{'flat_kc' if fk else 'tap'} n{n} wg{w}": _smem_bytes(fk, n, w)
-        for fk in (False, True) for n in (64, 128, 256) for w in (1, 2)}})
+    smem = {f"{'flat_kc' if fk else 'tap'} n{n} wg{w}": _smem_bytes(fk, n, w)
+            for fk in (False, True) for n in (64, 128, 256) for w in (1, 2)}
+    smem.update({f"f32 n{n} wg{w}": _smem_bytes_f32(n, w)
+                 for n in (64, 128, 256) for w in (1, 2)
+                 if n < 256 or w == 1})
+    report.append({"source": "deform_conv", "dynamic_smem_bytes": smem})
     return report
 
 

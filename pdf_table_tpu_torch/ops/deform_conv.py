@@ -17,6 +17,11 @@ contraction in one pass), which differ only in where they round to bf16:
   bf16 product, as the TPU kernel rounds it; its plain twin is
   :func:`deform_conv2d_chunked_plain`.
 
+f32 tensors take the tap mode's f32 body: the column unrounded, the
+contraction on the tensor cores by the 3xTF32 split (:func:`split_tf32`);
+its plain twin at those rounding points is
+:func:`deform_conv2d_3xtf32_plain`.
+
 Each kernel raises on what it does not take.
 
 On a CUDA tensor both modes run inside :class:`DeformConv2dFunction`
@@ -219,6 +224,46 @@ def deform_conv2d_plain(x: torch.Tensor, offset: torch.Tensor,
     return out
 
 
+def split_tf32(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(hi, lo)`` of an f32 tensor as the f32 kernel body splits its
+    operands: ``hi`` is ``t`` rounded to TF32 (10 mantissa bits) to nearest,
+    ties away from zero, as ``cvt.rna.tf32.f32`` with the low 13 bits
+    cleared; ``lo`` is ``t - hi`` (exact in f32) rounded the same way. On the
+    bit pattern: add 0x1000, clear the low 13 bits."""
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    t = t.to(torch.float32)
+    hi = rna(t)
+    return hi, rna(t - hi)
+
+
+def deform_conv2d_3xtf32_plain(x: torch.Tensor, offset: torch.Tensor,
+                               mask: torch.Tensor, weight: torch.Tensor,
+                               bias: Optional[torch.Tensor] = None,
+                               stride: Pair = (1, 1), padding: Pair = (1, 1),
+                               dilation: Pair = (1, 1)) -> torch.Tensor:
+    """The f32 DCN at the f32 kernel body's rounding points: each tap's f32
+    column (:func:`tap_columns`) and ``W[t]`` split by :func:`split_tf32`,
+    and ``col_lo @ W_hi + col_hi @ W_lo + col_hi @ W_hi`` summed in f32
+    (the 3xTF32 split; ``col_lo @ W_lo`` is dropped), plus the bias."""
+    B, H, W, Cin = x.shape
+    Kh, Kw, _, Cout = weight.shape
+    Ho, Wo = _out_hw(H, W, Kh, Kw, stride, padding, dilation)
+    f32 = torch.float32
+    w_hi, w_lo = split_tf32(weight.reshape(Kh * Kw, Cin, Cout))
+    out = torch.zeros(B * Ho * Wo, Cout, device=x.device, dtype=f32)
+    for t, col in enumerate(tap_columns(x.to(f32), offset, mask, (Kh, Kw),
+                                        stride, padding, dilation)):
+        c_hi, c_lo = split_tf32(col)
+        out += c_lo @ w_hi[t] + c_hi @ w_lo[t] + c_hi @ w_hi[t]
+    out = out.reshape(B, Ho, Wo, Cout)
+    if bias is not None:
+        out = out + bias.to(f32)
+    return out
+
+
 def deform_conv2d_rounded(x: torch.Tensor, offset: torch.Tensor,
                           mask: torch.Tensor, weight: torch.Tensor,
                           bias: Optional[torch.Tensor] = None,
@@ -359,12 +404,16 @@ def deform_conv2d_chunked_plain(x: torch.Tensor, offset: torch.Tensor,
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _fns = {}
 
-# the bf16 body's tiling (ops/kernels/csrc/deform_conv.cu): output pixels
-# per warpgroup, channels per K step, shared-memory stages and limit
+# the kernel's tiling (ops/kernels/csrc/deform_conv.cu): output pixels
+# per warpgroup, channels per K step (bf16 body, f32 body), shared-memory
+# stages and limit
 ROWS_PER_WG = 64
 STEP_C = 64
-A_STAGES, B_STAGES = 2, 4
+STEP_C_F32 = 32
+A_STAGES, B_STAGES, B_STAGES_F32 = 2, 4, 2
 MAX_SMEM = 232448
+# K steps one f32 accumulator chain may take (9 taps x 256 channels)
+MAX_CHAIN_F32 = 72
 
 
 def _smem_bytes(flat_kc: bool, n_tile: int, wgs: int) -> int:
@@ -390,14 +439,53 @@ def kernel_tiling(p: int, cout: int, flat_kc: bool,
     return n_tile, wgs, -(-cout // n_tile)
 
 
+def _smem_bytes_f32(n_tile: int, wgs: int) -> int:
+    """The f32 body's dynamic shared memory: alignment slack, two A stages
+    of hi and lo tiles per 64-pixel warpgroup, a ring of hi and lo B tiles,
+    two corner tables, the barriers."""
+    return (1024 + A_STAGES * wgs * 2 * ROWS_PER_WG * STEP_C_F32 * 4
+            + B_STAGES_F32 * 2 * n_tile * 128 + 2 * wgs * ROWS_PER_WG * 32
+            + B_STAGES_F32 * 8)
+
+
+def kernel_tiling_f32(p: int, cout: int, cin: int, k: int = 9,
+                      sms: int = 132) -> Tuple[int, int, int, int]:
+    """(channel tile, pixel warpgroups per block, Cout splits, taps per
+    group) of the f32 body for ``p`` output pixels. A warpgroup covers at
+    most 128 channels (it holds two accumulators), so a 256 tile is two
+    warpgroups on the same 64 pixels; a 64 or 128 tile takes two pixel
+    warpgroups (128 pixels) where that gives at least ``sms`` blocks. The
+    taps then run in groups (all ``k``, a third, one each), one block per
+    group, from the first that gives at least ``sms`` blocks and at most
+    :data:`MAX_CHAIN_F32` K steps a group: the groups' sums are added in
+    a second pass, so a deep contraction is summed in shorter chains. Last,
+    as in the bf16 body, the tile is halved until the blocks cover the
+    SMs. A Cout over 256 is split in 256-wide tiles."""
+    n_tile = next((n for n in (64, 128) if n >= cout), 256)
+    wgs = 2 if n_tile < 256 and -(-p // (2 * ROWS_PER_WG)) >= sms else 1
+    px_blocks = -(-p // (wgs * ROWS_PER_WG))
+    steps = cin // STEP_C_F32
+    tap_group = 1
+    for tg in sorted({k, -(-k // 3), 1}, reverse=True):
+        if (px_blocks * -(-cout // n_tile) * -(-k // tg) >= sms
+                and tg * steps <= MAX_CHAIN_F32):
+            tap_group = tg
+            break
+    while n_tile > 64 and (px_blocks * -(-k // tap_group)
+                           * -(-cout // n_tile)) < sms:
+        n_tile //= 2
+    return n_tile, wgs, -(-cout // n_tile), tap_group
+
+
 def _kernel_fn(entry: str):
     if entry not in _fns:
         from .kernels.build import load
 
         fn = getattr(load("deform_conv"), entry)
         fn.restype = ctypes.c_int
-        n_int = 18 if entry == "pdft_deform_conv2d_fwd" else 17
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * n_int \
+        n_ptr, n_int = (8, 19) if entry == "pdft_deform_conv2d_fwd" \
+            else (7, 17)
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
             + [ctypes.c_void_p]
         _fns[entry] = fn
     return _fns[entry]
@@ -432,7 +520,7 @@ def _check(x, offset, mask, weight, bias, Ho, Wo):
             raise ValueError(f"the bf16 deform_conv2d kernel needs Cin % 64 "
                              f"== 0, Cout % 8 == 0 and Cout <= 256, got "
                              f"{Cin} -> {Cout}")
-    elif Cin % 32:
+    elif Cin % STEP_C_F32:
         raise ValueError(f"the f32 deform_conv2d kernel needs Cin % 32 == 0, "
                          f"got {Cin}")
     if tuple(offset.shape) != (B, Ho, Wo, 2 * K) \
@@ -459,24 +547,37 @@ def _launch(flat_kc: bool, x, offset, mask, weight, bias, stride, padding,
         raise TypeError(f"the flat-kc kernel takes bf16 x, got {x.dtype}")
     out = torch.empty((B, Ho, Wo, Cout), device=x.device,
                       dtype=torch.float32)
-    n_tile, wgs, nsplit = kernel_tiling(
-        B * Ho * Wo, Cout, flat_kc,
-        torch.cuda.get_device_properties(x.device).multi_processor_count)
-    wtile = torch.empty((Kh * Kw * Cin * nsplit * n_tile
-                         if x.dtype == torch.bfloat16 else 0,),
-                        device=x.device, dtype=torch.bfloat16)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    P, K = B * Ho * Wo, Kh * Kw
+    work = None
+    if x.dtype == torch.bfloat16:
+        n_tile, wgs, nsplit = kernel_tiling(P, Cout, flat_kc, sms)
+        tap_group = 0
+        wtile = torch.empty((K * Cin * nsplit * n_tile,), device=x.device,
+                            dtype=torch.bfloat16)
+    else:   # hi and lo tiles of the split weights, the tap groups' sums
+        n_tile, wgs, nsplit, tap_group = kernel_tiling_f32(P, Cout, Cin, K,
+                                                           sms)
+        wtile = torch.empty((2 * K * Cin * nsplit * n_tile,),
+                            device=x.device, dtype=torch.float32)
+        groups = -(-K // tap_group)
+        if groups > 1:
+            work = torch.empty((groups * P * Cout,), device=x.device,
+                               dtype=torch.float32)
     ptrs = (x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
             weight.data_ptr(), None if bias is None else bias.data_ptr(),
             out.data_ptr(), wtile.data_ptr())
     shape = (B, H, W, Cin, Ho, Wo, Cout, Kh, Kw, stride[0], stride[1],
              padding[0], padding[1], dilation[0], dilation[1], n_tile, wgs)
-    entry = "pdft_deform_conv2d_flat_kc_fwd" if flat_kc \
-        else "pdft_deform_conv2d_fwd"
-    dtype = () if flat_kc else (_DTYPE_CODE[x.dtype],)
+    if flat_kc:
+        entry, args = "pdft_deform_conv2d_flat_kc_fwd", (*ptrs, *shape)
+    else:
+        entry = "pdft_deform_conv2d_fwd"
+        args = (*ptrs, None if work is None else work.data_ptr(),
+                _DTYPE_CODE[x.dtype], *shape, tap_group)
     with torch.cuda.device(x.device):
         err = _kernel_fn(entry)(
-            *ptrs, *dtype, *shape,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            *args, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"deform_conv2d kernel ({entry}) launch failed: "
                            f"cudaError {err}")

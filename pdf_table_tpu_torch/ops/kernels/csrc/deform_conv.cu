@@ -30,8 +30,10 @@
 // Layouts (as pdf_table_tpu.ops.deform_conv.deform_conv2d): x NHWC,
 // offset (B, Ho, Wo, 2K) f32 (dy, dx) pairs, mask (B, Ho, Wo, K) f32,
 // weight (Kh, Kw, Cin, Cout), bias (Cout) f32 or null, out (B, Ho, Wo,
-// Cout) f32. bf16 x and weight take the tensor-core body below; f32 takes
-// a CUDA-core body (neither TPU kernel takes f32).
+// Cout) f32. bf16 x and weight take the bf16 tensor-core body below; f32
+// (neither TPU kernel takes it; JAX leaves the f32 DCN to XLA) takes the
+// f32 body at the end of the file, the same design with the 3xTF32 split
+// (tf32 wgmma on hi and lo operands), the column unrounded in f32.
 //
 // What bounds it: the compulsory bytes (x, offset, mask, W, out) at the
 // 64-channel LORE levels, the operations (2 * P * K * Cin * Cout, or 4x
@@ -251,14 +253,59 @@ struct Wgmma<256> {
   }
 };
 
+// D[64 x N] (+)= A[64 x 8] B[8 x N] in tf32, A and B K-major in shared
+// memory (tf32 takes no transpose); ``scale_d`` 0 ignores D's old value
+template <int N>
+struct WgmmaTf32;
+
+template <>
+struct WgmmaTf32<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1;\n}\n"
+        : F16(0), F16(16)
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaTf32<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55,"
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1;\n}\n"
+        : F16(0), F16(16), F16(32), F16(48)
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
 #undef F16
 #undef F4
 
 // Corner rows and weights of pixel ``p`` at tap ``t`` (the rows of the
 // four corners in x, 0 where the corner lies outside the image; flat-kc
 // mode rounds the weights to bf16, as the TPU route's w4).
-template <int MODE>
-__device__ __forceinline__ void corner_table(const DcnArgs& a, long long p,
+template <int MODE, class Args>
+__device__ __forceinline__ void corner_table(const Args& a, long long p,
                                              long long P, int t, int4* rows,
                                              float4* wts) {
   int rq[4] = {0, 0, 0, 0};
@@ -562,181 +609,399 @@ int dcn_bf16(int mode, const void* x, const float* offset, const float* mask,
 }
 
 // ---------------------------------------------------------------------------
-// f32 CUDA-core body: one block per (64 pixels, 64 channels), Cin in chunks
-// of 32, the blended column tile and the W slice in shared memory, 4 x 4
-// register tiles of f32 FMAs.
+// f32 tensor-core body (3xTF32)
 // ---------------------------------------------------------------------------
+//
+// wgmma takes f32 data only as tf32 (m64nNk8.f32.tf32.tf32, both operands
+// K-major in shared memory). One 128-byte swizzle row holds 32 f32
+// channels, so a K step is (tap, 32 input channels) and a 16-byte chunk is
+// 4 channels; the byte layout, sw128 and desc_sw128 are the bf16 body's,
+// and a step is 4 k8 instructions per product. Each operand is split as
+// v = hi + lo, hi = tf32_rna(v), lo = tf32_rna(v - hi), and the step
+// computes A_lo B_hi + A_hi B_lo + A_hi B_hi (A_lo B_lo, ~2^-22 relative,
+// is dropped): f32-class sums from tensor-core products.
+//
+// A (the columns): the block's threads blend the four corners in f32 as
+// the bf16 tap mode does, split the column and store hi and lo into two A
+// tiles. B: a pre-pass splits W once per launch into hi and lo tiles,
+// 128B-swizzled and K-major; one cp.async.bulk per step lands both in a
+// 2-stage ring that completes on an mbarrier, issued one step ahead.
+//
+// Accuracy: each step's 12 wgmma start from a zeroed accumulator, and the
+// step's sum is added to a second f32 accumulator in registers, rounded to
+// nearest. The tensor core's own adds into its accumulator are not taken
+// to round to nearest: with truncating adds, one accumulator carried over
+// all 9 * Cin / 8 * 3 k8 groups would drift past f32's error at the LORE
+// depths (576 to 4608); 12 groups a step do not. The two accumulators
+// limit a warpgroup to 128 output channels: a block of two warpgroups
+// covers 256 channels of 64 pixels, both reading the same A tiles, so each
+// column is gathered once for all of Cout up to 256. Where a shape gives
+// fewer blocks than SMs, or a contraction deeper than 72 steps, the taps
+// run in groups (blockIdx.z), each writing its sum to scratch, and a
+// second pass adds the groups and the bias in order: more blocks for the
+// small deep levels, and their sums in chains no longer than the others'.
+//
+// What bounds it: the operations at the three tf32 products' rate (a third
+// of 494.7 TFLOP/s) at the 256/512-channel levels, the gather at the
+// 64-channel ones: f32 corner rows are twice the bf16 body's bytes, and
+// each block also copies 2 * n_tile * 128 bytes of split W a step from L2.
 
-constexpr int kBlockP = 64;    // output pixels per block
-constexpr int kBlockCo = 64;   // output channels per block
-constexpr int kChunkC = 32;    // input channels per shared-memory stage
-constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
-constexpr int kVec = 8;        // channels one thread gathers per corner
+constexpr int kStepF = 32;                          // f32 channels per K step
+constexpr int kTileF = kRowsWG * kStepF * 4;        // one A tile, hi or lo
+constexpr int kBStagesF = 2;
 
-__device__ __forceinline__ void load8(const float* p, float* v) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+struct F32Args {
+  const float* x;
+  const float* offset;
+  const float* mask;
+  const float* wtile;   // B tiles: [step][Cout split][hi, lo][n_tile][32]
+  const float* bias;
+  float* out;
+  float* work;          // per tap group sums [group][P][Cout] (groups > 1)
+  int B, H, W, Cin, Ho, Wo, Cout, Kh, Kw, sh, sw, ph, pw, dh, dw;
+  int tap_group;        // taps per group (blockIdx.z)
+};
+
+// dynamic shared memory: alignment slack, A stages (hi and lo per 64-pixel
+// tile), the B ring (hi and lo), two per-tap corner tables, the barriers
+__host__ __device__ constexpr size_t smem_bytes_f32(int n_tile, int wg_m) {
+  return 1024 + (size_t)kAStages * wg_m * 2 * kTileF
+      + (size_t)kBStagesF * 2 * n_tile * 128
+      + 2 * (size_t)wg_m * kRowsWG * 32 + kBStagesF * 8;
 }
 
-__global__ void __launch_bounds__(kThreads)
-deform_conv_f32_kernel(const float* __restrict__ x,
-                       const float* __restrict__ offset,
-                       const float* __restrict__ mask,
-                       const float* __restrict__ weight,
-                       const float* __restrict__ bias,
-                       float* __restrict__ out,
-                       int B, int H, int W, int Cin, int Ho, int Wo, int Cout,
-                       int Kh, int Kw, int sh, int sw, int ph, int pw,
-                       int dh, int dw) {
-  __shared__ int s_row[4][kBlockP];      // corner pixel row in x, per tap
-  __shared__ float s_w[4][kBlockP];      // blend weight x mask x in-bounds
-  __shared__ __align__(16) float s_col[kChunkC][kBlockP];
-  __shared__ __align__(16) float s_wt[kChunkC][kBlockCo];
+// v rounded to tf32, to nearest with ties away from zero, low 13 bits 0
+__device__ __forceinline__ float tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return __uint_as_float(r & 0xFFFFE000u);
+}
+
+// One step's A for the block: rows (64 per pixel warpgroup) x 32 channels,
+// hi and lo. Item i = (pixel i / 8, chunk i % 8); a thread takes items
+// tid, tid + nthreads, ... (rows * 8 / nthreads of them, 2 or 4), two at a
+// time with their 8 corner loads in flight, 8 neighbouring threads reading
+// one corner row's 128 bytes.
+__device__ __forceinline__ void gather_step_tf32(
+    const float* __restrict__ x, int Cin, int c0, const int4* rows,
+    const float4* wts, uint8_t* stage, int items, int tid, int nthreads) {
+  const int j = tid & 7;
+  const int c = c0 + j * 4;
+  for (int base = tid; base < items; base += 2 * nthreads) {
+    float4 u[2][4];
+    float w[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = (base + i * nthreads) >> 3;
+      const int4 rq = rows[r];
+      const float4 wv = wts[r];
+      const int rr[4] = {rq.x, rq.y, rq.z, rq.w};
+      w[i][0] = wv.x; w[i][1] = wv.y; w[i][2] = wv.z; w[i][3] = wv.w;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        u[i][q] = w[i][q] != 0.f
+            ? __ldg(reinterpret_cast<const float4*>(x + (size_t)rr[q] * Cin + c))
+            : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = (base + i * nthreads) >> 3;
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float f[4] = {u[i][q].x, u[i][q].y, u[i][q].z, u[i][q].w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          v[e] = __fadd_rn(v[e], __fmul_rn(w[i][q], f[e]));
+      }
+      float hi[4], lo[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        hi[e] = tf32_rna(v[e]);
+        lo[e] = tf32_rna(__fsub_rn(v[e], hi[e]));
+      }
+      uint8_t* tile = stage + (r >> 6) * 2 * kTileF + sw128(r & 63, j);
+      *reinterpret_cast<float4*>(tile) = make_float4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<float4*>(tile + kTileF) =
+          make_float4(lo[0], lo[1], lo[2], lo[3]);
+    }
+  }
+}
+
+// A block of wg_m x wg_n warpgroups (wg_m * wg_n <= 2) covers wg_m * 64
+// output pixels and n_tile = wg_n * NW output channels of Cout split
+// blockIdx.y, over the taps of group blockIdx.z; warpgroup wg takes pixel
+// tile wg % wg_m and channel slice wg / wg_m. With one group it writes
+// out + bias, else its group's sums into ``work``. The 64-channel body
+// fits in 128 registers, so two of its blocks share an SM.
+template <int NW>
+__global__ void __launch_bounds__(256, NW == 64 ? 2 : 1)
+dcn_tf32_kernel(const F32Args a, int wg_m) {
+  extern __shared__ uint8_t smem_raw[];
+  const int nthreads = blockDim.x;
+  const int wg_n = nthreads / 128 / wg_m;
+  const int n_tile = NW * wg_n;
+  const int rows = wg_m * kRowsWG;
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* s_a = smem;                                  // [stage][wm][hi, lo]
+  uint8_t* s_b = s_a + kAStages * wg_m * 2 * kTileF;    // [stage][hi, lo]
+  const uint32_t b_bytes = 2 * n_tile * 128;
+  int4* s_rows = reinterpret_cast<int4*>(s_b + kBStagesF * b_bytes);
+  float4* s_wts = reinterpret_cast<float4*>(s_rows + 2 * rows);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(s_wts + 2 * rows);
 
   const int tid = threadIdx.x;
-  const int K = Kh * Kw;
-  const long long P = (long long)B * Ho * Wo;
-  const long long p0 = (long long)blockIdx.x * kBlockP;
-  const int co0 = blockIdx.y * kBlockCo;
-  const int tx = tid & 15;   // output channels tx*4 .. tx*4+3
-  const int ty = tid >> 4;   // output pixels ty*4 .. ty*4+3
-  const int gp = tid & (kBlockP - 1);   // gather role: pixel
-  const int gv = tid >> 6;              // gather role: 8-channel slice
+  const int wg = tid >> 7;
+  const int tw = tid & 127;
+  const int wm = wg % wg_m;
+  const int wn = wg / wg_m;
+  const int K = a.Kh * a.Kw;
+  const int cpt = a.Cin / kStepF;          // steps per tap
+  const int t0 = blockIdx.z * a.tap_group;
+  const int k0 = t0 * cpt;                 // the group's first step
+  const int nk = (min(K, t0 + a.tap_group) - t0) * cpt;
+  const long long P = (long long)a.B * a.Ho * a.Wo;
+  const long long p0 = (long long)blockIdx.x * rows;
+  const int split = blockIdx.y;
+  const int nsplit = gridDim.y;
 
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int t = 0; t < K; ++t) {
-    if (tid < kBlockP) {
-      const long long p = p0 + tid;
-      float wq[4] = {0.f, 0.f, 0.f, 0.f};
-      int rq[4] = {0, 0, 0, 0};
-      if (p < P) {
-        const int b = (int)(p / ((long long)Ho * Wo));
-        const int r = (int)(p - (long long)b * Ho * Wo);
-        const int oy = r / Wo;
-        const int ox = r - oy * Wo;
-        const int ky = t / Kw;
-        const int kx = t - ky * Kw;
-        const float* off = offset + p * (2 * K) + 2 * t;
-        const float sy = (float)(oy * sh - ph + ky * dh) + off[0];
-        const float sx = (float)(ox * sw - pw + kx * dw) + off[1];
-        const float m = mask[p * K + t];
-        const float y0f = floorf(sy);
-        const float x0f = floorf(sx);
-        const float wy = sy - y0f;
-        const float wx = sx - x0f;
-        const int y0 = (int)y0f;
-        const int x0 = (int)x0f;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int yy = y0 + (q >> 1);
-          const int xx = x0 + (q & 1);
-          const bool ok = yy >= 0 && yy < H && xx >= 0 && xx < W;
-          const float w = ((q >> 1) ? wy : 1.f - wy) *
-                          ((q & 1) ? wx : 1.f - wx) * m;
-          wq[q] = ok ? w : 0.f;
-          rq[q] = ok ? (b * H + yy) * W + xx : 0;
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        s_w[q][tid] = wq[q];
-        s_row[q][tid] = rq[q];
-      }
-    }
+  // k counts the group's steps from 0; the tables and W index taps and
+  // steps from the kernel's first
+  auto load_b = [&](int k) {
+    const int s = k % kBStagesF;
+    bulk_load(s_b + s * b_bytes,
+              a.wtile + ((size_t)(k0 + k) * nsplit + split) * 2 * n_tile
+                  * kStepF,
+              b_bytes, &bars[s]);
+  };
+  auto table = [&](int t) {
+    const int buf = (t & 1) * rows;
+    if (tid < rows)
+      corner_table<kTap>(a, p0 + tid, P, t, &s_rows[buf + tid],
+                         &s_wts[buf + tid]);
     __syncthreads();
+  };
+  auto gather = [&](int k) {
+    const int t = (k0 + k) / cpt;
+    const int buf = (t & 1) * rows;
+    gather_step_tf32(a.x, a.Cin, (k0 + k - t * cpt) * kStepF,
+                            s_rows + buf, s_wts + buf,
+                            s_a + (k & 1) * wg_m * 2 * kTileF, rows * 8, tid,
+                            nthreads);
+  };
 
-    const float* wtap = weight + (size_t)t * Cin * Cout;
-    for (int c0 = 0; c0 < Cin; c0 += kChunkC) {
-      // gather + blend one (pixel, 8 channels) slice of the column tile
-      float v[kVec];
+  if (tid == 0) {
 #pragma unroll
-      for (int j = 0; j < kVec; ++j) v[j] = 0.f;
-      const int c = c0 + gv * kVec;
+    for (int s = 0; s < kBStagesF; ++s) mbar_init(&bars[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int k = 0; k < kBStagesF && k < nk; ++k) load_b(k);
+
+  float acc[NW / 2];
+  float sum[NW / 2];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float w = s_w[q][gp];
-        if (w != 0.f) {
-          float g[kVec];
-          load8(x + (size_t)s_row[q][gp] * Cin + c, g);
+  for (int i = 0; i < NW / 2; ++i) acc[i] = sum[i] = 0.f;
+
+  table(t0);
+  gather(0);
+  for (int k = 0; k < nk; ++k) {
+    fence_proxy_async();   // this thread's A stores, visible to wgmma
+    __syncthreads();       // A[k] complete; every wgmma of step k-1 done
+    if (tid == 0 && k >= 1 && k + kBStagesF - 1 < nk)
+      load_b(k + kBStagesF - 1);   // into the stage step k-1 used
+    mbar_wait(&bars[k % kBStagesF], (k / kBStagesF) & 1);
+    const uint32_t a_hi = smem_u32(s_a + ((k & 1) * wg_m + wm) * 2 * kTileF);
+    const uint32_t a_lo = a_hi + kTileF;
+    const uint32_t b_hi =
+        smem_u32(s_b + (k % kBStagesF) * b_bytes) + wn * NW * 128;
+    const uint32_t b_lo = b_hi + n_tile * 128;
+    fence_acc(acc);
+    wgmma_fence();
 #pragma unroll
-          for (int j = 0; j < kVec; ++j) v[j] = fmaf(w, g[j], v[j]);
-        }
-      }
+    for (int kk = 0; kk < kStepF / 8; ++kk)   // the first starts from 0
+      WgmmaTf32<NW>::mma(acc, desc_sw128(a_lo + kk * 32),
+                         desc_sw128(b_hi + kk * 32), kk);
 #pragma unroll
-      for (int j = 0; j < kVec; ++j) s_col[gv * kVec + j][gp] = v[j];
-      // stage W[t][c0:c0+32][co0:co0+64]
+    for (int kk = 0; kk < kStepF / 8; ++kk)
+      WgmmaTf32<NW>::mma(acc, desc_sw128(a_hi + kk * 32),
+                         desc_sw128(b_lo + kk * 32), 1);
 #pragma unroll
-      for (int i = 0; i < (kChunkC * kBlockCo) / kThreads; ++i) {
-        const int e = tid + i * kThreads;
-        const int k = e / kBlockCo;
-        const int co = e - k * kBlockCo;
-        s_wt[k][co] = (co0 + co < Cout)
-            ? wtap[(size_t)(c0 + k) * Cout + co0 + co] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < kChunkC; ++k) {
-        const float4 a = *reinterpret_cast<const float4*>(&s_col[k][ty * 4]);
-        const float4 bw = *reinterpret_cast<const float4*>(&s_wt[k][tx * 4]);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-        const float bv[4] = {bw.x, bw.y, bw.z, bw.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-      __syncthreads();
+    for (int kk = 0; kk < kStepF / 8; ++kk)
+      WgmmaTf32<NW>::mma(acc, desc_sw128(a_hi + kk * 32),
+                         desc_sw128(b_hi + kk * 32), 1);
+    wgmma_commit();
+    if (k + 1 < nk) {      // gathered while the step's wgmma run
+      if ((k0 + k + 1) % cpt == 0) table((k0 + k + 1) / cpt);
+      gather(k + 1);
     }
+    wgmma_wait<0>();
+    fence_acc(acc);
+#pragma unroll
+    for (int i = 0; i < NW / 2; ++i) sum[i] = __fadd_rn(sum[i], acc[i]);
   }
 
+  // accumulator fragment as in the bf16 body
+  const int lane = tw & 31;
+  const long long q0 = p0 + wm * kRowsWG + (tw >> 5) * 16 + (lane >> 2);
+  const bool pairs = (a.Cout & 1) == 0;
+  const bool whole = gridDim.z == 1;
+  float* dst = whole ? a.out : a.work + blockIdx.z * P * a.Cout;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long p = p0 + ty * 4 + i;
-    if (p >= P) continue;
+  for (int j = 0; j < NW / 8; ++j) {
+    const int co = split * n_tile + wn * NW + j * 8 + (lane & 3) * 2;
+    if (co >= a.Cout) continue;
+    const bool two = co + 1 < a.Cout;
+    const float b0 = whole && a.bias != nullptr ? a.bias[co] : 0.f;
+    const float b1 = whole && a.bias != nullptr && two ? a.bias[co + 1] : 0.f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int co = co0 + tx * 4 + j;
-      if (co < Cout)
-        out[p * Cout + co] = acc[i][j] + (bias != nullptr ? bias[co] : 0.f);
+    for (int h = 0; h < 2; ++h) {
+      const long long p = q0 + 8 * h;
+      if (p >= P) continue;
+      float* o = dst + p * a.Cout + co;
+      const float v0 = sum[4 * j + 2 * h] + b0;
+      const float v1 = sum[4 * j + 2 * h + 1] + b1;
+      if (pairs) {
+        *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+      } else {
+        o[0] = v0;
+        if (two) o[1] = v1;
+      }
     }
   }
+}
+
+// W (K, Cin, Cout) -> the B tiles the f32 body copies per step: for step k
+// (tap k / (Cin/32), channels 32 (k % (Cin/32)) ..) and Cout split s, the
+// hi tile and then the lo tile, each (n x 32) K-major and 128B-swizzled,
+// zero past Cout. One thread per (step, split, 16-byte chunk, n), n
+// fastest, so a warp reads 32 neighbouring output channels.
+__global__ void stage_weight_tf32_kernel(const float* __restrict__ w,
+                                         float* __restrict__ wtile, int K,
+                                         int Cin, int Cout, int n,
+                                         int nsplit) {
+  const long long total = (long long)K * (Cin / kStepF) * nsplit * 8 * n;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const int nn = (int)(i % n);
+  const long long r = i / n;
+  const int c = (int)(r & 7);
+  const long long tile = r >> 3;           // step * nsplit + split
+  const int s = (int)(tile % nsplit);
+  const long long k = tile / nsplit;       // step: (tap, 32-channel chunk)
+  const int co = s * n + nn;
+  const long long ci0 = k * kStepF + c * 4;   // row of W viewed (K*Cin, Cout)
+  float hi[4], lo[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float v = co < Cout ? w[(ci0 + e) * Cout + co] : 0.f;
+    hi[e] = tf32_rna(v);
+    lo[e] = tf32_rna(__fsub_rn(v, hi[e]));
+  }
+  uint8_t* dst = reinterpret_cast<uint8_t*>(wtile) + tile * (2 * n * 128)
+      + nn * 128 + ((c ^ (nn & 7)) << 4);
+  *reinterpret_cast<float4*>(dst) = make_float4(hi[0], hi[1], hi[2], hi[3]);
+  *reinterpret_cast<float4*>(dst + n * 128) =
+      make_float4(lo[0], lo[1], lo[2], lo[3]);
+}
+
+// out = (work[0] + work[1] + ...) + bias, the tap groups in order
+__global__ void reduce_tf32_kernel(const float* __restrict__ work,
+                                   const float* __restrict__ bias,
+                                   float* __restrict__ out, long long n,
+                                   int Cout, int groups) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float v = work[i];
+  for (int g = 1; g < groups; ++g) v = __fadd_rn(v, work[g * n + i]);
+  out[i] = bias != nullptr ? __fadd_rn(v, bias[i % Cout]) : v;
+}
+
+template <int NW>
+cudaError_t launch_tf32(const F32Args& a, int wg_m, int wg_n, int nsplit,
+                        int groups, cudaStream_t s) {
+  const size_t smem = smem_bytes_f32(NW * wg_n, wg_m);
+  if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(
+      dcn_tf32_kernel<NW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return e;
+  const long long P = (long long)a.B * a.Ho * a.Wo;
+  const long long rows = (long long)wg_m * kRowsWG;
+  const dim3 grid((unsigned)((P + rows - 1) / rows), (unsigned)nsplit,
+                  (unsigned)groups);
+  dcn_tf32_kernel<NW><<<grid, 128 * wg_m * wg_n, smem, s>>>(a, wg_m);
+  return cudaGetLastError();
+}
+
+// n_tile 64 or 128: one warpgroup per 64 pixels (wgs of them); n_tile 256:
+// two warpgroups on 64 pixels (wgs must be 1). The taps run in groups of
+// tap_group, one blockIdx.z each; more than one group needs ``work``
+// scratch of groups * P * Cout f32.
+int dcn_f32(const void* x, const float* offset, const float* mask,
+            const void* weight, const float* bias, float* out, void* wtile,
+            void* work, int B, int H, int W, int Cin, int Ho, int Wo,
+            int Cout, int Kh, int Kw, int sh, int sw, int ph, int pw, int dh,
+            int dw, int n_tile, int wgs, int tap_group, void* stream) {
+  const long long P = (long long)B * Ho * Wo;
+  if (P <= 0 || Cout <= 0) return (int)cudaSuccess;
+  const int K = Kh * Kw;
+  const int wg_n = n_tile == 256 ? 2 : 1;
+  const int groups = tap_group > 0 ? (K + tap_group - 1) / tap_group : 0;
+  if (Cin % kStepF != 0 ||
+      (n_tile != 64 && n_tile != 128 && n_tile != 256) ||
+      (wgs != 1 && wgs != 2) || wgs * wg_n > 2 || groups < 1 ||
+      (groups > 1 && work == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int nsplit = (Cout + n_tile - 1) / n_tile;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long threads = (long long)K * (Cin / kStepF) * nsplit * 8 * n_tile;
+  stage_weight_tf32_kernel<<<(unsigned)((threads + 255) / 256), 256, 0, s>>>(
+      static_cast<const float*>(weight), static_cast<float*>(wtile), K, Cin,
+      Cout, n_tile, nsplit);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const F32Args a{static_cast<const float*>(x), offset, mask,
+                  static_cast<const float*>(wtile), bias, out,
+                  static_cast<float*>(work), B, H, W, Cin, Ho, Wo, Cout, Kh,
+                  Kw, sh, sw, ph, pw, dh, dw, tap_group};
+  e = n_tile == 64 ? launch_tf32<64>(a, wgs, wg_n, nsplit, groups, s)
+                   : launch_tf32<128>(a, wgs, wg_n, nsplit, groups, s);
+  if (e != cudaSuccess || groups == 1) return (int)e;
+  const long long n = P * Cout;
+  reduce_tf32_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
+      static_cast<const float*>(work), bias, out, n, Cout, groups);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Tap mode. dtype: 0 = float32 (the CUDA-core body; Cin % 32 == 0), 1 =
-// bfloat16 (the tensor-core body; Cin % 64 == 0, Cout % 8 == 0, Cout <=
-// 256, n_tile in {64, 128, 256}, wgs in {1, 2}, and ``wtile`` scratch of
-// Kh*Kw*Cin*ceil(Cout/n_tile)*n_tile bf16 for the staged weights).
-// x must be 16-byte aligned. Returns the cudaError_t of the launch.
+// Tap mode. dtype: 0 = float32 (the 3xTF32 tensor-core body: Cin % 32 ==
+// 0, any Cout, n_tile in {64, 128, 256}, wgs in {1, 2} and 1 with n_tile
+// 256, ``wtile`` scratch of 2*Kh*Kw*Cin*ceil(Cout/n_tile)*n_tile f32 for
+// the split weights, taps in groups of tap_group >= 1 and, with more than
+// one group, ``work`` scratch of groups*B*Ho*Wo*Cout f32), 1 = bfloat16
+// (the bf16 tensor-core body; Cin % 64 == 0, Cout % 8 == 0, Cout <= 256,
+// n_tile in {64, 128, 256}, wgs in {1, 2}, ``wtile`` scratch of
+// Kh*Kw*Cin*ceil(Cout/n_tile)*n_tile bf16 for the staged weights; work and
+// tap_group unused). x must be 16-byte aligned. Returns the cudaError_t of
+// the launch.
 extern "C" int pdft_deform_conv2d_fwd(
     const void* x, const float* offset, const float* mask, const void* weight,
-    const float* bias, float* out, void* wtile, int dtype, int B, int H,
-    int W, int Cin, int Ho, int Wo, int Cout, int Kh, int Kw, int sh, int sw,
-    int ph, int pw, int dh, int dw, int n_tile, int wgs, void* stream) {
+    const float* bias, float* out, void* wtile, void* work, int dtype, int B,
+    int H, int W, int Cin, int Ho, int Wo, int Cout, int Kh, int Kw, int sh,
+    int sw, int ph, int pw, int dh, int dw, int n_tile, int wgs,
+    int tap_group, void* stream) {
   if (dtype == 1)
     return dcn_bf16(kTap, x, offset, mask, weight, bias, out, wtile, B, H, W,
                     Cin, Ho, Wo, Cout, Kh, Kw, sh, sw, ph, pw, dh, dw, n_tile,
                     wgs, stream);
-  if (dtype != 0) return (int)cudaErrorInvalidValue;
-  const long long P = (long long)B * Ho * Wo;
-  if (P <= 0 || Cout <= 0) return (int)cudaSuccess;
-  if (Cin % kChunkC != 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((P + kBlockP - 1) / kBlockP),
-                  (unsigned)((Cout + kBlockCo - 1) / kBlockCo));
-  deform_conv_f32_kernel<<<grid, kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), offset, mask,
-      static_cast<const float*>(weight), bias, out, B, H, W, Cin, Ho, Wo,
-      Cout, Kh, Kw, sh, sw, ph, pw, dh, dw);
-  return (int)cudaGetLastError();
+  if (dtype == 0)
+    return dcn_f32(x, offset, mask, weight, bias, out, wtile, work, B, H, W,
+                   Cin, Ho, Wo, Cout, Kh, Kw, sh, sw, ph, pw, dh, dw, n_tile,
+                   wgs, tap_group, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 // Flat-kc mode: bf16 only, the same arguments and constraints as the bf16

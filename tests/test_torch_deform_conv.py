@@ -210,11 +210,26 @@ def test_wrapper_refuses_other_devices():
                           torch.zeros(3, 3, 32, 8, device="meta"))
 
 
+# the f32 body against deform_conv2d_3xtf32_plain: the same split
+# operands, f32 sums in another order (tensor-core groups of 8 summed per
+# K step, torch's matmul), each some 3e-7 of max |out| from exact at the
+# LORE depths
+TF32_TOL = 2e-6
+# (B, H, W, Cin, Cout) of the f32 body: a 64-wide tile on 128-pixel blocks,
+# a 256 tile (two warpgroups) in three tap groups, Cout split in nine tap
+# groups, a Cout no tile divides
+F32_CARD_SHAPES = [(8, 48, 48, 64, 64), (8, 24, 24, 512, 256),
+                   (1, 16, 16, 64, 300), (1, 9, 11, 32, 7)]
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card():
     """Runs on a machine with the card: python -m pytest -m cuda. Both
-    modes of the kernel, bf16 (and the tap mode's f32 body), at a shape
-    ragged in pixels with Cout = 72 (two Cout splits)."""
+    modes of the kernel, bf16, and the tap mode's f32 body, at a shape
+    ragged in pixels with Cout = 72 (two Cout splits); the f32 body also at
+    F32_CARD_SHAPES, against deform_conv2d_3xtf32_plain and, with an f64
+    evaluation of the same columns, no more than twice the plain f32
+    version's error."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
@@ -239,3 +254,22 @@ def test_kernel_matches_plain_on_card():
         want = plain(xt, *rest, wt, bt)
         err = float((got - want).abs().max() / want.abs().max())
         assert err < 1e-4, (name, dtype, err)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for shape in F32_CARD_SHAPES:
+        ts = [torch.from_numpy(a).to(dev) for a in _inputs(
+            *shape, (1, 1), (1, 1), (1, 1), off_scale=3.0)]
+        got = tdc.deform_conv2d_tap(*ts).double()
+        plain = tdc.deform_conv2d_plain(*ts).double()
+        cin, cout = shape[3:]
+        ref = sum(col.double() @ ts[3].reshape(9, cin, cout)[t].double()
+                  for t, col in enumerate(tdc.tap_columns(
+                      *ts[:3], (3, 3)))).reshape(got.shape) + ts[4].double()
+        scale = float(ref.abs().max())
+
+        def rel(a, b):
+            return float((a - b).abs().max()) / scale
+
+        assert rel(got, plain) < 1e-4, shape
+        assert rel(got, tdc.deform_conv2d_3xtf32_plain(*ts).double()) \
+            < TF32_TOL, shape
+        assert rel(got, ref) <= 2 * rel(plain, ref), shape
