@@ -107,6 +107,30 @@ Phases, each fatal on failure:
      every digital page against the same pipeline on the CPU: vector text
      cells equal, table_html equal wherever the layout's table regions
      are (the count printed);
+ 9c. bf16_models: every model that runs bf16 since the twelfth slice, f32
+     and bf16 at full width on the trees and inputs of its f32 phase (the
+     four DBNets on a chunk of 8 at 960x720, PicoDet on the chunk, the
+     four recognizers and the 0/180 PP-LCNet on the 248 crops, the SLANet
+     and TableMaster encoders on a sub-batch of 8 crops, LGPMA on one
+     crop): forward ms of both dtypes (CUDA events, two rounds), speed-up,
+     peak memory, the bf16-vs-f32 gap (printed), the card's bf16 heads
+     finite and within BF16_CPU_RMS of the same bf16 model on the CPU on
+     the first two inputs;
+ 9d. pipeline_bf16: the pipeline phase's configuration and 16 pages with
+     no dtype passed, so that the port's policy gives bf16 to detection,
+     PicoDet, recognition and LORE as JAX's registry does on its
+     accelerator: a counted run (K3 once a chunk, K1's bf16 body and K2
+     over 16 DCNs a LORE sub-batch, dcn_wgmma_kernel in the trace, no page
+     error, every page with HTML), pages/s, lanes, idle share, peak
+     memory, and the share of pages whose quad counts, texts and table
+     cell counts equal the f32 run's (reported);
+ 9e. tsr_host_crop: LORE wireless (f32) through the per-crop surface:
+     batch_infer on the 8 TSR crops and __call__ on one, crops/s beside
+     batch_infer_from_pages on the same regions, 2 crops against the same
+     task on the CPU slot by slot on their uint8 warps (valid slots,
+     dets, logical coordinates), the cells and table HTML of the crops
+     and the call compared and printed. Every phase before 9c pins dtype="float32" where it
+     means f32 (F32);
  10. tsr_slanet and tsr_master: OcrTableStructureTask(model="SLANet")
      (488^2, LCNet 1.0, neck 96, hidden 256) and (model="TableMaster")
      (480^2, D 512, 8 heads, ff 2024, N = 3), f32, T = 500 steps each, on
@@ -297,6 +321,9 @@ RN_CASES = [(n, hw, det) for hw, det in RN_BUCKETS for n in (8, 1)] \
     + [(2, (480, 360), (960, 720)), (2, (480, 368), (960, 720))]
 # both sides compute in f32 and differ only in summation order
 RN_TOL = 1e-5
+# every phase that means f32 names it: on the card the dtype policy
+# (engine/device.py::default_dtype) gives the registry models bf16
+F32 = dict(dtype="float32")
 # F.interpolate computes the source coordinate in f32 (the tap tables in
 # f64), so its weights differ by ~1e-4 near the canvas' far edge
 RN_LIBRARY_TOL = 1e-2
@@ -310,7 +337,7 @@ DET_U8_SHARE = 1e-4
 CC_MEAN_RTOL = 1e-6
 # the bench's detection overrides (bench.py:76-78): random weights find no
 # text at the PP-OCRv4 defaults
-DET_KW = dict(thresh=0.45, box_thresh=0.0, max_candidates=48)
+DET_KW = dict(thresh=0.45, box_thresh=0.0, max_candidates=48, **F32)
 DET_PAGES = 8
 # recognition slice: the card against the port on the CPU, same weights and
 # inputs, both f32. Share of crops whose ids and keep masks are all equal
@@ -324,7 +351,8 @@ REC_LINES = 30          # the bench's line grid per page
 # tree's BatchNorm scale and head gain (see layout_tree); the card against
 # the CPU: boxes in canvas px (800x608 input from 1280x960 canvases, 1.6
 # canvas px a model px), scores (f32 sums in another order)
-LAYOUT_KW = dict(task_type="table", score_threshold=0.05, keep_top_k=2)
+LAYOUT_KW = dict(task_type="table", score_threshold=0.05, keep_top_k=2,
+                 **F32)
 LAYOUT_BN_SCALE = 0.2
 LAYOUT_HEAD_GAIN = 4.0
 LAYOUT_BOX_TOL = 0.5
@@ -335,7 +363,7 @@ LAYOUT_SCORE_TOL = 1e-4
 PIPE_PAGES = 16
 PIPE_RUNS = 5
 PIPE_CPU_PAGES = 2
-PIPE_LORE_KW = dict(dtype="float32", vis_thresh=VIS_THRESH)
+PIPE_LORE_KW = dict(vis_thresh=VIS_THRESH, **F32)
 PIPE_QUAD_TOL = 1.0
 PIPE_TEXT_MIN = 0.98
 # pipeline_digital: 8 raster pages of the digital pages' canvas bucket
@@ -1537,7 +1565,8 @@ def rec_setup():
     rec_v, cls_v = rec_cls_trees(canvases)
     cls = ClsImagePulcTask("textline_orientation", device="cuda",
                            variables=cls_v)
-    task = OcrRecognitionTask(device="cuda", variables=rec_v, cls_task=cls)
+    task = OcrRecognitionTask(device="cuda", variables=rec_v, cls_task=cls,
+                              **F32)
     # put the flip threshold between the two middle crops' margins
     dev_pages = torch.from_numpy(canvases).cuda()
     margins = []
@@ -1553,7 +1582,7 @@ def rec_setup():
     cls.load_variables(cls_v)
     cpu = OcrRecognitionTask(
         device="cpu", variables=rec_v, cls_task=ClsImagePulcTask(
-            "textline_orientation", device="cpu", variables=cls_v))
+            "textline_orientation", device="cpu", variables=cls_v), **F32)
     return task, cpu, canvases, quads
 
 
@@ -1949,7 +1978,7 @@ def token_tree(model: str, dev_pages, regions, base=None):
         params.update({k: v for k, v in cell.items()
                        if k.startswith(("cell", "fc_cell"))})
         return {"params": params, "batch_stats": base["batch_stats"]}
-    task = OcrTableStructureTask(model=model, device="cuda")
+    task = OcrTableStructureTask(model=model, device="cuda", **F32)
     cfg = task.model_config
     (_sub, _metas, x), = task.sub_batches(dev_pages, regions)
     net = task.model
@@ -2092,7 +2121,8 @@ def phase_tsr(card, model: str, pages, regions, base=None):
     t0 = time.perf_counter()
     dev_pages = torch.from_numpy(pages).cuda()
     tree = token_tree(model, dev_pages, regions, base)
-    task = OcrTableStructureTask(model=model, device="cuda", variables=tree)
+    task = OcrTableStructureTask(model=model, device="cuda", variables=tree,
+                                 **F32)
     build_s = time.perf_counter() - t0
     cfg = task.model_config
 
@@ -2130,7 +2160,8 @@ def phase_tsr(card, model: str, pages, regions, base=None):
     prof = profile_run(lambda: task.batch_infer_from_pages(dev_pages,
                                                            regions))
     prof.pop("kernel_names")
-    cpu = OcrTableStructureTask(model=model, device="cpu", variables=tree)
+    cpu = OcrTableStructureTask(model=model, device="cpu", variables=tree,
+                                **F32)
     agree = tsr_agreement(task, cpu, dev_pages, pages, regions)
     summary = {
         "card": card, "model": model, "variant": getattr(
@@ -2215,7 +2246,7 @@ def add_lines(quads, shapes):
     return out
 
 
-def build_pipeline(device, trees, tsr="Lore"):
+def build_pipeline(device, trees, tsr="Lore", policy=False):
     """The port's BatchPipeline with bench.py's configuration
     (bench.py:73-88): det thresholds, the table layout head, rec en, LORE
     wireless f32 with res_buckets="auto", no page orientation check, the
@@ -2225,7 +2256,10 @@ def build_pipeline(device, trees, tsr="Lore"):
     500) on ``trees["tsr"]`` through
     ``OcrSystemConfig.table_structure_kwargs``; with "LoreAndLineCell" the
     LORE task of the pipeline phase plus the line cells, on
-    ``trees["lore"]``."""
+    ``trees["lore"]``. Every model is f32, unless ``policy``: then the
+    registry models (detection, PicoDet, recognition, LORE) get no dtype,
+    and the port's policy gives them bf16 on the card, as JAX's registry
+    gives them bf16 on its accelerator."""
     from pdf_table_tpu_torch.pipeline.batch_runner import BatchPipeline
     from pdf_table_tpu_torch.pipeline.system import OcrSystemConfig
     from pdf_table_tpu_torch.tasks.cls_pulc import ClsImagePulcTask
@@ -2235,28 +2269,35 @@ def build_pipeline(device, trees, tsr="Lore"):
     from pdf_table_tpu_torch.tasks.table_structure import \
         OcrTableStructureTask
 
+    def pin(kw):
+        return {k: v for k, v in kw.items() if k != "dtype"} if policy \
+            else dict(kw, **F32)
+
     cfg = OcrSystemConfig(use_layout=True, use_table=True,
                           use_orientation_cls=False,
                           table_structure_model=tsr)
     if tsr == "LoreAndLineCell":
         cfg.table_structure_kwargs = dict(
             task_type="wireless", variables=trees["lore"],
-            res_buckets="auto", **PIPE_LORE_KW)
+            res_buckets="auto", **pin(PIPE_LORE_KW))
     elif tsr != "Lore":
-        cfg.table_structure_kwargs = {"variables": trees["tsr"]}
+        cfg.table_structure_kwargs = {"variables": trees["tsr"], **F32}
     bp = BatchPipeline(cfg, batch_pages=8, device=device)
     s = bp.system
-    s._det = OcrDetectionTask(model="PP-OCRv4_det", device=device, **DET_KW)
+    s._det = OcrDetectionTask(model="PP-OCRv4_det", device=device,
+                              **pin(DET_KW))
     s._layout = OcrLayoutTask(model="picodet", device=device,
-                              variables=trees["layout"], **LAYOUT_KW)
+                              variables=trees["layout"], **pin(LAYOUT_KW))
     s._rec = OcrRecognitionTask(model=cfg.recognizer_model, lang=cfg.lang,
-                                device=device, variables=trees["rec"])
+                                device=device, variables=trees["rec"],
+                                **pin({}))
     s._line_cls = ClsImagePulcTask("textline_orientation", device=device,
                                    variables=trees["cls"])
     if tsr == "Lore":
         s._tsr = OcrTableStructureTask(model="Lore", task_type="wireless",
                                        device=device, variables=trees["lore"],
-                                       res_buckets="auto", **PIPE_LORE_KW)
+                                       res_buckets="auto",
+                                       **pin(PIPE_LORE_KW))
     orig = bp._boxes_finish
     bp._boxes_finish = lambda packed, shapes, bucket_hw, prob_hw: add_lines(
         orig(packed, shapes, bucket_hw, prob_hw), shapes)
@@ -2398,7 +2439,450 @@ def phase_pipeline(card, layout_v):
           f"texts equal on {cmp['text_share']:.3f} of crops")
     check(cmp["page_html_equal"] == cmp["page_html_checked"],
           "page_html differs where its inputs are equal")
-    return launches, trees
+    return launches, trees, out
+
+# bf16_models: timed forwards per model and dtype, in two rounds (f32,
+# bf16, then bf16, f32), and the bf16-vs-f32 gap of the heads on the card
+# (printed: random trees calibrated on mostly white pages keep channels of
+# near-zero variance, whose BatchNorm multiplies bf16's round-off by up to
+# 1 / sqrt(eps), so the gap says how the tree amplifies round-off, not
+# whether bf16 is right). The checks, on the first BF16_CPU_ITEMS inputs
+# (RMS relative to the largest magnitude): the card's bf16 heads finite and
+# within BF16_CPU_RMS of the same bf16 model on the CPU, which the CPU
+# tests hold to JAX's bf16 models (cuDNN and oneDNN sum in other orders:
+# the largest reading 4.9e-3, LightweightEdge); and bf16 on the card: its
+# heads at least BF16_OWN_MIN as far from the card's f32 heads as the CPU's
+# bf16 heads are. The smallest bf16-vs-f32 gap (4.5e-4, ProxylessNAS) lies
+# under the largest card-vs-CPU reading, so closeness alone cannot tell a
+# card path that lost bf16; the second check does, and the card's f32
+# heads, put in place of its bf16 ones, must fail the two (the control)
+BF16_RUNS = 3
+BF16_CPU_ITEMS = 2
+BF16_CPU_RMS = 1e-2
+BF16_OWN_MIN = 0.5
+# PP-LCNet's two-class probabilities saturate on most crops (the card's
+# bf16 equalled the CPU's on the first 2): more crops, for a gap to f32
+BF16_CLS_ITEMS = 32
+# tsr_host_crop: the card against the CPU on the first TSR_CPU_CROPS crops'
+# warp_u8 inputs and on __call__'s float-warp input (f32 on both sides,
+# cuDNN and oneDNN sum in other orders), slot by slot on every compared
+# input, with the slice's tolerances: the share of valid slots (by their
+# centre) valid in both runs at least MATCH_MIN (a slot at the visibility
+# threshold goes either way), the dets of the common slots within
+# HOST_CROP_DETS_PX feature-map px (the heads do not see the other slots),
+# their logical coordinates within LOGI_TOL of the largest (the regressor
+# attends over all valid slots, so one slot more moves them all). The cells
+# and table HTML, which the random wireless tree's some 240 cells a crop
+# make chaotic (one slot at the visibility threshold or one logical
+# coordinate at .5 regroups a row), are compared and printed
+HOST_CROP_DETS_PX = 1e-3
+
+
+def head_gap(got, want) -> dict:
+    """Heads ``got`` against ``want`` (lists of tensors, on any device):
+    RMS and max of the difference, relative to ``want``'s largest
+    magnitude, and whether ``got`` is finite."""
+    import torch
+
+    got = torch.cat([t.float().reshape(-1).cpu() for t in got])
+    want = torch.cat([t.float().reshape(-1).cpu() for t in want])
+    scale = max(float(want.abs().max()), 1e-6)
+    d = (got - want).double()
+    return {"rms": float(d.pow(2).mean().sqrt()) / scale,
+            "max": float(d.abs().max()) / scale,
+            "finite": bool(torch.isfinite(got).all())}
+
+
+def bf16_pair(card, name, build, forward, x, first, extra=None) -> dict:
+    """``build(dtype, device)`` in f32 and in bf16 on the card, on the
+    same tree: each model's ``forward(model, x)`` timed with CUDA events
+    in two rounds, its peak memory, the bf16 heads against the f32 ones;
+    then, on ``first(device)`` (the first BF16_CPU_ITEMS inputs on that
+    device), the card's bf16 heads against the bf16 model's on the CPU and
+    against the card's f32 heads, with the card's f32 heads in their place
+    as the control that must fail."""
+    import torch
+
+    runs, heads, peak = {}, {}, {}
+    models = {d: build(d, "cuda") for d in ("float32", "bfloat16")}
+    with torch.inference_mode():
+        for d in ("float32", "bfloat16", "bfloat16", "float32"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            runs.setdefault(d, []).append(cuda_ms(
+                lambda: forward(models[d], x), BF16_RUNS))
+            peak[d] = torch.cuda.max_memory_allocated() / 2 ** 30
+            heads[d] = forward(models[d], x)
+        gap = head_gap(heads["bfloat16"], heads["float32"])
+        few = {d: forward(m, first(torch.device("cuda")))
+               for d, m in models.items()}
+        cpu_few = forward(build("bfloat16", "cpu"),
+                          first(torch.device("cpu")))
+    ref = head_gap(cpu_few, few["float32"])["rms"]
+
+    def bf16_held(card_few):
+        """The card's heads against the CPU's bf16 heads and, for their
+        own bf16-ness, against the card's f32 heads."""
+        cpu = head_gap(card_few, cpu_few)
+        own = head_gap(card_few, few["float32"])["rms"]
+        return cpu, own, (cpu["rms"] < BF16_CPU_RMS
+                          and own >= BF16_OWN_MIN * ref and ref > 0)
+
+    cpu, own, held = bf16_held(few["bfloat16"])
+    _, own32, control_held = bf16_held(few["float32"])
+    ms = {d: statistics.mean(r) for d, r in runs.items()}
+    row = {"card": card, "f32_ms": ms["float32"], "bf16_ms": ms["bfloat16"],
+           "f32_ms_rounds": runs["float32"],
+           "bf16_ms_rounds": runs["bfloat16"],
+           "speedup": ms["float32"] / ms["bfloat16"],
+           "peak_gib_f32": peak["float32"], "peak_gib_bf16": peak["bfloat16"],
+           "gap_f32_rms": gap["rms"], "gap_f32_max": gap["max"],
+           "cpu_bf16_rms": cpu["rms"], "cpu_bf16_max": cpu["max"],
+           "card_bf16_to_f32_rms": own, "cpu_bf16_to_card_f32_rms": ref,
+           "control_f32_passes": control_held, **(extra or {})}
+    print(json.dumps({f"bf16_models_{name}": row}))
+    check(gap["finite"] and cpu["finite"],
+          f"bf16 {name}: outputs are not finite")
+    check(held, f"bf16 {name}: the card's bf16 heads are {cpu['rms']:.3g} "
+          f"(RMS) from the CPU's, {own:.3g} from its f32 heads (the CPU's "
+          f"bf16 {ref:.3g})")
+    check(not control_held, f"bf16 {name}: the card's f32 heads pass as "
+          f"bf16 ({own32:.3g} from themselves)")
+    del models
+    torch.cuda.empty_cache()
+    return row
+
+
+def head_items(x, n=BF16_CPU_ITEMS):
+    """``first`` of :func:`bf16_pair` for a batched tensor or a list of
+    batched tensors: a function of the device giving the first ``n``
+    items there."""
+    if isinstance(x, list):
+        return lambda dev: [t[:n].to(dev) for t in x[:1]]
+    return lambda dev: x[:n].to(dev)
+
+
+def phase_bf16_models(card):
+    """Every model that gained bf16 in the twelfth slice, f32 and bf16 at
+    full width on the card, on the trees and inputs of its f32 phase: the
+    four DBNets on a chunk of 8 at 960x720, PicoDet on the chunk, the four
+    recognizers and the 0/180 PP-LCNet on the recognition phase's crops
+    (248), the SLANet and TableMaster encoders on a sub-batch of 8 crops
+    (their decodes are f32 and unchanged) and LGPMA on one crop. Per
+    model the forward ms of both dtypes (CUDA events), the speed-up, peak
+    memory, the bf16-vs-f32 gap, and the card's bf16 against the CPU's.
+    Returns the rows by name."""
+    import torch
+
+    from pdf_table_tpu_torch.convert.flax_bridge import load_flax_variables
+    from pdf_table_tpu_torch.models.dbnet.model import DBNet
+    from pdf_table_tpu_torch.models.lgpma.model import LGPMA
+    from pdf_table_tpu_torch.models.picodet.config import PicoDetConfig
+    from pdf_table_tpu_torch.models.picodet.model import PicoDet
+    from pdf_table_tpu_torch.pipeline.batch_runner import pack_pages
+    from pdf_table_tpu_torch.tasks.cls_pulc import ClsImagePulcTask
+    from pdf_table_tpu_torch.tasks.detection import (OcrDetectionTask,
+                                                     det_config)
+    from pdf_table_tpu_torch.tasks.layout import resize_bilinear_aa
+    from pdf_table_tpu_torch.tasks.recognition import OcrRecognitionTask
+    from pdf_table_tpu_torch.tasks.table_structure import \
+        OcrTableStructureTask
+
+    def loaded(net, tree, device):
+        load_flax_variables(net, tree)
+        return net.eval().to(device)
+
+    rows = {}
+    pages = [make_page(i) for i in range(DET_PAGES)]
+    (bucket, g), = pack_pages(pages).items()
+    canvases = g["images"]
+    dev_canvases = torch.from_numpy(canvases).cuda()
+    for model in ("PP-OCRv4_det",) + DET_MODELS:
+        probe = OcrDetectionTask(model=model, device="cuda", **DET_KW)
+        tree = det_backbone_tree(probe, pages)
+        with torch.inference_mode():
+            x = probe.normalize(dev_canvases, probe.det_size(bucket))
+        del probe
+        rows[model] = bf16_pair(
+            card, model, lambda d, dev: loaded(DBNet(det_config(
+                model, **dict(DET_KW, dtype=d))), tree, dev),
+            lambda m, x: [m(x)["prob"]], x, head_items(x),
+            {"input": list(x.shape)})
+
+    layout_v = layout_tree(dev_canvases)
+    cfg = PicoDetConfig(**LAYOUT_KW)
+    mean = torch.tensor(cfg.norm_mean, device="cuda")
+    std = torch.tensor(cfg.norm_std, device="cuda")
+    with torch.inference_mode():
+        x = resize_bilinear_aa(dev_canvases, (cfg.img_height, cfg.img_width))
+        x = ((x / 255.0 - mean) / std).contiguous()
+    rows["picodet"] = bf16_pair(
+        card, "picodet", lambda d, dev: loaded(
+            PicoDet(PicoDetConfig(**dict(LAYOUT_KW, dtype=d))), layout_v,
+            dev),
+        lambda m, x: [t for v in m(x).values() for t in v], x,
+        head_items(x), {"input": list(x.shape)})
+
+    quads = rec_quads(g["shapes"])
+    rec_v, cls_v = rec_cls_trees(canvases)
+    cls = ClsImagePulcTask("textline_orientation", device="cuda",
+                           variables=cls_v)
+    n_crops = sum(len(q) for q in quads)
+    for model in ("PP-OCRv4_rec",) + REC_MODELS:
+        tree = rec_v if model == "PP-OCRv4_rec" \
+            else rec_backbone_tree(model, canvases)
+        # the crops at this recognizer's own geometry, cut once
+        probe = OcrRecognitionTask(model=model, device="cuda",
+                                   variables=tree, cls_task=cls, **F32)
+        with torch.inference_mode():
+            cut = [probe.cut(dev_canvases, grp, probe.upload(grp))
+                   for grp in probe.plan(quads)]
+            crops = [probe.orient(*c) for c in cut]
+        if model == "PP-OCRv4_rec":
+            cls_in = torch.cat([c[2] for c in cut])
+            rows["PP-LCNet"] = bf16_pair(
+                card, "PP-LCNet", lambda d, dev: ClsImagePulcTask(
+                    "textline_orientation", device=dev, variables=cls_v,
+                    dtype=d), lambda t, x: [t.probs(x)], cls_in,
+                head_items(cls_in, BF16_CLS_ITEMS),
+                {"input": list(cls_in.shape)})
+        del probe, cut
+        rows[model] = bf16_pair(
+            card, model, lambda d, dev: OcrRecognitionTask(
+                model=model, device=dev, variables=tree, dtype=d),
+            lambda t, cs: [t.logits(c) for c in cs], crops,
+            head_items(crops), {"crops": n_crops})
+        del crops
+
+    tsr_pages, regions = tsr_inputs()
+    dev_pages = torch.from_numpy(tsr_pages).cuda()
+    for model, encode in (("SLANet", lambda m, x: [m.encode(x)]),
+                          ("TableMaster", lambda m, x: [m.memory(x)])):
+        tree = token_tree(model, dev_pages, regions)
+        probe = OcrTableStructureTask(model=model, device="cuda",
+                                      variables=tree, **F32)
+        (_sub, _metas, x), = probe.sub_batches(dev_pages, regions)
+        del probe
+        rows[model] = bf16_pair(
+            card, model, lambda d, dev: OcrTableStructureTask(
+                model=model, device=dev, variables=tree,
+                dtype=d).model, encode, x, head_items(x),
+            {"input": list(x.shape)})
+    probe = OcrTableStructureTask(model="Lgpma", device="cuda", **F32)
+    tree = lgpma_tree(probe, dev_pages, regions)
+    (_s, _m, x), *_ = probe.sub_batches(dev_pages, regions)
+    lg_cfg = probe.model_config
+    del probe
+    rows["Lgpma"] = bf16_pair(
+        card, "Lgpma", lambda d, dev: loaded(LGPMA(type(lg_cfg)(
+            **dict(vars(lg_cfg), dtype=d))), tree, dev),
+        lambda m, x: [m(x)[k] for k in ("gpma_seg", "gpma_reg")], x,
+        head_items(x), {"input": list(x.shape)})
+    return rows
+
+
+def phase_pipeline_bf16(card, trees, f32_out):
+    """bench.py's configuration as ``build_pipeline`` copies it with no
+    dtype passed: the port's policy gives bf16 on the card to detection,
+    PicoDet, recognition and LORE, as JAX's registry does on its
+    accelerator. The pipeline phase's 16 pages: warm-up, one counted run
+    (K3 once a chunk, K1's bf16 body and K2 over LORE's 16 DCNs a
+    sub-batch), timed runs; pages/s, lanes, idle share, peak memory, and
+    the agreement with the f32 pipeline phase's run on the same pages
+    (reported, not checked). Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from pdf_table_tpu_torch.ops.kernels import (KERNELS, launch_counts,
+                                                 reset_launch_counts)
+
+    imgs = [make_page(i) for i in range(PIPE_PAGES)]
+    pages = [{"image": im, "page": i} for i, im in enumerate(imgs)]
+    t0 = time.perf_counter()
+    bp = build_pipeline("cuda", trees, policy=True)
+    s = bp.system
+    dtypes = {"det": s.det_task.model_config.dtype,
+              "layout": s.layout_task.model_config.dtype,
+              "rec": s.rec_task.model_config.dtype,
+              "tsr": s.tsr_task.model_config.dtype}
+    check(set(dtypes.values()) == {"bfloat16"},
+          f"the policy gave {dtypes} on the card")
+    build_s = time.perf_counter() - t0
+    n_chunks = -(-PIPE_PAGES // bp.batch_pages)
+    bp.run(pages)                       # warm-up
+    tsr_model = s.tsr_task.model
+    forwards = []
+    real_forward = tsr_model.forward_packed
+    tsr_model.forward_packed = lambda x: (forwards.append(x.shape[0]),
+                                          real_forward(x))[1]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = bp.run(pages)
+    torch.cuda.synchronize()
+    counted_s = time.perf_counter() - t0
+    launches = {k: launch_counts[k] for k in KERNELS}
+    del tsr_model.forward_packed
+    check(len(out) == PIPE_PAGES, "one output per page")
+    errors = [o.metric.get("error") for o in out if o.metric.get("error")]
+    check(not errors, f"bf16 pages carry errors: {errors[:3]}")
+    check(all(o.page_html for o in out), "a bf16 page has no page_html")
+    check(launches["resize_normalize"] == n_chunks,
+          f"K3 launched {launches['resize_normalize']} times for "
+          f"{n_chunks} chunks")
+    check(forwards and launches["deform_conv2d"] > 0
+          and launches["deform_conv2d"]
+          + launches["deform_conv2d_flat_kc"] == 16 * len(forwards),
+          f"K1 {launches['deform_conv2d']} and K2 "
+          f"{launches['deform_conv2d_flat_kc']} launches for "
+          f"{len(forwards)} LORE sub-batches (16 DCNs each)")
+    torch.cuda.reset_peak_memory_stats()
+    run_s, lanes = [], []
+    for _ in range(PIPE_RUNS):
+        t0 = time.perf_counter()
+        bp.run(pages)
+        run_s.append(time.perf_counter() - t0)
+        lanes.append(bp.last_stats)
+    per_run = statistics.median(run_s)
+    peak = torch.cuda.max_memory_allocated()
+    lane_ms = {k: statistics.median(st[k] for st in lanes) * 1e3
+               for k in lanes[0] if k != "n_pages"}
+    prof = profile_run(lambda: bp.run(pages))
+    names = prof.pop("kernel_names")
+    check(any("dcn_wgmma_kernel" in n for n in names),
+          "pipeline_bf16: the trace shows no dcn_wgmma_kernel (K1's bf16 "
+          "body)")
+
+    def cells(o):
+        return [len(t.get("cells", [])) for t in o.table_structures]
+
+    agree = {
+        "quad_counts": float(np.mean([len(a.text_cells) == len(b.text_cells)
+                                      for a, b in zip(out, f32_out)])),
+        "texts": float(np.mean([[c.text for c in a.text_cells]
+                                == [c.text for c in b.text_cells]
+                                for a, b in zip(out, f32_out)])),
+        "table_cell_counts": float(np.mean([cells(a) == cells(b)
+                                            for a, b in zip(out, f32_out)]))}
+    summary = {
+        "card": card, "dtypes": dtypes, "pages": PIPE_PAGES,
+        "chunks": n_chunks, "launches": launches,
+        "lore_sub_batches": forwards, "model_build_s": build_s,
+        "counted_run_s": counted_s, "run_s_median": per_run,
+        "run_s_min": min(run_s), "run_s_max": max(run_s),
+        "runs": len(run_s), "pages_per_s": PIPE_PAGES / per_run,
+        "lane_ms": lane_ms, "peak_mem_gib": peak / 2 ** 30,
+        "profile": prof, "agreement_with_f32": agree,
+        "tables": sum(len(o.table_structures) for o in out)}
+    print(json.dumps({"pipeline_bf16": summary}))
+    return launches
+
+
+def phase_tsr_host_crop(card, trees):
+    """The per-crop surface of LORE wireless (f32, bench.py's pipeline
+    tree): ``batch_infer`` on the 8 crops of the TSR phases and
+    ``__call__`` on one, on the card; crops/s beside
+    ``batch_infer_from_pages`` on the same regions in the same call; the
+    first TSR_CPU_CROPS crops and the call's input against the same task
+    on the CPU slot by slot on every input (MATCH_MIN, HOST_CROP_DETS_PX,
+    LOGI_TOL), their cells and table HTML and the call's compared and
+    printed."""
+    import numpy as np
+    import torch
+
+    from pdf_table_tpu_torch.models.lore.model import unpack_lore
+    from pdf_table_tpu_torch.tasks.table_structure import \
+        OcrTableStructureTask
+    from pdf_table_tpu_torch.tasks.table_to_html import OcrTableToHtmlTask
+
+    pages, regions = tsr_inputs()
+    crops = [np.ascontiguousarray(pages[pi, y1:y2, x1:x2])
+             for pi, (x1, y1, x2, y2) in regions]
+    kw = dict(model="Lore", task_type="wireless", variables=trees["lore"],
+              **PIPE_LORE_KW)
+    task = OcrTableStructureTask(device="cuda", **kw)
+    dev_pages = torch.from_numpy(pages).cuda()
+    task.batch_infer(crops)             # warm-up
+    task.batch_infer_from_pages(dev_pages, regions)
+
+    def timed_s(fn):
+        out = []
+        for _ in range(TSR_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+        return statistics.median(out)
+
+    got = task.batch_infer(crops)
+    one = task(crops[0])
+    host_s = timed_s(lambda: task.batch_infer(crops))
+    pages_s = timed_s(lambda: task.batch_infer_from_pages(dev_pages,
+                                                          regions))
+    call_s = timed_s(lambda: task(crops[0]))
+    cpu = OcrTableStructureTask(device="cpu", **kw)
+    few = crops[:TSR_CPU_CROPS]
+    want = cpu.batch_infer(few)
+    want_one = cpu(crops[0])
+    html = OcrTableToHtmlTask()
+
+    # slot by slot on the same inputs: the uint8 warps, normalized as
+    # batch_infer does, and __call__'s float warp, normalized on the host
+    u8 = np.concatenate([task.pre.warp_u8(c)["image_u8"] for c in few])
+
+    def packed(t, x, from_u8):
+        x = x.to(t.device)
+        with torch.inference_mode():
+            if from_u8:
+                x = (x.float().flip(-1) / 255.0 - t.mean) / t.std
+            return unpack_lore(t._forward_packed(x).cpu().numpy())
+
+    inputs = [(torch.from_numpy(u8), True),
+              (torch.from_numpy(task.host_preprocess(crops[0])[0]), False)]
+    slots = {"match": 1.0, "dets_px": 0.0, "logi": 0.0, "inputs": 0}
+    for x, from_u8 in inputs:
+        pa, pb = packed(task, x, from_u8), packed(cpu, x, from_u8)
+        for j in range(len(x)):
+            ca = {tuple(c): i for i, c in enumerate(pa["centers"][j])
+                  if pa["valid"][j, i]}
+            cb = {tuple(c): i for i, c in enumerate(pb["centers"][j])
+                  if pb["valid"][j, i]}
+            common = sorted(set(ca) & set(cb))
+            slots["match"] = min(slots["match"], len(common)
+                                 / max(len(ca), len(cb), 1))
+            slots["inputs"] += 1
+            if not common:
+                continue
+            ia = [ca[c] for c in common]
+            ib = [cb[c] for c in common]
+            slots["dets_px"] = max(slots["dets_px"], float(np.abs(
+                pa["dets"][j, ia] - pb["dets"][j, ib]).max()))
+            la, lb = pa["stacked_logi"][j, ia], pb["stacked_logi"][j, ib]
+            slots["logi"] = max(slots["logi"], float(
+                np.abs(la - lb).max() / max(np.abs(lb).max(), 1e-6)))
+    pairs = list(zip(got, want)) + [(one, want_one)]
+    cells_equal = [len(a["cells"]) == len(b["cells"]) and all(
+        x["logic"] == y["logic"] for x, y in zip(a["cells"], b["cells"]))
+        for a, b in pairs]
+    html_equal = [html(a, []) == html(b, []) for a, b in pairs]
+    summary = {"card": card, "crops": len(crops),
+               "batch_infer_s": host_s,
+               "batch_infer_crops_per_s": len(crops) / host_s,
+               "from_pages_s": pages_s,
+               "from_pages_crops_per_s": len(crops) / pages_s,
+               "call_s": call_s,
+               "cells": [len(r["cells"]) for r in got],
+               "cpu_cells": [len(r["cells"]) for r in want]
+               + [len(want_one["cells"])],
+               "cpu_slots": slots, "cpu_cells_equal": cells_equal,
+               "cpu_html_equal": html_equal}
+    print(json.dumps({"tsr_host_crop": summary}))
+    check(all(r["cells"] for r in got), "a crop gave no cells")
+    check(slots["match"] >= MATCH_MIN
+          and slots["dets_px"] <= HOST_CROP_DETS_PX
+          and slots["logi"] < LOGI_TOL,
+          f"card and CPU slots differ on the crops: {slots}")
 
 
 def phase_pipeline_arm(card, trees, tsr: str, tsr_tree):
@@ -3829,7 +4313,7 @@ def phase_rec_backbones(card):
         t0 = time.perf_counter()
         tree = rec_backbone_tree(model, canvases)
         task = OcrRecognitionTask(model=model, device="cuda", variables=tree,
-                                  cls_task=cls)
+                                  cls_task=cls, **F32)
         build_s = time.perf_counter() - t0
         torch.cuda.synchronize()
         reset_launch_counts()
@@ -3868,7 +4352,7 @@ def phase_rec_backbones(card):
                                                                quads),
                            full=False)
         cpu = OcrRecognitionTask(model=model, device="cpu", variables=tree,
-                                 cls_task=cls_cpu)
+                                 cls_task=cls_cpu, **F32)
         t0 = time.perf_counter()
         want = [cpu.enqueue(cpu_pages, g).numpy() for g in cpu.plan(few)]
         cpu_s = time.perf_counter() - t0
@@ -4348,8 +4832,13 @@ def main() -> int:
     rn_launches = phase_detection(card)
     phase_recognition(card)
     layout_v = phase_layout(card)
-    pipe, pipe_trees = phase_pipeline(card, layout_v)
+    pipe, pipe_trees, pipe_out = phase_pipeline(card, layout_v)
     pipe_digital = phase_pipeline_digital(card, pipe_trees)
+    t0 = time.perf_counter()
+    phase_bf16_models(card)
+    pipe_bf16 = phase_pipeline_bf16(card, pipe_trees, pipe_out)
+    phase_tsr_host_crop(card, pipe_trees)
+    print(json.dumps({"twelfth_slice_phases_s": time.perf_counter() - t0}))
     tsr_pages, tsr_regions = tsr_inputs()
     sla_tree, _, sla = phase_tsr(card, "SLANet", tsr_pages, tsr_regions)
     tm_tree, tm_results, tm = phase_tsr(card, "TableMaster", tsr_pages,
@@ -4380,6 +4869,7 @@ def main() -> int:
         backbones launch K3 once a chunk, the recognizers nothing."""
         return {**extra, "pipeline": pipe[name],
                 "pipeline_digital": pipe_digital[name],
+                "pipeline_bf16": pipe_bf16[name],
                 "tsr_slanet": sla[name],
                 "tsr_master": tm[name], "tsr_mtl_tabnet": mtl[name],
                 "pipeline_slanet": pipe_sla[name],

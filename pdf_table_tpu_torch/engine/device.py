@@ -3,15 +3,26 @@ pdf_table_tpu/engine/device.py).
 
 Entry points run on ``cuda`` by default. Without a GPU they raise unless the
 caller asked for the CPU explicitly: the port never falls back silently.
+
+The compute dtype of the models that the JAX package builds through its
+registry follows :func:`default_dtype`: ``PDFTABLE_COMPUTE_DTYPE`` (bf16
+unless set) on the card, f32 on the CPU, as JAX's ``compute_dtype`` gives
+it per backend.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import os
+from typing import Any, Dict, Optional, Union
 
 import torch
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# the values PDFTABLE_COMPUTE_DTYPE takes; its default is the JAX package's
+# (utils/constants.py: COMPUTE_DTYPE)
+_POLICY_DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
+                  "float32": torch.float32, "fp32": torch.float32}
+DEFAULT_COMPUTE_DTYPE = "bfloat16"
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
@@ -41,6 +52,32 @@ def compute_dtype(name: str) -> torch.dtype:
         return _DTYPES[name]
     except KeyError:
         raise ValueError(f"unknown compute dtype {name!r}") from None
+
+
+def default_dtype(device: Union[str, torch.device]) -> torch.dtype:
+    """The compute dtype for a model on ``device`` whose caller names none:
+    f32 on a CPU device, else ``PDFTABLE_COMPUTE_DTYPE`` ("bfloat16" or
+    "bf16", "float32" or "fp32"; bf16 when unset). A value the port does
+    not run (``float16``, a typo) raises."""
+    name = os.environ.get("PDFTABLE_COMPUTE_DTYPE",
+                          DEFAULT_COMPUTE_DTYPE).lower()
+    if name not in _POLICY_DTYPES:
+        raise ValueError(f"PDFTABLE_COMPUTE_DTYPE={name!r}: the port runs "
+                         f"{sorted(_POLICY_DTYPES)}")
+    if torch.device(device).type == "cpu":
+        return torch.float32
+    return _POLICY_DTYPES[name]
+
+
+def with_default_dtype(kw: Dict[str, Any], device: torch.device
+                       ) -> Dict[str, Any]:
+    """``kw`` (config fields) with ``dtype`` set by :func:`default_dtype`
+    where the caller gave none, as the JAX registry's ``get_config``
+    does."""
+    if "dtype" in kw:
+        return kw
+    dt = default_dtype(device)
+    return dict(kw, dtype="bfloat16" if dt == torch.bfloat16 else "float32")
 
 
 def set_float_precision() -> None:

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..line_cell.grid import merge_positions
-from ..lore.processor import invert_affine
+from ..lore.processor import invert_affine, warp_affine_linear
 from .config import CenterNetConfig
 
 Window = Tuple[int, int, int, int, int]   # page, x1, y1, x2, y2
@@ -96,6 +96,24 @@ class CenterNetPreProcessor:
         return (corner(0, 0) * ((one - ax) * (one - ay))
                 + corner(0, 1) * (ax * (one - ay))) \
             + (corner(1, 0) * ((one - ax) * ay) + corner(1, 1) * (ax * ay))
+
+    def __call__(self, image: np.ndarray) -> Dict[str, Any]:
+        """One uint8 RGB crop on the host, as the JAX pre-processor's
+        ``cv2.warpAffine`` of its BGR f32 copy: {"image": (1, inp_h, inp_w,
+        3) f32 normalized, "meta"} (the samples :meth:`warp_crops` takes on
+        the device)."""
+        h, w = image.shape[:2]
+        inp_h, inp_w = self.config.resolution
+        s = max(h, w)
+        scale = inp_w / s
+        c = (w / 2.0, h / 2.0)
+        mat = np.array([[scale, 0, inp_w / 2 - scale * c[0]],
+                        [0, scale, inp_h / 2 - scale * c[1]]], np.float32)
+        warped = warp_affine_linear(image[:, :, ::-1].astype(np.float32),
+                                    mat, (inp_w, inp_h))
+        norm = (warped / 255.0 - self.MEAN) / self.STD
+        return {"image": norm[None].astype(np.float32),
+                "meta": self.plan(h, w)[1]}
 
     def normalize(self, bgr: torch.Tensor) -> torch.Tensor:
         mean = torch.as_tensor(self.MEAN, device=bgr.device)

@@ -12,7 +12,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..layers import ConvBNAct, DepthwiseSeparable, hardswish, make_divisible
+from ...engine.device import compute_dtype
+from ..layers import (ConvBNAct, DepthwiseSeparable, cast_model, hardswish,
+                      make_divisible)
 from .config import ClsPulcConfig
 
 # (kernel, out_c, stride, use_se) per block, grouped by stage
@@ -28,16 +30,13 @@ NET_CONFIG = [
 
 class PPLCNetClassifier(nn.Module):
     """``forward`` takes NHWC images (B, H, W, 3) already normalized and
-    returns f32 class probabilities (B, class_num). A config of another
-    dtype than float32 raises."""
+    returns f32 class probabilities (B, class_num); the network computes
+    in ``config.dtype``, the logits are cast to f32."""
 
     def __init__(self, config: ClsPulcConfig):
         super().__init__()
         cfg = self.config = config
-        if cfg.dtype != "float32":
-            raise NotImplementedError(
-                f"the PP-LCNet classifier runs float32 only, not "
-                f"{cfg.dtype!r} (ROADMAP.md Queue 1 item 7)")
+        self.dtype = compute_dtype(cfg.dtype)
         s = cfg.scale
         c = make_divisible(16 * s)
         self.stem = ConvBNAct(3, c, (3, 3), (2, 2), act="hardswish")
@@ -54,9 +53,10 @@ class PPLCNetClassifier(nn.Module):
             if cfg.use_last_conv else None
         self.fc = nn.Linear(cfg.class_expand if cfg.use_last_conv else c,
                             cfg.class_num)
+        cast_model(self, self.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.stem(x.permute(0, 3, 1, 2))
+        x = self.stem(x.permute(0, 3, 1, 2).to(self.dtype))
         for name in self.block_names:
             x = getattr(self, name)(x)
         x = x.mean((2, 3), keepdim=True)

@@ -11,7 +11,8 @@ three families of backbone:
 
 Each gives the prob map. Modules keep the flax submodule names, so the
 weight bridge maps the JAX tree one to one. ``DBNet`` takes NHWC images,
-as the JAX module does, and runs them as a ``channels_last`` NCHW view.
+as the JAX module does, and runs them as a ``channels_last`` NCHW view,
+in ``config.dtype`` (layers.py::cast_model); the prob map is f32.
 """
 
 from __future__ import annotations
@@ -21,8 +22,10 @@ from typing import Dict, List, Sequence
 import torch
 from torch import nn
 
+from ...engine.device import compute_dtype
 from ..layers import (FPN, BatchNorm, ConvBNAct, InvertedResidual, ResNet,
-                      SEModule, make_divisible, upsample2x,
+                      SEModule, cast_model, make_divisible, sigmoid,
+                      upsample2x,
                       upsample_nearest)
 from ..nas_layers import build_plan, run_plan
 from .config import DbNetConfig
@@ -138,7 +141,7 @@ class BinarizeHead(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = torch.relu(self.bn1(self.up1(self.conv(x))))
-        return torch.sigmoid(self.up2(x))[:, 0]
+        return sigmoid(self.up2(x))[:, 0]
 
 
 # The searched CompactDetBackbone plan: (kind, kernels, expand, stride,
@@ -271,25 +274,25 @@ class DBNet(nn.Module):
         cfg = config
         if cfg.backbone not in BACKBONES:
             raise ValueError(f"unknown DBNet backbone {cfg.backbone!r}")
-        if cfg.dtype != "float32":
-            raise NotImplementedError(
-                f"the DBNet detector ({cfg.backbone}) runs float32 only, not "
-                f"{cfg.dtype!r} (ROADMAP.md Queue 1 item 6)")
         self.config = cfg
+        self.dtype = compute_dtype(cfg.dtype)
         inner = cfg.inner_channels
-        if cfg.backbone == "mobilenetv3":
-            self.backbone = MobileNetV3Det()
-            self.neck = RSEFPN(self.backbone.out_channels, inner)
-        elif cfg.backbone == "proxylessnas":
+        if cfg.backbone == "proxylessnas":
             self.backbone = CompactNasBackbone()
             self.neck = LightSegFuse(self.backbone.out_channels, inner)
             self.binarize = LightSegHead(inner, inner)
-            return
         else:
-            self.backbone = ResNet(int(cfg.backbone[len("resnet"):]))
-            self.neck = FPN(self.backbone.out_channels, inner)
-        self.binarize = BinarizeHead(inner, inner)
+            if cfg.backbone == "mobilenetv3":
+                self.backbone = MobileNetV3Det()
+                self.neck = RSEFPN(self.backbone.out_channels, inner)
+            else:
+                self.backbone = ResNet(int(cfg.backbone[len("resnet"):]))
+                self.neck = FPN(self.backbone.out_channels, inner)
+            self.binarize = BinarizeHead(inner, inner)
+        cast_model(self, self.dtype)
 
     def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
-        x = images.permute(0, 3, 1, 2)   # NHWC memory read as channels_last
-        return {"prob": self.binarize(self.neck(self.backbone(x)))}
+        # NHWC memory read as channels_last
+        x = images.permute(0, 3, 1, 2).to(self.dtype)
+        prob = self.binarize(self.neck(self.backbone(x)))
+        return {"prob": prob.float()}

@@ -10,11 +10,16 @@ table, ``make_divisible``, ``SEModule``, the PP-LCNet
 ``Bottleneck``, ``ResNet``) and DBNet's SegDetector ``FPN``.
 Modules run NCHW (the models keep activations in ``channels_last`` memory
 format).
+
+bf16 follows flax's rule (``dtype=bf16``, ``param_dtype=f32``) through
+:func:`cast_model`: conv, dense and recurrent weights and biases compute in
+bf16, the norms keep f32 parameters and statistics, normalize in f32 and
+return the compute dtype.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Iterable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -22,14 +27,40 @@ from torch import nn
 
 
 def hardswish(x: torch.Tensor) -> torch.Tensor:
-    """``x * relu6(x + 3) / 6``, in that order of operations, as one
-    kernel."""
-    return F.hardswish(x)
+    """``x * relu6(x + 3) / 6``: in f32 as one kernel; in bf16 op by op,
+    each result rounded to bf16, as XLA computes the JAX expression (one
+    kernel puts bf16 PP-OCRv4 rec, PicoDet and SLANet 0.96-1.17 times
+    JAX's own bf16-vs-f32 distance from JAX's bf16 output, against 0.14-0.79
+    op by op, and PP-OCRv4 rec's greedy ids part from JAX's)."""
+    if x.dtype == torch.float32:
+        return F.hardswish(x)
+    return x * F.relu6(x + 3.0) / 6.0
 
 
 def hardsigmoid(x: torch.Tensor) -> torch.Tensor:
     """``relu6(x + 3) / 6`` as one kernel."""
     return F.hardsigmoid(x)
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """One kernel in f32; in bf16 ``1 / (1 + exp(-x))`` op by op, as XLA
+    lowers ``jax.nn.sigmoid`` in bf16 (one kernel puts the DBNets' bf16
+    prob maps 1.05-1.13 times JAX's own bf16-vs-f32 distance from JAX's,
+    against 0.32-0.60)."""
+    if x.dtype == torch.float32:
+        return torch.sigmoid(x)
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """One kernel in f32; in bf16 ``exp(x - max) / sum`` op by op (the sum
+    accumulated in f32 and rounded), as XLA lowers ``jax.nn.softmax`` (with
+    one kernel a TableMaster block fed JAX's bf16 input equals JAX's output
+    on 0.66 of its elements, against 0.90 or more)."""
+    if x.dtype == torch.float32:
+        return torch.softmax(x, dim=dim)
+    e = torch.exp(x - x.amax(dim=dim, keepdim=True))
+    return e / e.sum(dim=dim, keepdim=True)
 
 
 ACTS = {
@@ -39,7 +70,7 @@ ACTS = {
     "hardsigmoid": hardsigmoid,
     "swish": F.silu,
     "silu": F.silu,
-    "sigmoid": torch.sigmoid,
+    "sigmoid": sigmoid,
     None: None,
 }
 
@@ -71,6 +102,82 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.batch_norm(x, self.running_mean, self.running_var,
                             self.weight, self.bias, False, 0.0, self.eps)
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax ``nn.LayerNorm``: statistics, scale and bias in f32 whatever
+    the input's dtype, the result in ``out_dtype`` (the compute dtype that
+    :func:`cast_model` sets; f32 until then)."""
+
+    out_dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                            self.bias, self.eps).to(self.out_dtype)
+
+
+class _BiasAfter:
+    """A biased conv or dense layer in bf16 that rounds its product to
+    bf16 before it adds the bias, as flax's ``nn.Conv`` / ``nn.Dense`` do
+    (PyTorch adds the bias before it rounds: that puts bf16 ConvNextViT
+    1.05 and CRNN 0.98 times JAX's own bf16-vs-f32 distance from JAX's
+    bf16 logits, against 0.93 and 0.39)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = self.bias
+        self.bias = None
+        try:
+            y = super().forward(x)
+        finally:
+            self.bias = b
+        shape = (-1,) if isinstance(self, nn.Linear) \
+            else (-1,) + (1,) * (y.dim() - 2)
+        return y + b.reshape(shape)
+
+
+class _Conv2dBiasAfter(_BiasAfter, nn.Conv2d):
+    pass
+
+
+class _ConvTranspose2dBiasAfter(_BiasAfter, nn.ConvTranspose2d):
+    pass
+
+
+class _LinearBiasAfter(_BiasAfter, nn.Linear):
+    pass
+
+
+_BIAS_AFTER = {nn.Conv2d: _Conv2dBiasAfter,
+               nn.ConvTranspose2d: _ConvTranspose2dBiasAfter,
+               nn.Linear: _LinearBiasAfter}
+
+
+def cast_model(model: nn.Module, dtype: torch.dtype,
+               keep: Iterable[nn.Parameter] = ()) -> None:
+    """Give ``model`` flax's mixed precision for ``dtype``: every floating
+    parameter in ``dtype`` except those of the norms (:class:`BatchNorm`,
+    :class:`LayerNorm`) and those in ``keep``, which stay f32 as flax
+    parameters that a module uses without casting them do. Buffers are the
+    norms' statistics and stay f32. In bf16 a biased conv or dense layer
+    adds its bias after rounding its product (:class:`_BiasAfter`)."""
+    kept = {id(p) for p in keep}
+    for m in model.modules():
+        if isinstance(m, LayerNorm):
+            m.out_dtype = dtype
+        if isinstance(m, (BatchNorm, nn.LayerNorm)):
+            continue
+        for p in m.parameters(recurse=False):
+            if p.is_floating_point() and id(p) not in kept:
+                p.data = p.data.to(dtype)
+        if dtype != torch.float32 and type(m) in _BIAS_AFTER \
+                and m.bias is not None:
+            m.__class__ = _BIAS_AFTER[type(m)]
+
+
+def as_input_of(x: torch.Tensor, layer: nn.Module) -> torch.Tensor:
+    """``x`` in ``layer``'s weight dtype, as a flax layer casts its input
+    to its own ``dtype``."""
+    return x.to(layer.weight.dtype)
 
 
 class ConvBNAct(nn.Module):

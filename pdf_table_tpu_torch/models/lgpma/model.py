@@ -9,7 +9,10 @@ as masks over four RoIAligns) -> Shared2FCBBoxHead; the ``mask_top``
 best refined boxes -> RoIAlign at 14 -> LPMAMaskHead; GPMAMaskHead on P2.
 One image a forward, as the JAX program. Every top-k is a stable
 descending sort (ties to the lower index, as ``jax.lax.top_k``).
-Modules run NCHW; the RoI tensors are NHWC as in JAX.
+Modules run NCHW; the RoI tensors are NHWC as in JAX. Every module computes
+in ``config.dtype`` (layers.py::cast_model); the heads cast their logits
+and deltas to f32 where the JAX heads do, and the boxes, anchors and
+top-k are f32.
 """
 
 from __future__ import annotations
@@ -20,7 +23,8 @@ import torch
 from torch import nn
 
 from ...ops.roi_align import fma, roi_align
-from ..layers import ResNet
+from ...engine.device import compute_dtype
+from ..layers import ResNet, cast_model
 from ..lore.detector import conv_transpose_same
 from .config import LgpmaConfig
 
@@ -221,11 +225,13 @@ class LGPMA(nn.Module):
                                            cfg.num_classes, cfg.fc_dim)
         self.mask_head = LPMAMaskHead(c, cfg.num_classes)
         self.global_seg_head = GPMAMaskHead(c)
+        self.dtype = compute_dtype(cfg.dtype)
+        cast_model(self, self.dtype)
 
     def levels(self, x: torch.Tensor):
         """x (1, H, W, 3) normalized -> the 5 FPN levels, NCHW."""
-        x = x.permute(0, 3, 1, 2).contiguous(
-            memory_format=torch.channels_last)
+        x = x.permute(0, 3, 1, 2).to(
+            dtype=self.dtype, memory_format=torch.channels_last)
         return self.neck(self.backbone(x))
 
     def rpn(self, levels, img_hw: Tuple[float, float]

@@ -21,6 +21,7 @@ from typing import Any, Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from ...ops.crop_resize import resize_u8_plain
 from ...ops.nms import hard_nms
 from .config import LgpmaConfig
 
@@ -40,6 +41,16 @@ class LgpmaPreProcessor:
         nh = max(int(round(h * scale / 32) * 32), 32)
         nw = max(int(round(w * scale / 32) * 32), 32)
         return nh, nw, {"org_shape": (h, w), "scale": (nh / h, nw / w)}
+
+    def __call__(self, image: np.ndarray) -> Dict[str, Any]:
+        """One uint8 RGB crop on the host, as the JAX pre-processor's
+        ``cv2.resize`` (bilinear, uint8) and normalize: {"image": (1, nh,
+        nw, 3) f32, "meta"}."""
+        nh, nw, meta = self.plan(*image.shape[:2])
+        resized = resize_u8_plain(image, nh, nw).astype(np.float32)
+        norm = (resized / 255.0 - np.asarray(MEAN, np.float32)) \
+            / np.asarray(STD, np.float32)
+        return {"image": norm[None].astype(np.float32), "meta": meta}
 
     @staticmethod
     def normalize(u8: torch.Tensor) -> torch.Tensor:

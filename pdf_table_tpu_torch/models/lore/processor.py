@@ -1,9 +1,11 @@
 """LORE pre/post processing (counterpart of
 pdf_table_tpu/models/lore/processor.py).
 
-Pre: the host preprocess of the training data, without cv2 (the inference
-crops are warped on the device, ops/warp.py): the upper-left (or centred)
-affine to the static resolution, BGR flip and CenterNet normalization.
+Pre: the host preprocess without cv2, of the training data and of the
+per-crop task surface (``OcrTableStructureTask.__call__`` and
+``batch_infer``; the from-pages crops are warped on the device,
+ops/warp.py): the upper-left (or centred) affine to the static resolution,
+BGR flip and CenterNet normalization, or the uint8 warp alone.
 Post: map K-slot device outputs back to image coords, round logical axes,
 filter by validity, emit {"cells": [{"bbox", "poly", "logic", "score"}]},
 then snap cell edges to shared grid lines.
@@ -75,7 +77,9 @@ def warp_affine_linear(image: np.ndarray, mat: np.ndarray,
 class LorePreProcessor:
     """``__call__(image)``: uint8 RGB (H, W, 3) -> {"image": (1, inp_h,
     inp_w, 3) f32 normalized BGR, "meta": {c, s, org_shape, out_h,
-    out_w}}, the JAX package's cv2 preprocess (``processor.py:30-53``)."""
+    out_w}}, the JAX package's cv2 preprocess (``processor.py:30-53``);
+    ``warp_u8(image)``: the warp alone, {"image_u8": (1, inp_h, inp_w, 3)
+    uint8 RGB, "meta"} (``processor.py:55-79``)."""
 
     MEAN = np.array([0.408, 0.447, 0.470], np.float32)
     STD = np.array([0.289, 0.274, 0.278], np.float32)
@@ -83,9 +87,9 @@ class LorePreProcessor:
     def __init__(self, config: LoreConfig):
         self.config = config
 
-    def __call__(self, image: np.ndarray) -> Dict[str, Any]:
+    def _affine(self, h: int, w: int):
+        """The f32 warp matrix of an h x w image and its meta."""
         cfg = self.config
-        h, w = image.shape[:2]
         inp_h, inp_w = cfg.resolution
         s = max(h, w) * 1.0
         scale = inp_w / s
@@ -98,13 +102,31 @@ class LorePreProcessor:
             mat = np.array([[scale, 0, inp_w / 2 - scale * c[0]],
                             [0, scale, inp_h / 2 - scale * c[1]]],
                            np.float32)
+        return mat, {"c": c, "s": s, "org_shape": (h, w),
+                     "out_h": inp_h // cfg.down_ratio,
+                     "out_w": inp_w // cfg.down_ratio}
+
+    def __call__(self, image: np.ndarray) -> Dict[str, Any]:
+        inp_h, inp_w = self.config.resolution
+        mat, meta = self._affine(*image.shape[:2])
         warped = warp_affine_linear(image[:, :, ::-1].astype(np.float32),
                                     mat, (inp_w, inp_h))
         norm = (warped / 255.0 - self.MEAN) / self.STD
-        return {"image": norm[None].astype(np.float32),
-                "meta": {"c": c, "s": s, "org_shape": (h, w),
-                         "out_h": inp_h // cfg.down_ratio,
-                         "out_w": inp_w // cfg.down_ratio}}
+        return {"image": norm[None].astype(np.float32), "meta": meta}
+
+    def warp_u8(self, image: np.ndarray) -> Dict[str, Any]:
+        """``cv2.warpAffine`` of the uint8 image itself with
+        ``INTER_LINEAR``: OpenCV 5 samples a uint8 image at the float
+        source coordinates of its f32 path (:func:`warp_affine_linear`) and
+        rounds the blend to the nearest integer, ties to even (bit-equal to
+        ``cv2.warpAffine`` of OpenCV 5.0; releases before 4.11 used 1/32-px
+        fixed-point coordinates and 15-bit weights instead)."""
+        inp_h, inp_w = self.config.resolution
+        mat, meta = self._affine(*image.shape[:2])
+        warped = warp_affine_linear(image.astype(np.float32), mat,
+                                    (inp_w, inp_h))
+        u8 = np.clip(np.rint(warped), 0, 255).astype(np.uint8)
+        return {"image_u8": u8[None], "meta": meta}
 
 
 def merge_positions(vals: Sequence[float], tol: float = 5.0) -> List[float]:

@@ -5,7 +5,9 @@ Submodule names are the flax module names, so the weight bridge maps the
 tree one to one. ``PicoDet.forward`` takes NHWC images (B, H, W, 3), already
 normalized, and returns per stride level sigmoid class scores (B, HW, C) and
 raw GFL box distributions (B, HW, 4 * (reg_max + 1)), both f32, with HW
-flattened row-major as the JAX model does. Modules run NCHW.
+flattened row-major as the JAX model does. Modules run NCHW in
+``config.dtype`` (layers.py::cast_model); the head casts its 1x1 output to
+f32 before the sigmoid and the split, as the JAX head does.
 """
 
 from __future__ import annotations
@@ -15,7 +17,9 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 from torch import nn
 
-from ..layers import ConvBNAct, hardsigmoid, make_divisible, upsample2x
+from ...engine.device import compute_dtype
+from ..layers import (ConvBNAct, cast_model, hardsigmoid, make_divisible,
+                      upsample2x)
 from .config import PicoDetConfig
 
 # PPLCNet NET_CONFIG per stage: (kernel, in_c, out_c, stride, use_se)
@@ -225,17 +229,16 @@ class PicoDet(nn.Module):
     def __init__(self, config: PicoDetConfig):
         super().__init__()
         cfg = self.config = config
-        if cfg.dtype != "float32":
-            raise NotImplementedError(
-                f"the PicoDet layout model runs float32 only, not "
-                f"{cfg.dtype!r} (bf16 is ROADMAP.md Queue 1 item 7)")
+        self.dtype = compute_dtype(cfg.dtype)
         self.backbone = LCNetBackbone(cfg.lcnet_scale)
         self.neck = CSPPAN(self.backbone.out_channels, cfg.neck_channels,
                            extra_level=len(cfg.strides) == 4)
         self.head = PicoHead(cfg.neck_channels, len(cfg.strides),
                              cfg.num_classes, cfg.reg_max, cfg.head_convs)
+        cast_model(self, self.dtype)
 
     def forward(self, x: torch.Tensor) -> Dict[str, List[torch.Tensor]]:
-        x = x.permute(0, 3, 1, 2)   # NHWC memory read as channels_last
+        # NHWC memory read as channels_last
+        x = x.permute(0, 3, 1, 2).to(self.dtype)
         scores, boxes = self.head(self.neck(self.backbone(x)))
         return {"scores": scores, "boxes": boxes}

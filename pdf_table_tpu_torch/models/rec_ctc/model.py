@@ -14,9 +14,16 @@ pdf_table_tpu/models/rec_ctc/model.py), four backbones behind one module:
 - ``lightweight_edge``: grey, the searched NAS plan of
   models/nas_layers.py; one step per 4 px.
 
-Each ends in a linear CTC head: logits (B, T, V). The public input is NHWC
-like the JAX model's; modules run NCHW. Submodule names are the flax
+Each ends in a linear CTC head: logits (B, T, V), f32. The public input is
+NHWC like the JAX model's; modules run NCHW. Submodule names are the flax
 module names, so the weight bridge maps paths one to one.
+
+In bf16 (``config.dtype``, layers.py::cast_model) the networks round where
+the flax modules do: the grey conversion runs on the f32 input, SVTR's
+attention softmax in f32, ConvNextViT's in bf16, ConvNext's layer scale
+``gamma`` stays f32 (so its residual stream is f32, as flax promotes it),
+and CRNN's BiLSTMs are ``nn.LSTM`` in bf16 (flax's ``OptimizedLSTMCell``
+rounds its gates to bf16 at every step and keeps its carry f32).
 """
 
 from __future__ import annotations
@@ -27,7 +34,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..layers import ConvBNAct, DepthwiseSeparable
+from ...engine.device import compute_dtype
+from ..layers import (ConvBNAct, DepthwiseSeparable, LayerNorm, as_input_of,
+                      cast_model, softmax)
 from ..nas_layers import ConvBNPReLU, build_plan, run_plan
 from .config import RecConfig
 
@@ -61,10 +70,10 @@ class SVTRBlock(nn.Module):
     def __init__(self, dim: int, heads: int):
         super().__init__()
         self.heads = heads
-        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.norm1 = LayerNorm(dim, eps=1e-5)
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.norm2 = LayerNorm(dim, eps=1e-5)
         self.fc1 = nn.Linear(dim, 2 * dim)
         self.fc2 = nn.Linear(2 * dim, dim)
 
@@ -77,7 +86,7 @@ class SVTRBlock(nn.Module):
         att = torch.softmax(att.float(), dim=-1).to(att.dtype)
         ctx = torch.einsum("bhqk,bkhd->bqhd", att, v).reshape(B, T, D)
         x = x + self.proj(ctx)
-        y = torch.nn.functional.silu(self.fc1(self.norm2(x)))
+        y = F.silu(self.fc1(self.norm2(x)))
         return x + self.fc2(y)
 
 
@@ -103,13 +112,13 @@ class SVTRLCNetBackbone(nn.Module):
         self.depth = depth
         for i in range(depth):
             setattr(self, f"svtr_block{i}", SVTRBlock(hidden, heads))
-        self.svtr_norm = nn.LayerNorm(hidden, eps=1e-6)
+        self.svtr_norm = LayerNorm(hidden, eps=1e-6)
         self.svtr_conv3 = ConvBNAct(hidden, c, (1, 1), act="swish")
         self.svtr_conv4 = ConvBNAct(2 * c, c // 8, (3, 3), act="swish")
         self.svtr_conv1x1 = ConvBNAct(c // 8, dims, (1, 1), act="swish")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv1(x)
+        x = self.conv1(as_input_of(x, self.conv1.conv))
         for i in range(len(MV1_ENHANCE_CFG)):
             x = getattr(self, f"block{i}")(x)
         h = self.pool(x)
@@ -134,7 +143,7 @@ def rgb_to_grey(x: torch.Tensor) -> torch.Tensor:
     return x[:, 0:1] * 0.2989 + x[:, 1:2] * 0.5870 + x[:, 2:3] * 0.1140
 
 
-def layer_norm_nchw(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+def layer_norm_nchw(ln: LayerNorm, x: torch.Tensor) -> torch.Tensor:
     """A LayerNorm over the channels of an NCHW tensor."""
     return ln(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
 
@@ -180,7 +189,7 @@ class CRNNBackbone(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.shape[1] == 3:
             x = rgb_to_grey(x)
-        x = F.max_pool2d(self.conv0_0(x), 2)
+        x = F.max_pool2d(self.conv0_0(as_input_of(x, self.conv0_0.conv)), 2)
         x = F.max_pool2d(self.conv1_0(x), 2)
         x = F.max_pool2d(self.conv2_3(self.conv2_0(x)), (2, 1))
         x = F.max_pool2d(self.conv3_3(self.conv3_0(x)), (2, 1))
@@ -194,13 +203,14 @@ class ConvNextBlock(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
         self.dwconv = nn.Conv2d(dim, dim, 7, padding=3, groups=dim)
-        self.ln = nn.LayerNorm(dim, eps=1e-6)
+        self.ln = LayerNorm(dim, eps=1e-6)
         self.pw1 = nn.Linear(dim, 4 * dim)
         self.pw2 = nn.Linear(4 * dim, dim)
         self.gamma = nn.Parameter(torch.full((dim,), 1e-6))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.ln(self.dwconv(x).permute(0, 2, 3, 1))
+        y = self.ln(self.dwconv(as_input_of(x, self.dwconv))
+                    .permute(0, 2, 3, 1))
         y = self.pw2(F.gelu(self.pw1(y)))
         return x + (self.gamma * y).permute(0, 3, 1, 2)
 
@@ -212,12 +222,12 @@ class ViTLayer(nn.Module):
     def __init__(self, dim: int, heads: int):
         super().__init__()
         self.heads = heads
-        self.ln1 = nn.LayerNorm(dim, eps=1e-12)
+        self.ln1 = LayerNorm(dim, eps=1e-12)
         self.q = nn.Linear(dim, dim)
         self.k = nn.Linear(dim, dim)
         self.v = nn.Linear(dim, dim)
         self.attn_out = nn.Linear(dim, dim)
-        self.ln2 = nn.LayerNorm(dim, eps=1e-12)
+        self.ln2 = LayerNorm(dim, eps=1e-12)
         self.fc1 = nn.Linear(dim, 4 * dim)
         self.fc2 = nn.Linear(4 * dim, dim)
 
@@ -228,7 +238,7 @@ class ViTLayer(nn.Module):
         q, k, v = (m(y).reshape(B, T, self.heads, dh)
                    for m in (self.q, self.k, self.v))
         att = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(dh)
-        att = torch.softmax(att, dim=-1)
+        att = softmax(att, dim=-1)
         ctx = torch.einsum("bhqk,bkhd->bqhd", att, v).reshape(B, T, D)
         x = x + self.attn_out(ctx)
         return x + self.fc2(F.gelu(self.fc1(self.ln2(x))))
@@ -249,10 +259,10 @@ class ConvNextViTBackbone(nn.Module):
         self.depth = depth
         c = hidden_sizes[0]
         self.patch_conv = nn.Conv2d(1, c, 4, stride=4)
-        self.patch_ln = nn.LayerNorm(c, eps=1e-6)
+        self.patch_ln = LayerNorm(c, eps=1e-6)
         for si, (n, h) in enumerate(zip(depths, hidden_sizes)):
             if si > 0:
-                setattr(self, f"s{si}_down_ln", nn.LayerNorm(c, eps=1e-6))
+                setattr(self, f"s{si}_down_ln", LayerNorm(c, eps=1e-6))
                 setattr(self, f"s{si}_down",
                         nn.Conv2d(c, h, (2, 1), stride=(2, 1)))
             for li in range(n):
@@ -262,12 +272,13 @@ class ConvNextViTBackbone(nn.Module):
         self.pos_embed = nn.Parameter(torch.zeros(1, pos_len, dims))
         for i in range(depth):
             setattr(self, f"vit{i}", ViTLayer(dims, heads))
-        self.vit_ln = nn.LayerNorm(dims, eps=1e-12)
+        self.vit_ln = LayerNorm(dims, eps=1e-12)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.shape[1] == 3:
             x = rgb_to_grey(x)
-        x = layer_norm_nchw(self.patch_ln, self.patch_conv(x))
+        x = layer_norm_nchw(self.patch_ln,
+                            self.patch_conv(as_input_of(x, self.patch_conv)))
         for si, n in enumerate(self.depths):
             if si > 0:
                 x = getattr(self, f"s{si}_down")(layer_norm_nchw(
@@ -275,7 +286,8 @@ class ConvNextViTBackbone(nn.Module):
             for li in range(n):
                 x = getattr(self, f"s{si}_b{li}")(x)
         B, C, fh, fw = x.shape
-        t = self.proj(x.permute(0, 2, 3, 1).reshape(B, fh * fw, C))
+        t = self.proj(as_input_of(x, self.proj).permute(0, 2, 3, 1)
+                      .reshape(B, fh * fw, C))
         T = t.shape[1]
         if T > self.pos_embed.shape[1]:
             raise ValueError(f"{T} tokens, {self.pos_embed.shape[1]} "
@@ -323,7 +335,10 @@ class LightweightEdgeBackbone(nn.Module):
         self.out_channels = build_plan(self, LWE_PLAN, 24)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x, _ = run_plan(self, LWE_PLAN, self.first_conv(rgb_to_grey(x)),
+        grey = rgb_to_grey(x)
+        x, _ = run_plan(self, LWE_PLAN,
+                        self.first_conv(as_input_of(grey,
+                                                    self.first_conv.conv)),
                         se_residual=False)
         return x.mean(dim=2).transpose(1, 2)
 
@@ -337,10 +352,7 @@ class CTCRecModel(nn.Module):
         cfg = self.config = config
         if cfg.backbone not in BACKBONES:
             raise ValueError(f"unknown rec backbone {cfg.backbone!r}")
-        if cfg.dtype != "float32":
-            raise NotImplementedError(
-                f"the recognizer ({cfg.backbone}) runs float32 only, not "
-                f"{cfg.dtype!r} (ROADMAP.md Queue 1 item 7)")
+        self.dtype = compute_dtype(cfg.dtype)
         self.crnn = cfg.backbone == "crnn"
         if self.crnn:
             h = cfg.hidden_size
@@ -363,6 +375,8 @@ class CTCRecModel(nn.Module):
                 heads=cfg.svtr_heads, in_ch=cfg.img_channels)
             dims = cfg.svtr_dims
         self.ctc_head = nn.Linear(dims, cfg.vocab_size)
+        cast_model(self, self.dtype, keep=[
+            m.gamma for m in self.modules() if isinstance(m, ConvNextBlock)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         feat = self.backbone(x.permute(0, 3, 1, 2))

@@ -14,7 +14,9 @@ layout ((in, out) matrices), so the weight bridge moves them as they are.
 The decode runs all ``max_structure_len`` steps, as the JAX scan does: one
 step per host iteration, greedy argmax fed back on the device (no sync), or
 ``teacher_tokens`` shifted right (sos 0) in training mode. ``forward``
-takes NHWC images (B, H, W, 3), already normalized.
+takes NHWC images (B, H, W, 3), already normalized. The backbone and neck
+compute in ``config.dtype`` (layers.py::cast_model); the memory is cast to
+f32 and the head stays f32, as in JAX.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from ...engine.device import compute_dtype
+from ..layers import cast_model
 from ..picodet.model import CSPPAN, LCNetBackbone
 from .config import SLANetConfig
 from .vocab import StructureVocab
@@ -122,10 +126,7 @@ class SLANet(nn.Module):
     def __init__(self, config: SLANetConfig):
         super().__init__()
         cfg = self.config = config
-        if cfg.dtype != "float32":
-            raise NotImplementedError(
-                f"SLANet runs float32 only, not {cfg.dtype!r} (bf16 SLANet "
-                f"is ROADMAP.md Queue 1 item 15)")
+        self.dtype = compute_dtype(cfg.dtype)
         vocab = cfg.vocab_size or len(StructureVocab())
         self.backbone = LCNetBackbone(cfg.lcnet_scale,
                                       out_stages=(3, 4, 5, 6))
@@ -133,11 +134,15 @@ class SLANet(nn.Module):
                            extra_level=False)
         self.head = SLAHead(cfg.neck_channels, vocab, cfg.hidden_size,
                             cfg.loc_reg_num, cfg.max_structure_len)
+        cast_model(self.backbone, self.dtype)
+        cast_model(self.neck, self.dtype)
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
-        """NHWC images -> the neck's stride-32 map (B, C, H/32, W/32)."""
-        x = x.permute(0, 3, 1, 2)   # NHWC memory read as channels_last
-        return self.neck(self.backbone(x))[-1]
+        """NHWC images -> the neck's stride-32 map (B, C, H/32, W/32),
+        f32."""
+        # NHWC memory read as channels_last
+        x = x.permute(0, 3, 1, 2).to(self.dtype)
+        return self.neck(self.backbone(x))[-1].float()
 
     def forward(self, x: torch.Tensor,
                 teacher_tokens: Optional[torch.Tensor] = None

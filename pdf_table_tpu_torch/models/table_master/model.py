@@ -18,7 +18,9 @@ JAX's (B, T, H, Dh) with the heads first, so that a step's products are
 batched matmuls without a copy. Cross-attention K/V over the memory are
 computed once per forward. All ``max_structure_len`` steps run; the
 argmax feeds back on the device. ``forward`` takes NHWC images, already
-normalized.
+normalized. The encoder computes in ``config.dtype``
+(layers.py::cast_model); the memory is cast to f32, and the decoder, its
+caches and the cell branch stay f32, as in JAX.
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..layers import ConvBNAct
+from ...engine.device import compute_dtype
+from ..layers import ConvBNAct, LayerNorm, cast_model, softmax
 from .config import TableMasterConfig
 from .vocab import MasterStructureVocab
 
@@ -62,12 +65,12 @@ class ContextBlock(nn.Module):
         planes = int(channels * ratio)
         self.conv_mask = nn.Conv2d(channels, 1, 1)
         self.ca_conv1 = nn.Conv2d(channels, planes, 1)
-        self.ca_ln = nn.LayerNorm(planes, eps=LN_EPS)
+        self.ca_ln = LayerNorm(planes, eps=LN_EPS)
         self.ca_conv2 = nn.Conv2d(planes, channels, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
-        attn = torch.softmax(self.conv_mask(x).reshape(b, 1, h * w), dim=-1)
+        attn = softmax(self.conv_mask(x).reshape(b, 1, h * w), dim=-1)
         ctx = torch.bmm(x.reshape(b, c, h * w), attn.transpose(1, 2))
         y = self.ca_conv1(ctx[..., None]).flatten(1)          # (B, planes)
         y = torch.relu(self.ca_ln(y))[:, :, None, None]
@@ -139,13 +142,11 @@ class TableMaster(nn.Module):
     def __init__(self, config: TableMasterConfig):
         super().__init__()
         cfg = self.config = config
-        if cfg.dtype != "float32":
-            raise NotImplementedError(
-                f"TableMaster runs float32 only, not {cfg.dtype!r} (bf16 "
-                f"TableMaster is ROADMAP.md Queue 1 item 15)")
+        self.dtype = compute_dtype(cfg.dtype)
         V = self.vocab_size = cfg.vocab_size or len(MasterStructureVocab())
         D, FF = cfg.d_model, cfg.ff_dim
         self.encoder = TableResNetExtra()
+        cast_model(self.encoder, self.dtype)
         C = TableResNetExtra.out_channels
         self.mem_proj = nn.Linear(C, D) if C != D else None
         self.layer_names = [f"l{i}" for i in range(cfg.decoder_layers - 1)] \
@@ -188,7 +189,7 @@ class TableMaster(nn.Module):
     def memory(self, x: torch.Tensor) -> torch.Tensor:
         """NHWC images -> the flattened encoder map with positions, (B, S,
         D) f32."""
-        feat = self.encoder(x.permute(0, 3, 1, 2))
+        feat = self.encoder(x.permute(0, 3, 1, 2).to(self.dtype))
         B, C = feat.shape[:2]
         mem = feat.float().permute(0, 2, 3, 1).reshape(B, -1, C)
         mem = mem + interleaved_positions(mem.shape[1], C, mem.device)[None]

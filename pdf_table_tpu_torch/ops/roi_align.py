@@ -19,7 +19,10 @@ def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 def roi_align(feat: torch.Tensor, boxes: torch.Tensor,
               out_size: int = 7) -> torch.Tensor:
     """feat (H, W, C); boxes (N, 4) xyxy in feature coordinates ->
-    (N, S, S, C). Bin centres are ``x1 + (i + 0.5) * (1 / S) * w`` with a
+    (N, S, S, C) in ``feat``'s dtype. The sample weights are f32 and a bf16
+    map's corners blend with them in f32, as JAX's promotion does; the
+    sum is rounded to the map's dtype once (JAX rounds it where the next
+    bf16 layer takes it in). Bin centres are ``x1 + (i + 0.5) * (1 / S) * w`` with a
     fused multiply-add and the reciprocal of the constant ``S``, as XLA
     compiles the JAX expression (an unfused f32 sum moves samples by an
     ulp, 1e-5 of the output)."""
@@ -49,4 +52,4 @@ def roi_align(feat: torch.Tensor, boxes: torch.Tensor,
     return (gather(y0, x0) * ((1 - wy) * (1 - wx))
             + gather(y0, x0 + 1) * ((1 - wy) * wx)
             + gather(y0 + 1, x0) * (wy * (1 - wx))
-            + gather(y0 + 1, x0 + 1) * (wy * wx))
+            + gather(y0 + 1, x0 + 1) * (wy * wx)).to(feat.dtype)

@@ -20,7 +20,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..engine.device import on_device, resolve_device, set_float_precision
+from ..engine.device import (on_device, resolve_device, set_float_precision,
+                             with_default_dtype)
 from ..engine.params import init_dbnet
 from ..models.dbnet.config import DbNetConfig
 from ..models.dbnet.model import DBNet
@@ -67,7 +68,9 @@ class OcrDetectionTask:
     asked for). Weights: ``variables`` (a flax-layout tree, see
     convert/flax_bridge.py) or, when None, the seeded :func:`init_dbnet`.
     ``half_res_probs`` max-pools the prob map 2x2 before quantizing, as
-    the JAX pipeline does; ``cfg_overrides`` go to :func:`det_config`.
+    the JAX pipeline does; ``cfg_overrides`` go to :func:`det_config`,
+    with the device's default dtype (engine/device.py::default_dtype)
+    where they name none.
     Every backbone takes the detector size of the limit-side rule
     (``det_input_size``), as the JAX batched lane does."""
 
@@ -77,12 +80,9 @@ class OcrDetectionTask:
                  variables: Optional[Dict[str, Any]] = None,
                  half_res_probs: bool = True, **cfg_overrides):
         self.model_name = model
-        self.model_config = cfg = det_config(model, **cfg_overrides)
-        if cfg.dtype != "float32":
-            raise NotImplementedError(
-                f"detection model {model!r} runs float32 only (bf16 is "
-                f"ROADMAP.md Queue 1 item 6)")
         self.device = resolve_device(device)
+        self.model_config = cfg = det_config(
+            model, **with_default_dtype(cfg_overrides, self.device))
         set_float_precision()
         self.half_res_probs = half_res_probs
         self.norm = NORM[cfg.norm_style]

@@ -29,7 +29,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..engine.device import on_device, resolve_device, set_float_precision
+from ..engine.device import (on_device, resolve_device, set_float_precision,
+                             with_default_dtype)
 from ..engine.params import init_docx_layout, init_picodet
 from ..entity.ocr_cell import OcrCell
 from ..models.center_net.processor import CenterNetPreProcessor
@@ -99,8 +100,10 @@ class OcrLayoutTask:
     for), ``model`` one of ``MODELS``. Weights: ``variables`` (a
     flax-layout tree, see convert/flax_bridge.py) or, when None, the
     model's seeded ``init_*``. ``config`` or ``cfg_overrides`` set
-    ``PicoDetConfig`` (with ``task_type``) or ``DocXLayoutConfig`` (which
-    ignores ``task_type``, as the JAX task does). On the CPU,
+    ``PicoDetConfig`` (with ``task_type``, and the device's default dtype,
+    engine/device.py::default_dtype, where they name none, as the JAX
+    registry builds it) or ``DocXLayoutConfig`` (which ignores
+    ``task_type``, and is f32 unless asked, as the JAX task does). On the CPU,
     ``PDFTABLE_DEVICE_NMS=0`` selects PicoDet's host route (``hard_nms``
     over the downloaded candidates), as in the JAX task; on a card the NMS
     always runs on the device."""
@@ -131,7 +134,8 @@ class OcrLayoutTask:
         else:
             self.model_name = "picodet"
             self.model_config = cfg = config or PicoDetConfig(
-                task_type=task_type, **cfg_overrides)
+                task_type=task_type,
+                **with_default_dtype(cfg_overrides, self.device))
             self.post = PicoDetPostProcessor(cfg)
             self.model = PicoDet(cfg).eval()
             init = init_picodet

@@ -34,7 +34,8 @@ import numpy as np
 import torch
 
 from ..engine.buckets import bucket_batch_size
-from ..engine.device import on_device, resolve_device, set_float_precision
+from ..engine.device import (on_device, resolve_device, set_float_precision,
+                             with_default_dtype)
 from ..engine.params import init_rec
 from ..models.rec_ctc.charset import Charset, resolve_charset
 from ..models.rec_ctc.config import RecConfig
@@ -99,7 +100,9 @@ class OcrRecognitionTask:
     flax-layout tree, see convert/flax_bridge.py) or, when None, the
     seeded :func:`init_rec`. ``cls_task`` is the 0/180 textline classifier
     (a :class:`ClsImagePulcTask` on the same device) or None for no
-    orientation check. ``cfg_overrides`` go to :func:`rec_config`."""
+    orientation check. ``cfg_overrides`` go to :func:`rec_config`, with
+    the device's default dtype (engine/device.py::default_dtype) where
+    they name none."""
 
     task_name = "recognition"
 
@@ -109,13 +112,10 @@ class OcrRecognitionTask:
                  charset: Optional[Charset] = None,
                  single_rec_bucket: bool = True, **cfg_overrides):
         self.model_name = model
-        self.model_config = cfg = rec_config(model=model, **cfg_overrides)
-        if cfg.dtype != "float32":
-            raise NotImplementedError(
-                f"recognition model {model!r} runs float32 only (bf16 is "
-                f"ROADMAP.md Queue 1 item 7)")
-        self.convnext = cfg.backbone == "convnext_vit"
         self.device = resolve_device(device)
+        self.model_config = cfg = rec_config(
+            model=model, **with_default_dtype(cfg_overrides, self.device))
+        self.convnext = cfg.backbone == "convnext_vit"
         set_float_precision()
         if cls_task is not None and cls_task.device != self.device:
             raise ValueError(f"the classifier runs on {cls_task.device}, "

@@ -34,6 +34,14 @@ downloads each sub-batch once and post-processes each crop on the host.
   (ops/crop_resize.py), each model's normalize and pad, the encoder and
   the 500-step greedy decode in sub-batches of ``batch_size``, into
   {"structure_tokens", "cells", "type"} for the token path of table HTML.
+
+The per-crop surface takes table images instead: ``__call__(image)`` runs
+one crop through its model's host preprocess (JAX's ``InferTask.__call__``
+through ``_preprocess``), ``batch_infer(crops)`` all of a page's crops as
+JAX's ``batch_infer`` does: LORE's uint8 warps uploaded as one stack, the
+BGR flip and normalize on the device; the other models' host preprocess
+per crop; sub-batches of ``batch_size`` padded to the bucket size (LGPMA:
+one crop a forward).
 """
 
 from __future__ import annotations
@@ -44,7 +52,8 @@ import numpy as np
 import torch
 
 from ..engine.buckets import bucket_batch_size
-from ..engine.device import on_device, resolve_device, set_float_precision
+from ..engine.device import (on_device, resolve_device, set_float_precision,
+                             with_default_dtype)
 from ..engine.params import (init_centernet, init_lgpma, init_lore,
                              init_slanet, init_table_master)
 from ..models.center_net.config import CenterNetConfig
@@ -114,7 +123,10 @@ class OcrTableStructureTask:
     full-resolution sub-batch. CenterNet and the token models run
     sub-batches of ``batch_size`` crops at their one input size, LGPMA one
     crop at a time. ``config`` or the config fields in ``kw`` set the
-    model."""
+    model; LORE and SLANet, which the JAX package builds through its
+    registry, take the device's default dtype
+    (engine/device.py::default_dtype) where ``kw`` names none, the other
+    models f32."""
 
     task_name = "table_structure"
 
@@ -148,8 +160,6 @@ class OcrTableStructureTask:
             self._init_tree = init_centernet
         elif model == "Lgpma":
             self.model_config = cfg = config or LgpmaConfig(**kw)
-            if cfg.dtype != "float32":
-                raise NotImplementedError("the port runs LGPMA in float32")
             self.pre = LgpmaPreProcessor(cfg)
             self.post = LgpmaPostProcessor(cfg)
             self.model = LGPMA(cfg).eval()
@@ -161,12 +171,14 @@ class OcrTableStructureTask:
         self.model.to(self.device)
 
     def _init_lore(self, config, task_type, res_buckets, **kw) -> None:
-        self.model_config = config or lore_config(task_type, **kw)
+        self.model_config = config or lore_config(
+            task_type, **with_default_dtype(kw, self.device))
         cfg = self.model_config
         if res_buckets == "auto":
             self.res_buckets = (384, 512)
         else:
             self.res_buckets = tuple(res_buckets or ())
+        self.pre = LorePreProcessor(cfg)
         self.post = LorePostProcessor(cfg)
         self.model = LoreModel(cfg).eval()
         self._init_tree = init_lore
@@ -178,7 +190,8 @@ class OcrTableStructureTask:
         parameters are declared, so that its tree loads; the runner does
         not decode cells, as in JAX)."""
         if self.model_name == "SLANet":
-            self.model_config = cfg = config or SLANetConfig(**kw)
+            self.model_config = cfg = config or SLANetConfig(
+                **with_default_dtype(kw, self.device))
             self.pre = SLANetPreProcessor(cfg)
             self.post = SLANetPostProcessor(cfg)
             self.model = SLANet(cfg).eval()
@@ -408,7 +421,16 @@ class OcrTableStructureTask:
             # host line cells while the card runs LORE
             line_cells = [extract_cells_from_image(w)
                           for w in self.host_windows(pages, regions)]
-        results: List[Dict[str, Any]] = [{} for _ in regions]
+        results = self._download_post(pending, len(regions))
+        if line_cells is not None:
+            results = [merge_tsr_cells(r, lc)
+                       for r, lc in zip(results, line_cells)]
+        return results
+
+    def _download_post(self, pending, n: int) -> List[Dict[str, Any]]:
+        """Download each sub-batch's outputs once and post-process its
+        crops: ``pending`` is [(crop indices, metas, device outputs)]."""
+        results: List[Dict[str, Any]] = [{} for _ in range(n)]
         for sub, metas, packed in pending:
             if isinstance(packed, dict):
                 host = {k: v.cpu().numpy() for k, v in packed.items()}
@@ -417,14 +439,82 @@ class OcrTableStructureTask:
             packed_np = packed.cpu().numpy()
             for j, (i, meta) in enumerate(zip(sub, metas)):
                 results[i] = self._post_one(packed_np[j:j + 1], meta)
-        if line_cells is not None:
-            results = [merge_tsr_cells(r, lc)
-                       for r, lc in zip(results, line_cells)]
         return results
 
+    def host_preprocess(self, image: np.ndarray
+                        ) -> Tuple[np.ndarray, Any]:
+        """One uint8 RGB crop through its model's host preprocess (JAX's
+        ``_preprocess``): the (1, H, W, 3) f32 model input and the meta
+        that :meth:`_post_one` takes."""
+        out = self.pre(image)
+        if self.model_name == "SLANet":
+            return out["image"], out["shape_list"]
+        meta = out["meta"]
+        if self.model_name in TOKEN_MODELS:
+            return out["image"], meta["shape_list"]
+        return out["image"], meta
+
+    @torch.inference_mode()
     def __call__(self, image: np.ndarray) -> Dict[str, Any]:
-        """One table image (H, W, 3) uint8 RGB: the from-pages path with the
-        image as the page and the whole image as the region."""
-        h, w = image.shape[:2]
-        return self.batch_infer_from_pages(image[None],
-                                           [(0, (0, 0, w, h))])[0]
+        """One table image (H, W, 3) uint8 RGB through its model's host
+        preprocess, as JAX's ``__call__``: LORE's float warp, CenterNet's,
+        LGPMA's resize, the token models' resize and pad; LineCell on the
+        host. ``LoreAndLineCell`` merges the line cells where the image
+        has any, as JAX's ``_postprocess`` does."""
+        if self.model_name == "LineCell":
+            return extract_cells_from_image(image)
+        x, meta = self.host_preprocess(image)
+        packed = self._forward_packed(torch.from_numpy(x).to(self.device))
+        result = self._download_post([([0], [meta], packed)], 1)[0]
+        if self.merge_line_cell:
+            line_cells = extract_cells_from_image(image)
+            if line_cells.get("cells"):
+                result = merge_tsr_cells(result, line_cells)
+        return result
+
+    @torch.inference_mode()
+    def batch_infer(self, crops: Sequence[np.ndarray]
+                    ) -> List[Dict[str, Any]]:
+        """All table crops of a page (uint8 RGB arrays), as JAX's
+        ``batch_infer``: LORE's ``warp_u8`` per crop, the uint8 stack
+        uploaded once, the BGR flip and normalize on the device; the other
+        models' host preprocess per crop; sub-batches of ``batch_size``
+        padded to the bucket size, every one enqueued before the first
+        download. LGPMA runs one crop a forward at the crop's own
+        multiple-of-32 size (its JAX program takes one image); LineCell
+        runs :meth:`__call__` per crop. LORE's results carry no line cells,
+        as JAX's warp path's do not."""
+        if not crops:
+            return []
+        if self.model_name == "LineCell":
+            return [self(c) for c in crops]
+        if self.model_name == "Lgpma":
+            pending = []
+            for i, c in enumerate(crops):
+                x, meta = self.host_preprocess(c)
+                pending.append(([i], [meta], self._forward_packed(
+                    on_device(x, self.device))))
+            return self._download_post(pending, len(crops))
+        if self.model_name == "Lore":
+            prepped = [self.pre.warp_u8(c) for c in crops]
+            stack = on_device(np.concatenate(
+                [p["image_u8"] for p in prepped]), self.device)
+            metas = [p["meta"] for p in prepped]
+        else:
+            prepped = [self.host_preprocess(c) for c in crops]
+            stack = on_device(np.concatenate([p[0] for p in prepped]),
+                              self.device)
+            metas = [p[1] for p in prepped]
+        cap = max(1, self.batch_size)
+        pending = []
+        for s0 in range(0, len(crops), cap):
+            sub = list(range(s0, min(s0 + cap, len(crops))))
+            x = stack[s0:s0 + len(sub)]
+            pad = bucket_batch_size(len(sub)) - len(sub)
+            if pad:    # zero crops, as JAX's pad_batch adds
+                x = torch.cat([x, x.new_zeros((pad, *x.shape[1:]))])
+            if self.model_name == "Lore":
+                x = (x.float().flip(-1) / 255.0 - self.mean) / self.std
+            pending.append((sub, [metas[i] for i in sub],
+                            self._forward_packed(x)))
+        return self._download_post(pending, len(crops))

@@ -25,6 +25,7 @@ from pdf_table_tpu_torch.models.cls.config import PULC_LABELS, ClsPulcConfig
 from pdf_table_tpu_torch.models.cls.model import (NET_CONFIG,
                                                   PPLCNetClassifier)
 from pdf_table_tpu_torch.tasks.cls_pulc import ClsImagePulcTask
+from test_torch_dtype_policy import assert_bf16_rule
 from test_torch_rec_model import perturb
 
 torch.set_num_threads(1)
@@ -149,9 +150,17 @@ def test_other_tasks_are_not_ported(task_type):
 
 
 def test_a_bf16_config_raises_naming_the_roadmap_item():
-    """The classifier runs float32 only: a bf16 config raises rather than
-    running f32 silently."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        ClsImagePulcTask(TASK, device="cpu", dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        PPLCNetClassifier(ClsPulcConfig.for_task(TASK, dtype="bfloat16"))
+    """The classifier builds in bf16 when asked (against JAX:
+    tests/test_torch_bf16_tsr.py), with flax's weight rule and f32
+    probabilities; it stays f32 by default, as JAX builds its config
+    directly."""
+    task = ClsImagePulcTask(TASK, device="cpu", dtype="bfloat16")
+    assert_bf16_rule(task.model)
+    assert ClsImagePulcTask(TASK, device="cpu").model_config.dtype \
+        == "float32"
+    net = PPLCNetClassifier(ClsPulcConfig.for_task(TASK, dtype="bfloat16"))
+    x = np.random.default_rng(3).standard_normal((2, 48, 192, 3))
+    with torch.no_grad():
+        probs = net.eval()(torch.from_numpy(x.astype(np.float32)))
+    assert probs.dtype == torch.float32
+    np.testing.assert_allclose(probs.sum(-1).numpy(), 1.0, rtol=1e-6)

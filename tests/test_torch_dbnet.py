@@ -21,6 +21,7 @@ from pdf_table_tpu_torch.engine.params import _set, init_dbnet
 from pdf_table_tpu_torch.models import layers
 from pdf_table_tpu_torch.models.dbnet.config import DbNetConfig
 from pdf_table_tpu_torch.models.dbnet.model import BinarizeHead, DBNet
+from test_torch_dtype_policy import assert_bf16_rule
 
 torch.set_num_threads(1)
 
@@ -114,12 +115,19 @@ def test_make_divisible_matches_jax():
 
 
 @pytest.mark.parametrize("backbone", ["resnet18", "resnet50",
-                                      "proxylessnas"])
+                                      "proxylessnas", "mobilenetv3"])
 def test_other_backbones_are_not_ported(backbone):
     """Every backbone builds in f32 (the ModelScope ones since the ninth
-    slice, tests/test_torch_dbnet_backbones.py); none is ported in bf16
-    (ROADMAP.md Queue 1 item 6), and the error names the backbone."""
+    slice, tests/test_torch_dbnet_backbones.py) and in bf16 (against JAX:
+    tests/test_torch_bf16_dbnet.py) with flax's weight rule, and its bf16
+    prob map is f32."""
     assert DBNet(DbNetConfig.ppocr(backbone=backbone)).config.backbone \
         == backbone
-    with pytest.raises(NotImplementedError, match=backbone):
-        DBNet(DbNetConfig.ppocr(backbone=backbone, dtype="bfloat16"))
+    net = DBNet(DbNetConfig.ppocr(backbone=backbone, inner_channels=64,
+                                  dtype="bfloat16")).eval()
+    assert_bf16_rule(net)
+    x = np.random.default_rng(3).standard_normal((1, 64, 32, 3))
+    with torch.no_grad():
+        prob = net(torch.from_numpy(x.astype(np.float32)))["prob"]
+    assert prob.dtype == torch.float32 and prob.shape == (1, 64, 32)
+    assert torch.isfinite(prob).all()

@@ -167,12 +167,12 @@ def test_runs_on_cuda_by_default(monkeypatch):
 
 
 def test_other_models_are_not_ported():
-    """db_resnet18 builds in f32 since the ninth slice; its bf16 (ROADMAP.md
-    Queue 1 item 6) and an unknown name raise, naming the model."""
+    """db_resnet18 builds in f32 since the ninth slice and in bf16 since
+    the twelfth; an unknown name raises, naming the model."""
     assert OcrDetectionTask(model="db_resnet18", device="cpu",
                             **CFG).model_config.backbone == "resnet18"
-    with pytest.raises(NotImplementedError, match="db_resnet18"):
-        OcrDetectionTask(model="db_resnet18", device="cpu",
-                         dtype="bfloat16")
+    task = OcrDetectionTask(model="db_resnet18", device="cpu",
+                            dtype="bfloat16")
+    assert task.model.dtype == torch.bfloat16
     with pytest.raises(NotImplementedError, match="db_mobilenet"):
         OcrDetectionTask(model="db_mobilenet", device="cpu")

@@ -30,6 +30,7 @@ from pdf_table_tpu_torch.engine.params import (calibrate_batch_stats,
                                                scale_batch_variances)
 from pdf_table_tpu_torch.models.lgpma.config import LgpmaConfig
 from pdf_table_tpu_torch.models.lgpma.model import LGPMA
+from test_torch_dtype_policy import assert_bf16_rule
 from pdf_table_tpu_torch.models.lgpma.processor import (LgpmaPostProcessor,
                                                         resize_linear_f32)
 from pdf_table_tpu_torch.ops.roi_align import roi_align
@@ -220,14 +221,14 @@ def tasks(setup):
     return jtask, ttask
 
 
-def _same_cells(got, want):
+def _same_cells(got, want, box_px=BOX_PX):
     assert got["type"] == want["type"] == "lgpma"
     assert len(got["cells"]) == len(want["cells"])
     for g, w in zip(got["cells"], want["cells"]):
         assert g["logic"] == w["logic"]
         assert g["label"] == w["label"]
         np.testing.assert_allclose(g["bbox"], w["bbox"], rtol=0,
-                                   atol=BOX_PX)
+                                   atol=box_px)
 
 
 def test_task_per_crop_matches_jax(tasks):
@@ -251,7 +252,31 @@ def test_two_regions_of_a_page_match_jax_per_crop(tasks):
     assert sum(len(g["cells"]) for g in got) > 0
 
 
+def test_batch_infer_of_crops_of_other_sizes_matches_jax_per_crop(tasks):
+    """``batch_infer`` on crops that plan to three sizes (64x32, 64x64,
+    32x64 at ``max_side=64``), each a forward of its own, against JAX's
+    ``batch_infer`` one crop at a time (JAX's fails on two or more crops:
+    ROADMAP, faults of the reference side)."""
+    jtask, ttask = tasks
+    page = _page()
+    crops = [np.ascontiguousarray(page[:, :50]),
+             np.ascontiguousarray(page[10:90, 20:110]),
+             np.ascontiguousarray(page)]
+    sizes = {ttask.pre.plan(*c.shape[:2])[:2] for c in crops}
+    assert len(sizes) == 3, sizes
+    got = ttask.batch_infer(crops)
+    assert len(got) == len(crops)
+    for g, c in zip(got, crops):
+        _same_cells(g, jtask.batch_infer([c])[0])
+    assert sum(len(g["cells"]) for g in got) > 0
+
+
 def test_task_rejects_bf16():
-    with pytest.raises(NotImplementedError):
-        OcrTableStructureTask(model="Lgpma", device="cpu",
-                              dtype="bfloat16", **TINY)
+    """The LGPMA task builds in bf16 when asked (against JAX:
+    tests/test_torch_bf16_tsr.py), every module with flax's weight rule,
+    and stays f32 by default, as JAX builds its config directly."""
+    task = OcrTableStructureTask(model="Lgpma", device="cpu",
+                                 dtype="bfloat16", **TINY)
+    assert_bf16_rule(task.model)
+    assert OcrTableStructureTask(model="Lgpma", device="cpu", **TINY) \
+        .model_config.dtype == "float32"

@@ -27,7 +27,13 @@ nor the JAX package imported. A seventh runs the digital lane: it writes a
 PDF with the port's writer, reads it with the port's reader, runs
 ``BatchPipeline.run`` on the digital page carrying the image of the
 vector-and-image half of the renderer, and ``read_pdf(flavor="pdf")``,
-with neither JAX, flax, cv2, PIL nor the JAX package imported."""
+with neither JAX, flax, cv2, PIL nor the JAX package imported. An eighth
+builds every model that runs bf16 (the four DBNets, the four
+recognizers, PicoDet, PP-LCNet, SLANet, TableMaster, MtlTabNet, LGPMA,
+LORE) in bf16, runs each once on a small input, and runs the per-crop
+table-structure surface (``batch_infer`` and ``__call__`` of LORE,
+SLANet, CenterNet, LGPMA and LineCell), with neither JAX, flax, cv2 nor
+the JAX package imported."""
 
 import json
 import os
@@ -418,3 +424,77 @@ def test_digital_lane_runs_without_jax():
     assert len(res["table_html"]) == 1 and ">h2</td>" in \
         res["table_html"][0]
     assert res["read_pdf"] == [[["h1", "h2", "h3"], ["a", "b", "c"]]]
+
+
+_BF16_SCRIPT = r"""
+import json, sys
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from pdf_table_tpu_torch.tasks.detection import OcrDetectionTask
+from pdf_table_tpu_torch.tasks.recognition import OcrRecognitionTask
+from pdf_table_tpu_torch.tasks.cls_pulc import ClsImagePulcTask
+from pdf_table_tpu_torch.tasks.layout import OcrLayoutTask
+from pdf_table_tpu_torch.tasks.table_structure import OcrTableStructureTask
+from pdf_table_tpu_torch.tasks.table_to_html import OcrTableToHtmlTask
+bf16 = dict(dtype="bfloat16")
+rng = np.random.default_rng(0)
+finite = []
+x = torch.from_numpy(rng.standard_normal((1, 64, 64, 3)).astype(np.float32))
+for m in ("PP-OCRv4_det", "db_resnet18", "db_resnet50", "db_proxylessnas"):
+    t = OcrDetectionTask(model=m, device="cpu", limit_side_len=64, **bf16)
+    with torch.no_grad():
+        finite.append(bool(torch.isfinite(t.model(x)["prob"]).all()))
+for m in ("PP-OCRv4_rec", "CRNN", "ConvNextViT", "LightweightEdge"):
+    t = OcrRecognitionTask(model=m, device="cpu", **bf16)
+    h = t.model_config.img_height
+    with torch.no_grad():
+        finite.append(bool(torch.isfinite(t.model(torch.zeros(1, h, 96, 3))).all()))
+cls = ClsImagePulcTask("textline_orientation", device="cpu", **bf16)
+finite.append(bool(torch.isfinite(cls.probs(torch.full((1, 48, 192, 3), 99.0))).all()))
+pico = OcrLayoutTask(device="cpu", img_height=64, img_width=64,
+                     neck_channels=32, head_convs=1, **bf16)
+pages = np.full((1, 150, 170, 3), 255, np.uint8)
+pages[:, 10:140:20, 10:160] = 20
+pages[:, 10:141, 10:160:25] = 20
+handle, metas = pico.enqueue(pages)
+finite.append(len(pico.finish(handle, metas)) == 1)
+lore = dict(resolution=(64, 64), max_objs=8, hidden_size=32, head_conv=16,
+            tsfm_layers=1, stacking_layers=1, num_heads=4, max_fmp_size=64,
+            d_ff=64)
+kw = {"Lore": dict(lore, task_type="wireless", **bf16),
+      "SLANet": dict(table_max_len=64, hidden_size=32, max_structure_len=8,
+                     **bf16),
+      "TableMaster": dict(img_size=(64, 64), d_model=32, decoder_layers=2,
+                          heads=4, ff_dim=64, max_structure_len=8, **bf16),
+      "MtlTabNet": dict(img_size=(64, 64), d_model=32, decoder_layers=2,
+                        heads=4, ff_dim=64, max_structure_len=8, **bf16),
+      "Lgpma": dict(backbone_depth=18, fpn_channels=32, rpn_pre_topk=32,
+                    num_proposals=16, mask_top=8, fc_dim=64, max_side=64,
+                    **bf16),
+      "CenterNet": dict(resolution=(64, 64), head_conv=16, K=8, MK=16),
+      "LineCell": {}}
+crops = [np.ascontiguousarray(pages[0, 5:145, 5:165]),
+         np.ascontiguousarray(pages[0, 20:100, 30:120])]
+html = []
+for model, k in kw.items():
+    task = OcrTableStructureTask(model=model, device="cpu", **k)
+    for r in task.batch_infer(crops) + [task(crops[1])]:
+        html.append(OcrTableToHtmlTask()(r, []).startswith("<table"))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "flax", "cv2", "pdf_table_tpu"))
+print(json.dumps({"bad": bad, "finite": all(finite), "n": len(finite),
+                  "html": all(html), "results": len(html)}))
+"""
+
+
+def test_bf16_models_and_crop_surface_run_without_jax():
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    out = subprocess.run([sys.executable, "-c", _BF16_SCRIPT], cwd=root,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"bad": [], "finite": True, "n": 10, "html": True,
+                   "results": 21}

@@ -33,6 +33,7 @@ from pdf_table_tpu_torch.models.picodet import processor as tproc
 from pdf_table_tpu_torch.models.picodet.config import PicoDetConfig
 from pdf_table_tpu_torch.models.picodet.model import PicoDet
 from pdf_table_tpu_torch.ops import nms as tnms
+from test_torch_dtype_policy import assert_bf16_rule
 
 torch.set_num_threads(1)
 
@@ -269,5 +270,12 @@ def test_host_tails_match_jax(nets):
 
 
 def test_bf16_raises_naming_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        PicoDet(PicoDetConfig(dtype="bfloat16"))
+    """PicoDet builds in bf16 (against JAX: tests/test_torch_bf16_tsr.py)
+    with flax's weight rule; scores and box bins come out f32."""
+    net = PicoDet(PicoDetConfig(dtype="bfloat16")).eval()
+    assert_bf16_rule(net)
+    x = np.random.default_rng(3).standard_normal((1, 64, 64, 3))
+    with torch.no_grad():
+        out = net(torch.from_numpy(x.astype(np.float32)))
+    for t in out["scores"] + out["boxes"]:
+        assert t.dtype == torch.float32 and torch.isfinite(t).all()

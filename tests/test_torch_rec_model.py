@@ -29,6 +29,8 @@ from pdf_table_tpu_torch.models.rec_ctc.model import (MV1_ENHANCE_CFG,
                                                       CTCRecModel, SVTRBlock,
                                                       SVTRLCNetBackbone)
 
+from test_torch_dtype_policy import assert_bf16_rule
+
 torch.set_num_threads(1)
 
 ATOL = 1e-4
@@ -183,12 +185,18 @@ def test_block_table_and_config_match_jax():
 
 
 @pytest.mark.parametrize("backbone", ["crnn", "convnext_vit",
-                                      "lightweight_edge"])
+                                      "lightweight_edge", "svtr_lcnet"])
 def test_other_backbones_are_not_ported(backbone):
     """Every backbone builds in f32 since the ninth slice
-    (tests/test_torch_rec_backbones.py); none is ported in bf16 (ROADMAP.md
-    Queue 1 item 7), and the error names the backbone."""
+    (tests/test_torch_rec_backbones.py) and in bf16 (against JAX:
+    tests/test_torch_bf16_rec.py) with flax's weight rule (ConvNext's
+    ``gamma`` f32), and its bf16 logits are f32."""
     assert CTCRecModel(RecConfig(backbone=backbone)).config.backbone \
         == backbone
-    with pytest.raises(NotImplementedError, match=backbone):
-        CTCRecModel(RecConfig(backbone=backbone, dtype="bfloat16"))
+    net = CTCRecModel(RecConfig(backbone=backbone, dtype="bfloat16")).eval()
+    assert_bf16_rule(net)
+    h = 48 if backbone == "svtr_lcnet" else 32
+    x = np.random.default_rng(3).uniform(-1, 1, (1, h, 64, 3))
+    with torch.no_grad():
+        logits = net(torch.from_numpy(x.astype(np.float32)))
+    assert logits.dtype == torch.float32 and torch.isfinite(logits).all()

@@ -292,11 +292,11 @@ def test_runs_on_cuda_by_default(monkeypatch):
 
 
 def test_other_models_are_not_ported():
-    """CRNN builds in f32 since the ninth slice; its bf16 (ROADMAP.md Queue
-    1 item 7) and an unknown name raise, naming the model."""
+    """CRNN builds in f32 since the ninth slice and in bf16 since the
+    twelfth; an unknown name raises, naming the model."""
     assert OcrRecognitionTask(model="CRNN", device="cpu") \
         .model_config.backbone == "crnn"
-    with pytest.raises(NotImplementedError, match="CRNN"):
-        OcrRecognitionTask(model="CRNN", device="cpu", dtype="bfloat16")
+    task = OcrRecognitionTask(model="CRNN", device="cpu", dtype="bfloat16")
+    assert task.model.dtype == torch.bfloat16
     with pytest.raises(NotImplementedError, match="SVTR_v2"):
         OcrRecognitionTask(model="SVTR_v2", device="cpu")

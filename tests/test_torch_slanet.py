@@ -42,6 +42,7 @@ from pdf_table_tpu_torch.models.slanet.processor import SLANetPostProcessor
 from pdf_table_tpu_torch.models.slanet.vocab import (STRUCTURE_TOKENS,
                                                      StructureVocab)
 from pdf_table_tpu_torch.tasks.table_structure import OcrTableStructureTask
+from test_torch_dtype_policy import assert_bf16_rule
 
 torch.set_num_threads(1)
 
@@ -290,6 +291,10 @@ def test_task_call_matches_jax(task_tree, monkeypatch):
 
 
 def test_task_rejects_bf16():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        OcrTableStructureTask(model="SLANet", device="cpu", dtype="bfloat16",
-                              **TINY)
+    """The SLANet task builds in bf16 (against JAX:
+    tests/test_torch_bf16_tsr.py): the backbone and neck with flax's
+    weight rule, the attention-GRU head f32, as in JAX."""
+    task = OcrTableStructureTask(model="SLANet", device="cpu",
+                                 dtype="bfloat16", **TINY)
+    assert task.model_config.dtype == "bfloat16"
+    assert_bf16_rule(task.model, f32=("head",))

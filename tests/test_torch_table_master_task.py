@@ -19,6 +19,7 @@ from pdf_table_tpu_torch.models.table_master.config import \
     TableMasterConfig
 from pdf_table_tpu_torch.models.table_master.model import TableMaster
 from pdf_table_tpu_torch.tasks.table_structure import OcrTableStructureTask
+from test_torch_dtype_policy import assert_bf16_rule
 from test_torch_slanet import (STRUCT_GAIN, _capture, assert_greedy_equal,
                                assert_results_equal)
 from test_torch_table_master import (MTL_TINY, _inputs, _jax, _port,
@@ -130,6 +131,14 @@ def test_task_call_matches_jax(task_case, monkeypatch):
 
 
 def test_task_rejects_bf16():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        OcrTableStructureTask(model="TableMaster", device="cpu",
-                              dtype="bfloat16", **TASK_KW)
+    """The TableMaster and MtlTabNet tasks build in bf16 (against JAX:
+    tests/test_torch_bf16_tsr.py): the encoder with flax's weight rule,
+    the decoder, its memory projection and the cell branch f32, as in
+    JAX."""
+    for model in ("TableMaster", "MtlTabNet"):
+        task = OcrTableStructureTask(model=model, device="cpu",
+                                     dtype="bfloat16", **TASK_KW)
+        # "": the decoder's flat parameters, the model's own
+        f32 = [""] + [n for n, _ in task.model.named_children()
+                      if n != "encoder"]
+        assert_bf16_rule(task.model, f32=f32)
