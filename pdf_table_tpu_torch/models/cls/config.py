@@ -1,8 +1,7 @@
 """PULC image-classifier configs (copy of
 pdf_table_tpu/models/cls/config.py): text_image_orientation
 (0/90/180/270), textline_orientation (0/180), language_classification,
-table_attribute. The port runs ``textline_orientation``; the others are
-kept as data.
+table_attribute; the port runs every one (tasks/cls_pulc.py).
 """
 
 from __future__ import annotations

@@ -7,6 +7,9 @@ Pre, on the device from the resident canvases: the JAX pre-processor runs
 ``(x / 255 - MEAN) / STD``; Cycle-CenterNet's pre-processor
 (models/center_net/processor.py) samples the same points with the same
 normalization, the page as its window, and tasks/layout.py uses it.
+:class:`DocXLayoutPreProcessor` is the JAX pre-processor itself on the host
+(``models/lore/processor.py::warp_affine_linear``, OpenCV 5's f32
+``warpAffine``), the yardstick of the device warp.
 
 Post, on the host from one page's decode: scale back to page
 coordinates, clip, threshold, :func:`pnms` (the JAX loop's result, its
@@ -21,7 +24,35 @@ import numpy as np
 
 from ...entity.enums import HtmlContentType
 from ...entity.ocr_cell import OcrCell
+from ..lore.processor import warp_affine_linear
 from .config import DocXLayoutConfig
+
+
+class DocXLayoutPreProcessor:
+    MEAN = np.array([0.408, 0.447, 0.470], np.float32)
+    STD = np.array([0.289, 0.274, 0.278], np.float32)
+
+    def __init__(self, config: DocXLayoutConfig):
+        self.config = config
+
+    def __call__(self, image: np.ndarray) -> Dict[str, Any]:
+        """(H, W, 3) uint8 RGB -> {"image": (1, inp_h, inp_w, 3) f32, the
+        BGR copy warped by the centred matrix and normalized, "meta": {c,
+        s, org_shape, out_w, out_h}}."""
+        h, w = image.shape[:2]
+        inp_h, inp_w = self.config.resolution
+        s = max(h, w)
+        scale = inp_w / s
+        c = (w / 2.0, h / 2.0)
+        mat = np.array([[scale, 0, inp_w / 2 - scale * c[0]],
+                        [0, scale, inp_h / 2 - scale * c[1]]], np.float32)
+        warped = warp_affine_linear(image[:, :, ::-1].astype(np.float32),
+                                    mat, (inp_w, inp_h))
+        norm = (warped / 255.0 - self.MEAN) / self.STD
+        return {"image": norm[None].astype(np.float32),
+                "meta": {"c": c, "s": float(s), "org_shape": (h, w),
+                         "out_w": inp_w // self.config.down_ratio,
+                         "out_h": inp_h // self.config.down_ratio}}
 
 
 def pairwise_poly_iou(quads: np.ndarray) -> np.ndarray:

@@ -10,7 +10,7 @@ Post: the JAX post-processor, copied: per-class score filter and exact
 greedy NMS (the port's ``hard_nms``), the pyramid-mask boundary refine,
 inter-class NMS, adjacency cliques to rows and columns, and empty-cell
 completion. The refine's ``cv2.resize`` of the f32 masks is
-:func:`resize_linear_f32`. No cv2 is imported.
+``ops/crop_resize.py::resize_linear_f32``. No cv2 is imported.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from typing import Any, Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from ...ops.crop_resize import resize_u8_plain
+from ...ops.crop_resize import resize_linear_f32, resize_u8_plain
 from ...ops.nms import hard_nms
 from .config import LgpmaConfig
 
@@ -58,34 +58,6 @@ class LgpmaPreProcessor:
         mean = torch.tensor(MEAN, dtype=torch.float32, device=u8.device)
         std = torch.tensor(STD, dtype=torch.float32, device=u8.device)
         return (u8.float() / 255.0 - mean) / std
-
-
-def resize_linear_f32(img: np.ndarray, h: int, w: int) -> np.ndarray:
-    """``cv2.resize(img, (w, h))`` (INTER_LINEAR) of an f32 (H, W, C)
-    image, in numpy: source coordinates ``(d + 0.5) * (src / dst) - 0.5``
-    rounded to f32, columns left of or beyond the source at full weight on
-    the edge column, rows clamped with their weights kept; the horizontal
-    pass, then the vertical one. Within 1e-5 of ``cv2.resize`` (held by
-    tests/test_torch_lgpma.py)."""
-    H, W = img.shape[:2]
-
-    def taps(src, dst, clamp_weight):
-        scale = 1.0 / (dst / src)
-        f = ((np.arange(dst) + 0.5) * scale - 0.5).astype(np.float32)
-        s = np.floor(f)
-        f = (f - s).astype(np.float32)
-        s = s.astype(np.int64)
-        if clamp_weight:
-            f = np.where((s < 0) | (s >= src - 1), np.float32(0), f)
-            s = np.clip(s, 0, src - 1)
-        return (np.clip(s, 0, src - 1), np.clip(s + 1, 0, src - 1),
-                np.float32(1) - f, f)
-
-    x0, x1, a0, a1 = taps(W, w, True)
-    y0, y1, b0, b1 = taps(H, h, False)
-    src = np.asarray(img, np.float32)
-    rows = src[:, x0] * a0[None, :, None] + src[:, x1] * a1[None, :, None]
-    return rows[y0] * b0[:, None, None] + rows[y1] * b1[:, None, None]
 
 
 # -- host geometry helpers (post_lgpma.py re-expression) --------------------

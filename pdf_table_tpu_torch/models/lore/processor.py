@@ -33,11 +33,13 @@ def invert_affine(mat: np.ndarray) -> np.ndarray:
 
 
 def warp_affine_linear(image: np.ndarray, mat: np.ndarray,
-                       size: Tuple[int, int]) -> np.ndarray:
+                       size: Tuple[int, int], border: float = 0.0
+                       ) -> np.ndarray:
     """``cv2.warpAffine(image, mat, size, flags=cv2.INTER_LINEAR)`` on an
-    f32 (H, W, C) image, border constant 0, in numpy: destination pixel
-    (x, y) (no half-pixel centres) samples the source at ``inv(mat) @ (x, y,
-    1)``, bilinearly, corners outside the image reading 0. OpenCV 5 samples
+    f32 (H, W, C) image, border constant ``border`` (0 by default), in
+    numpy: destination pixel (x, y) (no half-pixel centres) samples the
+    source at ``inv(mat) @ (x, y, 1)``, bilinearly, corners outside the
+    image reading ``border``. OpenCV 5 samples
     f32 images at float source coordinates (the 1/32-px fixed point of
     older releases is gone) and rounds them as
     ``models/center_net/processor.py::warp_crops`` does: the inverse in f64,
@@ -66,6 +68,8 @@ def warp_affine_linear(image: np.ndarray, mat: np.ndarray,
         yy, xx = y0 + dy, x0 + dx
         ok = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
         v = src[np.clip(yy, 0, h - 1), np.clip(xx, 0, w - 1)]
+        if border:
+            return np.where(ok[..., None], v, np.float32(border))
         return v * ok[..., None]
 
     one = np.float32(1)

@@ -10,6 +10,12 @@ global score sort (``PicoDetPostProcessor.from_device_nms``), or the host
 route that runs ``hard_nms`` over the downloaded candidates
 (``from_candidates``). Ties in a top-k or a sort go to the lower index, as
 ``jax.lax.top_k`` and a stable ``argsort`` put them.
+
+The per-image path: ``PicoDetPreProcessor`` resizes on the host with
+OpenCV's bilinear arithmetic (``ops/crop_resize.py``: the f32 BGR image,
+or the uint8 one for ``resize_u8``), and ``PicoDetPostProcessor.__call__``
+decodes each level's head maps on the host, takes its ``nms_top_k`` and
+runs ``from_candidates``.
 """
 
 from __future__ import annotations
@@ -22,12 +28,44 @@ import torch
 
 from ...entity.enums import HtmlContentType
 from ...entity.ocr_cell import OcrCell
+from ...ops.crop_resize import resize_linear_f32, resize_u8_plain
 from ...ops.nms import _iou_matrix, hard_nms
 from .config import PicoDetConfig
 
 # NMS rounds run between two checks for the fixed point: each check is a
 # device-to-host sync, and a suppression chain settles in a few rounds
 NMS_ROUNDS_PER_CHECK = 4
+
+
+class PicoDetPreProcessor:
+    def __init__(self, config: PicoDetConfig):
+        self.config = config
+
+    def __call__(self, image: np.ndarray) -> Dict[str, Any]:
+        """(H, W, 3) uint8 RGB -> {"image": (1, img_height, img_width, 3)
+        f32 normalized, "org_shape", "scale_factor"}: the BGR copy resized,
+        flipped back to RGB, / 255, imagenet mean and std."""
+        cfg = self.config
+        img = image[:, :, ::-1].astype(np.float32)
+        h, w = img.shape[:2]
+        resized = resize_linear_f32(img, cfg.img_height, cfg.img_width)
+        resized = resized[:, :, ::-1] / 255.0
+        resized = (resized - np.array(cfg.norm_mean, np.float32)) \
+            / np.array(cfg.norm_std, np.float32)
+        return {"image": resized[None].astype(np.float32),
+                "org_shape": (h, w),
+                "scale_factor": (cfg.img_height / h, cfg.img_width / w)}
+
+    def resize_u8(self, image: np.ndarray) -> Dict[str, Any]:
+        """The uint8 RGB image resized alone (the batched path normalizes
+        on the device): {"image_u8": (1, img_height, img_width, 3) uint8,
+        "org_shape", "scale_factor"}."""
+        cfg = self.config
+        h, w = image.shape[:2]
+        resized = resize_u8_plain(np.ascontiguousarray(image),
+                                  cfg.img_height, cfg.img_width)
+        return {"image_u8": resized[None], "org_shape": (h, w),
+                "scale_factor": (cfg.img_height / h, cfg.img_width / w)}
 
 
 @functools.lru_cache(maxsize=32)
@@ -181,6 +219,30 @@ class PicoDetPostProcessor:
                          float(np.clip(b[3], 0, ih)) / sy],
                 "label": cfg.id2label[ci], "score": float(score),
                 "category_id": ci}
+
+    def __call__(self, scores, boxes, org_shape: Tuple[int, int]
+                 ) -> Dict[str, Any]:
+        """Host decode of one image's head maps: per level (HW, C) scores
+        and (HW, 4 * (reg_max + 1)) bins; each level's ``nms_top_k`` best
+        cells by their top class score (numpy's ascending ``argsort``
+        reversed, as the JAX post-processor takes them), then
+        :meth:`from_candidates`."""
+        cfg = self.config
+        ih, iw = cfg.img_height, cfg.img_width
+        all_boxes, all_scores = [], []
+        for stride, score, bd in zip(cfg.strides, scores, boxes):
+            # ceil grid: the SAME-padded stride-2 convs emit ceil-sized maps
+            fh, fw = -(-ih // stride), -(-iw // stride)
+            centers = _level_centers(fh, fw, stride)
+            score = np.asarray(score)
+            dist = gfl_expected_distance(np.asarray(bd), cfg.reg_max) * stride
+            k = min(cfg.nms_top_k, score.shape[0])
+            top = np.argsort(score.max(axis=1))[::-1][:k]
+            all_boxes.append(centers[top] + np.array([-1, -1, 1, 1],
+                                                     np.float32) * dist[top])
+            all_scores.append(score[top])
+        return self.from_candidates(np.concatenate(all_boxes),
+                                    np.concatenate(all_scores), org_shape)
 
     def from_candidates(self, bboxes: np.ndarray, confid: np.ndarray,
                         org_shape: Tuple[int, int]) -> Dict[str, Any]:

@@ -62,9 +62,11 @@ def _combine(p00, p01, p10, p11, a0, a1, b0, b1):
 
 
 def resize_u8_plain(img: np.ndarray, nh: int, nw: int) -> np.ndarray:
-    """``cv2.resize(img, (nw, nh))`` of an (H, W, C) uint8 image, in
-    numpy: the two source rows of each output row, then their horizontal
-    sums, in int32 (each term of the blend stays below 2^27)."""
+    """``cv2.resize(img, (nw, nh))`` of an (H, W, C) or (H, W) uint8
+    image, in numpy: the two source rows of each output row, then their
+    horizontal sums, in int32 (each term of the blend stays below 2^27)."""
+    if img.ndim == 2:
+        return resize_u8_plain(img[..., None], nh, nw)[..., 0]
     h, w = img.shape[:2]
     x0, x1, a0, a1 = linear_taps(w, nw, "x")
     y0, y1, b0, b1 = linear_taps(h, nh, "y")
@@ -232,3 +234,36 @@ def resize_area_u8_plain(img: np.ndarray, nh: int, nw: int) -> np.ndarray:
                    im[y1][:, x1], a0[None, :, None], a1[None, :, None],
                    b0[:, None, None], b1[:, None, None])
     return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def resize_linear_f32(img: np.ndarray, h: int, w: int) -> np.ndarray:
+    """``cv2.resize(img, (w, h))`` (INTER_LINEAR) of an f32 (H, W, C) or
+    (H, W) image, in numpy: source coordinates ``(d + 0.5) * (src / dst) -
+    0.5`` in f64 (OpenCV 5.0's f32 path on this build does not round them
+    to f32), their fractions as f32 weights; columns left of or beyond the
+    source at full weight on the edge column, rows clamped with their
+    weights kept; the horizontal pass, then the vertical one, each as ``a
+    + (b - a) * t``. Within 2e-7 of the values' scale of ``cv2.resize``
+    (held by tests/test_torch_lgpma.py and tests/test_torch_cv_host.py)."""
+    H, W = img.shape[:2]
+    squeeze = img.ndim == 2
+    if squeeze:
+        img = img[..., None]
+
+    def taps(src, dst, clamp_weight):
+        f = (np.arange(dst) + 0.5) * (1.0 / (dst / src)) - 0.5
+        s = np.floor(f)
+        t = f - s
+        s = s.astype(np.int64)
+        if clamp_weight:
+            t = np.where((s < 0) | (s >= src - 1), 0.0, t)
+            s = np.clip(s, 0, src - 1)
+        return (np.clip(s, 0, src - 1), np.clip(s + 1, 0, src - 1),
+                t.astype(np.float32))
+
+    x0, x1, a = taps(W, w, True)
+    y0, y1, b = taps(H, h, False)
+    src = np.asarray(img, np.float32)
+    rows = src[:, x0] + (src[:, x1] - src[:, x0]) * a[None, :, None]
+    out = rows[y0] + (rows[y1] - rows[y0]) * b[:, None, None]
+    return out[..., 0] if squeeze else out

@@ -1,0 +1,449 @@
+"""OpenCV 5.0.0's host geometry without cv2: the calls that the per-image
+detection, recognition, deskew and crop paths of the JAX package make
+(``models/dbnet/processor.py``, ``tasks/preprocess.py``,
+``ops/warp.py::crop_rotated_boxes`` there). The card's host has no cv2, so
+the port reproduces each one's arithmetic, and
+tests/test_torch_cv_host.py holds it to ``cv2`` 5.0.0.
+
+Contour following, the convex hull and ``minAreaRect`` are OpenCV's algorithms in C++ (``native/cv_host.cc``), built
+at first use with ``g++`` into ``native/build/`` (listed in ``.gitignore``;
+the library's name carries a hash of the source, so an edit rebuilds) and
+called through ctypes: border following is a loop over every border
+pixel, which Python runs some hundred times slower. The rest is numpy.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import math
+import os
+import subprocess
+import threading
+from pathlib import Path
+from typing import List, Optional, Tuple
+
+import numpy as np
+from scipy import ndimage
+
+from ..models.line_cell.algo import rgb_to_grey
+from ..models.lore.processor import warp_affine_linear
+from ..pdfio.draw import clip_line, line_int
+
+NATIVE_DIR = Path(__file__).resolve().parent / "native"
+BUILD_DIR = NATIVE_DIR / "build"
+SOURCE = NATIVE_DIR / "cv_host.cc"
+CXXFLAGS = ("-O2", "-fPIC", "-shared", "-std=c++17", "-ffp-contract=off")
+_lib = None
+_lib_lock = threading.Lock()
+
+RotatedRect = Tuple[Tuple[float, float], Tuple[float, float], float]
+
+__all__ = ["rgb_to_grey", "find_contours", "min_area_rect", "box_points",
+           "convex_hull", "fill_poly", "mean_masked",
+           "connected_components_with_stats",
+           "threshold_otsu_inv", "find_nonzero", "rotation_matrix_2d",
+           "perspective_transform", "warp_perspective_u8",
+           "warp_affine_u8"]
+
+
+def library_path() -> Path:
+    """``native/build/libcvhost-<hash>.so``, the hash over the source and
+    the flags."""
+    h = hashlib.sha256(SOURCE.read_bytes())
+    h.update(" ".join(CXXFLAGS).encode())
+    return BUILD_DIR / f"libcvhost-{h.hexdigest()[:12]}.so"
+
+
+def build_native() -> Path:
+    """Build the library if it is missing (a file of this process's own,
+    renamed into place, so that concurrent builds do not collide)."""
+    lib = library_path()
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run(["g++", *CXXFLAGS, str(SOURCE), "-o", str(tmp)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"cv_host: building {SOURCE.name} failed:\n"
+                           f"{proc.stderr[-4000:]}")
+    os.replace(tmp, lib)
+    return lib
+
+
+def _load():
+    global _lib
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
+        lib = ctypes.CDLL(str(build_native()))
+        P = np.ctypeslib.ndpointer
+        lib.cvh_find_contours.restype = ctypes.c_void_p
+        lib.cvh_find_contours.argtypes = [
+            P(np.uint8, flags="C"), ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_long)]
+        lib.cvh_fetch_contours.argtypes = [
+            ctypes.c_void_p, P(np.int32, flags="C"), P(np.int32, flags="C")]
+        lib.cvh_free_contours.argtypes = [ctypes.c_void_p]
+        lib.cvh_min_area_rect.argtypes = [P(np.float32, flags="C"),
+                                          ctypes.c_int,
+                                          P(np.float32, flags="C")]
+        lib.cvh_convex_hull.restype = ctypes.c_int
+        lib.cvh_convex_hull.argtypes = [P(np.float32, flags="C"),
+                                        ctypes.c_int, P(np.int32, flags="C")]
+        _lib = lib
+        return lib
+
+
+def _f32_points(points) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(points).reshape(-1, 2),
+                                np.float32)
+
+
+# -- contours and rectangles (C++) ---------------------------------------------
+
+def find_contours(bitmap: np.ndarray, limit: Optional[int] = None
+                  ) -> List[np.ndarray]:
+    """``cv2.findContours(bitmap, cv2.RETR_LIST,
+    cv2.CHAIN_APPROX_SIMPLE)[0][:limit]``: Suzuki-Abe border following of
+    the nonzero pixels, outer and hole borders alike, each an (n, 1, 2)
+    int32 array of the points where the chain turns, in OpenCV's order
+    (the reverse of the raster order of the borders' start pixels). Every
+    border is traced; ``limit`` bounds only the arrays built."""
+    img = np.ascontiguousarray(bitmap, np.uint8)
+    h, w = img.shape
+    lib = _load()
+    nc, npts = ctypes.c_int(0), ctypes.c_long(0)
+    handle = lib.cvh_find_contours(img, h, w, ctypes.byref(nc),
+                                   ctypes.byref(npts))
+    try:
+        counts = np.zeros(max(nc.value, 1), np.int32)
+        pts = np.zeros((max(npts.value, 1), 2), np.int32)
+        lib.cvh_fetch_contours(handle, counts, pts)
+    finally:
+        lib.cvh_free_contours(handle)
+    k = nc.value if limit is None else min(nc.value, max(limit, 0))
+    ends = np.cumsum(counts[:k])
+    return [pts[e - n:e].reshape(-1, 1, 2)
+            for n, e in zip(counts[:k], ends)]
+
+
+def convex_hull(points) -> np.ndarray:
+    """Indices of ``cv2.convexHull(points)``'s points (counter-clockwise),
+    in its order: the hull ``min_area_rect`` measures."""
+    p = _f32_points(points)
+    out = np.zeros(max(len(p), 1), np.int32)
+    n = _load().cvh_convex_hull(p, len(p), out)
+    return out[:n]
+
+
+def min_area_rect(points) -> RotatedRect:
+    """``cv2.minAreaRect(points)``: ((cx, cy), (w, h), angle in degrees),
+    the convex hull's rotating calipers in OpenCV's float arithmetic."""
+    p = _f32_points(points)
+    out = np.zeros(5, np.float32)
+    _load().cvh_min_area_rect(p, len(p), out)
+    return ((float(out[0]), float(out[1])), (float(out[2]), float(out[3])),
+            float(out[4]))
+
+
+def box_points(rect: RotatedRect) -> np.ndarray:
+    """``cv2.boxPoints(rect)``: the (4, 2) f32 corners, in OpenCV 5.0's
+    float arithmetic (each corner from the centre, none mirrored)."""
+    (cx, cy), (bw, bh), angle = rect
+    f = np.float32
+    cx, cy, bw, bh = f(cx), f(cy), f(bw), f(bh)
+    rad = angle * math.pi / 180.0
+    b = f(math.cos(rad)) * f(0.5)
+    a = f(math.sin(rad)) * f(0.5)
+    return np.array([(cx - a * bh - b * bw, cy + b * bh - a * bw),
+                     (cx + a * bh - b * bw, cy - b * bh - a * bw),
+                     (cx + a * bh + b * bw, cy - b * bh + a * bw),
+                     (cx - a * bh + b * bw, cy + b * bh + a * bw)],
+                    np.float32)
+
+
+# -- masks ---------------------------------------------------------------------
+
+def fill_poly(mask: np.ndarray, pts: np.ndarray, value: int = 1) -> None:
+    """``cv2.fillPoly(mask, [pts], value)`` in place, integer points,
+    ``shift=0``, 8-connected, as OpenCV 5.0 fills: each edge drawn by the
+    line iterator, then each scan line filled from the ceiling of its left
+    edge's x to the floor of its right one's (exact rationals), spans
+    clamped to the image. An edge that leaves the image takes its x from
+    the line clipped to the image (``cv::clipLine``, integer end points)
+    over its own rows. Bit-equal to ``cv2.fillPoly`` for polygons inside
+    the image; of polygons that leave it, 2 % of random quads differ in a
+    few pixels (ROADMAP.md Queue 3)."""
+    v = np.asarray(pts, np.int64).reshape(-1, 2)
+    h, w = mask.shape[:2]
+    edges = []   # (y0, y1, xa, ya, xb, yb): rows [y0, y1) of a line
+    for i in range(len(v)):
+        x0, y0 = int(v[i - 1, 0]), int(v[i - 1, 1])
+        x1, y1 = int(v[i, 0]), int(v[i, 1])
+        line_int(mask, (x0, y0), (x1, y1), value)
+        if y0 == y1:
+            continue
+        line = (x0, y0, x1, y1)
+        if not (0 <= x0 < w and 0 <= x1 < w and 0 <= y0 < h
+                and 0 <= y1 < h):
+            _, cx0, cy0, cx1, cy1 = clip_line(w, h, x0, y0, x1, y1)
+            if cy0 != cy1:
+                line = (cx0, cy0, cx1, cy1)
+        edges.append((min(y0, y1), max(y0, y1)) + line)
+    if len(edges) < 2:
+        return
+    lo = max(0, min(e[0] for e in edges))
+    hi = min(h, max(e[1] for e in edges))
+    for y in range(lo, hi):
+        xs = []
+        for y0, y1, xa, ya, xb, yb in edges:
+            if y0 <= y < y1:
+                num, den = xa * (yb - ya) + (y - ya) * (xb - xa), yb - ya
+                if den < 0:
+                    num, den = -num, -den
+                xs.append((num / den, num, den))
+        xs.sort()
+        for (_, na, da), (_, nb, db) in zip(xs[0::2], xs[1::2]):
+            x1 = max(-(-na // da), 0)
+            x2 = min(nb // db, w - 1)
+            if x1 <= x2:
+                mask[y, x1:x2 + 1] = value
+
+
+def mean_masked(img: np.ndarray, mask: np.ndarray) -> float:
+    """``cv2.mean(img, mask)[0]`` of a single-channel image: the mean of the
+    pixels where ``mask`` is nonzero, summed in f64; 0 for an empty
+    mask."""
+    sel = np.asarray(img)[np.asarray(mask) != 0]
+    if not sel.size:
+        return 0.0
+    return float(sel.astype(np.float64).sum() / sel.size)
+
+
+def connected_components_with_stats(bitmap: np.ndarray
+                                    ) -> Tuple[int, np.ndarray, np.ndarray]:
+    """``cv2.connectedComponentsWithStats(bitmap, 8)``'s (count, labels,
+    stats): 8-connected components of the nonzero pixels (0 the
+    background), stats (count, 5) int32 rows [x, y, width, height, area],
+    row 0 the background's. OpenCV 5's 8-connected labeller scans 2x2
+    blocks, so the labels run in the raster order of the blocks that hold
+    each component's first pixel (a 2x2 block never holds two)."""
+    fg = np.asarray(bitmap) != 0
+    labels, n = ndimage.label(fg, structure=np.ones((3, 3), bool))
+    if n:
+        h, w = fg.shape
+        ys, xs = np.nonzero(labels)
+        key = (ys // 2) * ((w + 1) // 2) + xs // 2
+        first = np.full(n + 1, np.iinfo(np.int64).max, np.int64)
+        np.minimum.at(first, labels[ys, xs], key)
+        rank = np.zeros(n + 1, np.int64)
+        rank[1 + np.argsort(first[1:], kind="stable")] = np.arange(1, n + 1)
+        labels = rank[labels]
+    labels = labels.astype(np.int32)
+    stats = np.zeros((n + 1, 5), np.int32)
+    areas = np.bincount(labels.ravel(), minlength=n + 1)
+    stats[:, 4] = areas
+    objs = ndimage.find_objects(labels)
+    for li, sl in enumerate(objs, start=1):
+        if sl is None:
+            continue
+        stats[li, :4] = (sl[1].start, sl[0].start, sl[1].stop - sl[1].start,
+                         sl[0].stop - sl[0].start)
+    bg = ~fg
+    if bg.any():
+        ys, xs = np.nonzero(bg)
+        stats[0, :4] = (xs.min(), ys.min(), xs.max() - xs.min() + 1,
+                        ys.max() - ys.min() + 1)
+    return n + 1, labels, stats
+
+
+def threshold_otsu_inv(grey: np.ndarray) -> Tuple[float, np.ndarray]:
+    """``cv2.threshold(grey, 0, 255, THRESH_BINARY_INV + THRESH_OTSU)``:
+    Otsu's threshold from the 256-bin histogram (OpenCV's f64 recurrence),
+    then 255 where a pixel is at or under it, else 0."""
+    g = np.asarray(grey, np.uint8)
+    hist = np.bincount(g.ravel(), minlength=256)
+    scale = 1.0 / g.size
+    mu = 0.0
+    for i in range(256):
+        mu += i * float(hist[i])
+    mu *= scale
+    mu1 = q1 = 0.0
+    max_sigma = max_val = 0.0
+    eps = float(np.finfo(np.float32).eps)
+    for i in range(256):
+        p_i = hist[i] * scale
+        mu1 *= q1
+        q1 += p_i
+        q2 = 1.0 - q1
+        if min(q1, q2) < eps or max(q1, q2) > 1.0 - eps:
+            continue
+        mu1 = (mu1 + i * p_i) / q1
+        mu2 = (mu - q1 * mu1) / q2
+        sigma = q1 * q2 * (mu1 - mu2) * (mu1 - mu2)
+        if sigma > max_sigma:
+            max_sigma = sigma
+            max_val = float(i)
+    return max_val, np.where(g > max_val, 0, 255).astype(np.uint8)
+
+
+def find_nonzero(img: np.ndarray) -> np.ndarray:
+    """``cv2.findNonZero(img)``: (n, 2) int32 (x, y) points in raster
+    order (an empty (0, 2) array where cv2 returns None)."""
+    ys, xs = np.nonzero(np.asarray(img))
+    return np.stack([xs, ys], 1).astype(np.int32).reshape(-1, 2)
+
+
+# -- transforms ------------------------------------------------------------------
+
+def rotation_matrix_2d(center: Tuple[float, float], angle: float,
+                       scale: float) -> np.ndarray:
+    """``cv2.getRotationMatrix2D(center, angle, scale)`` (2, 3) f64; the
+    centre is a float point, as OpenCV's ``Point2f``."""
+    cx, cy = (float(np.float32(c)) for c in center)
+    a = angle * (math.pi / 180)
+    alpha = math.cos(a) * scale
+    beta = math.sin(a) * scale
+    return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy],
+                     [-beta, alpha, beta * cx + (1 - alpha) * cy]])
+
+
+def perspective_transform(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
+    """``cv2.getPerspectiveTransform(src, dst)`` of four f32 points: the
+    8x8 system of OpenCV (its products of f32 coordinates rounded to f32)
+    solved by OpenCV's LU with partial pivoting in f64; (3, 3) f64."""
+    s = np.asarray(src, np.float32).reshape(4, 2)
+    d = np.asarray(dst, np.float32).reshape(4, 2)
+    a = [[0.0] * 8 for _ in range(8)]
+    b = [0.0] * 8
+    for i in range(4):
+        sx, sy, dx, dy = s[i, 0], s[i, 1], d[i, 0], d[i, 1]
+        a[i][0] = a[i + 4][3] = float(sx)
+        a[i][1] = a[i + 4][4] = float(sy)
+        a[i][2] = a[i + 4][5] = 1.0
+        a[i][6] = float(-sx * dx)
+        a[i][7] = float(-sy * dx)
+        a[i + 4][6] = float(-sx * dy)
+        a[i + 4][7] = float(-sy * dy)
+        b[i] = float(dx)
+        b[i + 4] = float(dy)
+    x = _lu_solve(a, b)
+    if x is None:
+        # cv::solve zeroes its result when the LU finds no pivot
+        x = [0.0] * 8
+    return np.array(x + [1.0]).reshape(3, 3)
+
+
+def _lu_solve(a: List[List[float]], b: List[float]
+              ) -> Optional[List[float]]:
+    """OpenCV's ``LUImpl`` on one right-hand side (Python floats: f64,
+    no fused multiply-adds); None where a pivot is under OpenCV's
+    ``100 * DBL_EPSILON``."""
+    m = len(a)
+    for i in range(m):
+        k = i
+        for j in range(i + 1, m):
+            if abs(a[j][i]) > abs(a[k][i]):
+                k = j
+        if abs(a[k][i]) < np.finfo(np.float64).eps * 100:
+            return None
+        if k != i:
+            a[i], a[k] = a[k], a[i]
+            b[i], b[k] = b[k], b[i]
+        d = -1 / a[i][i]
+        for j in range(i + 1, m):
+            alpha = a[j][i] * d
+            for c in range(i + 1, m):
+                a[j][c] += alpha * a[i][c]
+            b[j] += alpha * b[i]
+    for i in range(m - 1, -1, -1):
+        s = b[i]
+        for c in range(i + 1, m):
+            s -= a[i][c] * b[c]
+        b[i] = s / a[i][i]
+    return b
+
+
+def _invert3(m: np.ndarray) -> np.ndarray:
+    """OpenCV's closed-form f64 inverse of a 3x3 (``invert``, DECOMP_LU)."""
+    S = [[float(v) for v in row] for row in np.asarray(m).reshape(3, 3)]
+    d = (S[0][0] * (S[1][1] * S[2][2] - S[1][2] * S[2][1])
+         - S[0][1] * (S[1][0] * S[2][2] - S[1][2] * S[2][0])
+         + S[0][2] * (S[1][0] * S[2][1] - S[1][1] * S[2][0]))
+    if d == 0:
+        return np.zeros((3, 3))
+    d = 1.0 / d
+    t = [(S[1][1] * S[2][2] - S[1][2] * S[2][1]) * d,
+         (S[0][2] * S[2][1] - S[0][1] * S[2][2]) * d,
+         (S[0][1] * S[1][2] - S[0][2] * S[1][1]) * d,
+         (S[1][2] * S[2][0] - S[1][0] * S[2][2]) * d,
+         (S[0][0] * S[2][2] - S[0][2] * S[2][0]) * d,
+         (S[0][2] * S[1][0] - S[0][0] * S[1][2]) * d,
+         (S[1][0] * S[2][1] - S[1][1] * S[2][0]) * d,
+         (S[0][1] * S[2][0] - S[0][0] * S[2][1]) * d,
+         (S[0][0] * S[1][1] - S[0][1] * S[1][0]) * d]
+    return np.array(t).reshape(3, 3)
+
+
+def warp_perspective_u8(image: np.ndarray, mat: np.ndarray,
+                        size: Tuple[int, int]) -> np.ndarray:
+    """``cv2.warpPerspective(image, mat, size)`` of a uint8 (H, W, C)
+    image, INTER_LINEAR, border constant 0: OpenCV 5 samples uint8 images
+    at float source coordinates, as its f32 path (no 1/32-px table), and
+    rounds the blend to the nearest integer, ties to even. The inverse is
+    OpenCV's f64 closed form, rounded to f32; per row ``m01 * y + m02`` in
+    two roundings, along the row one fused multiply-add, then the
+    division by w. Within one grey level of ``cv2.warpPerspective`` (one
+    or two pixels of a crop differ, a last-bit difference of the source
+    coordinate)."""
+    h, w = image.shape[:2]
+    out_w, out_h = size
+    inv = _invert3(mat).astype(np.float32)
+    xs = np.arange(out_w, dtype=np.float64)[None, :]
+    ys = np.arange(out_h, dtype=np.float32)[:, None]
+
+    def coord(r):
+        row = inv[r, 1] * ys + inv[r, 2]
+        return (np.float64(inv[r, 0]) * xs + row).astype(np.float32)
+
+    X, Y, W = coord(0), coord(1), coord(2)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        sx = np.nan_to_num(X / W, nan=-10.0, posinf=-10.0, neginf=-10.0)
+        sy = np.nan_to_num(Y / W, nan=-10.0, posinf=-10.0, neginf=-10.0)
+    sx = np.clip(sx, -10.0, w + 10.0).astype(np.float32)
+    sy = np.clip(sy, -10.0, h + 10.0).astype(np.float32)
+    x0 = np.floor(sx)
+    y0 = np.floor(sy)
+    ax = (sx - x0)[..., None]
+    ay = (sy - y0)[..., None]
+    x0 = x0.astype(np.int64)
+    y0 = y0.astype(np.int64)
+    src = np.asarray(image, np.float32)
+    if src.ndim == 2:
+        src = src[..., None]
+
+    def corner(dy, dx):
+        yy, xx = y0 + dy, x0 + dx
+        ok = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+        return src[np.clip(yy, 0, h - 1), np.clip(xx, 0, w - 1)] \
+            * ok[..., None]
+
+    one = np.float32(1)
+    out = (corner(0, 0) * ((one - ax) * (one - ay))
+           + corner(0, 1) * (ax * (one - ay))) \
+        + (corner(1, 0) * ((one - ax) * ay) + corner(1, 1) * (ax * ay))
+    out = np.clip(np.rint(out), 0, 255).astype(np.uint8)
+    return out if image.ndim == 3 else out[..., 0]
+
+
+def warp_affine_u8(image: np.ndarray, mat: np.ndarray, size: Tuple[int, int],
+                   border: float = 0.0) -> np.ndarray:
+    """``cv2.warpAffine(image, mat, size, flags=INTER_LINEAR,
+    borderValue=(border,) * 3)`` of a uint8 image: OpenCV 5's float sample
+    points (``models/lore/processor.py::warp_affine_linear``), the blend
+    rounded to the nearest integer, ties to even."""
+    warped = warp_affine_linear(np.asarray(image, np.float32), mat, size,
+                                border=border)
+    return np.clip(np.rint(warped), 0, 255).astype(np.uint8)

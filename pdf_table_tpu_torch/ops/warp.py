@@ -16,11 +16,15 @@ The homographies and the quad bookkeeping are host-side numpy
 :func:`homographies_from_quads_batch`, :func:`quads_axis_aligned`).
 These are plain gathers and matmuls that the JAX package computes outside
 any Pallas kernel, so they are ``torch`` calls here.
+
+:func:`crop_rotated_boxes` is the host path of natural-size crops
+(``crop_rotated_boxes(img, quads, None)`` in the JAX package), with
+OpenCV 5.0.0's perspective arithmetic from ``ops/cv_host.py``.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -243,3 +247,38 @@ def resample_axis_aligned_crops(pages: torch.Tensor, page_idx: torch.Tensor,
     # rotated by 180 degrees: sample x runs x2 -> x1 over the same dst
     # extent, and the rows are the forward rows reversed
     return out, across(rows.flip(1), coords(x2, j, step, -1.0), vy.flip(1))
+
+
+def crop_rotated_boxes(img: np.ndarray, quads: np.ndarray
+                       ) -> List[np.ndarray]:
+    """Natural-size crops of text quads (``crop_rotated_boxes(img, quads,
+    None)`` of the JAX package): an axis-aligned quad is sliced out, a
+    rotated one warped onto its own width and height with
+    :func:`perspective_transform` and :func:`warp_perspective_u8`."""
+    from .cv_host import perspective_transform, warp_perspective_u8
+
+    H, W = img.shape[:2]
+    q = np.asarray(quads, np.float32).reshape(-1, 4, 2)
+    if not len(q):
+        return []
+    crops = []
+    for o in order_points_clockwise_batch(q):
+        w = int(round(max(np.linalg.norm(o[0] - o[1]),
+                          np.linalg.norm(o[3] - o[2]))))
+        h = int(round(max(np.linalg.norm(o[0] - o[3]),
+                          np.linalg.norm(o[1] - o[2]))))
+        w, h = max(w, 1), max(h, 1)
+        xs, ys = o[:, 0], o[:, 1]
+        if abs(ys[0] - ys[1]) < 1.0 and abs(xs[1] - xs[2]) < 1.0 \
+                and abs(ys[2] - ys[3]) < 1.0:
+            x1 = int(np.clip(np.floor(xs.min()), 0, W - 1))
+            y1 = int(np.clip(np.floor(ys.min()), 0, H - 1))
+            x2 = int(np.clip(np.ceil(xs.max()), x1 + 1, W))
+            y2 = int(np.clip(np.ceil(ys.max()), y1 + 1, H))
+            crops.append(np.ascontiguousarray(img[y1:y2, x1:x2]))
+        else:
+            dst = np.array([[0, 0], [w - 1, 0], [w - 1, h - 1],
+                            [0, h - 1]], np.float32)
+            m = perspective_transform(o.astype(np.float32), dst)
+            crops.append(warp_perspective_u8(img, m, (w, h)))
+    return crops

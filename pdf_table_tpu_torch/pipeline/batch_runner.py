@@ -17,8 +17,9 @@ vector text (``tasks/pdf_text.py``), its tables from the vector lines on
 the host (LineCellPdf, ``_digital_tables``), never from the TSR model; its
 canvas still joins the chunks of the raster pages, so that detection and
 layout run over it on the card, and its detected quads are dropped before
-recognition. A digital page authored rotated by 90 degrees needs the
-serial per-page system, which is not ported: it gets an error output.
+recognition. A digital page authored rotated by 90 degrees runs the
+serial per-page system (``OcrSystemTask.__call__``), its failure contained
+to its page.
 
 ``BatchPipeline.run`` packs the pages into chunks of ``batch_pages`` of one
 bucket and uploads each chunk's canvas stack once; it stays resident. Every
@@ -29,7 +30,20 @@ regions as the layout gives them, for every model: like the JAX runner,
 this one does not widen them for LineCell); the detection finish and
 recognition (with the 0/180 classifier when ``use_textline_cls``) over text
 crops cut from it; then each page's text cells, table HTML and page HTML.
-One CUDA stream, no host threads. A failure is contained to its page
+One CUDA stream, no host threads.
+
+Two lanes of the JAX runner are options here too. ``device_boxes=False``
+downloads the chunk's uint8 prob maps and finishes them on the host
+(``_det_post``: the connected components, or with ``fast_post=False`` the
+contours, ``models/dbnet/processor.py``). ``device_crops=False`` (or None
+with the 0/180 classifier off) cuts natural-size crops from the page
+images on the host (``ops/warp.py::crop_rotated_boxes``), classifies them
+in one pooled forward, flips those that read 180 degrees and recognizes
+them with the recognizer's per-crop ``__call__`` (``_recognize_all``).
+``half_res_probs`` max-pools the prob maps 2x2 before they are quantized
+(it is set on the system's detection task).
+
+A failure is contained to its page
 (rendering, vector text, HTML assembly) or its chunk (the lanes): those
 pages get an error output, the rest of the batch goes on; nothing is re-run
 elsewhere.
@@ -145,13 +159,20 @@ class BatchPipeline:
     (``device``: ``cuda`` unless ``"cpu"`` is asked for). The tasks are
     ``self.system``'s; ``system._det/_layout/_rec/_tsr/_line_cls`` may be
     assigned, and ``_boxes_finish`` overridden (bench.py injects its line
-    grid there). ``last_stats`` holds the last run's seconds per lane."""
+    grid there). ``last_stats`` holds the last run's seconds per lane.
+    ``half_res_probs``, ``device_boxes`` and ``device_crops`` take the JAX
+    runner's defaults (module docstring)."""
 
     def __init__(self, config: Optional[OcrSystemConfig] = None,
-                 batch_pages: int = 8, device=None):
+                 batch_pages: int = 8, device=None,
+                 half_res_probs: bool = True, device_boxes: bool = True,
+                 device_crops: Optional[bool] = None):
         self.system = OcrSystemTask(config or OcrSystemConfig(),
                                     device=device)
         self.batch_pages = batch_pages
+        self.half_res_probs = half_res_probs
+        self.device_boxes = device_boxes
+        self.device_crops = device_crops
         self.last_stats: Optional[Dict[str, float]] = None
 
     @property
@@ -183,14 +204,19 @@ class BatchPipeline:
         return chunks
 
     def _enqueue_chunk(self, chunk: Dict[str, Any]):
-        """Upload the chunk once, enqueue layout then det + CC from the
-        resident stack: (canvases, layout handle or None, (packed boxes,
-        prob size))."""
+        """Upload the chunk once, enqueue layout then detection from the
+        resident stack: (canvases, layout handle or None, (packed boxes or
+        uint8 prob maps, prob size))."""
         canv = self._upload_chunk(chunk["images"])
         layout = self.system.layout_task
         lh = layout.enqueue(canv) if layout is not None else None
-        det = self.system.det_task.enqueue(canv, chunk["shapes"],
-                                           chunk["bucket"])
+        det_task = self.system.det_task
+        det_task.half_res_probs = self.half_res_probs
+        if self.device_boxes:
+            det = det_task.enqueue(canv, chunk["shapes"], chunk["bucket"])
+        else:
+            probs = det_task.enqueue_probs(canv, chunk["bucket"])
+            det = (probs, tuple(probs.shape[1:]))
         return canv, lh, det
 
     def _layout_regions_for_chunk(self, page_shapes, layout_handle,
@@ -283,6 +309,57 @@ class BatchPipeline:
         return self.system.det_task._boxes_finish(packed, shapes, bucket_hw,
                                                   prob_hw)
 
+    def _det_post(self, probs_u8: np.ndarray, shapes, bucket_hw,
+                  fast_post: bool = True) -> List[np.ndarray]:
+        """Host finish of downloaded uint8 prob maps: each page's valid
+        extent / 255 through the detection post-processor's connected
+        components (``fast_post``) or its contours -> (n, 4, 2) quads per
+        page."""
+        post = self.system.det_task.post
+        H, W = bucket_hw
+        ph, pw = probs_u8.shape[1], probs_u8.shape[2]
+        results = []
+        for i, (h, w) in enumerate(shapes):
+            vh = int(round(h / H * ph))
+            vw = int(round(w / W * pw))
+            page_prob = probs_u8[i, :vh, :vw].astype(np.float32) / 255.0
+            r = (post.fast_host_boxes if fast_post else post)(page_prob,
+                                                              (h, w))
+            results.append(r["det_polygons"].reshape(-1, 4, 2))
+        return results
+
+    def _recognize_all(self, images: Sequence[np.ndarray],
+                       quads_per_page: Sequence[np.ndarray]):
+        """Host crops of every page's quads, the pooled 0/180 classifier
+        (a crop that reads 180 degrees with a score over 0.75 is flipped in
+        place) and the recognizer's per-crop path: (texts, scores) per
+        page."""
+        from ..ops.warp import crop_rotated_boxes
+
+        crops: List[np.ndarray] = []
+        owners: List[Tuple[int, int]] = []
+        for pi, (img, quads) in enumerate(zip(images, quads_per_page)):
+            if not len(quads):
+                continue
+            for bi, c in enumerate(crop_rotated_boxes(img,
+                                                      np.asarray(quads))):
+                crops.append(c)
+                owners.append((pi, bi))
+        if not crops:
+            return [[] for _ in images], [[] for _ in images]
+        cls_task = self.system.textline_cls_task
+        if cls_task is not None:
+            for c, r in zip(crops, cls_task.batch_infer(crops)):
+                if r["label"] == "180_degree" and r["score"] > 0.75:
+                    c[:] = c[::-1, ::-1]
+        out = self.system.rec_task(crops)
+        texts = [[""] * len(q) for q in quads_per_page]
+        scores = [[0.0] * len(q) for q in quads_per_page]
+        for (pi, bi), t, sc in zip(owners, out["texts"], out["scores"]):
+            texts[pi][bi] = t
+            scores[pi][bi] = sc
+        return texts, scores
+
     def _recognize_chunk(self, canv: torch.Tensor, quads):
         """Recognition over crops cut from the resident canvases, with the
         system's 0/180 classifier when ``use_textline_cls``."""
@@ -346,8 +423,9 @@ class BatchPipeline:
         device) and the total."""
         t_start = time.perf_counter()
         stats = {k: 0.0 for k in (
-            "rasterize", "pdf_text", "h2d_enqueue", "layout_lane",
-            "tsr_lane", "det_wait_d2h", "det_host_post", "rec_lane", "html")}
+            "rasterize", "digital_serial", "pdf_text", "h2d_enqueue",
+            "layout_lane", "tsr_lane", "det_wait_d2h", "det_host_post",
+            "rec_lane", "html")}
         results: List[Optional[OcrSystemModelOutput]] = [None] * len(pages)
         images: Dict[int, np.ndarray] = {}
         dpi = self.system.config.render_dpi
@@ -363,20 +441,26 @@ class BatchPipeline:
         stats["rasterize"] = time.perf_counter() - t0
 
         # a page whose pdf_page has text is digital; one authored rotated
-        # needs the serial per-page system
-        digital = []
+        # runs the serial per-page system
+        digital, serial = [], []
         for i in sorted(images):
             pg = pages[i].get("pdf_page")
             if pg is None or not getattr(pg, "texts", None):
                 continue
-            if check_pdf_text_need_rotate90(pg):
-                results[i] = _error_output(pages[i].get("page", i),
-                                           NotImplementedError(
-                    "a digital page authored rotated by 90 degrees runs "
-                    "the serial per-page system, which is not ported yet "
-                    "(ROADMAP.md Queue 1 item 17)"), is_pdf=True)
-                continue
-            digital.append(i)
+            (serial if check_pdf_text_need_rotate90(pg)
+             else digital).append(i)
+        t0 = time.perf_counter()
+        for i in serial:
+            try:
+                results[i] = self.system(image=images[i],
+                                         pdf_page=pages[i]["pdf_page"],
+                                         pdf_doc=pages[i].get("pdf_doc"),
+                                         page=pages[i].get("page", i))
+            except Exception as e:
+                logger.exception("digital page %s failed", i)
+                results[i] = _error_output(pages[i].get("page", i), e,
+                                           is_pdf=True)
+        stats["digital_serial"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         pdf_cells, pdf_scales = self._vector_text(pages, digital, images,
                                                   results)
@@ -414,13 +498,27 @@ class BatchPipeline:
                     layout_cells, table_results = timed(
                         "tsr_lane", self._tsr_from_regions, canv, prep)
                     arr = timed("det_wait_d2h", lambda: packed.cpu().numpy())
-                    quads = timed("det_host_post", self._boxes_finish, arr,
-                                  chunk["shapes"], chunk["bucket"], prob_hw)
+                    if self.device_boxes:
+                        quads = timed("det_host_post", self._boxes_finish,
+                                      arr, chunk["shapes"], chunk["bucket"],
+                                      prob_hw)
+                    else:
+                        quads = timed("det_host_post", self._det_post, arr,
+                                      chunk["shapes"], chunk["bucket"])
                     # digital pages take their vector text: no text crops
                     for k in digital_info:
                         quads[k] = np.zeros((0, 4, 2), np.float32)
-                    texts, scores = timed("rec_lane", self._recognize_chunk,
-                                          canv, quads)
+                    use_dev = self.device_crops
+                    if use_dev is None:
+                        use_dev = self.system.config.use_textline_cls
+                    if use_dev:
+                        texts, scores = timed("rec_lane",
+                                              self._recognize_chunk, canv,
+                                              quads)
+                    else:
+                        texts, scores = timed(
+                            "rec_lane", self._recognize_all,
+                            [images[i] for i in idx], quads)
                 except Exception as e:
                     logger.exception("chunk failed")
                     err = e

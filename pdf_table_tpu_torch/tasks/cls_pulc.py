@@ -1,19 +1,29 @@
 """PULC image-classification task (counterpart of
 pdf_table_tpu/tasks/cls_pulc.py): the PP-LCNet module and its weights on a
-device. The recognition lane feeds it crops that are already cut and
-normalized on the device; the cv2 host preprocessing is not ported.
+device, for every task type of ``ClsPulcConfig.for_task``
+(``text_image_orientation`` 0/90/180/270, ``textline_orientation``
+0/180, ``language_classification``, ``table_attribute``).
+
+The recognition lane feeds ``probs`` crops that are already cut on the
+device; ``__call__(image)`` and ``batch_infer(crops)`` run the host
+pre-processor (``models/cls/processor.py``) and the post-processor, as the
+JAX task does: all crops of ``batch_infer`` in one forward, padded to a
+batch bucket.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
+from ..engine.buckets import bucket_batch_size
 from ..engine.device import resolve_device, set_float_precision
 from ..engine.params import init_cls
 from ..models.cls.config import ClsPulcConfig
 from ..models.cls.model import PPLCNetClassifier
+from ..models.cls.processor import PulcPostProcessor, PulcPreProcessor
 
 # the imagenet normalization of the PULC models, on 0..1 RGB
 CLS_MEAN = (0.485, 0.456, 0.406)
@@ -31,15 +41,12 @@ class ClsImagePulcTask:
     def __init__(self, task_type: str = "text_image_orientation",
                  device=None, variables: Optional[Dict[str, Any]] = None,
                  **cfg_overrides):
-        if task_type != "textline_orientation":
-            raise NotImplementedError(
-                f"PULC task {task_type!r} is not ported yet (the page "
-                f"orientation classifier comes with the per-page system, "
-                f"ROADMAP.md Queue 1 item 17)")
         self.device = resolve_device(device)
         set_float_precision()
         self.model_config = cfg = ClsPulcConfig.for_task(task_type,
                                                          **cfg_overrides)
+        self.pre = PulcPreProcessor(cfg)
+        self.post = PulcPostProcessor(cfg)
         self.model = PPLCNetClassifier(cfg).eval()
         self.load_variables(variables if variables is not None
                             else init_cls(cfg, 0))
@@ -58,3 +65,29 @@ class ClsImagePulcTask:
         """Crops (n, h, w, 3) f32 RGB in 0..255 at the config's
         ``img_size`` -> class probabilities (n, class_num)."""
         return self.model((crops / 255.0 - self.mean) / self.std)
+
+    @torch.inference_mode()
+    def _forward(self, batch: np.ndarray) -> np.ndarray:
+        """Normalized (n, h, w, 3) f32 images -> probabilities (n, C)."""
+        x = torch.from_numpy(np.ascontiguousarray(batch)).to(self.device)
+        return self.model(x).cpu().numpy()
+
+    def __call__(self, image: np.ndarray) -> Dict[str, Any]:
+        """One (H, W, 3) uint8 RGB image -> {"labels", "scores"} (and
+        "label", "score" unless multilabel)."""
+        return self.post(self._forward(self.pre(image)["image"])[0])
+
+    def batch_infer(self, images: Sequence[np.ndarray]
+                    ) -> List[Dict[str, Any]]:
+        """All images in one forward, padded with zeros to a batch bucket;
+        one result per image, in order."""
+        if not len(images):
+            return []
+        batch = np.concatenate([self.pre(img)["image"] for img in images])
+        n = len(images)
+        pad = bucket_batch_size(n) - n
+        if pad:
+            batch = np.concatenate([batch, np.zeros((pad,) + batch.shape[1:],
+                                                    batch.dtype)])
+        raw = self._forward(batch)
+        return [self.post(raw[i]) for i in range(n)]

@@ -10,6 +10,12 @@ chunk of up to 8 canvases as one device program: the resize+normalize
 kernel, DBNet, a 2x2 max-pool of the prob map, uint8 quantization and the
 connected-component boxes. Only the (n, 64, 6) box rows come back; the
 host finishes them (box thresholds, analytic unclip, page coordinates).
+
+``__call__(image)`` is the per-image path of the JAX ``InferTask``: the
+host pre-processor (``models/dbnet/processor.py``, the resize on the
+host), DBNet on the device, the full-resolution prob map downloaded, the
+host post-processor (contours and min-area rectangles), or with
+``use_device_postprocess`` the connected-component boxes on the device.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from ..engine.device import (on_device, resolve_device, set_float_precision,
 from ..engine.params import init_dbnet
 from ..models.dbnet.config import DbNetConfig
 from ..models.dbnet.model import DBNet
+from ..models.dbnet.processor import DbNetPostProcessor, DbNetPreProcessor
 from ..ops.connected_components import batch_component_boxes_u8
 from ..ops.resize_norm import resize_normalize
 from ..pipeline.batch_runner import det_input_size, pack_pages
@@ -72,19 +79,25 @@ class OcrDetectionTask:
     with the device's default dtype (engine/device.py::default_dtype)
     where they name none.
     Every backbone takes the detector size of the limit-side rule
-    (``det_input_size``), as the JAX batched lane does."""
+    (``det_input_size``), as the JAX batched lane does.
+    ``use_device_postprocess`` sends ``__call__``'s prob map through the
+    device boxes instead of the host contours, as in the JAX task."""
 
     task_name = "detection"
 
     def __init__(self, model: str = "PP-OCRv4_det", device=None,
                  variables: Optional[Dict[str, Any]] = None,
-                 half_res_probs: bool = True, **cfg_overrides):
+                 half_res_probs: bool = True,
+                 use_device_postprocess: bool = False, **cfg_overrides):
         self.model_name = model
         self.device = resolve_device(device)
         self.model_config = cfg = det_config(
             model, **with_default_dtype(cfg_overrides, self.device))
         set_float_precision()
         self.half_res_probs = half_res_probs
+        self.use_device_postprocess = use_device_postprocess
+        self.pre = DbNetPreProcessor(cfg)
+        self.post = DbNetPostProcessor(cfg)
         self.norm = NORM[cfg.norm_style]
         self.model = DBNet(cfg).eval()
         self.load_variables(variables if variables is not None
@@ -143,6 +156,17 @@ class OcrDetectionTask:
             self._valid_extents(shapes, bucket_hw, prob_hw)).to(dev)
         prob = self.model(self.normalize(canvas, det_hw))["prob"]
         return self.boxes(self.quantize(prob), valid), prob_hw
+
+    @torch.inference_mode()
+    def enqueue_probs(self, canvas_u8, bucket_hw) -> torch.Tensor:
+        """The chunk's uint8 prob maps (n, ph, pw), not yet downloaded: the
+        resize+normalize kernel, DBNet and the quantization (2x2 max-pooled
+        first under ``half_res_probs``), as the JAX runner's lane without
+        device boxes returns them."""
+        canvas = on_device(canvas_u8, self.device)
+        prob = self.model(self.normalize(canvas,
+                                         self.det_size(bucket_hw)))["prob"]
+        return self.quantize(prob)
 
     # -- host side -----------------------------------------------------------
 
@@ -213,3 +237,25 @@ class OcrDetectionTask:
             for i, q in zip(idx, quads):
                 results[i] = q
         return results
+
+    # -- the per-image path ----------------------------------------------------
+
+    @torch.inference_mode()
+    def prob_map(self, x: np.ndarray) -> torch.Tensor:
+        """A pre-processed (1, H, W, 3) f32 input -> its (H, W) f32 prob
+        map, on the device."""
+        x = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+        return self.model(x)["prob"][0].float()
+
+    def __call__(self, image: np.ndarray) -> Dict[str, Any]:
+        """One (H, W, 3) uint8 RGB image -> {"det_polygons" (N, 8),
+        "det_scores" (N,), "prob_shape"} in image coordinates."""
+        pre = self.pre(image)
+        prob = self.prob_map(pre["image"])
+        if self.use_device_postprocess:
+            result = self.post.fast_device_boxes(prob, pre["org_shape"])
+        else:
+            result = self.post(prob.cpu().numpy(), pre["org_shape"],
+                               tuple(pre["image"].shape[1:3]))
+        result["prob_shape"] = tuple(prob.shape)
+        return result

@@ -18,6 +18,13 @@ layout cells in canvas coordinates.
   (P, top_k + 20, 10). The host scales them back, thresholds, runs the
   polygon NMS and labels the cells. The JAX runner downloads the canvases
   and runs the cv2 path once per page instead.
+
+The per-image path of the JAX task: ``__call__(image)`` (PicoDet: the host
+pre-processor's resize, the forward, the host decode and ``hard_nms``;
+DocXLayout: the page path with the image as the page) and
+``batch_enqueue`` / ``batch_finish`` / ``batch_infer`` over images resized
+on the host (PicoDet: one forward and the device decode, the NMS on the
+host; DocXLayout: one ``__call__`` per image).
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from ..models.docx_layout.processor import DocXLayoutPostProcessor
 from ..models.picodet.config import PicoDetConfig
 from ..models.picodet.model import PicoDet
 from ..models.picodet.processor import (PicoDetPostProcessor,
+                                        PicoDetPreProcessor,
                                         device_decode_topk, device_nms_pack)
 
 Handle = Tuple[torch.Tensor, List[Dict[str, Any]]]
@@ -136,6 +144,7 @@ class OcrLayoutTask:
             self.model_config = cfg = config or PicoDetConfig(
                 task_type=task_type,
                 **with_default_dtype(cfg_overrides, self.device))
+            self.pre = PicoDetPreProcessor(cfg)
             self.post = PicoDetPostProcessor(cfg)
             self.model = PicoDet(cfg).eval()
             init = init_picodet
@@ -249,15 +258,53 @@ class OcrLayoutTask:
         coordinates."""
         return self.finish(*self.enqueue(pages))
 
+    @torch.inference_mode()
     def __call__(self, image: np.ndarray) -> Dict[str, Any]:
-        """DocXLayout on one image (H, W, 3) uint8 RGB: the page path with
-        the image as the page, {"bboxs", "subfield_dets", "layout_cells"}
-        in image coordinates. The JAX task warps it with cv2 on the host;
-        the same sample points are taken here on the device. PicoDet's
-        per-image path (the cv2 ``PicoDetPreProcessor``) is not ported."""
-        if not self.docx:
-            raise NotImplementedError(
-                "the per-image PicoDet path is not ported (ROADMAP.md "
-                "Queue 1 item 7)")
-        return self.results(*self.enqueue(
-            np.ascontiguousarray(image)[None]))[0]
+        """One image (H, W, 3) uint8 RGB -> {"bboxs", "layout_cells"} (and
+        DocXLayout's "subfield_dets") in image coordinates. PicoDet: the
+        host pre-processor, the forward, the host decode with
+        ``hard_nms``. DocXLayout: the page path with the image as the page
+        (the JAX task warps it with cv2 on the host; the same sample points
+        are taken here on the device)."""
+        if self.docx:
+            return self.results(*self.enqueue(
+                np.ascontiguousarray(image)[None]))[0]
+        pre = self.pre(image)
+        x = torch.from_numpy(pre["image"]).to(self.device)
+        raw = self.model(x)
+        result = self.post([s[0].float().cpu().numpy() for s in raw["scores"]],
+                           [b[0].float().cpu().numpy() for b in raw["boxes"]],
+                           pre["org_shape"])
+        result["layout_cells"] = self.post.to_layout_cells(result)
+        return result
+
+    @torch.inference_mode()
+    def batch_enqueue(self, images):
+        """Images resized on the host to PicoDet's input, uploaded as one
+        uint8 stack, normalized, the forward and the device decode's top-k
+        candidates (not yet downloaded); with the per-image metas.
+        DocXLayout: (None, images), each image runs :meth:`__call__` in
+        :meth:`batch_finish`."""
+        if self.docx:
+            return None, list(images)
+        prepped = [self.pre.resize_u8(img) for img in images]
+        u8 = np.concatenate([p.pop("image_u8") for p in prepped])
+        x = torch.from_numpy(u8).to(self.device).float()
+        x = (x / 255.0 - self.mean) / self.std
+        return device_decode_topk(self.model(x), self.model_config), prepped
+
+    def batch_finish(self, handle, metas) -> List[List[OcrCell]]:
+        """Download a :meth:`batch_enqueue` result -> layout cells per
+        image (the per-class ``hard_nms`` on the host)."""
+        if self.docx:
+            return [self(img)["layout_cells"] for img in metas]
+        packed = handle.cpu().numpy()
+        out = []
+        for i, meta in enumerate(metas):
+            result = self.post.from_candidates(
+                packed[i, :, :4], packed[i, :, 4:], meta["org_shape"])
+            out.append(self.post.to_layout_cells(result))
+        return out
+
+    def batch_infer(self, images) -> List[List[OcrCell]]:
+        return self.batch_finish(*self.batch_enqueue(images))

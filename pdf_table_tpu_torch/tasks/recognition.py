@@ -20,6 +20,13 @@ recognizer and the CTC greedy decode. One packed int32 array
 ``[ids | keep | round(conf * 1e6)]`` per group comes back, and the host
 maps ids to characters.
 
+``__call__(crops)`` is the per-crop path of the JAX task: natural-size
+uint8 crops resized on the host by width bucket
+(``models/rec_ctc/processor.py``), each group uploaded as uint8 and
+normalized on the device, the recognizer, and the CTC greedy decode on the
+device (ConvNextViT's three chunks joined along time first); texts and
+scores in crop order.
+
 Crops are grouped by (width bucket, axis-aligned or not). Axis-aligned
 quads take the row-gather + matmul sampler, rotated ones the homography
 sampler. With ``single_rec_bucket`` (the default, as in the JAX pipeline)
@@ -353,3 +360,39 @@ class OcrRecognitionTask:
         pending = [self.enqueue(pages, g) for g in groups]
         packed = [p.cpu().numpy() for p in pending]
         return self.finish(quads_per_page, groups, packed)
+
+    # -- the per-crop path ----------------------------------------------------
+
+    @torch.inference_mode()
+    def _group_decode(self, group: Dict[str, Any]) -> torch.Tensor:
+        """One width group's uint8 images -> the packed decode of its real
+        rows (ConvNextViT: the chunks' logits joined along time)."""
+        imgs = group["images"]
+        n = imgs.shape[0]
+        pad = bucket_batch_size(n) - n
+        if pad:
+            imgs = np.concatenate([imgs, np.zeros((pad,) + imgs.shape[1:],
+                                                  np.uint8)])
+        x = torch.from_numpy(np.ascontiguousarray(imgs)).to(self.device) \
+            .float()
+        x = x / 255.0 if self.convnext else x / 127.5 - 1.0
+        logits = self.model(x)[:n]
+        chunks = group.get("chunked")
+        if chunks:
+            logits = logits.reshape(n // chunks, chunks * logits.shape[1],
+                                    logits.shape[2])
+        return self.pack(logits)
+
+    def __call__(self, crops: Sequence[np.ndarray]) -> Dict[str, List]:
+        """(H, W, 3) uint8 RGB crops -> {"texts", "scores"} in crop
+        order."""
+        pre = self.pre([np.asarray(c) for c in crops])
+        n = pre["n"]
+        texts: List[str] = [""] * n
+        scores: List[float] = [0.0] * n
+        # every group is enqueued before the first download blocks
+        pending = [(g, self._group_decode(g)) for g in pre["groups"]]
+        for g, packed in pending:
+            self.post(unpack_rec(packed.cpu().numpy(), len(g["indices"])),
+                      g["indices"], texts, scores)
+        return {"texts": texts, "scores": scores}

@@ -21,10 +21,11 @@ equal and their boxes within 1e-2 px of the 64-px model input.
   writer; ten pages) with ``layout_model="none"``: every table from the
   vector lines.
 
-Port-only: a page authored rotated by 90 degrees gets an error output that
-names ROADMAP.md Queue 1 item 17 (the JAX runner sends it to its serial
-per-page system), the other pages unharmed; a page whose rendering fails is
-contained; ``last_stats`` carries the ``pdf_text`` lane."""
+Port-only: a page authored rotated by 90 degrees runs the serial per-page
+system, as the JAX runner runs it (held to JAX's in
+tests/test_torch_system.py), the other pages unharmed; a page whose
+rendering fails is contained; ``last_stats`` carries the ``pdf_text``
+lane."""
 
 import os
 import sys
@@ -218,13 +219,20 @@ def test_digital_golden_pdfs_match_jax(golden_runs):
 
 
 def test_a_rotated_page_names_the_serial_system(trees):
+    """A page authored rotated by 90 degrees runs the serial per-page
+    system (it gave an error output naming it until that was ported): its
+    raster turned, its text read by OCR, its stage times in ``metric``."""
     bp = port_pipeline(trees, False)
+    bp.system.config.use_orientation_cls = False
     doc, (page,) = _open(rotated_pdf(), PdfDocument)
     out = bp.run([{"image": PAGES[2], "page": 0},
                   {"pdf_page": page, "pdf_doc": doc, "page": 1}])
     assert out[0].metric == {} and out[0].page_html
-    assert out[1].is_pdf and "Queue 1 item 17" in out[1].metric["error"]
-    assert out[1].text_cells == [] and out[1].page_html == ""
+    assert out[1].is_pdf and "error" not in out[1].metric
+    assert {"image_pre_process", "layout", "detection", "recognition",
+            "ocr_html"} <= set(out[1].metric)
+    assert out[1].page == 1 and out[1].image_shape == (1224, 1584)
+    assert bp.last_stats["digital_serial"] > 0.0
 
 
 def test_a_failing_render_is_contained(trees, monkeypatch):

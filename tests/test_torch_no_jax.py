@@ -33,7 +33,14 @@ recognizers, PicoDet, PP-LCNet, SLANet, TableMaster, MtlTabNet, LGPMA,
 LORE) in bf16, runs each once on a small input, and runs the per-crop
 table-structure surface (``batch_infer`` and ``__call__`` of LORE,
 SLANet, CenterNet, LGPMA and LineCell), with neither JAX, flax, cv2 nor
-the JAX package imported."""
+the JAX package imported. A ninth runs the per-page system
+(``OcrSystemTask.__call__`` with the deskew, the page-orientation and
+0/180 classifiers, PicoDet, LORE, the host detection and recognition
+paths) on a skewed raster page and a digital page authored rotated by 90
+degrees, ``ocr`` and ``timing_summary``, ``BatchPipeline.run`` with its
+``device_boxes=False`` and ``device_crops=False`` lanes, and the OpenCV
+host geometry (its C++ library built at first use), with neither JAX,
+flax, cv2 nor the JAX package imported."""
 
 import json
 import os
@@ -498,3 +505,77 @@ def test_bf16_models_and_crop_surface_run_without_jax():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res == {"bad": [], "finite": True, "n": 10, "html": True,
                    "results": 21}
+
+
+_SYSTEM_SCRIPT = r"""
+import json, sys
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from pdf_table_tpu_torch.ops import cv_host
+from pdf_table_tpu_torch.pdfio import PdfDocument, PdfWriter
+from pdf_table_tpu_torch.pipeline.batch_runner import BatchPipeline
+from pdf_table_tpu_torch.pipeline.system import OcrSystemConfig, OcrSystemTask
+from pdf_table_tpu_torch.tasks.detection import OcrDetectionTask
+from pdf_table_tpu_torch.tasks.layout import OcrLayoutTask
+from pdf_table_tpu_torch.tasks.preprocess import rotate_image
+from pdf_table_tpu_torch.tasks.recognition import OcrRecognitionTask
+from pdf_table_tpu_torch.tasks.table_structure import OcrTableStructureTask
+page = np.full((300, 260, 3), 255, np.uint8)
+for y in range(20, 280, 24):
+    page[y:y + 10, 20:200] = 40
+page[120:240:24, 30:230] = 20
+page[120:240, 30:230:40] = 20
+page = rotate_image(page, 3.0)
+lore = dict(resolution=(64, 64), max_objs=8, hidden_size=32, head_conv=16,
+            tsfm_layers=1, stacking_layers=1, num_heads=4, max_fmp_size=64,
+            d_ff=64)
+system = OcrSystemTask(OcrSystemConfig(), device="cpu")
+system._det = OcrDetectionTask(device="cpu", limit_side_len=96, thresh=0.5,
+                               box_thresh=0.0)
+system._rec = OcrRecognitionTask(device="cpu", width_buckets=(80,))
+system._layout = OcrLayoutTask(device="cpu", task_type="table",
+                               img_height=64, img_width=64,
+                               score_threshold=0.05)
+system._tsr = OcrTableStructureTask(model="Lore", task_type="wireless",
+                                    device="cpu", **lore)
+w = PdfWriter()
+p = w.add_page(300, 400)
+for k in range(8):
+    p.ops.append(f"BT /F1 11 Tf 0 1 -1 0 {60 + 20 * k} 60 Tm "
+                 f"(rotated line {k}) Tj ET")
+doc = PdfDocument.open(w.tobytes())
+outs = system.ocr([{"image": page},
+                   {"pdf_page": doc.load_page(0), "pdf_doc": doc}])
+summary = OcrSystemTask.timing_summary(outs)
+runs = []
+for kw in (dict(device_boxes=False), dict(device_crops=False)):
+    bp = BatchPipeline(OcrSystemConfig(use_orientation_cls=False),
+                       batch_pages=2, device="cpu", **kw)
+    for name in ("_det", "_rec", "_layout", "_tsr"):
+        setattr(bp.system, name, getattr(system, name))
+    runs.append([bool(o.page_html) and "error" not in o.metric
+                 for o in bp.run([{"image": page},
+                                  {"pdf_page": doc.load_page(0),
+                                   "pdf_doc": doc}])])
+contours = cv_host.find_contours(cv_host.rgb_to_grey(page) < 128)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "flax", "cv2", "pdf_table_tpu"))
+print(json.dumps({"bad": bad, "html": [bool(o.page_html) for o in outs],
+                  "angle": abs(outs[0].rotate_angle) > 1.0,
+                  "stages": "recognition" in summary and "layout" in summary,
+                  "runs": runs, "contours": len(contours) > 5}))
+"""
+
+
+def test_per_page_system_runs_without_jax():
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    out = subprocess.run([sys.executable, "-c", _SYSTEM_SCRIPT], cwd=root,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"bad": [], "html": [True, True], "angle": True,
+                   "stages": True, "runs": [[True, True], [True, True]],
+                   "contours": True}

@@ -233,7 +233,10 @@ def port_pipeline(trees, use_cls, tsr_model="Lore", tsr_kwargs=None):
                           use_orientation_cls=False, use_textline_cls=use_cls,
                           table_structure_model=tsr_model,
                           table_structure_kwargs=tsr_kwargs or {})
-    bp = tbr.BatchPipeline(cfg, batch_pages=2, device="cpu")
+    # the crops cut from the resident canvases, as the JAX runner is asked
+    # for them (``device_crops=True``); the default follows the classifier
+    bp = tbr.BatchPipeline(cfg, batch_pages=2, device="cpu",
+                           device_crops=True)
     s = bp.system
     s._det = OcrDetectionTask(model="PP-OCRv4_det", device="cpu",
                               variables=trees["det"], **DET, **DET_BENCH)
