@@ -155,6 +155,32 @@ Phases, each fatal on failure:
      the CPU on a raster page and the digital table page: quads to 1 px,
      texts equal on at least 95 % of the cells, layout labels and the
      digital page's HTML equal (page_html equality counted);
+ 9g. serve: the port's ExtractionService on the card behind make_server on
+     127.0.0.1 (an ephemeral port), its runner the pipeline phase's
+     configuration and trees under the default dtype policy (bf16 det,
+     PicoDet, rec, LORE wireless), warm() before the first request (every
+     task built, every kernel's library loaded), its batcher grouping a
+     round's 5 requests (default max_wait_ms, so a batch closes on its
+     size): a warm-up round, then 16 rounds of 4 raster PNG pages
+     (make_page) and one 2-page digital PDF (the port's PdfWriter) posted
+     at once: every answer 200, the counters adding up (fewer batches
+     than requests), every answer its batch's output, and every page of
+     every batch equal (page HTML,
+     table HTML) to BatchPipeline.run on the same pages run again;
+     /healthz reads "gpu"; the xlsx answer decodes to a worksheet with the
+     table's cells; K1 16 a LORE sub-batch and K3 once a chunk of the
+     counted rounds; requests/s, pages/s, p50/p95 latency over the 80
+     requests, each batch's batcher wait, payload decode and run apart
+     (median and sum) and the runner's lanes (median), the idle share of
+     a traced round and of its run;
+ 9h. cli: the port's cli.main.main (the `pdftable` command) on the card,
+     its system the per-page phase's (the smoke's trees, the line grid)
+     under the CLI's config, on one full-width raster PNG with --debug
+     and on the 2-page PDF with --batch_pages 1 and 8: a warm-up and one
+     counted run each; the merged HTML equal to OcrSystemTask's /
+     BatchPipeline.run's on the same pages, the debug PNG equal to the
+     rendered overlay, K1 16 a LORE forward on the image route, K3 once on
+     the batched route;
  10. tsr_slanet and tsr_master: OcrTableStructureTask(model="SLANet")
      (488^2, LCNet 1.0, neck 96, hidden 256) and (model="TableMaster")
      (480^2, D 512, 8 heads, ff 2024, N = 3), f32, T = 500 steps each, on
@@ -165,7 +191,8 @@ Phases, each fatal on failure:
      <SOS>, <PAD> out of reach), as the CPU tests' trees. The counted run
      launches none of K1-K3 (the JAX lane reaches no Pallas kernel); crops/s
      (median of runs), stage ms (crop + pre, encoder, decode, download,
-     host post), the decode's device launches, peak memory, idle share;
+     host post), the decode's device launches, peak memory, idle share
+     (TableMaster's from the device-only trace alone, no top ops);
      the card against the same port on the CPU on the first two crops
      (one of each size): the inputs bit for bit, teacher-forced
      probabilities and locs within 1e-4 (the CPU's greedy ids as the
@@ -2182,9 +2209,12 @@ def phase_tsr(card, model: str, pages, regions, base=None):
     per_run = statistics.median(run_s)
     peak = torch.cuda.max_memory_allocated()
     stages = tsr_stages(task, dev_pages, regions)
+    # TableMaster's full trace (host ops of some 80,000 launches) is the
+    # light one alone: the phase was the smoke's longest
     prof = profile_run(lambda: task.batch_infer_from_pages(dev_pages,
-                                                           regions))
-    prof.pop("kernel_names")
+                                                           regions),
+                       full=model != "TableMaster")
+    prof.pop("kernel_names", None)
     cpu = OcrTableStructureTask(model=model, device="cpu", variables=tree,
                                 **F32)
     agree = tsr_agreement(task, cpu, dev_pages, pages, regions)
@@ -3135,6 +3165,382 @@ def phase_system_per_page(card, trees):
           f"{diff}")
     return {"system_per_page": launches,
             **{k: v["launches"] for k, v in paths.items()}}
+
+
+SERVE_RASTER = 4        # raster PNG requests a round
+SERVE_ROUNDS = 16       # measured rounds of concurrent requests
+
+
+def png_bytes(img) -> bytes:
+    """An RGB page as PNG (PIL; the card's host has no cv2)."""
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def two_page_pdf() -> bytes:
+    """Two letter pages of the port's PdfWriter: running text and a wired
+    table each."""
+    from pdf_table_tpu_torch.pdfio import PdfWriter
+
+    w = PdfWriter()
+    for k in range(2):
+        p = w.add_page(612, 792)
+        for i in range(6):
+            p.text(60, 740 - 20 * i, f"Page {k} line {i} of running text.")
+        p.table(60, 580, [150, 100, 100], 24,
+                [["name", "qty", "price"], ["bolts", str(40 + k), "0.10"],
+                 ["nuts", "12", "0.05"]])
+    return w.tobytes()
+
+
+def chunks_of(shapes, batch_pages: int) -> int:
+    """The runner's chunk count for pages of these (h, w): one bucket
+    each, ``batch_pages`` canvases a chunk."""
+    from collections import Counter
+
+    from pdf_table_tpu_torch.pipeline.batch_runner import pick_page_bucket
+
+    per = Counter(pick_page_bucket(h, w) for h, w in shapes)
+    return sum(-(-n // batch_pages) for n in per.values())
+
+
+def phase_serve(card, trees):
+    """Phase 9g (module docstring). Returns the serve path's launches."""
+    import base64
+    import http.client
+    import io
+    import threading
+    import zipfile
+
+    import numpy as np
+    import torch
+
+    from pdf_table_tpu_torch.ops.kernels import (KERNELS, launch_counts,
+                                                 reset_launch_counts)
+    from pdf_table_tpu_torch.pdfio import PdfDocument
+    from pdf_table_tpu_torch.pipeline.system import OcrSystemConfig
+    from pdf_table_tpu_torch.serve import ExtractionService, make_server
+
+    images = [make_page(400 + i) for i in range(SERVE_RASTER)]
+    pdf = two_page_pdf()
+    bodies = [(png_bytes(im), "image/png") for im in images] + \
+        [(pdf, "application/pdf")]
+
+    t0 = time.perf_counter()
+    # a round's batch closes on its size (its requests), not on the
+    # batcher's deadline (the default max_wait_ms); the runner keeps its
+    # 8 pages a chunk
+    svc = ExtractionService(OcrSystemConfig(), batch_pages=len(bodies))
+    bp = build_pipeline("cuda", trees, policy=True)
+    svc.pipeline = bp
+    dtypes = {k: getattr(bp.system, k).model_config.dtype
+              for k in ("_det", "_layout", "_rec", "_tsr")}
+    check(set(dtypes.values()) == {"bfloat16"},
+          f"serve: the policy gave {dtypes} on the card")
+    svc.warm()
+    build_s = time.perf_counter() - t0
+    srv = make_server(svc, "127.0.0.1", 0)
+    port = srv.server_address[1]
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+
+    # what the batcher ran: each batch's pages and outputs, LORE forwards,
+    # and each batch's times: the batcher's wait (its first request queued
+    # -> the batch closed), the payloads' decode (-> the run's start) and
+    # the run
+    batches, forwards, spans, queued = [], [], [], {}
+    real_run, real_put, real_process = bp.run, svc.queue.put, svc._process
+
+    def recorded_run(pages):
+        spans[-1]["run0"] = time.perf_counter()
+        out = real_run(pages)
+        spans[-1]["run1"] = time.perf_counter()
+        spans[-1]["lanes"] = bp.last_stats
+        batches.append((pages, out))
+        return out
+
+    def timed_put(req, *a, **kw):
+        queued[id(req)] = time.perf_counter()
+        return real_put(req, *a, **kw)
+
+    def timed_process(batch):
+        spans.append({"first_queued": min(queued[id(r)] for r in batch),
+                      "closed": time.perf_counter(), "requests": len(batch)})
+        return real_process(batch)
+
+    bp.run = recorded_run
+    svc.queue.put = timed_put
+    svc._process = timed_process
+    model = bp.system.tsr_task.model
+    real_forward = model.forward_packed
+    model.forward_packed = lambda x: (forwards.append(x.shape[0]),
+                                      real_forward(x))[1]
+
+    def batch_ms(sp):
+        return {"batcher_wait_ms": (sp["closed"] - sp["first_queued"]) * 1e3,
+                "decode_ms": (sp["run0"] - sp["closed"]) * 1e3,
+                "run_ms": (sp["run1"] - sp["run0"]) * 1e3}
+
+    def request(method, path, body=None, ctype=None):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        conn.request(method, path, body,
+                     {"Content-Type": ctype} if ctype else {})
+        r = conn.getresponse()
+        out = (r.status, json.loads(r.read()))
+        conn.close()
+        return out
+
+    def round_():
+        """Every body posted at once: [(status, answer, seconds)]."""
+        res = [None] * len(bodies)
+
+        def post(i):
+            t = time.perf_counter()
+            status, out = request("POST", "/v1/extract", *bodies[i])
+            res[i] = (status, out, time.perf_counter() - t)
+
+        ts = [threading.Thread(target=post, args=(i,))
+              for i in range(len(bodies))]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=600)
+        return res
+
+    try:
+        round_()                        # warm-up
+        torch.cuda.synchronize()
+        n_warm, n_warm_spans = len(batches), len(spans)
+        before = dict(svc.counters)
+        reset_launch_counts()
+        forwards.clear()
+        t0 = time.perf_counter()
+        answers = []
+        for _ in range(SERVE_ROUNDS):
+            answers.append(round_())
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = {k: launch_counts[k] for k in KERNELS}
+        fw = list(forwards)
+        counted = batches[n_warm:]
+        counters = {k: svc.counters[k] - before[k] for k in before}
+        times = [batch_ms(sp) for sp in spans[n_warm_spans:]
+                 if "run1" in sp]
+        lanes = [sp["lanes"] for sp in spans[n_warm_spans:] if "run1" in sp]
+        per_batch = [sp["requests"] for sp in spans[n_warm_spans:]]
+        n_spans = len(spans)
+        prof = profile_run(round_, full=False)
+        # the device's idle share of the traced round's runs alone
+        run_ms = sum(batch_ms(sp)["run_ms"] for sp in spans[n_spans:]
+                     if "run1" in sp)
+        prof["run_ms"] = run_ms
+        prof["run_idle_share"] = max(0.0, 1.0 - prof["device_busy_ms"]
+                                     / run_ms)
+        status, health = request("GET", "/healthz")
+        xstatus, xlsx = request("POST", "/v1/extract?format=xlsx", pdf,
+                                "application/pdf")
+        _, metrics = request("GET", "/metrics")
+    finally:
+        srv.shutdown()
+        svc.close()
+        del model.forward_packed, svc.queue.put, svc._process
+        bp.run = real_run
+
+    errors = [a[1].get("error") for r in answers for a in r if a[0] != 200]
+    check(not errors, f"serve: requests failed: {errors[:2]}")
+    n_req = SERVE_ROUNDS * len(bodies)
+    n_pages = SERVE_ROUNDS * (SERVE_RASTER + 2)
+    check(counters["requests"] == n_req and counters["pages"] == n_pages
+          and counters["errors"] == 0
+          and 0 < counters["batches"] < n_req,
+          f"serve: counters {counters} for {n_req} requests, {n_pages} "
+          f"pages")
+    check(status == 200 and health == {"ok": True, "platform": "gpu"},
+          f"serve: /healthz answered {status} {health}")
+    check("counters" in metrics, f"serve: /metrics answered {metrics}")
+    # each answer against the batch that served it, run again directly
+    doc = PdfDocument.open(pdf)
+    equal = pages_seen = 0
+    for pages, outs in counted:
+        again = [dict(p, pdf_page=doc.load_page(p["page"]), pdf_doc=doc)
+                 if "pdf_page" in p else p for p in pages]
+        for p in again:
+            p.pop("_tmp_path", None)
+        ref = real_run(again)
+        for o, r in zip(outs, ref):
+            pages_seen += 1
+            equal += (o.page_html, o.table_html) == (r.page_html,
+                                                     r.table_html)
+    # each answer is its batch's output
+    served = {(o.page, o.page_html, tuple(o.table_html))
+              for _, outs in counted for o in outs}
+    answered = [(p["page"], p["html"], tuple(p["tables"]))
+                for r in answers for a in r for p in a[1]["pages"]]
+    check(len(answered) == n_pages and set(answered) <= served,
+          "serve: an answer differs from its batch's output")
+    check(pages_seen == n_pages and equal == pages_seen,
+          f"serve: {equal} of {pages_seen} pages equal to "
+          f"BatchPipeline.run on the same pages")
+    check(xstatus == 200 and xlsx["tables"], f"serve: xlsx {xstatus}")
+    sheets = [zipfile.ZipFile(io.BytesIO(base64.b64decode(
+        t["xlsx_b64"]))).read("xl/worksheets/sheet1.xml").decode()
+        for t in xlsx["tables"]]
+    check(all("<sheetData>" in s for s in sheets)
+          and any("bolts" in s for s in sheets),
+          "serve: no xlsx answer holds the PDF's table")
+    n_chunks = sum(chunks_of([o.image_shape for o in outs], bp.batch_pages)
+                   for _, outs in counted)
+    check(fw and launches["deform_conv2d"]
+          + launches["deform_conv2d_flat_kc"] == 16 * len(fw)
+          and launches["resize_normalize"] == n_chunks,
+          f"serve: launches {launches} for {len(fw)} LORE forwards and "
+          f"{n_chunks} chunks")
+    lat = sorted(a[2] for r in answers for a in r)
+    med = {k: float(np.median([t[k] for t in times])) for k in times[0]}
+    summary = {
+        "card": card, "dtypes": dtypes, "build_and_warm_s": build_s,
+        "requests": n_req, "pages": n_pages, "batches": counters["batches"],
+        "requests_per_s": n_req / wall, "pages_per_s": n_pages / wall,
+        "latency_s_p50": float(np.percentile(lat, 50)),
+        "latency_s_p95": float(np.percentile(lat, 95)),
+        "requests_a_batch": per_batch, "batch_median_ms": med,
+        # the runner's lanes a batch (host clock, a lane's wait for the
+        # card included)
+        "lane_median_ms": {k: float(np.median([ln[k] for ln in lanes])) * 1e3
+                           for k in lanes[0] if k != "n_pages"},
+        "batch_sum_ms": {k: sum(t[k] for t in times) for k in times[0]},
+        "wall_ms": wall * 1e3,
+        "launches": launches, "lore_forwards": fw, "chunks": n_chunks,
+        "tables": sum(len(o.table_html) for _, outs in counted
+                      for o in outs),
+        "xlsx_books": len(sheets), "profile": prof,
+        "equal_to_batch_pipeline": f"{equal}/{pages_seen}"}
+    print(json.dumps({"serve": summary}))
+    return launches
+
+
+def phase_cli(card, trees):
+    """Phase 9h (module docstring). Returns each CLI route's launches."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    import types
+
+    import numpy as np
+    import torch
+
+    import pdf_table_tpu_torch.cli.main as cli_main
+    from pdf_table_tpu_torch.entity.args import PdfTableCliArguments
+    from pdf_table_tpu_torch.ops.kernels import (KERNELS, launch_counts,
+                                                 reset_launch_counts)
+    from pdf_table_tpu_torch.pdfio import PdfDocument
+    from pdf_table_tpu_torch.pipeline.batch_runner import BatchPipeline
+    from pdf_table_tpu_torch.utils.image_io import read_image
+
+    page = make_page(500)
+    page[400:400 + 6 * 40:40, 80:880] = 30
+    page[400:640, 80:881:160] = 30
+    t0 = time.perf_counter()
+    probe = build_system("cuda", trees, 0.5)
+    prob = probe.det_task.prob_map(probe.det_task.pre(page)["image"])
+    thresh = float(torch.quantile(prob.flatten()[::7].float(),
+                                  SYS_THRESH_QUANTILE))
+    system = build_system("cuda", trees, thresh)
+    build_s = time.perf_counter() - t0
+
+    def the_system(cfg, device=None):
+        """``main``'s system: the smoke's trees, the CLI's config."""
+        system.config = cfg
+        return system
+
+    td = tempfile.mkdtemp(prefix="smoke_cli_")
+    png = os.path.join(td, "page.png")
+    with open(png, "wb") as f:
+        f.write(png_bytes(page))
+    pdf = os.path.join(td, "doc.pdf")
+    with open(pdf, "wb") as f:
+        f.write(two_page_pdf())
+    merge = types.SimpleNamespace(args=PdfTableCliArguments())
+
+    def merged(pairs):
+        return cli_main.PdfTableCli.make_pdf_output_html(merge, pairs)
+
+    routes = {"cli_image": (png, ["--debug"]),
+              "cli_pdf": (pdf, ["--batch_pages", "1"]),
+              "cli_pdf_batch_pages_8": (pdf, ["--batch_pages", "8"])}
+    real = cli_main.OcrSystemTask
+    cli_main.OcrSystemTask = the_system
+    paths, seconds, outs = {}, {}, {}
+    sink = io.StringIO()
+    try:
+        for name, (src, flags) in routes.items():
+            out_dir = os.path.join(td, name)
+            argv = ["--file_path_or_url", src, "--output_dir", out_dir,
+                    *flags]
+            with contextlib.redirect_stdout(sink):
+                cli_main.main(argv)             # warm-up
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(sink):
+                rc, launches, fw = counted(lambda: cli_main.main(argv),
+                                           system.tsr_task.model)
+            seconds[name] = time.perf_counter() - t0
+            check(rc == 0, f"cli: {name} exited {rc}")
+            base = os.path.splitext(os.path.basename(src))[0]
+            with open(os.path.join(out_dir, base + ".html"),
+                      encoding="utf-8") as f:
+                outs[name] = f.read()
+            with open(os.path.join(out_dir, base + "_metrics.json")) as f:
+                errors = [m for m in json.load(f)["pages"] if "error" in m]
+            check(not errors, f"cli: {name}: {errors[:2]}")
+            paths[name] = {"launches": launches, "lore_forwards": fw}
+    finally:
+        cli_main.OcrSystemTask = real
+
+    # the same pages through the per-page system and the runner
+    system.config.debug = True
+    ref = system(image=read_image(png), page=0, src_id="page.png")
+    check(outs["cli_image"] == merged([(0, ref.page_html)]),
+          "cli: the image route's HTML differs from OcrSystemTask's")
+    debug = read_image(os.path.join(td, "cli_image", "page_page1_debug.png"))
+    check(debug is not None and debug.shape == ref.image.shape
+          and np.array_equal(debug, ref.debug["render"]),
+          "cli: the debug overlay was not written as rendered")
+    system.config.debug = False
+    doc = PdfDocument.open(pdf)
+    per_page = [system(pdf_page=doc.load_page(i), pdf_doc=doc, page=i,
+                       src_id="doc.pdf") for i in range(doc.page_count)]
+    check(outs["cli_pdf"] == merged([(o.page, o.page_html)
+                                     for o in per_page]),
+          "cli: the per-page PDF route's HTML differs from OcrSystemTask's")
+    bp = BatchPipeline(system.config, batch_pages=8, device="cuda")
+    bp.system = system
+    batched = bp.run([{"pdf_page": doc.load_page(i), "pdf_doc": doc,
+                       "page": i} for i in range(doc.page_count)])
+    check(outs["cli_pdf_batch_pages_8"] == merged(
+        [(o.page, o.page_html) for o in batched]),
+        "cli: the batched PDF route's HTML differs from BatchPipeline.run's")
+    im = paths["cli_image"]
+    check(im["lore_forwards"] and im["launches"]["deform_conv2d"]
+          + im["launches"]["deform_conv2d_flat_kc"]
+          == 16 * len(im["lore_forwards"])
+          and im["launches"]["resize_normalize"] == 0,
+          f"cli: the image route launched {im['launches']} for "
+          f"{len(im['lore_forwards'])} LORE forwards")
+    check(paths["cli_pdf_batch_pages_8"]["launches"]["resize_normalize"]
+          == 1, f"cli: the batched route launched "
+                f"{paths['cli_pdf_batch_pages_8']['launches']}")
+    summary = {"card": card, "model_build_s": build_s, "det_thresh": thresh,
+               "run_s": seconds, "paths": paths,
+               "tables": [len(ref.table_html)]
+               + [len(o.table_html) for o in per_page]}
+    print(json.dumps({"cli": summary}))
+    shutil.rmtree(td, ignore_errors=True)
+    return {k: v["launches"] for k, v in paths.items()}
 
 
 def phase_tsr_host_crop(card, trees):
@@ -5212,6 +5618,8 @@ def main() -> int:
     run("tsr_host_crop", phase_tsr_host_crop, card, pipe_trees)
     sys_paths = run("system_per_page", phase_system_per_page, card,
                     pipe_trees)
+    serve_launches = run("serve", phase_serve, card, pipe_trees)
+    cli_paths = run("cli", phase_cli, card, pipe_trees)
     tsr_pages, tsr_regions = tsr_inputs()
     sla_tree, _, sla = run("tsr_slanet", phase_tsr, card, "SLANet",
                            tsr_pages, tsr_regions)
@@ -5246,7 +5654,10 @@ def main() -> int:
         token pipeline arms launch K3 once a chunk (detection) and never
         K1 or K2; CenterNet
         and DocXLayout run K1 at every DCN (K2 too in bf16); the DBNet
-        backbones launch K3 once a chunk, the recognizers nothing."""
+        backbones launch K3 once a chunk, the recognizers nothing; the
+        server runs K3 once a chunk and K1 at every LORE sub-batch of its
+        batches, the CLI K1 on the image route's LORE forward and K3 on
+        the batched PDF route's chunk."""
         return {**extra, "pipeline": pipe[name],
                 "pipeline_digital": pipe_digital[name],
                 "pipeline_bf16": pipe_bf16[name],
@@ -5263,8 +5674,9 @@ def main() -> int:
                 "layout_docx_bf16_forward": docx["bf16"][name],
                 "pipeline_docx": pipe_docx[name],
                 "det_backbones": det_b[name], "rec_backbones": rec_b[name],
-                "train": train[name],
-                **{path: counts[name] for path, counts in sys_paths.items()}}
+                "train": train[name], "serve": serve_launches[name],
+                **{path: counts[name] for path, counts in sys_paths.items()},
+                **{path: counts[name] for path, counts in cli_paths.items()}}
 
     print(card)
     print(json.dumps(kernels_line(

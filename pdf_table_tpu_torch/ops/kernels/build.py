@@ -5,7 +5,10 @@ library with a plain C interface under ``ops/kernels/build/`` (listed in
 ``.gitignore``). The library name carries a hash of its source, so an
 edited source rebuilds. nvcc's report (ptxas registers, shared memory,
 spills) is kept beside the library as ``<library>.log``. ``build_all``
-starts one ``nvcc`` per source, all at once.
+starts one ``nvcc`` per source, all at once, under a process-wide lock,
+so that threads that reach a kernel first together build it once;
+``load_all`` builds and loads every kernel's library (a server's
+warm-up).
 """
 
 from __future__ import annotations
@@ -15,11 +18,13 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
+_LOCK = threading.Lock()
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -46,30 +51,39 @@ def build_all(names: Iterable[str]) -> Dict[str, Path]:
     """Compile every ``csrc/<name>.cu`` whose library is missing, one
     ``nvcc`` each, all started together; raise if any fails. Returns each
     library's path."""
-    libs = {name: library_path(name) for name in names}
-    procs = {}
-    for name, lib in libs.items():
-        if lib.exists():
-            continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        procs[name] = (tmp, subprocess.Popen(
-            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-             str(CSRC / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    failed = []
-    for name, (tmp, proc) in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
-            continue
-        libs[name].with_suffix(".log").write_text(log)
-        os.replace(tmp, libs[name])
-    if failed:
-        raise RuntimeError("kernel build failed: " + "\n".join(failed))
-    return libs
+    with _LOCK:
+        libs = {name: library_path(name) for name in names}
+        procs = {}
+        for name, lib in libs.items():
+            if lib.exists():
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+            procs[name] = (tmp, subprocess.Popen(
+                [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                 str(CSRC / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        failed = []
+        for name, (tmp, proc) in procs.items():
+            log = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+                continue
+            libs[name].with_suffix(".log").write_text(log)
+            os.replace(tmp, libs[name])
+        if failed:
+            raise RuntimeError("kernel build failed: " + "\n".join(failed))
+        return libs
 
 
 def load(name: str) -> ctypes.CDLL:
     """The library for ``csrc/<name>.cu``, built first if missing."""
     return ctypes.CDLL(str(build_all([name])[name]))
+
+
+def load_all() -> Dict[str, ctypes.CDLL]:
+    """Every kernel's library (``KERNELS``), built first where missing."""
+    from . import KERNELS
+
+    libs = build_all(sorted(set(KERNELS.values())))
+    return {name: ctypes.CDLL(str(path)) for name, path in libs.items()}

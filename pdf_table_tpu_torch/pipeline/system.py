@@ -9,12 +9,15 @@ table structure (a digital page's vector-line cells, else all table crops
 of the page through the TSR task's ``batch_infer``), text (the PDF's
 vector text, else detection and recognition of the page's quads), table
 HTML and page HTML, with the seconds of each stage in ``metric`` under the
-JAX package's keys. Every task is built on the system's ``device``
+JAX package's keys; with ``debug``, the annotated overlay
+(``utils/debug_render.py``) in ``debug["render"]`` and the metrics logged.
+Every task is built on the system's ``device``
 (``cuda`` unless ``"cpu"`` is asked for).
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -24,6 +27,7 @@ import numpy as np
 from ..entity.enums import HtmlContentType
 from ..entity.ocr_cell import OcrCell
 from ..ops.warp import crop_rotated_boxes
+from ..utils.logging_utils import logger
 from .output import OcrSystemModelOutput
 
 
@@ -112,58 +116,67 @@ class OcrSystemTask:
         self._pdf_text = None
         self._table_html = None
         self._to_html = None
+        # the model tasks are built on first use, once, also where several
+        # threads reach them first together
+        self._build_lock = threading.RLock()
 
     @property
     def det_task(self):
-        if self._det is None:
-            from ..tasks.detection import OcrDetectionTask
-            self._det = OcrDetectionTask(model=self.config.detect_model,
-                                         device=self.device)
+        with self._build_lock:
+            if self._det is None:
+                from ..tasks.detection import OcrDetectionTask
+                self._det = OcrDetectionTask(model=self.config.detect_model,
+                                             device=self.device)
         return self._det
 
     @property
     def rec_task(self):
-        if self._rec is None:
-            from ..tasks.recognition import OcrRecognitionTask
-            self._rec = OcrRecognitionTask(
-                model=self.config.recognizer_model, lang=self.config.lang,
-                device=self.device, cls_task=self.textline_cls_task)
+        with self._build_lock:
+            if self._rec is None:
+                from ..tasks.recognition import OcrRecognitionTask
+                self._rec = OcrRecognitionTask(
+                    model=self.config.recognizer_model, lang=self.config.lang,
+                    device=self.device, cls_task=self.textline_cls_task)
         return self._rec
 
     @property
     def layout_task(self):
-        if self._layout is None and self.config.use_layout \
-                and self.config.layout_model != "none":
-            from ..tasks.layout import OcrLayoutTask
-            self._layout = OcrLayoutTask(model=self.config.layout_model,
-                                         task_type=self.config.lang,
-                                         device=self.device)
+        with self._build_lock:
+            if self._layout is None and self.config.use_layout \
+                    and self.config.layout_model != "none":
+                from ..tasks.layout import OcrLayoutTask
+                self._layout = OcrLayoutTask(model=self.config.layout_model,
+                                             task_type=self.config.lang,
+                                             device=self.device)
         return self._layout
 
     @property
     def tsr_task(self):
-        if self._tsr is None and self.config.use_table:
-            from ..tasks.table_structure import OcrTableStructureTask
-            self._tsr = OcrTableStructureTask(
-                model=self.config.table_structure_model, device=self.device,
-                **self.config.table_structure_kwargs)
+        with self._build_lock:
+            if self._tsr is None and self.config.use_table:
+                from ..tasks.table_structure import OcrTableStructureTask
+                self._tsr = OcrTableStructureTask(
+                    model=self.config.table_structure_model,
+                    device=self.device, **self.config.table_structure_kwargs)
         return self._tsr
 
     @property
     def preprocess_task(self):
-        if self._preprocess is None:
-            from ..tasks.preprocess import OcrTablePreprocessTask
-            self._preprocess = OcrTablePreprocessTask(
-                use_orientation_cls=self.config.use_orientation_cls,
-                device=self.device)
+        with self._build_lock:
+            if self._preprocess is None:
+                from ..tasks.preprocess import OcrTablePreprocessTask
+                self._preprocess = OcrTablePreprocessTask(
+                    use_orientation_cls=self.config.use_orientation_cls,
+                    device=self.device)
         return self._preprocess
 
     @property
     def textline_cls_task(self):
-        if self._line_cls is None and self.config.use_textline_cls:
-            from ..tasks.cls_pulc import ClsImagePulcTask
-            self._line_cls = ClsImagePulcTask(
-                task_type="textline_orientation", device=self.device)
+        with self._build_lock:
+            if self._line_cls is None and self.config.use_textline_cls:
+                from ..tasks.cls_pulc import ClsImagePulcTask
+                self._line_cls = ClsImagePulcTask(
+                    task_type="textline_orientation", device=self.device)
         return self._line_cls
 
     @property
@@ -304,10 +317,6 @@ class OcrSystemTask:
                  pdf_doc=None, page: int = 0,
                  src_id: str = "") -> OcrSystemModelOutput:
         cfg = self.config
-        if cfg.debug:
-            raise NotImplementedError(
-                "the debug overlay (utils/debug_render.py) is not ported "
-                "(ROADMAP.md Queue 1 item 11)")
         out = OcrSystemModelOutput(src_id=src_id, page=page,
                                    is_pdf=pdf_page is not None)
         metric: Dict[str, float] = {}
@@ -391,6 +400,12 @@ class OcrSystemTask:
                                           page_width=float(image.shape[1]))
         metric["ocr_html"] = time.perf_counter() - t0
         out.metric = metric
+        if cfg.debug:
+            from ..utils.debug_render import render_debug_overlay
+            out.debug["render"] = render_debug_overlay(
+                image, out.text_cells, out.layout_cells, table_results)
+            logger.info("page %s metrics: %s", page,
+                        {k: round(v, 3) for k, v in metric.items()})
         return out
 
     def ocr(self, pages: Sequence[Dict[str, Any]]

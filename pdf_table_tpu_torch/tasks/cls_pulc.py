@@ -5,7 +5,8 @@ device, for every task type of ``ClsPulcConfig.for_task``
 0/180, ``language_classification``, ``table_attribute``).
 
 The recognition lane feeds ``probs`` crops that are already cut on the
-device; ``__call__(image)`` and ``batch_infer(crops)`` run the host
+device; ``__call__(image)`` (``InferTask``'s, engine/infer_task.py, with
+its timings) and ``batch_infer(crops)`` run the host
 pre-processor (``models/cls/processor.py``) and the post-processor, as the
 JAX task does: all crops of ``batch_infer`` in one forward, padded to a
 batch bucket.
@@ -20,6 +21,7 @@ import torch
 
 from ..engine.buckets import bucket_batch_size
 from ..engine.device import resolve_device, set_float_precision
+from ..engine.infer_task import InferTask
 from ..engine.params import init_cls
 from ..models.cls.config import ClsPulcConfig
 from ..models.cls.model import PPLCNetClassifier
@@ -30,7 +32,7 @@ CLS_MEAN = (0.485, 0.456, 0.406)
 CLS_STD = (0.229, 0.224, 0.225)
 
 
-class ClsImagePulcTask:
+class ClsImagePulcTask(InferTask):
     """PP-LCNet classifier on ``device`` (``cuda`` unless ``"cpu"`` is
     asked for). Weights: ``variables`` (a flax-layout tree) or, when None,
     the seeded :func:`init_cls`. ``cfg_overrides`` go to
@@ -41,6 +43,7 @@ class ClsImagePulcTask:
     def __init__(self, task_type: str = "text_image_orientation",
                  device=None, variables: Optional[Dict[str, Any]] = None,
                  **cfg_overrides):
+        super().__init__()
         self.device = resolve_device(device)
         set_float_precision()
         self.model_config = cfg = ClsPulcConfig.for_task(task_type,
@@ -72,10 +75,19 @@ class ClsImagePulcTask:
         x = torch.from_numpy(np.ascontiguousarray(batch)).to(self.device)
         return self.model(x).cpu().numpy()
 
-    def __call__(self, image: np.ndarray) -> Dict[str, Any]:
-        """One (H, W, 3) uint8 RGB image -> {"labels", "scores"} (and
-        "label", "score" unless multilabel)."""
-        return self.post(self._forward(self.pre(image)["image"])[0])
+    # -- the per-image path (InferTask.__call__) ----------------------------
+
+    def _preprocess(self, image: np.ndarray):
+        """One (H, W, 3) uint8 RGB image -> its normalized input."""
+        return self.pre(image)["image"], None
+
+    def _run_model(self, batch: np.ndarray) -> np.ndarray:
+        return self._forward(batch)
+
+    def _postprocess(self, raw: np.ndarray, meta) -> Dict[str, Any]:
+        """{"labels", "scores"} (and "label", "score" unless
+        multilabel)."""
+        return self.post(raw[0])
 
     def batch_infer(self, images: Sequence[np.ndarray]
                     ) -> List[Dict[str, Any]]:
@@ -83,11 +95,8 @@ class ClsImagePulcTask:
         one result per image, in order."""
         if not len(images):
             return []
-        batch = np.concatenate([self.pre(img)["image"] for img in images])
-        n = len(images)
-        pad = bucket_batch_size(n) - n
-        if pad:
-            batch = np.concatenate([batch, np.zeros((pad,) + batch.shape[1:],
-                                                    batch.dtype)])
-        raw = self._forward(batch)
+        batch, n = self.pad_batch({"image": np.concatenate(
+            [self.pre(img)["image"] for img in images])},
+            bucket_batch_size(len(images)))
+        raw = self._forward(batch["image"])
         return [self.post(raw[i]) for i in range(n)]

@@ -11,7 +11,8 @@ kernel, DBNet, a 2x2 max-pool of the prob map, uint8 quantization and the
 connected-component boxes. Only the (n, 64, 6) box rows come back; the
 host finishes them (box thresholds, analytic unclip, page coordinates).
 
-``__call__(image)`` is the per-image path of the JAX ``InferTask``: the
+``__call__(image)`` is the per-image path of ``InferTask``
+(engine/infer_task.py, with its timings), as in JAX: the
 host pre-processor (``models/dbnet/processor.py``, the resize on the
 host), DBNet on the device, the full-resolution prob map downloaded, the
 host post-processor (contours and min-area rectangles), or with
@@ -28,10 +29,12 @@ import torch.nn.functional as F
 
 from ..engine.device import (on_device, resolve_device, set_float_precision,
                              with_default_dtype)
+from ..engine.infer_task import InferTask
 from ..engine.params import init_dbnet
 from ..models.dbnet.config import DbNetConfig
 from ..models.dbnet.model import DBNet
 from ..models.dbnet.processor import DbNetPostProcessor, DbNetPreProcessor
+from ..models.registry import build_config
 from ..ops.connected_components import batch_component_boxes_u8
 from ..ops.resize_norm import resize_normalize
 from ..pipeline.batch_runner import det_input_size, pack_pages
@@ -56,21 +59,11 @@ Chunk = Tuple[List[int], List[Tuple[int, int]], Tuple[int, int], np.ndarray]
 
 
 def det_config(model: str = "PP-OCRv4_det", **kw) -> DbNetConfig:
-    """The config of a registered detector name, as the JAX registry
-    builds it."""
-    if model == "PP-OCRv4_det":
-        return DbNetConfig.ppocr(**kw)
-    if model == "db_proxylessnas":
-        kw.setdefault("inner_channels", 64)
-    backbone = {"db_resnet18": "resnet18", "db_resnet50": "resnet50",
-                "db_proxylessnas": "proxylessnas"}.get(model)
-    if backbone is None:
-        raise NotImplementedError(f"detection model {model!r} is not "
-                                  f"ported")
-    return DbNetConfig(backbone=backbone, **kw)
+    """The config of a registered detector name (models/registry.py)."""
+    return build_config("detection", model, **kw)
 
 
-class OcrDetectionTask:
+class OcrDetectionTask(InferTask):
     """DBNet text detection on ``device`` (``cuda`` unless ``"cpu"`` is
     asked for). Weights: ``variables`` (a flax-layout tree, see
     convert/flax_bridge.py) or, when None, the seeded :func:`init_dbnet`.
@@ -89,6 +82,7 @@ class OcrDetectionTask:
                  variables: Optional[Dict[str, Any]] = None,
                  half_res_probs: bool = True,
                  use_device_postprocess: bool = False, **cfg_overrides):
+        super().__init__()
         self.model_name = model
         self.device = resolve_device(device)
         self.model_config = cfg = det_config(
@@ -247,15 +241,19 @@ class OcrDetectionTask:
         x = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
         return self.model(x)["prob"][0].float()
 
-    def __call__(self, image: np.ndarray) -> Dict[str, Any]:
-        """One (H, W, 3) uint8 RGB image -> {"det_polygons" (N, 8),
-        "det_scores" (N,), "prob_shape"} in image coordinates."""
+    def _preprocess(self, image: np.ndarray):
         pre = self.pre(image)
-        prob = self.prob_map(pre["image"])
+        return pre["image"], {"org_shape": pre["org_shape"],
+                              "net_shape": tuple(pre["image"].shape[1:3])}
+
+    def _run_model(self, batch: np.ndarray) -> torch.Tensor:
+        return self.prob_map(batch)
+
+    def _postprocess(self, prob: torch.Tensor, meta) -> Dict[str, Any]:
         if self.use_device_postprocess:
-            result = self.post.fast_device_boxes(prob, pre["org_shape"])
+            result = self.post.fast_device_boxes(prob, meta["org_shape"])
         else:
-            result = self.post(prob.cpu().numpy(), pre["org_shape"],
-                               tuple(pre["image"].shape[1:3]))
+            result = self.post(prob.cpu().numpy(), meta["org_shape"],
+                               meta["net_shape"])
         result["prob_shape"] = tuple(prob.shape)
         return result

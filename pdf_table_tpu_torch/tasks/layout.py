@@ -41,20 +41,19 @@ from ..engine.device import (on_device, resolve_device, set_float_precision,
 from ..engine.params import init_docx_layout, init_picodet
 from ..entity.ocr_cell import OcrCell
 from ..models.center_net.processor import CenterNetPreProcessor
-from ..models.docx_layout.config import DocXLayoutConfig
 from ..models.docx_layout.model import DocXLayoutModel, unpack_docx
 from ..models.docx_layout.processor import DocXLayoutPostProcessor
-from ..models.picodet.config import PicoDetConfig
 from ..models.picodet.model import PicoDet
 from ..models.picodet.processor import (PicoDetPostProcessor,
                                         PicoDetPreProcessor,
                                         device_decode_topk, device_nms_pack)
+from ..models.registry import build_config
 
 Handle = Tuple[torch.Tensor, List[Dict[str, Any]]]
-DOCX_MODELS = ("DocXLayout", "docx_layout")
+# the registry's DocXLayout and the alias the system's config takes
+DOCX_ALIASES = {"docx_layout": "DocXLayout"}
 # DocXLayout pages per forward: a runner chunk's
 DOCX_SUB_BATCH = 8
-MODELS = ("picodet",) + DOCX_MODELS
 
 
 @functools.lru_cache(maxsize=16)
@@ -105,14 +104,15 @@ def resize_bilinear_aa(pages: torch.Tensor, out_hw: Tuple[int, int]
 
 class OcrLayoutTask:
     """Layout analysis on ``device`` (``cuda`` unless ``"cpu"`` is asked
-    for), ``model`` one of ``MODELS``. Weights: ``variables`` (a
-    flax-layout tree, see convert/flax_bridge.py) or, when None, the
-    model's seeded ``init_*``. ``config`` or ``cfg_overrides`` set
-    ``PicoDetConfig`` (with ``task_type``, and the device's default dtype,
+    for), ``model`` a layout name of models/registry.py (or
+    "docx_layout"). Weights: ``variables`` (a flax-layout tree, see
+    convert/flax_bridge.py) or, when None, the model's seeded ``init_*``.
+    ``config`` or ``cfg_overrides`` set ``PicoDetConfig`` (with
+    ``task_type``, and the device's default dtype,
     engine/device.py::default_dtype, where they name none, as the JAX
     registry builds it) or ``DocXLayoutConfig`` (which ignores
-    ``task_type``, and is f32 unless asked, as the JAX task does). On the CPU,
-    ``PDFTABLE_DEVICE_NMS=0`` selects PicoDet's host route (``hard_nms``
+    ``task_type``, and is f32 unless asked, as the JAX task does). On the
+    CPU, ``PDFTABLE_DEVICE_NMS=0`` selects PicoDet's host route (``hard_nms``
     over the downloaded candidates), as in the JAX task; on a card the NMS
     always runs on the device."""
 
@@ -122,16 +122,16 @@ class OcrLayoutTask:
                  variables: Optional[Dict[str, Any]] = None,
                  task_type: str = "en", config: Optional[Any] = None,
                  **cfg_overrides):
-        if model not in MODELS:
-            raise NotImplementedError(
-                f"layout model {model!r} is not ported (the port has "
-                f"{', '.join(MODELS)})")
         self.device = resolve_device(device)
         set_float_precision()
-        if model in DOCX_MODELS:
-            self.model_name = "DocXLayout"
-            self.model_config = cfg = config or DocXLayoutConfig(
-                **cfg_overrides)
+        self.model_name = DOCX_ALIASES.get(model, model)
+        if config is None:
+            kw = cfg_overrides if self.model_name == "DocXLayout" \
+                else with_default_dtype(cfg_overrides, self.device)
+            config = build_config("layout", self.model_name,
+                                  task_type=task_type, **kw)
+        self.model_config = cfg = config
+        if self.docx:
             # Cycle-CenterNet's warp and normalize are DocXLayout's: the
             # same centred matrix, sampling and MEAN / STD; a canvas is
             # the window (p, 0, 0, W, H)
@@ -140,10 +140,6 @@ class OcrLayoutTask:
             self.model = DocXLayoutModel(cfg).eval()
             init = init_docx_layout
         else:
-            self.model_name = "picodet"
-            self.model_config = cfg = config or PicoDetConfig(
-                task_type=task_type,
-                **with_default_dtype(cfg_overrides, self.device))
             self.pre = PicoDetPreProcessor(cfg)
             self.post = PicoDetPostProcessor(cfg)
             self.model = PicoDet(cfg).eval()

@@ -44,9 +44,10 @@ from ..engine.buckets import bucket_batch_size
 from ..engine.device import (on_device, resolve_device, set_float_precision,
                              with_default_dtype)
 from ..engine.params import init_rec
-from ..models.rec_ctc.charset import Charset, resolve_charset
+from ..models.rec_ctc.charset import Charset
 from ..models.rec_ctc.config import RecConfig
 from ..models.rec_ctc.model import CTCRecModel
+from ..models.registry import build_config
 from ..models.rec_ctc.processor import RecPostProcessor, RecPreProcessor
 from ..ops.ctc import ctc_greedy_decode
 from ..ops.warp import (homographies_from_quads_batch,
@@ -63,32 +64,14 @@ PAD_MAT = np.eye(3, dtype=np.float32)[None]
 Group = Dict[str, Any]
 
 
-REC_MODELS = ("PP-OCRv4_rec", "CRNN", "ConvNextViT", "LightweightEdge")
-
 
 def rec_config(lang: str = "en", model: str = "PP-OCRv4_rec",
                **kw) -> RecConfig:
-    """The config of a registered recognizer name, as the JAX registry
-    builds it. ``PP-OCRv4_rec`` is lang-keyed: the charset comes from the
-    lang's dict file and the vocab size follows it; the ModelScope
-    recognizers ignore ``lang``."""
-    if model == "CRNN":
-        return RecConfig.crnn(**kw)
-    if model == "ConvNextViT":
-        return RecConfig.convnext_vit(**kw)
-    if model == "LightweightEdge":
-        base = dict(backbone="lightweight_edge", img_channels=3,
-                    img_height=32, img_width=320)
-        base.update(kw)
-        return RecConfig(**base)
-    if model != "PP-OCRv4_rec":
-        raise NotImplementedError(f"recognition model {model!r} is not "
-                                  f"ported (the port has "
-                                  f"{', '.join(REC_MODELS)})")
-    if lang != "en" and "charset_name" not in kw:
-        kw["charset_name"] = lang
-        kw.setdefault("vocab_size", len(resolve_charset(lang)))
-    return RecConfig(backbone="svtr_lcnet", **kw)
+    """The config of a registered recognizer name (models/registry.py).
+    ``PP-OCRv4_rec`` is lang-keyed: the charset comes from the lang's dict
+    file and the vocab size follows it; the ModelScope recognizers ignore
+    ``lang``."""
+    return build_config("recognition", model, lang=lang, **kw)
 
 
 def unpack_rec(packed: np.ndarray, real_n: int
@@ -103,11 +86,11 @@ def unpack_rec(packed: np.ndarray, real_n: int
 
 class OcrRecognitionTask:
     """Text recognition on ``device`` (``cuda`` unless ``"cpu"`` is asked
-    for), ``model`` one of ``REC_MODELS``. Weights: ``variables`` (a
-    flax-layout tree, see convert/flax_bridge.py) or, when None, the
-    seeded :func:`init_rec`. ``cls_task`` is the 0/180 textline classifier
-    (a :class:`ClsImagePulcTask` on the same device) or None for no
-    orientation check. ``cfg_overrides`` go to :func:`rec_config`, with
+    for), ``model`` a recognizer of models/registry.py. Weights:
+    ``variables`` (a flax-layout tree, see convert/flax_bridge.py) or, when
+    None, the seeded :func:`init_rec`. ``cls_task`` is the 0/180 textline
+    classifier (a :class:`ClsImagePulcTask` on the same device) or None for
+    no orientation check. ``cfg_overrides`` go to :func:`rec_config`, with
     the device's default dtype (engine/device.py::default_dtype) where
     they name none."""
 

@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from ..engine.buckets import bucket_batch_size
+from ..engine.infer_task import InferTask
 from ..engine.device import (on_device, resolve_device, set_float_precision,
                              with_default_dtype)
 from ..engine.params import (init_centernet, init_lgpma, init_lore,
@@ -69,6 +70,7 @@ from ..models.line_cell.algo import extract_cells_from_image
 from ..models.lore.config import LoreConfig
 from ..models.lore.model import LoreModel, unpack_lore
 from ..models.lore.processor import LorePostProcessor, LorePreProcessor
+from ..models.registry import build_config
 from ..models.slanet.config import SLANetConfig
 from ..models.slanet.model import SLANet
 from ..models.slanet.processor import SLANetPostProcessor, SLANetPreProcessor
@@ -106,14 +108,12 @@ def merge_tsr_cells(primary: Dict[str, Any], secondary: Dict[str, Any],
 
 
 def lore_config(task_type: str = "wtw", **kw) -> LoreConfig:
-    if task_type == "wtw":
-        return LoreConfig.wtw(**kw)
-    if task_type == "wireless":
-        return LoreConfig.wireless(**kw)
-    return LoreConfig(task_type=task_type, **kw)
+    """LORE's config for ``task_type`` (models/registry.py)."""
+    return build_config("table_structure", "Lore", task_type=task_type,
+                        **kw)
 
 
-class OcrTableStructureTask:
+class OcrTableStructureTask(InferTask):
     """Table structure on ``device`` (``cuda`` unless ``"cpu"`` is asked
     for) with ``model`` one of ``MODELS``. Weights: ``variables`` (a
     flax-layout tree, see convert/flax_bridge.py) or, when None, the
@@ -134,6 +134,7 @@ class OcrTableStructureTask:
                  config: Optional[Any] = None,
                  res_buckets: Any = (), device=None, batch_size: int = 8,
                  variables: Optional[Dict[str, Any]] = None, **kw):
+        super().__init__()
         if model not in MODELS:
             raise ValueError(f"unknown TSR model {model!r}; expected one "
                              f"of {MODELS}")
@@ -454,22 +455,37 @@ class OcrTableStructureTask:
             return out["image"], meta["shape_list"]
         return out["image"], meta
 
-    @torch.inference_mode()
-    def __call__(self, image: np.ndarray) -> Dict[str, Any]:
-        """One table image (H, W, 3) uint8 RGB through its model's host
-        preprocess, as JAX's ``__call__``: LORE's float warp, CenterNet's,
-        LGPMA's resize, the token models' resize and pad; LineCell on the
-        host. ``LoreAndLineCell`` merges the line cells where the image
-        has any, as JAX's ``_postprocess`` does."""
+    # -- the per-image path (InferTask.__call__) ----------------------------
+    #
+    # One table image (H, W, 3) uint8 RGB through its model's host
+    # preprocess, as JAX's ``__call__``: LORE's float warp, CenterNet's,
+    # LGPMA's resize, the token models' resize and pad; LineCell on the
+    # host. ``LoreAndLineCell`` merges the line cells where the image has
+    # any, as JAX's ``_postprocess`` does.
+
+    def _preprocess(self, image: np.ndarray):
         if self.model_name == "LineCell":
-            return extract_cells_from_image(image)
+            return {"host_result": extract_cells_from_image(image)}, None
         x, meta = self.host_preprocess(image)
-        packed = self._forward_packed(torch.from_numpy(x).to(self.device))
-        result = self._download_post([([0], [meta], packed)], 1)[0]
-        if self.merge_line_cell:
-            line_cells = extract_cells_from_image(image)
-            if line_cells.get("cells"):
-                result = merge_tsr_cells(result, line_cells)
+        line_cells = extract_cells_from_image(image) \
+            if self.merge_line_cell else None
+        return {"image": x}, (meta, line_cells)
+
+    @torch.inference_mode()
+    def _run_model(self, batch):
+        if "host_result" in batch:
+            return batch["host_result"]
+        return self._forward_packed(torch.from_numpy(batch["image"]).to(
+            self.device))
+
+    @torch.inference_mode()
+    def _postprocess(self, raw, meta) -> Dict[str, Any]:
+        if self.model_name == "LineCell":
+            return raw
+        meta, line_cells = meta
+        result = self._download_post([([0], [meta], raw)], 1)[0]
+        if line_cells is not None and line_cells.get("cells"):
+            result = merge_tsr_cells(result, line_cells)
         return result
 
     @torch.inference_mode()

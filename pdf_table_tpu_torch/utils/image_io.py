@@ -1,0 +1,71 @@
+"""Image files and payloads without OpenCV: what ``cv2.imread`` /
+``cv2.imdecode`` with ``IMREAD_COLOR`` followed by BGR -> RGB give, and
+what ``cv2.imwrite`` of an RGB image (turned to BGR) writes, through PIL.
+
+``IMREAD_COLOR`` decodes to 8-bit, 3 channels: a grey image is repeated
+into three channels, an alpha channel is dropped (not composited), a
+16-bit sample keeps its high byte (OpenCV strips the low byte, it does not
+round), a palette image takes its palette's colours, and the EXIF
+orientation is applied. PNGs decode bit-equal to OpenCV 5.0's; a JPEG goes
+through another libjpeg build than OpenCV's and can differ by a grey
+level.
+"""
+
+from __future__ import annotations
+
+import io
+from typing import Optional
+
+import numpy as np
+
+
+def _to_rgb8(im) -> np.ndarray:
+    """A PIL image as IMREAD_COLOR + BGR -> RGB gives it: (H, W, 3) uint8."""
+    from PIL import ImageOps
+
+    im = ImageOps.exif_transpose(im)
+    if im.mode.startswith("I"):       # 16-bit (and 32-bit integer) grey
+        a = np.asarray(im).astype(np.int64)
+        grey = np.clip(a >> 8, 0, 255).astype(np.uint8)
+    elif im.mode in ("L", "LA", "1"):
+        grey = np.asarray(im.convert("L") if im.mode == "1"
+                          else im.getchannel("L"))
+    else:
+        grey = None
+    if grey is not None:
+        return np.ascontiguousarray(np.repeat(grey[:, :, None], 3, axis=2))
+    if im.mode in ("RGBA", "RGBX", "RGBa"):
+        return np.ascontiguousarray(np.asarray(im)[:, :, :3])
+    return np.ascontiguousarray(np.asarray(im.convert("RGB")))
+
+
+def decode_image(data: bytes) -> Optional[np.ndarray]:
+    """Encoded image bytes -> (H, W, 3) uint8 RGB, or None where they are
+    no image PIL can read (``cv2.imdecode`` returns None there)."""
+    from PIL import Image
+
+    try:
+        im = Image.open(io.BytesIO(data))
+        im.load()
+        return _to_rgb8(im)
+    except (OSError, ValueError, SyntaxError):
+        return None
+
+
+def read_image(path: str) -> Optional[np.ndarray]:
+    """An image file -> (H, W, 3) uint8 RGB, or None where it cannot be
+    read (``cv2.imread`` returns None there)."""
+    try:
+        with open(path, "rb") as f:
+            data = f.read()
+    except OSError:
+        return None
+    return decode_image(data)
+
+
+def write_png(path: str, rgb: np.ndarray) -> None:
+    """Write an (H, W, 3) uint8 RGB image as PNG."""
+    from PIL import Image
+
+    Image.fromarray(np.ascontiguousarray(rgb, dtype=np.uint8)).save(
+        path, format="PNG")

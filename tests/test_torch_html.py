@@ -13,10 +13,10 @@ the raster grid through the port's LineCell ``extract_cells_from_image``
 and ``OcrTableToHtmlTask``, as ``run_scanned_case`` runs them). The two
 token cases run through the port in tests/test_torch_table_match.py, the
 four flavor cases in tests/test_torch_read_pdf.py. The eight digital cases
-run through the CLI (ROADMAP.md Queue 1 item 11); their pages are held to
-the JAX runner in tests/test_torch_digital_pipeline.py. The xlsx and
-compare cases need ``utils/xlsx_writer.py`` and
-``tasks/result_compare.py`` (item 11)."""
+run through the port's CLI in tests/test_torch_cli.py; their pages are
+held to the JAX runner in tests/test_torch_digital_pipeline.py. The xlsx
+and compare cases run through the port's ``utils/xlsx_writer.py`` and
+``tasks/result_compare.py`` in tests/test_torch_aux_tasks.py."""
 
 import os
 import sys

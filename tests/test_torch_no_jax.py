@@ -40,7 +40,10 @@ paths) on a skewed raster page and a digital page authored rotated by 90
 degrees, ``ocr`` and ``timing_summary``, ``BatchPipeline.run`` with its
 ``device_boxes=False`` and ``device_crops=False`` lanes, and the OpenCV
 host geometry (its C++ library built at first use), with neither JAX,
-flax, cv2 nor the JAX package imported."""
+flax, cv2 nor the JAX package imported. A tenth imports every module of
+the task surface and serving, runs the ``pdftable`` CLI on a digital PDF
+and the HTTP service on one request, with neither JAX, flax, cv2, lxml
+nor the JAX package imported."""
 
 import json
 import os
@@ -579,3 +582,70 @@ def test_per_page_system_runs_without_jax():
     assert res == {"bad": [], "html": [True, True], "angle": True,
                    "stages": True, "runs": [[True, True], [True, True]],
                    "contours": True}
+
+
+_SERVING_SCRIPT = r"""
+import contextlib, io, json, os, sys, tempfile, threading, http.client
+import numpy as np
+import torch
+torch.set_num_threads(1)
+import pdf_table_tpu_torch.cli.main, pdf_table_tpu_torch.serve
+import pdf_table_tpu_torch.engine.infer_task, pdf_table_tpu_torch.models.registry
+import pdf_table_tpu_torch.tasks.text_task, pdf_table_tpu_torch.tasks.table_task
+import pdf_table_tpu_torch.tasks.result_compare, pdf_table_tpu_torch.eval
+import pdf_table_tpu_torch.pipeline.ocr_document
+import pdf_table_tpu_torch.utils.debug_render, pdf_table_tpu_torch.utils.profiling
+import pdf_table_tpu_torch.utils.xlsx_writer, pdf_table_tpu_torch.utils.math_utils
+import pdf_table_tpu_torch.utils.file_utils, pdf_table_tpu_torch.utils.time_utils
+import pdf_table_tpu_torch.utils.constants, pdf_table_tpu_torch.utils.logging_utils
+from pdf_table_tpu_torch.cli.main import main
+from pdf_table_tpu_torch.pdfio import PdfWriter
+from pdf_table_tpu_torch.pipeline.system import OcrSystemConfig
+from pdf_table_tpu_torch.serve import ExtractionService, make_server
+from pdf_table_tpu_torch.eval import TEDS
+td = tempfile.mkdtemp()
+w = PdfWriter()
+p = w.add_page(300, 240)
+p.text(20, 200, "served page")
+p.table(20, 160, [80, 80], 24, [["A", "B"], ["1", "2"]])
+pdf = os.path.join(td, "doc.pdf")
+w.save(pdf)
+with contextlib.redirect_stdout(io.StringIO()):
+    rc = main(["--file_path_or_url", pdf, "--output_dir", td,
+               "--layout_model", "none"], device="cpu")
+html = open(os.path.join(td, "doc.html")).read()
+cfg = OcrSystemConfig(use_layout=False, use_orientation_cls=False)
+svc = ExtractionService(cfg, batch_pages=2, device="cpu")
+srv = make_server(svc, "127.0.0.1", 0)
+threading.Thread(target=srv.serve_forever, daemon=True).start()
+conn = http.client.HTTPConnection("127.0.0.1", srv.server_address[1],
+                                  timeout=300)
+conn.request("POST", "/v1/extract?format=xlsx", open(pdf, "rb").read(),
+             {"Content-Type": "application/pdf"})
+r = conn.getresponse()
+served = json.loads(r.read())
+srv.shutdown()
+svc.close()
+teds = TEDS().evaluate(html, html)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "flax", "cv2", "lxml", "pdf_table_tpu"))
+print(json.dumps({"bad": bad, "rc": rc, "table": "<table" in html,
+                  "status": r.status, "books": len(served["tables"]),
+                  "teds": teds}))
+"""
+
+
+def test_cli_and_service_run_without_jax():
+    """A tenth fresh interpreter imports every module of the task surface
+    and serving, runs the CLI on a digital PDF and the service on one
+    request (its tables as xlsx), with neither JAX, flax, cv2, lxml nor
+    the JAX package imported."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    out = subprocess.run([sys.executable, "-c", _SERVING_SCRIPT], cwd=root,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"bad": [], "rc": 0, "table": True, "status": 200,
+                   "books": 1, "teds": 1.0}

@@ -35,7 +35,8 @@ LineCell), the page skewed by 3 degrees, the page turned by 180 degrees
 by 90 degrees (with a detector whose boxes follow the bars, so that the
 aspect check turns it back), a digital text page, a digital wired-table page and a
 digital page authored rotated by 90 degrees. Then ``ocr`` and
-``timing_summary`` (JAX's keys), ``debug`` (item 11's), and the runner:
+``timing_summary`` (JAX's keys), ``debug`` (the overlay equal to JAX's
+outside its labels, tests/test_torch_aux_tasks.py), and the runner:
 ``BatchPipeline.run`` on a digital page authored rotated (the serial
 route), and its ``device_boxes=False`` (``_det_post`` with
 both ``fast_post`` values) and ``device_crops=False`` lanes, each per page
@@ -335,9 +336,16 @@ def test_ocr_timing_summary_and_debug(trees, jtasks):
     assert set(ts) == set(js)
     for k in ts:
         assert set(ts[k]) == set(js[k]) and ts[k]["count"] == 2.0
-    port.config.debug = True
-    with pytest.raises(NotImplementedError, match="item 11"):
-        port(image=TEXT_PAGE)
+    # debug: the annotated overlay, equal to JAX's outside the labels
+    from test_torch_aux_tasks import assert_overlays_match, overlay_labels
+    port.config.debug = jsys.config.debug = True
+    got, want = port(image=TABLE_PAGE.copy()), jsys(image=TABLE_PAGE.copy())
+    same_output(got, want)
+    assert got.table_structures
+    assert_overlays_match(
+        got.debug["render"], want.debug["render"], got.image,
+        overlay_labels(got.layout_cells,
+                       [(None, r) for r in got.table_structures]))
 
 
 def test_entry_points_run_on_cuda_by_default(monkeypatch):
