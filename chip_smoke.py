@@ -290,6 +290,23 @@ Phases, each fatal on failure:
      batch, median step ms, images/s, peak memory, idle share of a traced
      step. (c) save_train_state, restore into a fresh trainer: its next
      step equals the live one bit for bit (deterministic algorithms on).
+  train_det: train_quick_detector on the card with the bench's detector
+     config (PP-OCRv4 det, f32, 320 px, batch 4, lr 1e-3, bench.py's 250
+     steps of its bar pages): the loss must fall, the first three steps'
+     losses are held to the same steps on the CPU (1e-4, then 1e-3: Adam's
+     round-off amplification), median step ms, images/s, peak memory,
+     idle share of a traced step (all read through the trainer's on_step
+     hook), no K1-K3 launch; the trained tree in the detection task with
+     the bench's trained thresholds (0.3 / 0.55) on 8 bench pages must
+     find a box on each, boxes a page printed; one ctc_loss step of
+     PP-OCRv4 rec
+     (32 crops, 48x160) against the CPU's (loss 1e-4, gradients 1e-3 of
+     each leaf's largest magnitude).
+  convert: PP-OCRv4 det converted through the converter's ONNX route and a
+     seeded LORE-wireless tree saved with its writer into a temporary
+     model cache; the detection and LORE tasks built without
+     ``variables`` on the card give outputs bit-equal to the same tasks
+     given the trees, K1 and K3 launched.
 Prints each phase's wall seconds ({"phase_s": {...}}), the card line,
 one {"kernels": [...]} line, and as the last line {"ok": true, "device":
 {...}}. Imports nothing of JAX.
@@ -5517,6 +5534,371 @@ def train_steps(card, dcn_rows, out_dir):
     return launches
 
 
+# train_det: the bench's detector config (PP-OCRv4 det, f32) trained by
+# train_quick_detector on bench.py's bar pages (bench_bar_page, copied)
+# for bench.py's 250 steps: after 100 the prob map of a bench page is
+# still above 0.3 on most of it from some inits, and no box is found
+QD_SIZE, QD_BATCH, QD_LR, QD_STEPS = 320, 4, 1e-3, 250
+# the first three steps' losses on the card against the same steps on the
+# CPU (same tree, same batches): the first step's within 1e-4 (cuDNN sums
+# its convs in another order); Adam then moves every element by about lr
+# whatever its gradient's size, so elements whose gradient sits at
+# round-off step differently on the two sides and the next losses follow:
+# within 1e-3, twice the widest spread of two f32 runs of the same steps in
+# tests/test_torch_det_train.py (JAX's f32 4.0e-4 and the port's 9.1e-5
+# from JAX's float64 at the third step; the card read 8.5e-5 from the CPU)
+QD_FIRST_TOL = 1e-4
+QD_LATER_TOL = 1e-3
+# the bench's thresholds for a trained detector (bench.py:172-173)
+QD_THRESH, QD_BOX_THRESH = 0.3, 0.55
+# one ctc_loss step of PP-OCRv4 rec (SVTR-LCNet, f32) on 32 crops of
+# 48x160: the loss within 1e-4 relative of the CPU's, each params leaf's
+# gradient within 1e-3 of the leaf's largest magnitude
+CTC_CROPS, CTC_LOSS_TOL, CTC_GRAD_TOL = 32, 1e-4, 1e-3
+
+
+def bench_bar_page(rng, size: int):
+    """bench.py's training page for the bench detector: dark text-like
+    bars on white and their xyxy boxes (bench.py:125-143)."""
+    import numpy as np
+
+    img = np.full((size, size, 3), 255, np.uint8)
+    boxes = []
+    y = int(rng.integers(10, 24))
+    while y < size - 26:
+        x = int(rng.integers(8, 24))
+        for _ in range(int(rng.integers(1, 4))):
+            w = int(rng.integers(40, 120))
+            if x + w > size - 10:
+                break
+            h = int(rng.integers(10, 15))
+            img[y:y + h, x:x + w] = int(rng.integers(20, 60))
+            boxes.append([x, y, x + w, y + h])
+            x += w + int(rng.integers(12, 22))
+        y += int(rng.integers(22, 34))
+    return img, boxes
+
+
+def quick_train(device, steps: int, timed: bool = False) -> dict:
+    """train_quick_detector on ``device`` with every step's loss kept
+    through its ``on_step`` hook. Under ``timed``: a CUDA event after each
+    step (step i's time runs from event i-1 to event i), and a light trace
+    (device activity only) of the last step, opened after the step before
+    it and closed after it."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pdf_table_tpu_torch.models.dbnet.config import DbNetConfig
+    from pdf_table_tpu_torch.train.quick_det import train_quick_detector
+
+    losses, events, trace = [], [], {}
+
+    def on_step(s, out):
+        losses.append(out["loss"].detach())
+        if not timed:
+            return
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        if s == steps - 2:
+            torch.cuda.synchronize()
+            trace["prof"] = profile(activities=[ProfilerActivity.CUDA])
+            trace["prof"].__enter__()
+            trace["t0"] = time.perf_counter()
+        elif s == steps - 1 and "prof" in trace:
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - trace["t0"]) * 1e3
+            prof = trace.pop("prof")
+            prof.__exit__(None, None, None)
+            busy = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA) / 1e3
+            trace.update(wall_ms=wall, device_busy_ms=busy,
+                         idle_share=max(0.0, 1.0 - busy / wall))
+
+    tree, first, last_loss = train_quick_detector(
+        DbNetConfig.ppocr(**F32), bench_bar_page, steps=steps,
+        size=QD_SIZE, batch_size=QD_BATCH, lr=QD_LR,
+        rng=np.random.default_rng(0), device=device, on_step=on_step)
+    if timed:
+        torch.cuda.synchronize()
+    trace.pop("t0", None)
+    return {"tree": tree, "first": first, "last": last_loss,
+            "losses": [float(x) for x in losses],
+            "step_ms": [a.elapsed_time(b) for a, b in zip(events, events[1:])],
+            "traced_step": trace}
+
+
+def ctc_step(card) -> dict:
+    """One ctc_loss forward and backward of PP-OCRv4 rec at full width on
+    the card and on the CPU, same tree, crops and labels."""
+    import numpy as np
+    import torch
+
+    from pdf_table_tpu_torch.convert.flax_bridge import (
+        load_flax_variables, state_dict_to_flax, tree_leaves)
+    from pdf_table_tpu_torch.engine.params import (calibrate_batch_stats,
+                                                   init_rec,
+                                                   scale_batch_variances)
+    from pdf_table_tpu_torch.models.rec_ctc.model import CTCRecModel
+    from pdf_table_tpu_torch.ops.kernels import (KERNELS, launch_counts,
+                                                 reset_launch_counts)
+    from pdf_table_tpu_torch.tasks.recognition import rec_config
+    from pdf_table_tpu_torch.train.losses import ctc_loss
+
+    cfg = rec_config(model="PP-OCRv4_rec", **F32)
+    rng = np.random.default_rng(3)
+    x = rng.uniform(-1, 1, (CTC_CROPS, 48, 160, 3)).astype(np.float32)
+    # calibrated statistics, variances doubled: a random tree calibrated
+    # as it is gives first-block gradients that two f32 runs disagree on
+    # (tests/test_torch_det_train.py)
+    tree = scale_batch_variances(calibrate_batch_stats(
+        CTCRecModel(cfg), init_rec(cfg, 0), torch.from_numpy(x)), 2.0)
+    lens = rng.integers(4, 13, CTC_CROPS)
+    labels = np.zeros((CTC_CROPS, 12), np.int64)
+    pads = np.ones((CTC_CROPS, 12), np.float32)
+    for i, n in enumerate(lens):
+        labels[i, :n] = rng.integers(1, cfg.vocab_size, n)
+        pads[i, :n] = 0.0
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = CTCRecModel(cfg)
+        load_flax_variables(model, tree)
+        model.to(dev)
+        params = dict(model.named_parameters())
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+        loss = ctc_loss(model(torch.from_numpy(x).to(dev)),
+                        torch.from_numpy(labels).to(dev),
+                        torch.from_numpy(pads).to(dev))
+        grads = torch.autograd.grad(loss, list(params.values()))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3
+            launches = {k: launch_counts[k] for k in KERNELS}
+        flax_grads = state_dict_to_flax(
+            {k: g.detach().cpu() for k, g in zip(params, grads)},
+            {"params": tree["params"]})["params"]
+        out[dev] = (float(loss.detach()), dict(tree_leaves(flax_grads)))
+    (gl, gg), (wl, wg) = out["cuda"], out["cpu"]
+    errs = {"/".join(p): float((gg[p] - w).abs().max()
+                               / max(float(w.abs().max()), 1e-30))
+            for p, w in wg.items()}
+    worst = max(errs, key=errs.get)
+    return {"crops": CTC_CROPS, "crop_hw": [48, 160], "loss": gl,
+            "cpu_loss": wl, "loss_rel_err": abs(gl - wl) / abs(wl),
+            "grad_rel_err_max": errs[worst], "grad_worst_leaf": worst,
+            "leaves": len(errs), "step_ms": step_ms, "launches": launches}
+
+
+def phase_train_det(card):
+    """The DBNet quick trainer on the card (see the module docstring)."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from pdf_table_tpu_torch.ops.kernels import (KERNELS, launch_counts,
+                                                 reset_launch_counts)
+    from pdf_table_tpu_torch.tasks.detection import OcrDetectionTask
+
+    cpu = quick_train("cpu", 3)
+    first3 = quick_train("cuda", 3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    run = quick_train("cuda", QD_STEPS, timed=True)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {k: launch_counts[k] for k in KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    # step i's time from event i-1 to event i, steps 1 .. QD_STEPS - 1;
+    # step 1 carries a one-off warm-up of some seconds on the card, so the
+    # statistics are of steps 2 on and step 1 is printed apart
+    step_ms = run["step_ms"][1:]
+    med = statistics.median(step_ms)
+    errs = [abs(g - w) / abs(w) for g, w in zip(first3["losses"],
+                                                cpu["losses"])]
+
+    # the trained tree in the detection task, with the bench's thresholds
+    task = OcrDetectionTask(model="PP-OCRv4_det", device="cuda",
+                            variables=run["tree"], thresh=QD_THRESH,
+                            box_thresh=QD_BOX_THRESH, max_candidates=48,
+                            **F32)
+    pages = [make_page(i) for i in range(DET_PAGES)]
+    quads = task.batch_infer_from_pages(pages)
+    boxes = [len(q) for q in quads]
+    ctc = ctc_step(card)
+    summary = {
+        "card": card, "config": "DbNetConfig.ppocr(dtype='float32')",
+        "size": QD_SIZE, "batch": QD_BATCH, "lr": QD_LR, "steps": QD_STEPS,
+        "first_loss": run["first"], "last_loss": run["last"],
+        "loss_ratio": run["last"] / run["first"],
+        "losses_every_10": run["losses"][::10],
+        "step_ms_median": med, "step_ms_min": min(step_ms),
+        "step_ms_max": max(step_ms), "second_step_ms": run["step_ms"][0],
+        "images_per_s": QD_BATCH / (med / 1e3), "wall_s": wall_s,
+        "peak_mem_gib": peak / 2 ** 30,
+        "step_mem_gib": (peak - held) / 2 ** 30,
+        "traced_step": run["traced_step"], "launches": launches,
+        "first3_card": first3["losses"], "first3_cpu": cpu["losses"],
+        "first3_rel_err": errs, "boxes_per_page": boxes,
+        "boxes_per_page_mean": float(np.mean(boxes)), "ctc": ctc}
+    print(json.dumps({"train_det": summary}))
+    check(np.isfinite(run["losses"]).all() and run["last"] < run["first"],
+          f"train_det: the loss did not fall: {run['first']} -> "
+          f"{run['last']}")
+    check(min(boxes) >= 1,
+          f"train_det: the trained detector found no box on a bench page: "
+          f"{boxes}")
+    check(errs[0] <= QD_FIRST_TOL and max(errs[1:]) <= QD_LATER_TOL,
+          f"train_det: the first three losses differ from the CPU's: "
+          f"{errs}")
+    check(all(v == 0 for v in launches.values()),
+          f"train_det: the trainer launched {launches}, expected none")
+    check(ctc["loss_rel_err"] <= CTC_LOSS_TOL
+          and ctc["grad_rel_err_max"] <= CTC_GRAD_TOL,
+          f"train_det: ctc_loss on the card differs from the CPU's: loss "
+          f"{ctc['loss_rel_err']:.3g}, {ctc['grad_worst_leaf']} "
+          f"{ctc['grad_rel_err_max']:.3g}")
+    check(all(v == 0 for v in ctc["launches"].values()),
+          f"train_det: the ctc step launched {ctc['launches']}")
+    return {k: launches[k] + ctc["launches"][k] for k in KERNELS}
+
+
+def pp_det_onnx(path: str) -> None:
+    """A Paddle-style ONNX file of seeded initializers for PP-OCRv4 det,
+    in the order the port's module calls its layers (OIHW convs, IOHW
+    transposed convs, BatchNorm as scale, bias, mean, var)."""
+    import numpy as np
+    import torch
+
+    from pdf_table_tpu_torch.convert.onnx_reader import encode_test_onnx
+    from pdf_table_tpu_torch.convert.onnx_shape_matcher import \
+        call_ordered_slots
+    from pdf_table_tpu_torch.engine.params import init_dbnet
+    from pdf_table_tpu_torch.models.dbnet.config import DbNetConfig
+    from pdf_table_tpu_torch.models.dbnet.model import DBNet
+
+    cfg = DbNetConfig.ppocr()
+    template = init_dbnet(cfg)
+    rng = np.random.default_rng(7)
+    tensors = {}
+    for coll, path_, kind in call_ordered_slots(
+            DBNet(cfg).eval(), torch.zeros(1, 64, 64, 3)):
+        node = template[coll]
+        for k in path_.split("/"):
+            node = node[k]
+        shape = np.shape(node)
+        if path_.endswith("/var") or path_.endswith("/scale"):
+            a = rng.uniform(0.5, 1.5, shape)
+        elif len(shape) == 4:
+            a = rng.standard_normal(shape) * np.sqrt(
+                2.0 / np.prod(shape[:-1]))
+        else:
+            a = rng.standard_normal(shape) * 0.05
+        a = a.astype(np.float32)
+        if kind == "Conv" and a.ndim == 4:
+            a = a.transpose(3, 2, 0, 1)
+        elif kind == "ConvTranspose" and a.ndim == 4:
+            a = a.transpose(2, 3, 0, 1)
+        tensors[f"t{len(tensors)}"] = a
+    with open(path, "wb") as f:
+        f.write(encode_test_onnx(tensors))
+
+
+def phase_convert(card):
+    """Converted weights reach the tasks: PP-OCRv4 det through the
+    converter's ONNX route into its weights_dir, a seeded LORE-wireless
+    tree with the converter's writer into its own; both tasks built
+    through the registry without ``variables`` (f32) give outputs
+    bit-equal to the same tasks given the trees, on the card."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pdf_table_tpu_torch.convert.__main__ import (convert_checkpoint,
+                                                      main as convert_main,
+                                                      spec)
+    from pdf_table_tpu_torch.engine import params as P
+    from pdf_table_tpu_torch.models.registry import weights_dir
+    from pdf_table_tpu_torch.ops.kernels import (KERNELS, launch_counts,
+                                                 reset_launch_counts)
+    from pdf_table_tpu_torch.tasks.detection import OcrDetectionTask
+    from pdf_table_tpu_torch.tasks.table_structure import (
+        OcrTableStructureTask, lore_config)
+    from pdf_table_tpu_torch.utils.constants import Constants
+
+    def as_json(res):
+        return json.dumps(res, sort_keys=True, default=lambda a: np.asarray(
+            a).tolist())
+
+    before = Constants.MODEL_CACHE_DIR
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cache_") as cache:
+        Constants.MODEL_CACHE_DIR = cache
+        try:
+            onnx = os.path.join(cache, "model.onnx")
+            pp_det_onnx(onnx)
+            t0 = time.perf_counter()
+            rc = convert_main(["--model", "pp_det", "--checkpoint", onnx])
+            convert_s = time.perf_counter() - t0
+            check(rc == 0, f"convert: the converter exited {rc}")
+            det_tree, det_rep = convert_checkpoint(spec("pp_det"), onnx,
+                                                   log=lambda m: None)
+            lore_tree = lore_variables(lore_config("wireless", **F32))
+            P.save_params(lore_tree, weights_dir("table_structure", "Lore",
+                                                 "wireless"))
+            pages = [make_page(i) for i in range(4)]
+            regions = [(pi, box) for pi in range(4)
+                       for box in ((70, 100, 880, 560), (70, 620, 880, 1150))]
+            runs, counts = {}, {}
+            for how in ("loaded", "given"):
+                det = OcrDetectionTask(
+                    model="PP-OCRv4_det", device="cuda", **DET_KW,
+                    **({} if how == "loaded" else {"variables": det_tree}))
+                tsr = OcrTableStructureTask(
+                    model="Lore", task_type="wireless", device="cuda",
+                    res_buckets="auto", vis_thresh=VIS_THRESH, **F32,
+                    **({} if how == "loaded" else {"variables": lore_tree}))
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                runs[how] = (det.batch_infer_from_pages(pages),
+                             tsr.batch_infer_from_pages(np.stack(pages),
+                                                        regions))
+                torch.cuda.synchronize()
+                counts[how] = {k: launch_counts[k] for k in KERNELS}
+                del det, tsr
+                torch.cuda.empty_cache()
+        finally:
+            Constants.MODEL_CACHE_DIR = before
+    (dq, tr), (dq2, tr2) = runs["loaded"], runs["given"]
+    det_equal = len(dq) == len(dq2) and all(
+        np.array_equal(a, b) for a, b in zip(dq, dq2))
+    tsr_equal = as_json(tr) == as_json(tr2)
+    summary = {"card": card, "convert_s": convert_s,
+               "onnx_report": det_rep.summary(),
+               "det_quads_per_page": [len(q) for q in dq],
+               "tables": len(tr), "cells": sum(len(r.get("cells", []))
+                                               for r in tr),
+               "det_bit_equal": det_equal, "tsr_bit_equal": tsr_equal,
+               "launches": counts["loaded"], "launches_given": counts["given"]}
+    print(json.dumps({"convert": summary}))
+    check(det_rep.ok, f"convert: the ONNX route missed {det_rep.missing[:4]}")
+    check(det_equal and tsr_equal,
+          "convert: the tasks on converted weights differ from the same "
+          "tasks given the trees")
+    check(counts["loaded"]["deform_conv2d"] > 0
+          and counts["loaded"]["resize_normalize"] > 0,
+          f"convert: launches {counts['loaded']}, expected K1 and K3")
+    return counts["loaded"]
+
+
 def demangle(sym: str) -> str:
     """The kernel's name (and integer template arguments) in a mangled
     symbol: the length-prefixed identifier that ends in "kernel"."""
@@ -5643,6 +6025,8 @@ def main() -> int:
     rec_b = run("rec_backbones", phase_rec_backbones, card)
     train_rows = run("train_dcn", phase_train_dcn, gen)
     train = run("train", phase_train, card, train_rows)
+    train_det = run("train_det", phase_train_det, card)
+    conv = run("convert", phase_convert, card)
     print(json.dumps({"phase_s": phase_s}))
     check("jax" not in sys.modules and "pdf_table_tpu" not in sys.modules,
           "the port imported JAX or the JAX package")
@@ -5675,6 +6059,7 @@ def main() -> int:
                 "pipeline_docx": pipe_docx[name],
                 "det_backbones": det_b[name], "rec_backbones": rec_b[name],
                 "train": train[name], "serve": serve_launches[name],
+                "train_det": train_det[name], "convert": conv[name],
                 **{path: counts[name] for path, counts in sys_paths.items()},
                 **{path: counts[name] for path, counts in cli_paths.items()}}
 

@@ -157,13 +157,26 @@ def fuse_lstm_cells(sd: Dict[str, torch.Tensor]
     return out
 
 
+def transposed_modules(model: torch.nn.Module) -> AbstractSet[str]:
+    """The dotted paths of ``model``'s ``nn.ConvTranspose2d`` modules."""
+    return {name for name, m in model.named_modules()
+            if isinstance(m, torch.nn.ConvTranspose2d)}
+
+
+def model_variables(model: torch.nn.Module, like: Mapping[str, Any]
+                    ) -> Dict[str, Any]:
+    """``model``'s parameters and statistics as a flax variables tree
+    shaped like ``like`` (detached tensors on the model's device)."""
+    sd = {k: t.detach() for k, t in model.state_dict().items()}
+    return state_dict_to_flax(sd, like, transposed_modules(model))
+
+
 def load_flax_variables(model: torch.nn.Module,
                         variables: Mapping[str, Any]) -> None:
     """Copy a flax variables tree into ``model`` in place, keeping each
     parameter's device and dtype. Every key must match both ways."""
-    sd = fuse_lstm_cells(flax_to_state_dict(variables, {
-        name for name, m in model.named_modules()
-        if isinstance(m, torch.nn.ConvTranspose2d)}))
+    sd = fuse_lstm_cells(flax_to_state_dict(variables,
+                                            transposed_modules(model)))
     own = model.state_dict()
     missing = sorted(set(own) - set(sd))
     extra = sorted(set(sd) - set(own))

@@ -21,6 +21,9 @@ the bilinear upsample kernel, a zero ``conv_offset_mask`` and the -2.19
 generator); the structure is the same, so the weight bridge moves either
 tree.
 
+:func:`load_or_init` restores a converted tree or falls back to a seeded
+init, warning, as JAX's does.
+
 :func:`save_params`, :func:`save_params_async` / :func:`wait_for_async_saves`
 and :func:`load_params` keep a tree (nested dicts of tensors, arrays and
 numbers) in the port's own format: ``torch.save`` of host tensors, one
@@ -32,7 +35,7 @@ from __future__ import annotations
 
 import os
 import threading
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -56,6 +59,7 @@ from ..models.rec_ctc.config import RecConfig
 from ..models.rec_ctc.model import ConvNextBlock, ConvNextViTBackbone
 from ..models.slanet.config import SLANetConfig
 from ..models.table_master.config import TableMasterConfig
+from ..utils.logging_utils import logger
 
 
 CKPT_FILE = "tree.pt"
@@ -126,6 +130,38 @@ def load_params(ckpt_dir: str) -> Any:
     """The tree :func:`save_params` wrote, host tensors as leaves."""
     return torch.load(os.path.join(os.path.abspath(ckpt_dir), CKPT_FILE),
                       map_location="cpu", weights_only=True)
+
+
+def has_saved_params(ckpt_dir: Optional[str]) -> bool:
+    """True when ``ckpt_dir`` holds a tree :func:`save_params` wrote."""
+    return bool(ckpt_dir) and os.path.isfile(os.path.join(ckpt_dir,
+                                                          CKPT_FILE))
+
+
+def load_or_init(ckpt_dir: Optional[str], init_fn: Callable[[], Any],
+                 task_name: str = "") -> Any:
+    """The converted tree in ``ckpt_dir`` when there is one, else
+    ``init_fn()`` (a seeded init), as JAX's ``load_or_init``.
+
+    Random weights are right for tests and training from scratch, but give
+    confident garbage in inference, so the fallback warns (one line a
+    task) naming the converter; ``PDF_TABLE_TPU_ALLOW_RANDOM_INIT=quiet``
+    silences it. A tree that does not load is reported and replaced by the
+    init."""
+    if has_saved_params(ckpt_dir):
+        try:
+            variables = load_params(ckpt_dir)
+            logger.info("restored params from %s", ckpt_dir)
+            return variables
+        except Exception as e:  # a corrupted file -> re-init
+            logger.warning("restore failed (%s); falling back to init", e)
+    if os.environ.get("PDF_TABLE_TPU_ALLOW_RANDOM_INIT", "") != "quiet":
+        logger.warning(
+            "[%s] no converted weights at %r - running with RANDOM weights "
+            "(outputs will be garbage); convert a checkpoint with "
+            "python -m pdf_table_tpu_torch.convert", task_name or "task",
+            ckpt_dir)
+    return init_fn()
 
 
 def _set(tree: Dict[str, Any], path, value) -> None:
@@ -296,14 +332,16 @@ def _init_modules(model: nn.Module, seed: int) -> Dict[str, Any]:
     return {"params": params, "batch_stats": stats}
 
 
-def init_dbnet(cfg: DbNetConfig, seed: int = 0) -> Dict[str, Any]:
+def init_dbnet(cfg: DbNetConfig, seed: int = 0, train: bool = False
+               ) -> Dict[str, Any]:
     """The DBNet tree, for every backbone: conv and transposed-conv
     kernels, SE biases zero, BatchNorm leaves; the NAS slopes and the
-    depthwise upsample's kernels and biases."""
+    depthwise upsample's kernels and biases. ``train`` adds the ``thresh``
+    head, as JAX's ``init(..., train=True)`` does."""
     from ..models.dbnet.model import DBNet
 
     with torch.device("meta"):
-        model = DBNet(cfg)
+        model = DBNet(cfg, train=train)
     return _init_modules(model, seed)
 
 

@@ -17,6 +17,7 @@ in ``config.dtype`` (layers.py::cast_model); the prob map is f32.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Sequence
 
 import torch
@@ -24,9 +25,8 @@ from torch import nn
 
 from ...engine.device import compute_dtype
 from ..layers import (FPN, BatchNorm, ConvBNAct, InvertedResidual, ResNet,
-                      SEModule, cast_model, make_divisible, sigmoid,
-                      upsample2x,
-                      upsample_nearest)
+                      SEModule, batch_statistics, cast_model, make_divisible,
+                      sigmoid, upsample2x, upsample_nearest)
 from ..nas_layers import build_plan, run_plan
 from .config import DbNetConfig
 
@@ -262,14 +262,42 @@ class LightSegHead(nn.Module):
         return torch.sigmoid(self.up2(x).float())[:, 0]
 
 
+class LightThreshHead(nn.Module):
+    """The proxylessnas threshold head: a plain 5x5 conv -> BatchNorm relu
+    -> 2x2/2 transposed conv -> BatchNorm relu -> 2x2/2 transposed conv to
+    1 channel -> sigmoid: thresh (B, H, W)."""
+
+    def __init__(self, in_ch: int, inner: int, kernel: int = 5):
+        super().__init__()
+        q = inner // 4
+        self.conv = nn.Conv2d(in_ch, q, kernel, padding=kernel // 2,
+                              bias=False)
+        self.bn_a = BatchNorm(q)
+        self.up1 = nn.ConvTranspose2d(q, q, 2, stride=2)
+        self.bn_b = BatchNorm(q)
+        self.up2 = nn.ConvTranspose2d(q, 1, 2, stride=2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = torch.relu(self.bn_a(self.conv(x)))
+        x = torch.relu(self.bn_b(self.up1(x)))
+        return torch.sigmoid(self.up2(x).float())[:, 0]
+
+
 BACKBONES = ("mobilenetv3", "resnet18", "resnet50", "proxylessnas")
 
 
 class DBNet(nn.Module):
     """The detector. ``forward(images)`` takes NHWC float images and returns
-    {"prob": (B, H, W) f32}, as the JAX module's inference call does."""
+    {"prob": (B, H, W) f32}, as the JAX module's inference call does.
 
-    def __init__(self, config: DbNetConfig):
+    ``DBNet(config, train=True)`` also builds the ``thresh`` head (a
+    ``BinarizeHead``, or ``LightThreshHead`` for proxylessnas), which JAX
+    creates only under ``train=True``; ``forward(images, train=True)`` then
+    runs every BatchNorm on its batch's statistics (updating the running
+    ones) and adds ``thresh`` and ``binary = sigmoid(k * (prob -
+    thresh))``."""
+
+    def __init__(self, config: DbNetConfig, train: bool = False):
         super().__init__()
         cfg = config
         if cfg.backbone not in BACKBONES:
@@ -281,6 +309,7 @@ class DBNet(nn.Module):
             self.backbone = CompactNasBackbone()
             self.neck = LightSegFuse(self.backbone.out_channels, inner)
             self.binarize = LightSegHead(inner, inner)
+            head = LightThreshHead
         else:
             if cfg.backbone == "mobilenetv3":
                 self.backbone = MobileNetV3Det()
@@ -289,10 +318,31 @@ class DBNet(nn.Module):
                 self.backbone = ResNet(int(cfg.backbone[len("resnet"):]))
                 self.neck = FPN(self.backbone.out_channels, inner)
             self.binarize = BinarizeHead(inner, inner)
+            head = BinarizeHead
+        self.thresh = head(inner, inner) if train else None
         cast_model(self, self.dtype)
 
-    def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
-        # NHWC memory read as channels_last
-        x = images.permute(0, 3, 1, 2).to(self.dtype)
-        prob = self.binarize(self.neck(self.backbone(x)))
-        return {"prob": prob.float()}
+    def forward(self, images: torch.Tensor, train: bool = False
+                ) -> Dict[str, torch.Tensor]:
+        if train and self.thresh is None:
+            raise ValueError("this DBNet has no thresh head: build it with "
+                             "DBNet(config, train=True)")
+        with batch_statistics(self) if train else contextlib.nullcontext():
+            # NHWC memory read as channels_last
+            x = images.permute(0, 3, 1, 2).to(self.dtype)
+            fused = self.neck(self.backbone(x))
+            out = {"prob": self.binarize(fused).float()}
+            if train:
+                out["thresh"] = self.thresh(fused).float()
+                out["binary"] = torch.sigmoid(
+                    self.config.k * (out["prob"] - out["thresh"]))
+        return out
+
+
+def inference_variables(variables: Dict) -> Dict:
+    """A trained tree for an inference ``DBNet``: without the ``thresh``
+    head's params and statistics, which flax's inference apply never reads
+    (it leaves the unused subtree alone) and the inference model does not
+    have."""
+    return {col: {k: v for k, v in tree.items() if k != "thresh"}
+            for col, tree in variables.items()}

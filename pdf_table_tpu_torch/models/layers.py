@@ -2,8 +2,9 @@
 
 What the LORE, DBNet, recognition, classifier and LGPMA slices use:
 ``ConvBNAct`` (grouped for depthwise) with the torch/paddle symmetric
-``k//2`` padding and BatchNorm eps 1e-5, an inference-mode ``BatchNorm``
-whose parameter names the weight bridge maps one to one, the activation
+``k//2`` padding and BatchNorm eps 1e-5, a ``BatchNorm`` (running
+statistics, or the batch's inside :func:`batch_statistics`) whose
+parameter names the weight bridge maps one to one, the activation
 table, ``make_divisible``, ``SEModule``, the PP-LCNet
 ``DepthwiseSeparable``, the MobileNetV3 ``InvertedResidual``, the nearest
 ``upsample2x`` and ``upsample_to``, the ResNet family (``BasicBlock``,
@@ -19,7 +20,8 @@ return the compute dtype.
 
 from __future__ import annotations
 
-from typing import Iterable, Optional, Tuple
+import contextlib
+from typing import Iterable, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -86,32 +88,77 @@ def make_divisible(v: float, divisor: int = 8,
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over dim 1 (flax ``nn.BatchNorm`` with
-    ``use_running_average=True``): scale/bias + running mean/var. They stay
-    f32 whatever the activations' dtype; a bf16 input is normalized in f32
-    and returned in bf16, as flax does with its f32 params."""
+    """BatchNorm over dim 1 with flax ``nn.BatchNorm``'s two modes.
+
+    By default it normalizes by its running statistics
+    (``use_running_average=True``). Inside :func:`batch_statistics` it
+    normalizes by the batch's biased variance, ``E[x^2] - E[x]^2`` clipped
+    at 0, and updates its running mean and variance (also the biased one)
+    as ``0.9 * old + 0.1 * batch`` (``use_running_average=False,
+    momentum=0.9``: JAX's ``train=True``). Only that switch picks the mode,
+    never ``self.training``. Parameters and statistics stay f32 whatever
+    the activations' dtype; a bf16 input is normalized in f32 and returned
+    in bf16, as flax does with its f32 params."""
+
+    momentum = 0.9
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
+        self.use_batch_stats = False
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, False, 0.0, self.eps)
+        if not self.use_batch_stats:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0,
+                                self.eps)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        dims = [0] + list(range(2, x.dim()))
+        mean = xf.mean(dims)
+        var = ((xf * xf).mean(dims) - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean.reshape(shape)) * mul.reshape(shape) \
+            + self.bias.reshape(shape)
+        return y.to(x.dtype)
+
+
+@contextlib.contextmanager
+def batch_statistics(model: nn.Module) -> Iterator[None]:
+    """Within the block every :class:`BatchNorm` of ``model`` runs in batch
+    mode (JAX's ``train=True`` with ``mutable=["batch_stats"]``)."""
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    before = [m.use_batch_stats for m in norms]
+    for m in norms:
+        m.use_batch_stats = True
+    try:
+        yield
+    finally:
+        for m, b in zip(norms, before):
+            m.use_batch_stats = b
 
 
 class LayerNorm(nn.LayerNorm):
     """flax ``nn.LayerNorm``: statistics, scale and bias in f32 whatever
     the input's dtype, the result in ``out_dtype`` (the compute dtype that
-    :func:`cast_model` sets; f32 until then)."""
+    :func:`cast_model` sets; f32 until then). A float64 input (a model
+    cast to float64, as the gradient tests' yardstick runs it) stays
+    float64."""
 
     out_dtype = torch.float32
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.float64:
+            return F.layer_norm(x, self.normalized_shape, self.weight,
+                                self.bias, self.eps)
         return F.layer_norm(x.float(), self.normalized_shape, self.weight,
                             self.bias, self.eps).to(self.out_dtype)
 

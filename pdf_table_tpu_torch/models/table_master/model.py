@@ -26,7 +26,7 @@ caches and the cell branch stay f32, as in JAX.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -191,7 +191,8 @@ class TableMaster(nn.Module):
         D) f32."""
         feat = self.encoder(x.permute(0, 3, 1, 2).to(self.dtype))
         B, C = feat.shape[:2]
-        mem = feat.float().permute(0, 2, 3, 1).reshape(B, -1, C)
+        mem = feat.to(torch.promote_types(feat.dtype, torch.float32)) \
+            .permute(0, 2, 3, 1).reshape(B, -1, C)
         mem = mem + interleaved_positions(mem.shape[1], C, mem.device)[None]
         return self.mem_proj(mem) if self.mem_proj is not None else mem
 
@@ -217,11 +218,14 @@ class TableMaster(nn.Module):
         return p
 
     def _layer_step(self, h: torch.Tensor, p: Dict[str, torch.Tensor],
-                    kc: torch.Tensor, vc: torch.Tensor, t_idx: torch.Tensor,
+                    cache: List[torch.Tensor], t_idx: torch.Tensor,
                     future: torch.Tensor) -> torch.Tensor:
         """One token through one DecoderLayer (pre-norm residuals); ``h``
-        (..., D), caches (..., H, T, Dh) written at ``t_idx``, ``future``
-        (T,) True beyond the step."""
+        (..., D), ``cache`` [K, V] (..., H, T, Dh) written at ``t_idx``,
+        ``future`` (T,) True beyond the step. Without autograd the caches
+        are written in place; under it each write makes new tensors (an
+        in-place write would change what earlier steps' products saved
+        for their backward)."""
         lead = h.shape[:-1]
         D = h.shape[-1]
         H = self.config.heads
@@ -231,9 +235,14 @@ class TableMaster(nn.Module):
         qkv = y.reshape(-1, D) @ p["qkv"] + p["qkvb"]
         q, k_new, v_new = (t.reshape(*lead, H, 1, Dh)
                            for t in qkv.split(D, dim=-1))
+        kc, vc = cache
         tdim = kc.dim() - 2
-        kc.index_copy_(tdim, t_idx, k_new)
-        vc.index_copy_(tdim, t_idx, v_new)
+        if torch.is_grad_enabled():
+            kc = cache[0] = kc.index_copy(tdim, t_idx, k_new)
+            vc = cache[1] = vc.index_copy(tdim, t_idx, v_new)
+        else:
+            kc.index_copy_(tdim, t_idx, k_new)
+            vc.index_copy_(tdim, t_idx, v_new)
         att = torch.matmul(q, kc.transpose(-1, -2)) / rs
         att = att.masked_fill(future, MASK_FILL)
         sa = torch.matmul(torch.softmax(att, dim=-1), vc).reshape(*lead, D)
@@ -270,8 +279,10 @@ class TableMaster(nn.Module):
         B, dev = mem.shape[0], mem.device
         layers = [self._layer(n, mem) for n in self.layer_names]
         shared, cls_p, bbox_p = layers[:-2], layers[-2], layers[-1]
-        caches = [(torch.zeros((B, H, T, Dh), device=dev),
-                   torch.zeros((B, H, T, Dh), device=dev)) for _ in layers]
+        f = mem.dtype
+        caches = [[torch.zeros((B, H, T, Dh), dtype=f, device=dev),
+                   torch.zeros((B, H, T, Dh), dtype=f, device=dev)]
+                  for _ in layers]
         sos = self.vocab_size - 3
         teach = None
         if teacher_tokens is not None:
@@ -282,19 +293,19 @@ class TableMaster(nn.Module):
         pos_tbl = interleaved_positions(T + 1, D, dev)
         steps = torch.arange(T, device=dev)
         future = steps[None, :] > steps[:, None]                  # (T, T)
-        logits = torch.empty((B, T, self.vocab_size), device=dev)
-        bbox_h = torch.empty((B, T, D), device=dev)
-        hiddens = torch.empty((B, T, D), device=dev) if decode_cells \
-            else None
+        logits = torch.empty((B, T, self.vocab_size), dtype=f, device=dev)
+        bbox_h = torch.empty((B, T, D), dtype=f, device=dev)
+        hiddens = torch.empty((B, T, D), dtype=f, device=dev) \
+            if decode_cells else None
         tok = torch.full((B,), sos, dtype=torch.long, device=dev)
         for t in range(T):
             t_idx = steps[t:t + 1]
             tok_in = teach[:, t] if teach is not None else tok
             h = self.token_embed[tok_in] * scale + pos_tbl[t]
-            for p, (kc, vc) in zip(shared, caches):
-                h = self._layer_step(h, p, kc, vc, t_idx, future[t])
-            ch = self._layer_step(h, cls_p, *caches[-2], t_idx, future[t])
-            bh = self._layer_step(h, bbox_p, *caches[-1], t_idx, future[t])
+            for p, cache in zip(shared, caches):
+                h = self._layer_step(h, p, cache, t_idx, future[t])
+            ch = self._layer_step(h, cls_p, caches[-2], t_idx, future[t])
+            bh = self._layer_step(h, bbox_p, caches[-1], t_idx, future[t])
             step_logits = _layer_norm(ch, self.fnorm_s, self.fnorm_b) \
                 @ self.fc_cls + self.fc_cls_b
             logits[:, t] = step_logits
@@ -340,14 +351,14 @@ class TableMaster(nn.Module):
         scale = math.sqrt(D)
         steps = torch.arange(Tc, device=dev)
         future = steps[None, :] > steps[:, None]
-        kc = torch.zeros((B, K, H, Tc, Dh), device=dev)
-        vc = torch.zeros((B, K, H, Tc, Dh), device=dev)
+        cache = [torch.zeros((B, K, H, Tc, Dh), device=dev),
+                 torch.zeros((B, K, H, Tc, Dh), device=dev)]
         tok = torch.full((B, K), sos_c, dtype=torch.long, device=dev)
         cell_ids = torch.empty((B, K, Tc), dtype=torch.long, device=dev)
         for t in range(Tc):
             emb = self.cell_embed[tok] * scale + pe[t]
             h = torch.cat([emb, x_i], -1) @ self.cell_in + self.cell_in_b
-            h = self._layer_step(h, p, kc, vc, steps[t:t + 1], future[t])
+            h = self._layer_step(h, p, cache, steps[t:t + 1], future[t])
             step_logits = _layer_norm(h, self.fnorm_s, self.fnorm_b) \
                 @ self.fc_cell + self.fc_cell_b
             tok = step_logits.argmax(-1)

@@ -489,14 +489,24 @@ class BatchPipeline:
             idx = [batched[gi] for gi in chunk["indices"]]
             digital_info = {k: (pages[i]["pdf_page"], pdf_scales[i])
                             for k, i in enumerate(idx) if i in pdf_scales}
+            # each lane fails on its own, as JAX's runner contains it: a
+            # failed layout/TSR lane drops the chunk's tables, a failed
+            # recognition empties its texts, and the page HTML is still
+            # built; only a failed detection errors the chunk's pages
             if err is None:
+                canv, lh, (packed, prob_hw) = handles
                 try:
-                    canv, lh, (packed, prob_hw) = handles
                     prep = timed("layout_lane",
                                  self._layout_regions_for_chunk,
                                  chunk["shapes"], lh, digital_info)
                     layout_cells, table_results = timed(
                         "tsr_lane", self._tsr_from_regions, canv, prep)
+                except Exception:
+                    logger.exception("chunk layout/TSR failed - tables "
+                                     "dropped for this chunk")
+                    layout_cells = [[] for _ in idx]
+                    table_results = [[] for _ in idx]
+                try:
                     arr = timed("det_wait_d2h", lambda: packed.cpu().numpy())
                     if self.device_boxes:
                         quads = timed("det_host_post", self._boxes_finish,
@@ -505,28 +515,32 @@ class BatchPipeline:
                     else:
                         quads = timed("det_host_post", self._det_post, arr,
                                       chunk["shapes"], chunk["bucket"])
-                    # digital pages take their vector text: no text crops
-                    for k in digital_info:
-                        quads[k] = np.zeros((0, 4, 2), np.float32)
-                    use_dev = self.device_crops
-                    if use_dev is None:
-                        use_dev = self.system.config.use_textline_cls
-                    if use_dev:
-                        texts, scores = timed("rec_lane",
-                                              self._recognize_chunk, canv,
-                                              quads)
-                    else:
-                        texts, scores = timed(
-                            "rec_lane", self._recognize_all,
-                            [images[i] for i in idx], quads)
                 except Exception as e:
-                    logger.exception("chunk failed")
+                    logger.exception("chunk detection failed")
                     err = e
             if err is not None:
                 for k, i in enumerate(idx):
                     results[i] = _error_output(pages[i].get("page", i), err,
                                                is_pdf=k in digital_info)
                 continue
+            # digital pages take their vector text: no text crops
+            for k in digital_info:
+                quads[k] = np.zeros((0, 4, 2), np.float32)
+            use_dev = self.device_crops
+            if use_dev is None:
+                use_dev = self.system.config.use_textline_cls
+            try:
+                if use_dev:
+                    texts, scores = timed("rec_lane", self._recognize_chunk,
+                                          canv, quads)
+                else:
+                    texts, scores = timed(
+                        "rec_lane", self._recognize_all,
+                        [images[i] for i in idx], quads)
+            except Exception:
+                logger.exception("chunk recognition failed")
+                texts = [[""] * len(q) for q in quads]
+                scores = [[0.0] * len(q) for q in quads]
             t0 = time.perf_counter()
             for k, i in enumerate(idx):
                 try:

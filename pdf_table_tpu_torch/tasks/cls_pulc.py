@@ -22,7 +22,8 @@ import torch
 from ..engine.buckets import bucket_batch_size
 from ..engine.device import resolve_device, set_float_precision
 from ..engine.infer_task import InferTask
-from ..engine.params import init_cls
+from ..engine.params import init_cls, load_or_init
+from ..models.registry import weights_dir
 from ..models.cls.config import ClsPulcConfig
 from ..models.cls.model import PPLCNetClassifier
 from ..models.cls.processor import PulcPostProcessor, PulcPreProcessor
@@ -51,8 +52,11 @@ class ClsImagePulcTask(InferTask):
         self.pre = PulcPreProcessor(cfg)
         self.post = PulcPostProcessor(cfg)
         self.model = PPLCNetClassifier(cfg).eval()
-        self.load_variables(variables if variables is not None
-                            else init_cls(cfg, 0))
+        if variables is None:
+            variables = load_or_init(
+                weights_dir("cls", "PPLCNet", cfg.task_type),
+                lambda: init_cls(cfg, 0), self.task_name)
+        self.load_variables(variables)
         self.model.to(self.device)
         self.mean = torch.tensor(CLS_MEAN, device=self.device)
         self.std = torch.tensor(CLS_STD, device=self.device)

@@ -30,11 +30,11 @@ import torch.nn.functional as F
 from ..engine.device import (on_device, resolve_device, set_float_precision,
                              with_default_dtype)
 from ..engine.infer_task import InferTask
-from ..engine.params import init_dbnet
+from ..engine.params import init_dbnet, load_or_init
 from ..models.dbnet.config import DbNetConfig
-from ..models.dbnet.model import DBNet
+from ..models.dbnet.model import DBNet, inference_variables
 from ..models.dbnet.processor import DbNetPostProcessor, DbNetPreProcessor
-from ..models.registry import build_config
+from ..models.registry import build_config, weights_dir
 from ..ops.connected_components import batch_component_boxes_u8
 from ..ops.resize_norm import resize_normalize
 from ..pipeline.batch_runner import det_input_size, pack_pages
@@ -66,7 +66,9 @@ def det_config(model: str = "PP-OCRv4_det", **kw) -> DbNetConfig:
 class OcrDetectionTask(InferTask):
     """DBNet text detection on ``device`` (``cuda`` unless ``"cpu"`` is
     asked for). Weights: ``variables`` (a flax-layout tree, see
-    convert/flax_bridge.py) or, when None, the seeded :func:`init_dbnet`.
+    convert/flax_bridge.py) or, when None, the converted tree in
+    ``weights_dir("detection", model)``, else the seeded :func:`init_dbnet`
+    (engine/params.py::load_or_init).
     ``half_res_probs`` max-pools the prob map 2x2 before quantizing, as
     the JAX pipeline does; ``cfg_overrides`` go to :func:`det_config`,
     with the device's default dtype (engine/device.py::default_dtype)
@@ -94,15 +96,20 @@ class OcrDetectionTask(InferTask):
         self.post = DbNetPostProcessor(cfg)
         self.norm = NORM[cfg.norm_style]
         self.model = DBNet(cfg).eval()
-        self.load_variables(variables if variables is not None
-                            else init_dbnet(cfg, 0))
+        if variables is None:
+            variables = load_or_init(weights_dir("detection", model),
+                                     lambda: init_dbnet(cfg, 0),
+                                     self.task_name)
+        self.load_variables(variables)
         self.model.to(self.device)
 
     def load_variables(self, variables: Dict[str, Any]) -> None:
-        """Load a flax-layout {"params", "batch_stats"} tree."""
+        """Load a flax-layout {"params", "batch_stats"} tree; a trained
+        tree's ``thresh`` head is dropped (models/dbnet/model.py::
+        inference_variables)."""
         from ..convert.flax_bridge import load_flax_variables
 
-        load_flax_variables(self.model, variables)
+        load_flax_variables(self.model, inference_variables(variables))
 
     # -- the device program, stage by stage ---------------------------------
 

@@ -38,7 +38,7 @@ import torch
 
 from ..engine.device import (on_device, resolve_device, set_float_precision,
                              with_default_dtype)
-from ..engine.params import init_docx_layout, init_picodet
+from ..engine.params import init_docx_layout, init_picodet, load_or_init
 from ..entity.ocr_cell import OcrCell
 from ..models.center_net.processor import CenterNetPreProcessor
 from ..models.docx_layout.model import DocXLayoutModel, unpack_docx
@@ -47,7 +47,7 @@ from ..models.picodet.model import PicoDet
 from ..models.picodet.processor import (PicoDetPostProcessor,
                                         PicoDetPreProcessor,
                                         device_decode_topk, device_nms_pack)
-from ..models.registry import build_config
+from ..models.registry import build_config, weights_dir
 
 Handle = Tuple[torch.Tensor, List[Dict[str, Any]]]
 # the registry's DocXLayout and the alias the system's config takes
@@ -139,15 +139,19 @@ class OcrLayoutTask:
             self.post = DocXLayoutPostProcessor(cfg)
             self.model = DocXLayoutModel(cfg).eval()
             init = init_docx_layout
+            wdir = weights_dir("layout", "DocXLayout")
         else:
             self.pre = PicoDetPreProcessor(cfg)
             self.post = PicoDetPostProcessor(cfg)
             self.model = PicoDet(cfg).eval()
             init = init_picodet
+            wdir = weights_dir("layout", self.model_name, cfg.task_type)
             self.mean = torch.tensor(cfg.norm_mean, device=self.device)
             self.std = torch.tensor(cfg.norm_std, device=self.device)
-        self.load_variables(variables if variables is not None
-                            else init(cfg, 0))
+        if variables is None:
+            variables = load_or_init(wdir, lambda: init(cfg, 0),
+                                     self.task_name)
+        self.load_variables(variables)
         self.model.to(self.device)
 
     @property

@@ -35,6 +35,7 @@ every crop goes to the widest bucket; its own width masks the padding.
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -43,11 +44,11 @@ import torch
 from ..engine.buckets import bucket_batch_size
 from ..engine.device import (on_device, resolve_device, set_float_precision,
                              with_default_dtype)
-from ..engine.params import init_rec
-from ..models.rec_ctc.charset import Charset
+from ..engine.params import has_saved_params, init_rec, load_or_init
+from ..models.rec_ctc.charset import Charset, resolve_charset
 from ..models.rec_ctc.config import RecConfig
 from ..models.rec_ctc.model import CTCRecModel
-from ..models.registry import build_config
+from ..models.registry import build_config, weights_dir
 from ..models.rec_ctc.processor import RecPostProcessor, RecPreProcessor
 from ..ops.ctc import ctc_greedy_decode
 from ..ops.warp import (homographies_from_quads_batch,
@@ -88,7 +89,12 @@ class OcrRecognitionTask:
     """Text recognition on ``device`` (``cuda`` unless ``"cpu"`` is asked
     for), ``model`` a recognizer of models/registry.py. Weights:
     ``variables`` (a flax-layout tree, see convert/flax_bridge.py) or, when
-    None, the seeded :func:`init_rec`. ``cls_task`` is the 0/180 textline
+    None, the converted tree in the lang-keyed ``weights_dir`` or else the
+    seeded :func:`init_rec` (engine/params.py::load_or_init). ``charset``
+    or, when None, the lang's dict file, searched first in that directory
+    (the converter copies the checkpoint's dict there); with a converted
+    tree to load, a dict that cannot be found raises, since the fallback's
+    ids would not match the checkpoint's. ``cls_task`` is the 0/180 textline
     classifier (a :class:`ClsImagePulcTask` on the same device) or None for
     no orientation check. ``cfg_overrides`` go to :func:`rec_config`, with
     the device's default dtype (engine/device.py::default_dtype) where
@@ -113,11 +119,42 @@ class OcrRecognitionTask:
         self.cls_task = cls_task
         self.single_rec_bucket = single_rec_bucket
         self.pre = RecPreProcessor(cfg)
+        wdir = self._weights_dir()
+        if charset is None:
+            charset = self._resolve_charset(
+                converted=variables is None and has_saved_params(wdir))
         self.post = RecPostProcessor(cfg, charset=charset)
         self.model = CTCRecModel(cfg).eval()
-        self.load_variables(variables if variables is not None
-                            else init_rec(cfg, 0))
+        if variables is None:
+            variables = load_or_init(wdir, lambda: init_rec(cfg, 0),
+                                     self.task_name)
+        self.load_variables(variables)
         self.model.to(self.device)
+
+    def _weights_dir(self) -> str:
+        """The lang-keyed weights directory, as JAX's (PP-OCRv4_rec_ch
+        etc.; ``en`` and a dict-file path key none)."""
+        cfg = self.model_config
+        lang = "" if cfg.charset_name in ("en", "") \
+            or os.path.sep in str(cfg.charset_name) else cfg.charset_name
+        return weights_dir("recognition", self.model_name, lang)
+
+    def _resolve_charset(self, converted: bool) -> Charset:
+        """The decode's charset, as JAX's task resolves it: the weights
+        directory is searched first for the lang's dict file. With a
+        converted tree to load (``converted``) the search is strict, and a
+        generic-fallback charset is an error: its ids do not match the
+        checkpoint's, and every decode would be silently wrong."""
+        cfg = self.model_config
+        wdir = self._weights_dir()
+        cs = resolve_charset(cfg.charset_name, cfg.use_space_char,
+                             extra_dirs=(wdir,), strict=converted)
+        if converted and getattr(cs, "generic_fallback", False):
+            raise RuntimeError(
+                f"converted weights at {wdir!r} but charset "
+                f"{cfg.charset_name!r} resolved to the generic fallback: "
+                f"ship the checkpoint's dict file next to the weights")
+        return cs
 
     @property
     def charset(self) -> Charset:

@@ -46,6 +46,9 @@ one crop a forward).
 
 from __future__ import annotations
 
+import dataclasses
+import glob
+import os
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -56,7 +59,7 @@ from ..engine.infer_task import InferTask
 from ..engine.device import (on_device, resolve_device, set_float_precision,
                              with_default_dtype)
 from ..engine.params import (init_centernet, init_lgpma, init_lore,
-                             init_slanet, init_table_master)
+                             init_slanet, init_table_master, load_or_init)
 from ..models.center_net.config import CenterNetConfig
 from ..models.center_net.model import CycleCenterNet, unpack_centernet
 from ..models.center_net.processor import (CenterNetPostProcessor,
@@ -70,7 +73,7 @@ from ..models.line_cell.algo import extract_cells_from_image
 from ..models.lore.config import LoreConfig
 from ..models.lore.model import LoreModel, unpack_lore
 from ..models.lore.processor import LorePostProcessor, LorePreProcessor
-from ..models.registry import build_config
+from ..models.registry import build_config, weights_dir
 from ..models.slanet.config import SLANetConfig
 from ..models.slanet.model import SLANet
 from ..models.slanet.processor import SLANetPostProcessor, SLANetPreProcessor
@@ -111,6 +114,29 @@ def lore_config(task_type: str = "wtw", **kw) -> LoreConfig:
     """LORE's config for ``task_type`` (models/registry.py)."""
     return build_config("table_structure", "Lore", task_type=task_type,
                         **kw)
+
+
+def _sidecar_dict(wdir: str, name_keys: Sequence[str]) -> str:
+    """The first vocab txt in ``wdir`` whose name holds one of
+    ``name_keys`` (the converter copies a snapshot's dict files beside the
+    converted weights); "" when there is none."""
+    if not os.path.isdir(wdir):
+        return ""
+    for p in sorted(glob.glob(os.path.join(wdir, "*.txt"))):
+        base = os.path.basename(p).lower()
+        if any(k in base for k in name_keys):
+            return p
+    return ""
+
+
+def _with_sidecar_dict(cfg, model: str, name_keys: Sequence[str]):
+    """``cfg`` with its ``dict_path`` set to the sidecar dict of
+    ``model``'s weights directory where it names none, as JAX's task
+    does."""
+    if cfg.dict_path:
+        return cfg
+    path = _sidecar_dict(weights_dir("table_structure", model), name_keys)
+    return dataclasses.replace(cfg, dict_path=path) if path else cfg
 
 
 class OcrTableStructureTask(InferTask):
@@ -167,8 +193,13 @@ class OcrTableStructureTask(InferTask):
             self._init_tree = init_lgpma
         else:
             self._init_token_model(config, **kw)
-        self.load_variables(variables if variables is not None
-                            else self._init_tree(self.model_config))
+        if variables is None:
+            cfg = self.model_config
+            variables = load_or_init(
+                weights_dir("table_structure", self.model_name,
+                            getattr(cfg, "task_type", "")),
+                lambda: self._init_tree(cfg), self.task_name)
+        self.load_variables(variables)
         self.model.to(self.device)
 
     def _init_lore(self, config, task_type, res_buckets, **kw) -> None:
@@ -191,8 +222,12 @@ class OcrTableStructureTask(InferTask):
         parameters are declared, so that its tree loads; the runner does
         not decode cells, as in JAX)."""
         if self.model_name == "SLANet":
-            self.model_config = cfg = config or SLANetConfig(
-                **with_default_dtype(kw, self.device))
+            cfg = config or SLANetConfig(**with_default_dtype(kw, self.device))
+            # a converted snapshot ships its structure dict next to the
+            # weights (the converter copies it); it wins over the built-in
+            # token set, so that ids match the checkpoint
+            self.model_config = cfg = _with_sidecar_dict(
+                cfg, self.model_name, ("table_structure", "structure"))
             self.pre = SLANetPreProcessor(cfg)
             self.post = SLANetPostProcessor(cfg)
             self.model = SLANet(cfg).eval()
@@ -201,7 +236,9 @@ class OcrTableStructureTask(InferTask):
             return
         kw.setdefault("variant", "mtl_tabnet" if self.model_name
                       == "MtlTabNet" else "table_master")
-        self.model_config = cfg = config or TableMasterConfig(**kw)
+        self.model_config = cfg = _with_sidecar_dict(
+            config or TableMasterConfig(**kw), self.model_name,
+            ("structure_alphabet", "structure"))
         self.pre = TableMasterPreProcessor(cfg)
         cell_charset = None
         if cfg.variant == "mtl_tabnet":

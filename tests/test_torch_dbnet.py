@@ -127,7 +127,10 @@ def test_other_backbones_are_not_ported(backbone):
                                   dtype="bfloat16")).eval()
     assert_bf16_rule(net)
     x = np.random.default_rng(3).standard_normal((1, 64, 32, 3))
-    with torch.no_grad():
+    # oneDNN's bf16 conv2d returns NaN now and then at resnet18's 4x2
+    # layer4 input, whatever the data (tools/repro_onednn_bf16_conv.py):
+    # the CPU forward runs on PyTorch's own conv
+    with torch.no_grad(), torch.backends.mkldnn.flags(enabled=False):
         prob = net(torch.from_numpy(x.astype(np.float32)))["prob"]
     assert prob.dtype == torch.float32 and prob.shape == (1, 64, 32)
     assert torch.isfinite(prob).all()

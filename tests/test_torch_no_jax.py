@@ -43,7 +43,9 @@ host geometry (its C++ library built at first use), with neither JAX,
 flax, cv2 nor the JAX package imported. A tenth imports every module of
 the task surface and serving, runs the ``pdftable`` CLI on a digital PDF
 and the HTTP service on one request, with neither JAX, flax, cv2, lxml
-nor the JAX package imported."""
+nor the JAX package imported. An eleventh runs the DBNet quick trainer,
+``ctc_loss`` and the converter entry point, with neither JAX, flax,
+optax, orbax, cv2 nor the JAX package imported."""
 
 import json
 import os
@@ -649,3 +651,85 @@ def test_cli_and_service_run_without_jax():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res == {"bad": [], "rc": 0, "table": True, "status": 200,
                    "books": 1, "teds": 1.0}
+
+
+_QUICK_TRAIN_SCRIPT = r"""
+import json, os, sys, tempfile
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from pdf_table_tpu_torch.models.dbnet.config import DbNetConfig
+from pdf_table_tpu_torch.models.dbnet.model import DBNet
+from pdf_table_tpu_torch.models.rec_ctc.config import RecConfig
+from pdf_table_tpu_torch.models.rec_ctc.model import CTCRecModel
+from pdf_table_tpu_torch.train.losses import ctc_loss
+from pdf_table_tpu_torch.train.quick_det import train_quick_detector
+
+def page(rng, size):
+    img = np.full((size, size, 3), 255, np.uint8)
+    boxes = []
+    for y in range(6, size - 10, 14):
+        w = int(rng.integers(10, 30))
+        img[y:y + 6, 4:4 + w] = 30
+        boxes.append([4, y, 4 + w, y + 6])
+    return img, boxes
+
+tree, first, last = train_quick_detector(
+    DbNetConfig.ppocr(), page, steps=2, size=64, batch_size=2,
+    rng=np.random.default_rng(0), device="cpu")
+model = CTCRecModel(RecConfig(svtr_scale=0.25, svtr_dims=32, svtr_hidden=48,
+                              svtr_heads=4, vocab_size=40))
+logits = model(torch.zeros(2, 48, 64, 3))
+loss = ctc_loss(logits, torch.tensor([[1, 2, 0], [3, 0, 0]]),
+                torch.tensor([[0., 0., 1.], [0., 1., 1.]]))
+loss.backward()
+# the converter's ONNX route: Paddle-layout initializers in call order
+from pdf_table_tpu_torch.convert.__main__ import main
+from pdf_table_tpu_torch.convert.onnx_reader import encode_test_onnx
+from pdf_table_tpu_torch.convert.onnx_shape_matcher import call_ordered_slots
+from pdf_table_tpu_torch.engine.params import init_dbnet, load_params
+cfg = DbNetConfig.ppocr()
+template = init_dbnet(cfg)
+rng = np.random.default_rng(1)
+tensors = {}
+for coll, path, kind in call_ordered_slots(DBNet(cfg).eval(),
+                                           torch.zeros(1, 64, 64, 3)):
+    node = template[coll]
+    for k in path.split("/"):
+        node = node[k]
+    a = rng.standard_normal(np.shape(node)).astype(np.float32)
+    if kind == "Conv" and a.ndim == 4:
+        a = a.transpose(3, 2, 0, 1)
+    elif kind == "ConvTranspose" and a.ndim == 4:
+        a = a.transpose(2, 3, 0, 1)
+    tensors[f"t{len(tensors)}"] = a
+d = tempfile.mkdtemp()
+with open(os.path.join(d, "model.onnx"), "wb") as f:
+    f.write(encode_test_onnx(tensors))
+rc = main(["--model", "pp_det", "--checkpoint", os.path.join(d, "model.onnx"),
+           "--out", os.path.join(d, "out")])
+conv = load_params(os.path.join(d, "out"))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "flax", "optax", "orbax", "cv2", "pdf_table_tpu"))
+print(json.dumps({"bad": bad, "params": "thresh" in tree["params"],
+                  "finite": bool(np.isfinite([first, last,
+                                              float(loss)]).all()),
+                  "rc": rc, "converted": sorted(conv) == [
+                      "batch_stats", "params"]}))
+"""
+
+
+def test_quick_trainer_ctc_and_converter_run_without_jax():
+    """An eleventh fresh interpreter runs ``train_quick_detector`` two
+    steps, a ``ctc_loss`` backward and the converter entry point on an
+    ONNX file, with neither JAX, flax, optax, orbax, cv2 nor the JAX
+    package imported."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    out = subprocess.run([sys.executable, "-c", _QUICK_TRAIN_SCRIPT],
+                         cwd=root, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"bad": [], "params": True, "finite": True, "rc": 0,
+                   "converted": True}

@@ -43,8 +43,11 @@ and ``recognizer_model="ConvNextViT"`` at full width, its three-chunk
 decode, with the classifier) holds the quads, texts, layout cells and HTML
 per page. Then the containment
 cases (an oversize page is scaled to fit, a digital page that cannot be
-rendered gets an error output, the other pages are unharmed) and the
-residency of the canvases (one upload a
+rendered gets an error output, the other pages are unharmed; a failed
+lane contained as JAX's runner contains it, the same lane made to raise
+on both runners and the pages held equal: recognition empties the
+chunk's texts, layout/TSR drops its tables, detection errors its pages)
+and the residency of the canvases (one upload a
 chunk, the same tensor into every lane)."""
 
 import re
@@ -626,21 +629,95 @@ def test_oversize_and_digital_pages_are_contained(trees):
     assert out[2].page_html == "" and out[2].text_cells == []
 
 
-def test_a_failing_chunk_is_contained(trees, monkeypatch):
-    bp = port_pipeline(trees, False)
-    pages = [{"image": p, "page": i} for i, p in enumerate(PAGES)]
-    real = bp._recognize_chunk
+def _same_pages(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.page == w.page and g.metric == w.metric, g.page
+        np.testing.assert_array_equal(
+            np.asarray([c.poly for c in g.text_cells]),
+            np.asarray([c.poly for c in w.text_cells]))
+        assert [c.text for c in g.text_cells] == \
+            [c.text for c in w.text_cells]
+        np.testing.assert_allclose([c.score for c in g.text_cells],
+                                   [c.score for c in w.text_cells],
+                                   atol=1e-5, rtol=0)
+        assert _layout_key(g.layout_cells) == _layout_key(w.layout_cells), \
+            g.page
+        assert g.table_html == w.table_html
+        assert g.page_html == w.page_html
 
-    def fail_on_the_big_bucket(canv, quads):
-        if canv.shape[1] == 1600:
+
+def _big(shapes):
+    return any(int(h) == PAGES[1].shape[0] for h, _ in shapes)
+
+
+def _failing(fn, hit):
+    def wrapped(*a):
+        if hit(*a):
             raise RuntimeError("lane failed")
-        return real(canv, quads)
+        return fn(*a)
+    return wrapped
 
-    monkeypatch.setattr(bp, "_recognize_chunk", fail_on_the_big_bucket)
-    out = bp.run(pages)
-    assert out[1].metric == {"error": "RuntimeError: lane failed"}
-    assert out[0].metric == out[2].metric == {}
-    assert out[0].page_html and out[2].page_html
+
+def _contained_runs(trees, jtasks, fail):
+    """Both runners on the three pages with the same lane made to raise on
+    the chunk of the 1500-px page (the 1600x1280 bucket)."""
+    pages = [{"image": p, "page": i} for i, p in enumerate(PAGES)]
+    jbp, bp = jax_pipeline(jtasks, False), port_pipeline(trees, False)
+    fail(jbp, "jax")
+    fail(bp, "port")
+    return bp.run(pages), jbp.run(pages)
+
+
+def test_a_failing_chunk_is_contained(trees, jtasks):
+    """A failed recognition lane empties the chunk's texts and zeroes its
+    scores; its pages keep their quads, tables and HTML (JAX's runner,
+    pdf_table_tpu/pipeline/batch_runner.py:1365-1368)."""
+    def fail(bp, side):
+        if side == "jax":
+            bp._recognize_chunk = _failing(
+                bp._recognize_chunk, lambda canv, *a: canv.shape[1] == 1600)
+        else:
+            bp._recognize_chunk = _failing(
+                bp._recognize_chunk, lambda canv, q: canv.shape[1] == 1600)
+
+    got, want = _contained_runs(trees, jtasks, fail)
+    _same_pages(got, want)
+    assert [o.metric for o in got] == [{}, {}, {}]
+    assert got[1].text_cells and all(c.text == "" and c.score == 0.0
+                                     for c in got[1].text_cells)
+    assert any(c.text for c in got[0].text_cells)
+    assert all(o.page_html for o in got) and got[1].table_html
+
+
+def test_a_failing_table_lane_drops_the_chunks_tables(trees, jtasks):
+    """A failed layout/TSR lane drops the chunk's layout cells and tables;
+    its pages keep their texts and HTML (JAX: batch_runner.py:1339-1360;
+    its retry with a fresh upload, ``_tables_for_chunk``, goes through the
+    same failing stage)."""
+    def fail(bp, side):
+        bp._layout_regions_for_chunk = _failing(
+            bp._layout_regions_for_chunk, lambda shapes, *a: _big(shapes))
+
+    got, want = _contained_runs(trees, jtasks, fail)
+    _same_pages(got, want)
+    assert [o.metric for o in got] == [{}, {}, {}]
+    assert got[1].table_html == [] and got[1].layout_cells == []
+    assert got[0].table_html and got[1].text_cells and got[1].page_html
+
+
+def test_a_failing_detection_errors_its_chunk(trees, jtasks):
+    """A failed detection errors every page of its chunk and no other
+    (JAX: batch_runner.py:1301-1304,1324-1334)."""
+    def fail(bp, side):
+        bp._boxes_finish = _failing(
+            bp._boxes_finish, lambda packed, shapes, *a: _big(shapes))
+
+    got, want = _contained_runs(trees, jtasks, fail)
+    _same_pages(got, want)
+    assert got[1].metric == {"error": "RuntimeError: lane failed"}
+    assert got[0].metric == got[2].metric == {}
+    assert got[1].page_html == "" and got[0].page_html
 
 
 def test_canvases_upload_once_and_stay_resident(trees, monkeypatch):
