@@ -307,6 +307,21 @@ Phases, each fatal on failure:
      model cache; the detection and LORE tasks built without
      ``variables`` on the card give outputs bit-equal to the same tasks
      given the trees, K1 and K3 launched.
+  det_polygon: DBNet's polygon mode (approxPolyDP, the 0.7 score filter,
+     the vertex offset) with train_det's tree on 4 bench pages, the card
+     against the CPU: prob maps within 1e-4, a pixel that changes sides
+     of the threshold within that of it, polygons equal where none does.
+  flops: model FLOPs (utils/flops.py) of each bench-configuration model's
+     forward at its largest call in one BatchPipeline.run of the 16 pages,
+     and of the run, over device ms and wall time: TFLOP/s and MFU against
+     the card's dense peak for the dtype, in bf16 and f32; a LORE
+     sub-batch's count equal with K1 and with the plain DCN.
+  parallel: a one-rank NCCL group: BatchPipeline(mesh) on the 16 pages
+     against the meshless run (the pipeline phase's rules), K1 and K3
+     launched; GPipe at one stage and the dp LORE step at world size 1
+     bit-equal to their meshless counterparts; then two spawned gloo
+     ranks on cuda:0 run the pages 8 and 8, and rank 0's gathered outputs
+     hold the same rules against the meshless run.
 Prints each phase's wall seconds ({"phase_s": {...}}), the card line,
 one {"kernels": [...]} line, and as the last line {"ok": true, "device":
 {...}}. Imports nothing of JAX.
@@ -314,6 +329,7 @@ one {"kernels": [...]} line, and as the last line {"ok": true, "device":
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -2318,7 +2334,7 @@ def add_lines(quads, shapes):
     return out
 
 
-def build_pipeline(device, trees, tsr="Lore", policy=False):
+def build_pipeline(device, trees, tsr="Lore", policy=False, mesh=None):
     """The port's BatchPipeline with bench.py's configuration
     (bench.py:73-88): det thresholds, the table layout head, rec en, LORE
     wireless f32 with res_buckets="auto", no page orientation check, the
@@ -2331,7 +2347,8 @@ def build_pipeline(device, trees, tsr="Lore", policy=False):
     ``trees["lore"]``. Every model is f32, unless ``policy``: then the
     registry models (detection, PicoDet, recognition, LORE) get no dtype,
     and the port's policy gives them bf16 on the card, as JAX's registry
-    gives them bf16 on its accelerator."""
+    gives them bf16 on its accelerator. With a dp ``mesh`` every task is
+    built on it (a collective: the same order on every rank)."""
     from pdf_table_tpu_torch.pipeline.batch_runner import BatchPipeline
     from pdf_table_tpu_torch.pipeline.system import OcrSystemConfig
     from pdf_table_tpu_torch.tasks.cls_pulc import ClsImagePulcTask
@@ -2354,21 +2371,21 @@ def build_pipeline(device, trees, tsr="Lore", policy=False):
             res_buckets="auto", **pin(PIPE_LORE_KW))
     elif tsr != "Lore":
         cfg.table_structure_kwargs = {"variables": trees["tsr"], **F32}
-    bp = BatchPipeline(cfg, batch_pages=8, device=device)
+    bp = BatchPipeline(cfg, mesh=mesh, batch_pages=8, device=device)
     s = bp.system
     s._det = OcrDetectionTask(model="PP-OCRv4_det", device=device,
-                              **pin(DET_KW))
-    s._layout = OcrLayoutTask(model="picodet", device=device,
+                              mesh=mesh, **pin(DET_KW))
+    s._layout = OcrLayoutTask(model="picodet", device=device, mesh=mesh,
                               variables=trees["layout"], **pin(LAYOUT_KW))
     s._rec = OcrRecognitionTask(model=cfg.recognizer_model, lang=cfg.lang,
                                 device=device, variables=trees["rec"],
-                                **pin({}))
+                                mesh=mesh, **pin({}))
     s._line_cls = ClsImagePulcTask("textline_orientation", device=device,
-                                   variables=trees["cls"])
+                                   variables=trees["cls"], mesh=mesh)
     if tsr == "Lore":
         s._tsr = OcrTableStructureTask(model="Lore", task_type="wireless",
                                        device=device, variables=trees["lore"],
-                                       res_buckets="auto",
+                                       res_buckets="auto", mesh=mesh,
                                        **pin(PIPE_LORE_KW))
     orig = bp._boxes_finish
     bp._boxes_finish = lambda packed, shapes, bucket_hw, prob_hw: add_lines(
@@ -5768,7 +5785,8 @@ def phase_train_det(card):
           f"{ctc['grad_rel_err_max']:.3g}")
     check(all(v == 0 for v in ctc["launches"].values()),
           f"train_det: the ctc step launched {ctc['launches']}")
-    return {k: launches[k] + ctc["launches"][k] for k in KERNELS}
+    return ({k: launches[k] + ctc["launches"][k] for k in KERNELS},
+            run["tree"])
 
 
 def pp_det_onnx(path: str) -> None:
@@ -5899,6 +5917,442 @@ def phase_convert(card):
     return counts["loaded"]
 
 
+
+# det_polygon: DBNet's polygon mode (approxPolyDP at 1 % of the perimeter,
+# the 0.7 score filter, the vertex offset) with the quick trainer's tree
+# at the bench's trained thresholds, on POLY_PAGES bench pages: the card's
+# __call__ against the CPU's. The prob maps agree within DET_PROB_TOL; a
+# pixel whose side of the threshold differs between them must lie within
+# that tolerance of it, and the polygons of the two runs are equal where
+# no pixel differs (a differing pixel may change its contour's polygons),
+# their scores within POLY_SCORE_TOL
+POLY_PAGES = 4
+POLY_SCORE_TOL = 1e-4
+# the card the phases below drive (a CPU rehearsal at small sizes sets
+# "cpu", with the CUDA calls stubbed)
+DEVICE = "cuda"
+
+
+def phase_det_polygon(card, tree):
+    """DBNet's polygon mode on the card against the CPU (see above)."""
+    import numpy as np
+    import torch
+
+    from pdf_table_tpu_torch.ops.kernels import (KERNELS, launch_counts,
+                                                 reset_launch_counts)
+    from pdf_table_tpu_torch.tasks.detection import OcrDetectionTask
+
+    kw = dict(variables=tree, thresh=QD_THRESH, box_thresh=QD_BOX_THRESH,
+              return_polygon=True, **F32)
+    card_task = OcrDetectionTask(model="PP-OCRv4_det", device=DEVICE, **kw)
+    cpu_task = OcrDetectionTask(model="PP-OCRv4_det", device="cpu", **kw)
+    pages = [make_page(i) for i in range(POLY_PAGES)]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    got = [card_task(p) for p in pages]
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = {k: launch_counts[k] for k in KERNELS}
+    t0 = time.perf_counter()
+    want = [cpu_task(p) for p in pages]
+    cpu_s = time.perf_counter() - t0
+    rows = []
+    for p, g, w in zip(pages, got, want):
+        x = card_task.pre(p)["image"]
+        with torch.inference_mode():
+            pg = card_task.prob_map(x).cpu().numpy()
+            pw = cpu_task.prob_map(x).numpy()
+        flips = (pg > QD_THRESH) != (pw > QD_THRESH)
+        near = np.abs(pw - QD_THRESH) <= DET_PROB_TOL
+        same = g["det_polygons"] == w["det_polygons"]
+        rows.append({
+            "prob_err": float(np.abs(pg - pw).max()),
+            "flipped_px": int(flips.sum()),
+            "flips_near_threshold": bool(near[flips].all()),
+            "polygons": len(w["det_polygons"]),
+            "polygons_equal": same,
+            "vertices": [len(q) // 2 for q in w["det_polygons"][:8]],
+            "score_err": float(np.abs(np.asarray(g["det_scores"])
+                                      - np.asarray(w["det_scores"])).max())
+            if same and len(w["det_scores"]) else 0.0,
+            "is_polygon": bool(g.get("is_polygon"))})
+    summary = {"card": card, "pages": POLY_PAGES, "card_s": card_s,
+               "cpu_s": cpu_s, "launches": launches, "pages_rows": rows,
+               "polygons": sum(r["polygons"] for r in rows)}
+    print(json.dumps({"det_polygon": summary}))
+    check(all(r["is_polygon"] for r in rows),
+          "det_polygon: the card's output is not in polygon mode")
+    check(summary["polygons"] >= POLY_PAGES,
+          f"det_polygon: {summary['polygons']} polygons on {POLY_PAGES} "
+          f"pages")
+    check(all(r["prob_err"] <= DET_PROB_TOL for r in rows),
+          f"det_polygon: prob maps differ from the CPU's: "
+          f"{[r['prob_err'] for r in rows]}")
+    check(all(r["flips_near_threshold"] for r in rows),
+          "det_polygon: a pixel far from the threshold changed sides")
+    check(all(r["polygons_equal"] for r in rows if not r["flipped_px"]),
+          "det_polygon: polygons differ from the CPU's on equal bitmaps")
+    check(all(r["score_err"] <= POLY_SCORE_TOL for r in rows),
+          f"det_polygon: scores differ from the CPU's: "
+          f"{[r['score_err'] for r in rows]}")
+    return launches
+
+
+# flops: model FLOPs (utils/flops.py: the dispatcher's contractions and
+# every deform conv's hand count) over device time. Each bench-
+# configuration model's forward at the shape the pipeline gives it (its
+# largest call in one counted BatchPipeline.run of the PIPE_PAGES pages):
+# GFLOPs, CUDA-event ms, and MFU against the card's dense peak for the
+# model's dtype (f32 against the CUDA cores' peak, since the convs run
+# with TF32 off; LORE's f32 DCNs run 3xTF32 on the tensor cores, so its
+# f32 MFU may read high); then the whole run, its FLOPs over its host
+# wall time. In bf16 (the policy) and f32. A LORE sub-batch's count must
+# be the same with K1 as with the plain DCN
+FLOPS_RUNS = 2
+FLOPS_ITERS = 5
+
+
+def phase_flops(card, trees):
+    """Model FLOPs, times and MFU on the card (see above)."""
+    import torch
+
+    from pdf_table_tpu_torch.convert.flax_bridge import load_flax_variables
+    from pdf_table_tpu_torch.models.lore.model import LoreModel
+    from pdf_table_tpu_torch.ops.kernels import (KERNELS, launch_counts,
+                                                 reset_launch_counts)
+    from pdf_table_tpu_torch.utils.flops import count_flops, peak_flops
+
+    imgs = [make_page(i) for i in range(PIPE_PAGES)]
+    pages = [{"image": im, "page": i} for i, im in enumerate(imgs)]
+    arms, launches = {}, {}
+    for arm, policy in (("bf16", True), ("f32", False)):
+        bp = build_pipeline(DEVICE, trees, policy=policy)
+        s = bp.system
+        models = {"detection": (s.det_task.model, "forward"),
+                  "layout": (s.layout_task.model, "forward"),
+                  "recognition": (s.rec_task.model, "forward"),
+                  "textline_cls": (s.textline_cls_task.model, "forward"),
+                  "lore": (s.tsr_task.model, "forward_packed")}
+        bp.run(pages)                   # warm-up
+        seen = {}
+
+        def spy(name, model, method):
+            real = getattr(model, method)
+
+            def counted_call(*args):
+                n, y = count_flops(real, *args)
+                rec = seen.setdefault(name, {"flops": 0, "calls": 0,
+                                             "big": (0, None, 0)})
+                rec["flops"] += n
+                rec["calls"] += 1
+                if args[0].shape[0] >= rec["big"][0]:
+                    rec["big"] = (args[0].shape[0], args, n)
+                return y
+            setattr(model, method, counted_call)
+
+        for name, (model, method) in models.items():
+            spy(name, model, method)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        run_flops, out = count_flops(bp.run, pages)
+        torch.cuda.synchronize()
+        launches[arm] = {k: launch_counts[k] for k in KERNELS}
+        for model, method in models.values():
+            delattr(model, method)
+        check(len(out) == PIPE_PAGES and not [
+            o for o in out if o.metric.get("error")],
+              f"flops: the {arm} run gave errors")
+        check(set(seen) == set(models),
+              f"flops: {arm}: no forward of {set(models) - set(seen)}")
+        run_s = []
+        for _ in range(FLOPS_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bp.run(pages)
+            torch.cuda.synchronize()
+            run_s.append(time.perf_counter() - t0)
+        wall = min(run_s)
+        dtype = torch.bfloat16 if arm == "bf16" else torch.float32
+        rows = {}
+        for name, (model, method) in models.items():
+            rec = seen[name]
+            _, args, n = rec["big"]
+            fn = getattr(model, method)
+            with torch.inference_mode():
+                ms = cuda_ms(lambda: fn(*args), FLOPS_ITERS)
+            mdt = next(p.dtype for p in model.parameters()
+                       if p.is_floating_point())
+            peak = peak_flops(torch.bfloat16 if mdt == torch.bfloat16
+                              else torch.float32)
+            rows[name] = {"dtype": str(mdt).replace("torch.", ""),
+                          "input": list(args[0].shape),
+                          "gflops": n / 1e9, "ms": ms,
+                          "tflops_per_s": n / (ms * 1e-3) / 1e12,
+                          "mfu": n / (ms * 1e-3) / peak,
+                          "run_gflops": rec["flops"] / 1e9,
+                          "run_calls": rec["calls"]}
+        lore_model, _ = models["lore"]
+        _, lore_args, lore_n = seen["lore"]["big"]
+        plain = LoreModel(lore_model.config, plain_dcn=True).to(DEVICE)
+        plain.load_state_dict(lore_model.state_dict())
+        with torch.inference_mode():
+            plain_n, _ = count_flops(plain.eval().forward_packed, *lore_args)
+        del plain
+        torch.cuda.empty_cache()
+        arms[arm] = {
+            "models": rows, "run_gflops": run_flops / 1e9,
+            "run_s_min": wall, "run_s": run_s,
+            "run_tflops_per_s": run_flops / wall / 1e12,
+            "run_mfu": run_flops / wall / peak_flops(dtype),
+            "peak_tflops": peak_flops(dtype) / 1e12,
+            "lore_gflops_kernel": lore_n / 1e9,
+            "lore_gflops_plain": plain_n / 1e9,
+            "launches": launches[arm]}
+        check(plain_n == lore_n,
+              f"flops: {arm}: LORE counts {lore_n} with K1 and {plain_n} "
+              f"with the plain DCN")
+        check(launches[arm]["deform_conv2d"] > 0
+              and launches[arm]["resize_normalize"] > 0,
+              f"flops: {arm}: launches {launches[arm]}")
+        del bp, s, models
+        torch.cuda.empty_cache()
+    print(json.dumps({"flops": {"card": card, "pages": PIPE_PAGES,
+                                **arms}}))
+    return launches
+
+
+# parallel: the dp mesh, GPipe and the dp step on the card. An
+# in-process NCCL group of one rank: BatchPipeline(mesh) on the pipeline
+# phase's PIPE_PAGES pages against the meshless run of the same tasks (pipeline_diff, the pipeline phase's
+# rules), K1 and K3 counted on the mesh run; GPipe at one stage against
+# sequential_apply (bit-equal: no communication); the dp LORE step at
+# world size 1 against the meshless step (PAR_TRAIN_CFG, one step each
+# from one tree, deterministic algorithms: bit-equal losses and
+# parameters). Then two spawned processes, one gloo group, both on
+# cuda:0 (NCCL refuses two ranks on one device): each builds the
+# pipeline on the group's mesh and runs its half of the pages; rank 0's
+# gathered outputs against the meshless run. Two processes sharing one
+# card measure no scaling: their seconds are printed, not compared
+PAR_WORLD = 2
+PAR_TIMEOUT_S = 300
+PAR_TRAIN_CFG = dict(resolution=(256, 256))
+PAR_TRAIN_BATCH = 2
+
+
+def _gloo_rank(rank, world, port, in_file, out_file):
+    """One of the parallel phase's spawned gloo ranks on cuda:0."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from pdf_table_tpu_torch.engine.device import set_float_precision
+    from pdf_table_tpu_torch.ops.kernels import (KERNELS, launch_counts,
+                                                 reset_launch_counts)
+    from pdf_table_tpu_torch.parallel import make_mesh
+    from pdf_table_tpu_torch.parallel.multihost import initialize
+
+    set_float_precision()
+    torch.cuda.set_device(0)
+    initialize(f"127.0.0.1:{port}", world, rank, backend="gloo",
+               timeout=PAR_TIMEOUT_S)
+    try:
+        trees = torch.load(in_file, weights_only=False)
+        t0 = time.perf_counter()
+        bp = build_pipeline(DEVICE, trees, mesh=make_mesh())
+        build_s = time.perf_counter() - t0
+        pages = [{"image": make_page(i), "page": i}
+                 for i in range(PIPE_PAGES)]
+        dist.barrier()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = bp.run(pages)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        res = {"launches": {k: launch_counts[k] for k in KERNELS},
+               "own_pages": bp.last_stats["n_pages"], "run_s": run_s,
+               "build_s": build_s, "device": torch.cuda.current_device(),
+               "pages": out if rank == 0 else None,
+               "jax": "jax" in sys.modules}
+        torch.save(res, out_file)
+    finally:
+        dist.destroy_process_group()
+
+
+def gloo_ranks(trees, tmp) -> list:
+    """The two spawned ranks' results; a rank that fails or outlives
+    PAR_TIMEOUT_S fails the phase, and every rank is stopped."""
+    import multiprocessing
+    import socket
+
+    import torch
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    in_file = os.path.join(tmp, "trees.pt")
+    torch.save(trees, in_file)
+    outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(PAR_WORLD)]
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_gloo_rank,
+                         args=(r, PAR_WORLD, port, in_file, outs[r]))
+             for r in range(PAR_WORLD)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + PAR_TIMEOUT_S
+    try:
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 1.0))
+        codes = [p.exitcode for p in procs]
+        check(all(c == 0 for c in codes),
+              f"parallel: the gloo ranks exited {codes}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [torch.load(f, weights_only=False) for f in outs]
+
+
+def dp_train_pair() -> dict:
+    """One dp LORE step at world size 1 against the meshless step."""
+    import tempfile
+
+    import torch
+
+    from pdf_table_tpu_torch.data.synthetic import SyntheticTableDataset
+    from pdf_table_tpu_torch.models.lore.config import LoreConfig
+    from pdf_table_tpu_torch.parallel import make_mesh
+    from pdf_table_tpu_torch.train.lore_trainer import (LoreTrainArgs,
+                                                        LoreTrainer)
+
+    cfg = LoreConfig.wtw(**PAR_TRAIN_CFG)
+    tree = train_tree(cfg)
+    batch = SyntheticTableDataset(cfg, n=PAR_TRAIN_BATCH, seed=0).batch(
+        list(range(PAR_TRAIN_BATCH)))
+    mesh = make_mesh(device=DEVICE)
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as out_dir, \
+            torch_deterministic():
+        for name, m in (("mesh", mesh), ("meshless", None)):
+            tr = LoreTrainer(cfg, LoreTrainArgs(
+                learning_rate=TRAIN_LR, lr_schedule="constant",
+                batch_size=PAR_TRAIN_BATCH, save_every=0,
+                output_dir=out_dir), mesh=m, device=DEVICE)
+            tr.init_state(tree)
+            losses = tr.train_step(batch)
+            res[name] = (losses, {k: v.detach().clone()
+                                  for k, v in tr.state.params.items()})
+    (lm, pm), (ln, pn) = res["mesh"], res["meshless"]
+    return {"losses_equal": lm == ln, "loss": lm["loss"],
+            "params_equal": all(torch.equal(pm[k], pn[k]) for k in pn),
+            "leaves": len(pn)}
+
+
+@contextlib.contextmanager
+def torch_deterministic():
+    """``torch.use_deterministic_algorithms(True)`` within the block."""
+    import torch
+
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before)
+
+
+def phase_parallel(card, trees):
+    """Parallelism on the card (see above)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from pdf_table_tpu_torch.ops.kernels import (KERNELS, launch_counts,
+                                                 reset_launch_counts)
+    from pdf_table_tpu_torch.parallel import make_mesh
+    from pdf_table_tpu_torch.parallel.pipeline import (gpipe_apply,
+                                                       sequential_apply)
+
+    pages = [{"image": make_page(i), "page": i} for i in range(PIPE_PAGES)]
+    solo = build_pipeline(DEVICE, trees)
+    solo.run(pages)                     # warm-up
+    want = solo.run(pages)
+    del solo
+    mesh = make_mesh(device=DEVICE)
+    try:
+        check(dist.get_world_size() == 1 and dist.get_backend()
+              == ("nccl" if DEVICE == "cuda" else "gloo"),
+              "parallel: not a one-rank NCCL group")
+        bp = build_pipeline(DEVICE, trees, mesh=mesh)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        got = bp.run(pages)
+        torch.cuda.synchronize()
+        mesh_s = time.perf_counter() - t0
+        dp1 = {k: launch_counts[k] for k in KERNELS}
+        cmp1 = pipeline_diff(got, want)
+        del bp
+        gen = torch.Generator(device=DEVICE).manual_seed(3)
+        stack = {"w": torch.randn(1, 64, 64, device=DEVICE, generator=gen)
+                 * 0.1}
+        mb = torch.randn(6, 8, 64, device=DEVICE, generator=gen)
+        stage_fn = (lambda p, x: torch.tanh(x @ p["w"]))
+        pp = make_mesh(axis_names=("pp",), device=DEVICE)
+        gpipe_equal = torch.equal(gpipe_apply(stage_fn, stack, mb, pp),
+                                  sequential_apply(stage_fn, stack, mb))
+        train = dp_train_pair()
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gloo_") as tmp:
+        t0 = time.perf_counter()
+        ranks = gloo_ranks(trees, tmp)
+        gloo_s = time.perf_counter() - t0
+    cmp2 = pipeline_diff(ranks[0]["pages"], want)
+    gloo = {k: sum(r["launches"][k] for r in ranks) for k in KERNELS}
+    summary = {
+        "card": card, "pages": PIPE_PAGES, "dp1_run_s": mesh_s,
+        "dp1_launches": dp1, "dp1_vs_meshless": cmp1,
+        "gpipe_one_stage_equal": gpipe_equal, "dp_train": train,
+        "gloo_wall_s": gloo_s,
+        "gloo_ranks": [{k: r[k] for k in ("own_pages", "run_s", "build_s",
+                                          "launches", "device", "jax")}
+                       for r in ranks],
+        "gloo_vs_meshless": cmp2}
+    print(json.dumps({"parallel": summary}))
+    for tag, cmp in (("dp1", cmp1), ("gloo", cmp2)):
+        check(cmp["quads_same_count"] and cmp["quad_px"] <= PIPE_QUAD_TOL,
+              f"parallel: {tag}: quads differ: {cmp['quad_px']:.3g} px")
+        lay = cmp["layout"]
+        check(lay["same_count"] and lay["same_labels"]
+              and lay["box_px"] <= LAYOUT_BOX_TOL
+              and lay["score"] <= LAYOUT_SCORE_TOL,
+              f"parallel: {tag}: layout differs: {lay}")
+        check(cmp["text_share"] >= PIPE_TEXT_MIN,
+              f"parallel: {tag}: texts equal on {cmp['text_share']:.3f}")
+        check(cmp["page_html_equal"] == cmp["page_html_checked"] > 0,
+              f"parallel: {tag}: page_html differs where its inputs are "
+              f"equal")
+    check(dp1["deform_conv2d"] > 0 and dp1["resize_normalize"] > 0,
+          f"parallel: the dp run launched {dp1}")
+    check(all(r["launches"]["resize_normalize"] > 0 for r in ranks)
+          and gloo["deform_conv2d"] > 0,
+          f"parallel: the gloo ranks launched "
+          f"{[r['launches'] for r in ranks]}")
+    check([r["own_pages"] for r in ranks] == [PIPE_PAGES / 2] * 2,
+          "parallel: the ranks did not take half the pages each")
+    check(not any(r["jax"] for r in ranks), "parallel: a rank imported JAX")
+    check(gpipe_equal, "parallel: GPipe at one stage differs from "
+          "sequential_apply")
+    check(train["losses_equal"] and train["params_equal"],
+          f"parallel: the dp step at world size 1 differs from the "
+          f"meshless step: {train}")
+    return {"parallel_dp1": dp1, "parallel_gloo": gloo}
+
 def demangle(sym: str) -> str:
     """The kernel's name (and integer template arguments) in a mangled
     symbol: the length-prefixed identifier that ends in "kernel"."""
@@ -6025,8 +6479,11 @@ def main() -> int:
     rec_b = run("rec_backbones", phase_rec_backbones, card)
     train_rows = run("train_dcn", phase_train_dcn, gen)
     train = run("train", phase_train, card, train_rows)
-    train_det = run("train_det", phase_train_det, card)
+    train_det, det_tree = run("train_det", phase_train_det, card)
     conv = run("convert", phase_convert, card)
+    poly = run("det_polygon", phase_det_polygon, card, det_tree)
+    flops = run("flops", phase_flops, card, pipe_trees)
+    par = run("parallel", phase_parallel, card, pipe_trees)
     print(json.dumps({"phase_s": phase_s}))
     check("jax" not in sys.modules and "pdf_table_tpu" not in sys.modules,
           "the port imported JAX or the JAX package")
@@ -6060,6 +6517,11 @@ def main() -> int:
                 "det_backbones": det_b[name], "rec_backbones": rec_b[name],
                 "train": train[name], "serve": serve_launches[name],
                 "train_det": train_det[name], "convert": conv[name],
+                "det_polygon": poly[name],
+                "flops_pipeline_bf16": flops["bf16"][name],
+                "flops_pipeline_f32": flops["f32"][name],
+                "parallel_dp1": par["parallel_dp1"][name],
+                "parallel_gloo": par["parallel_gloo"][name],
                 **{path: counts[name] for path, counts in sys_paths.items()},
                 **{path: counts[name] for path, counts in cli_paths.items()}}
 

@@ -12,8 +12,8 @@ through the per-page system, read without OpenCV (``utils/image_io.py``).
 ``--debug`` writes each page's annotated overlay as PNG;
 ``--profile_dir`` writes a ``torch.profiler`` trace of the run
 (``utils/profiling.py``). The models run on ``cuda`` unless ``main`` or
-:class:`PdfTableCli` is given ``device="cpu"``; ``--device_mesh``
-raises (parallelism is ROADMAP.md Queue 1 item 13).
+:class:`PdfTableCli` is given ``device="cpu"``; ``--device_mesh`` is
+declared and read by nothing, as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -79,10 +79,7 @@ def parse_pages(spec: Optional[str], n_pages: int) -> List[int]:
 
 class PdfTableCli:
     def __init__(self, args: PdfTableCliArguments, device=None):
-        if args.device_mesh:
-            raise NotImplementedError(
-                "--device_mesh: the port runs on one card; parallelism is "
-                "ROADMAP.md Queue 1 item 13")
+        # ``device_mesh`` is declared and never read, as in the JAX CLI
         self.args = args
         cfg = OcrSystemConfig(
             detect_model=DET_ALIASES.get(args.detect_model or "",

@@ -10,11 +10,16 @@ with the seconds of each stage appended to ``timings`` under the JAX
 package's keys ("preprocess", "infer", "postprocess", "total"); "infer"
 ends when the device has finished (a CUDA synchronize), as JAX's ends at
 ``block_until_ready``. ``timing_summary``, ``reset_timings`` and
-``pad_batch`` are JAX's. There is no jit, mesh or compile cache: the port
-runs eagerly on one card, and its tasks load their weights when they are
-made, so there is no ``ensure_built`` either (the system's lazy tasks and
-the kernels' build are guarded by locks of their own:
-``pipeline/system.py``, ``ops/kernels/build.py``).
+``pad_batch`` are JAX's. There is no jit or compile cache: the port
+runs eagerly, and its tasks load their weights when they are made, so
+there is no ``ensure_built`` either (the system's lazy tasks and the
+kernels' build are guarded by locks of their own: ``pipeline/system.py``,
+``ops/kernels/build.py``). A task given a ``mesh`` (parallel/mesh.py)
+takes the mesh's first rank's weights once they are loaded
+(:func:`replicate_on`), as JAX's task replicates its parameters over the
+mesh: every process of a data-parallel run computes with one tree.
+Building a task on a mesh is therefore a collective: every process builds
+the same tasks in the same order.
 """
 
 from __future__ import annotations
@@ -43,6 +48,15 @@ class TaskConfig:
     extra: Dict[str, Any] = field(default_factory=dict)
 
 
+def replicate_on(model: torch.nn.Module, mesh) -> torch.nn.Module:
+    """``model``'s parameters and buffers taken from the mesh's first rank
+    (``parallel.mesh.replicate_params``); without a mesh, as it is."""
+    if mesh is not None:
+        from ..parallel.mesh import replicate_params
+        replicate_params(model, mesh)
+    return model
+
+
 class InferTask:
     """Base class of the detection, classification and table-structure
     tasks. Subclasses implement ``_preprocess(inputs) -> (batch, meta)``,
@@ -50,7 +64,8 @@ class InferTask:
 
     task_name = "base"
 
-    def __init__(self):
+    def __init__(self, mesh=None):
+        self.mesh = mesh
         self.timings: Dict[str, List[float]] = {
             "preprocess": [], "infer": [], "postprocess": [], "total": []}
 

@@ -1,8 +1,9 @@
 """CLI, model and data argument dataclasses (counterpart of
 pdf_table_tpu/entity/args.py): the same flag surface, so that
 ``pdftable --file_path_or_url ... --detect_model ...`` runs unchanged on
-the port. ``device_mesh`` belongs to parallelism (ROADMAP.md Queue 1 item
-13): the port's CLI raises when it is given."""
+the port. ``device_mesh`` is declared and read by nothing, as in the JAX
+CLI: a data-parallel run goes through ``BatchPipeline(mesh=)`` or the
+service's ``--mesh``."""
 
 from __future__ import annotations
 

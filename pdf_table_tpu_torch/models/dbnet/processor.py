@@ -8,7 +8,9 @@ normalization. Post: prob map -> quads, on the host with OpenCV 5.0.0's
 geometry (``ops/cv_host.py``: contours, ``minAreaRect``, ``fillPoly``,
 the masked mean), the analytic unclip; or axis-aligned boxes from the
 connected components (``fast_host_boxes``, ``fast_device_boxes``). The
-polygon mode (``return_polygon``, ``approxPolyDP``) is not ported.
+polygon mode (``return_polygon``) approximates each contour with
+OpenCV's ``approxPolyDP`` (``cv_host.approx_poly_dp``) and offsets its
+vertices outward.
 """
 
 from __future__ import annotations
@@ -154,9 +156,9 @@ class DbNetPostProcessor:
         H, W = prob.shape
         oh, ow = org_shape
         if cfg.return_polygon:
-            raise NotImplementedError(
-                "DBNet's polygon mode (approxPolyDP) is not ported "
-                "(ROADMAP.md Queue 1 item 6)")
+            return self._polygons_from_contours(
+                prob, cv_host.find_contours(prob > cfg.thresh, limit=100),
+                (H, W), (oh, ow))
         contours = cv_host.find_contours(prob > cfg.thresh,
                                          limit=cfg.max_candidates)
         boxes: List[List[float]] = []
@@ -178,6 +180,57 @@ class DbNetPostProcessor:
             scores.append(float(score))
         return {"det_polygons": np.array(boxes, np.float32).reshape(-1, 8),
                 "det_scores": np.array(scores, np.float32)}
+
+    def _polygons_from_contours(self, prob, contours, net_hw, org_hw
+                                ) -> Dict[str, Any]:
+        """Polygon mode: each of the first 100 contours approximated at 1 %
+        of its perimeter, kept with at least 4 vertices and a mean prob of
+        at least ``max(box_thresh, 0.7)``, its vertices offset outward
+        (:meth:`_offset_polygon`) and scaled to the original image:
+        {'det_polygons': [flat vertex lists], 'det_scores', 'is_polygon':
+        True}."""
+        cfg = self.config
+        H, W = net_hw
+        oh, ow = org_hw
+        polys: List[List[float]] = []
+        scores: List[float] = []
+        for contour in contours:
+            eps = 0.01 * cv_host.arc_length(contour, True)
+            approx = cv_host.approx_poly_dp(contour, eps, True).reshape(-1, 2)
+            if approx.shape[0] < 4:
+                continue
+            score = box_score_fast(prob, approx.astype(np.float32))
+            if score < max(cfg.box_thresh, 0.7):
+                continue
+            poly = self._offset_polygon(approx.astype(np.float64), 2.0)
+            poly[:, 0] = np.clip(np.round(poly[:, 0] / W * ow), 0, ow)
+            poly[:, 1] = np.clip(np.round(poly[:, 1] / H * oh), 0, oh)
+            polys.append(poly.reshape(-1).tolist())
+            scores.append(float(score))
+        return {"det_polygons": polys,
+                "det_scores": np.array(scores, np.float32),
+                "is_polygon": True}
+
+    @staticmethod
+    def _offset_polygon(poly: np.ndarray, ratio: float) -> np.ndarray:
+        """Each vertex moved away from the vertices' mean by d = area *
+        ratio / perimeter (the polygon unclip, without pyclipper)."""
+        x, y = poly[:, 0], poly[:, 1]
+        area = 0.5 * abs(np.dot(x, np.roll(y, -1))
+                         - np.dot(y, np.roll(x, -1)))
+        per = np.sum(np.linalg.norm(poly - np.roll(poly, -1, axis=0),
+                                    axis=1))
+        if per < 1e-6:
+            return poly
+        d = area * ratio / per
+        c = poly.mean(axis=0)
+        out = poly.copy()
+        for i in range(len(poly)):
+            v = poly[i] - c
+            n = np.linalg.norm(v)
+            if n > 1e-9:
+                out[i] = poly[i] + v / n * d
+        return out
 
     def fast_host_boxes(self, prob: np.ndarray,
                         org_shape: Tuple[int, int]) -> Dict[str, Any]:

@@ -39,7 +39,8 @@ _lib_lock = threading.Lock()
 
 RotatedRect = Tuple[Tuple[float, float], Tuple[float, float], float]
 
-__all__ = ["rgb_to_grey", "find_contours", "min_area_rect", "box_points",
+__all__ = ["rgb_to_grey", "find_contours", "arc_length", "approx_poly_dp",
+           "min_area_rect", "box_points",
            "convex_hull", "fill_poly", "mean_masked",
            "connected_components_with_stats",
            "threshold_otsu_inv", "find_nonzero", "rotation_matrix_2d",
@@ -128,6 +129,144 @@ def find_contours(bitmap: np.ndarray, limit: Optional[int] = None
     return [pts[e - n:e].reshape(-1, 1, 2)
             for n, e in zip(counts[:k], ends)]
 
+
+def arc_length(curve, closed: bool) -> float:
+    """``cv2.arcLength(curve, closed)``: each step's length in f32 (its
+    differences, squares and root), the steps summed in f64, from the last
+    point to the first as well for a closed curve."""
+    p = np.asarray(curve).reshape(-1, 2).astype(np.float32)
+    n = len(p)
+    if n <= 1:
+        return 0.0
+    prev = np.concatenate([p[-1:] if closed else p[:1], p[:-1]])
+    d = p - prev
+    steps = np.sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1])
+    total = 0.0
+    for v in steps.astype(np.float64):
+        total += v
+    return total
+
+
+def _segment_dist2(pts: np.ndarray, a: np.ndarray, b: np.ndarray
+                   ) -> np.ndarray:
+    """Squared f64 distances of integer points from the segment [a, b]:
+    from the nearer end where the point projects outside it."""
+    d = (b - a).astype(np.float64)
+    r = (pts - a).astype(np.float64)
+    chord = d[0] * d[0] + d[1] * d[1]
+    t = r[:, 0] * d[0] + r[:, 1] * d[1]
+    cross = r[:, 1] * d[0] - r[:, 0] * d[1]
+    to_a = r[:, 0] * r[:, 0] + r[:, 1] * r[:, 1]
+    rb = (pts - b).astype(np.float64)
+    to_b = rb[:, 0] * rb[:, 0] + rb[:, 1] * rb[:, 1]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        line = cross * cross / chord
+    return np.where(t <= 0, to_a, np.where(t >= chord, to_b, line))
+
+
+def approx_poly_dp(curve, epsilon: float, closed: bool) -> np.ndarray:
+    """``cv2.approxPolyDP(curve, epsilon, closed)`` of integer points, as
+    OpenCV 5.0.0 runs it: for a closed curve, three passes for two points
+    far apart, each pass from the last one's farthest point (the first
+    farthest in ring order); Douglas-Peucker over a stack of slices, the
+    left half popped first, a slice kept whole while its farthest point
+    lies within ``epsilon`` of the slice's end-to-end segment (not its
+    line: a point that projects outside the segment is measured from the
+    nearer end; squared distances in f64); then one pass that drops a
+    point within ``epsilon / sqrt(2)`` of the line through its neighbours.
+    Returns an (n, 1, 2) int32 array. Held to ``cv2`` point for point by
+    tests/test_torch_dbnet_polygon.py."""
+    src = np.asarray(curve).reshape(-1, 2).astype(np.int64)
+    count = len(src)
+    if count == 0:
+        return np.zeros((0, 1, 2), np.int32)
+    eps = float(epsilon) ** 2
+    dst: List[np.ndarray] = []
+    stack: List[Tuple[int, int]] = []
+    is_closed = closed
+    init_iters = 3
+    if not closed:
+        if (src[0] != src[-1]).any():
+            stack.append((0, count - 1))
+        else:
+            is_closed, init_iters = True, 1
+    if is_closed:
+        pos = right = 0
+        le_eps = False
+        for _ in range(init_iters):
+            pos = (pos + right) % count
+            start = src[pos]
+            d = src[(pos + np.arange(1, count)) % count] - start
+            dist = (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]).astype(np.float64)
+            max_dist = 0.0
+            if count > 1 and dist.max() > 0:
+                j = int(np.argmax(dist))
+                max_dist, right = float(dist[j]), j + 1
+            le_eps = max_dist <= eps
+        if le_eps:
+            dst.append(start)
+        else:
+            far = (right + pos) % count
+            stack += [(far, pos), (pos, far)]
+    while stack:
+        s_start, s_end = stack.pop()
+        start, end = src[s_start], src[s_end]
+        inner = (s_start + 1 + np.arange((s_end - s_start - 1) % count)) \
+            % count
+        le_eps, split = True, None
+        if len(inner):
+            dist = _segment_dist2(src[inner], start, end)
+            j = int(np.argmax(dist))
+            split = int(inner[j])
+            le_eps = float(dist[j]) <= eps
+        if le_eps:
+            dst.append(start)
+        else:
+            stack += [(split, s_end), (s_start, split)]
+    if not is_closed:
+        dst.append(src[-1])
+    return _approx_cleanup([(int(p[0]), int(p[1])) for p in dst], closed,
+                           eps)
+
+
+def _approx_cleanup(dst: List[Tuple[int, int]], closed: bool,
+                    eps: float) -> np.ndarray:
+    """The last pass of ``approxPolyDP_``, in place on the ring ``dst``: a
+    point within ``sqrt(eps / 2)`` of the line through its neighbours, that
+    line neither horizontal nor vertical and the point between them, is
+    dropped, and the next point is not tested."""
+    count = new_count = len(dst)
+    dst = list(dst)
+    pos = count - 1 if closed else 0
+    start = dst[pos]
+    pos = (pos + 1) % count
+    wpos = pos
+    pt = dst[pos]
+    pos = (pos + 1) % count
+    i = 0 if closed else 1
+    while i < count - (0 if closed else 1) and new_count > 2:
+        end = dst[pos]
+        pos = (pos + 1) % count
+        dx, dy = float(end[0] - start[0]), float(end[1] - start[1])
+        dist = abs((pt[0] - start[0]) * dy - (pt[1] - start[1]) * dx)
+        inner = (pt[0] - start[0]) * (end[0] - pt[0]) \
+            + (pt[1] - start[1]) * (end[1] - pt[1])
+        if dist * dist <= 0.5 * eps * (dx * dx + dy * dy) and dx != 0 \
+                and dy != 0 and inner >= 0:
+            new_count -= 1
+            dst[wpos] = start = end
+            wpos = (wpos + 1) % count
+            pt = dst[pos]
+            pos = (pos + 1) % count
+            i += 2
+            continue
+        dst[wpos] = start = pt
+        wpos = (wpos + 1) % count
+        pt = end
+        i += 1
+    if not closed:
+        dst[wpos] = pt
+    return np.asarray(dst[:new_count], np.int32).reshape(-1, 1, 2)
 
 def convex_hull(points) -> np.ndarray:
     """Indices of ``cv2.convexHull(points)``'s points (counter-clockwise),

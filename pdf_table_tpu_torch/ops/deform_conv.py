@@ -38,6 +38,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils.flops import hand_counted
 from .blend_matmul import blend_matmul_plain
 from .kernels import launch_counts
 
@@ -63,6 +64,19 @@ def _out_hw(H: int, W: int, Kh: int, Kw: int, stride: Pair, padding: Pair,
 # the route, as pure functions of shapes (copies of the JAX predicates
 # without their backend test and environment switches)
 # ---------------------------------------------------------------------------
+
+
+def dcn_flops(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
+              weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
+              stride: Pair = (1, 1), padding: Pair = (1, 1),
+              dilation: Pair = (1, 1), *_, **__) -> int:
+    """The DCN's model FLOPs, ``2·B·Ho·Wo·K·Cin·Cout``: one product over
+    ``K·Cin`` per output, whatever route computes it
+    (``utils/flops.py``)."""
+    B, H, W, Cin = x.shape
+    Kh, Kw, _, Cout = weight.shape
+    Ho, Wo = _out_hw(H, W, Kh, Kw, stride, padding, dilation)
+    return 2 * B * Ho * Wo * Kh * Kw * Cin * Cout
 
 
 def gather_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -202,6 +216,7 @@ def tap_columns(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
         yield col.reshape(B * Ho * Wo, Cin)
 
 
+@hand_counted(dcn_flops)
 def deform_conv2d_plain(x: torch.Tensor, offset: torch.Tensor,
                         mask: torch.Tensor, weight: torch.Tensor,
                         bias: Optional[torch.Tensor] = None,
@@ -239,6 +254,7 @@ def split_tf32(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return hi, rna(t - hi)
 
 
+@hand_counted(dcn_flops)
 def deform_conv2d_3xtf32_plain(x: torch.Tensor, offset: torch.Tensor,
                                mask: torch.Tensor, weight: torch.Tensor,
                                bias: Optional[torch.Tensor] = None,
@@ -264,6 +280,7 @@ def deform_conv2d_3xtf32_plain(x: torch.Tensor, offset: torch.Tensor,
     return out
 
 
+@hand_counted(dcn_flops)
 def deform_conv2d_rounded(x: torch.Tensor, offset: torch.Tensor,
                           mask: torch.Tensor, weight: torch.Tensor,
                           bias: Optional[torch.Tensor] = None,
@@ -373,6 +390,7 @@ def flat_kc_chunks(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
         yield g2, w4s, wrep
 
 
+@hand_counted(dcn_flops)
 def deform_conv2d_chunked_plain(x: torch.Tensor, offset: torch.Tensor,
                                 mask: torch.Tensor, weight: torch.Tensor,
                                 bias: Optional[torch.Tensor] = None,
@@ -720,6 +738,7 @@ class DeformConv2dFunction(torch.autograd.Function):
         return (*grads, None, None, None, None)
 
 
+@hand_counted(dcn_flops)
 def deform_conv2d_tap(x: torch.Tensor, offset: torch.Tensor,
                       mask: torch.Tensor, weight: torch.Tensor,
                       bias: Optional[torch.Tensor] = None,
@@ -735,6 +754,7 @@ def deform_conv2d_tap(x: torch.Tensor, offset: torch.Tensor,
                                       tuple(dilation), False)
 
 
+@hand_counted(dcn_flops)
 def deform_conv2d_chunked(x: torch.Tensor, offset: torch.Tensor,
                           mask: torch.Tensor, weight: torch.Tensor,
                           bias: Optional[torch.Tensor] = None,
@@ -752,6 +772,7 @@ def deform_conv2d_chunked(x: torch.Tensor, offset: torch.Tensor,
                                       tuple(dilation), True)
 
 
+@hand_counted(dcn_flops)
 def deform_conv2d(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
                   weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
                   stride: Pair = (1, 1), padding: Pair = (1, 1),

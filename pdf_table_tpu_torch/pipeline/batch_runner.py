@@ -47,6 +47,15 @@ A failure is contained to its page
 (rendering, vector text, HTML assembly) or its chunk (the lanes): those
 pages get an error output, the rest of the batch goes on; nothing is re-run
 elsewhere.
+
+With a ``mesh`` (a dp mesh of parallel/mesh.py, one process per card),
+``run`` is a collective: every process passes the same pages, runs its
+contiguous shard of them (``parallel/multihost.py::shard_bounds``) through
+its own chunks and lanes on its own card, and gets every page's output
+back in page order (``all_gather_object``). A failure stays contained
+within the process that met it. JAX's runner pads each chunk to a
+multiple of the dp size, since its chunk is one program over the mesh;
+here each process runs its pages as they are, so nothing is padded.
 """
 
 from __future__ import annotations
@@ -164,11 +173,15 @@ class BatchPipeline:
     runner's defaults (module docstring)."""
 
     def __init__(self, config: Optional[OcrSystemConfig] = None,
-                 batch_pages: int = 8, device=None,
+                 mesh=None, batch_pages: int = 8, device=None,
                  half_res_probs: bool = True, device_boxes: bool = True,
                  device_crops: Optional[bool] = None):
-        self.system = OcrSystemTask(config or OcrSystemConfig(),
+        from ..parallel.mesh import dp_rank_and_size
+
+        dp_rank_and_size(mesh)   # a tp or sp axis raises here
+        self.system = OcrSystemTask(config or OcrSystemConfig(), mesh=mesh,
                                     device=device)
+        self.mesh = mesh
         self.batch_pages = batch_pages
         self.half_res_probs = half_res_probs
         self.device_boxes = device_boxes
@@ -417,10 +430,29 @@ class BatchPipeline:
             ) -> List[OcrSystemModelOutput]:
         """``pages``: [{'image': (H, W, 3) uint8 RGB, 'page': n}] or
         [{'pdf_page': PdfPage, 'pdf_doc': PdfDocument, 'page': n}] (with or
-        without an 'image'). Returns one output per page, in order.
-        ``last_stats`` gets the seconds of each lane on the host clock
-        (cumulative over chunks; a lane's time includes its wait for the
-        device) and the total."""
+        without an 'image'). Returns one output per page, in order; on a
+        mesh each process runs its shard and the outputs are gathered
+        (module docstring). ``last_stats`` gets the seconds of each lane of
+        this process's pages on the host clock (cumulative over chunks; a
+        lane's time includes its wait for the device) and the total."""
+        if self.mesh is None:
+            return self._run_local(pages)
+        import torch.distributed as dist
+
+        from ..parallel.mesh import dp_rank_and_size
+        from ..parallel.multihost import merge_sharded_results, shard_bounds
+
+        rank, size = dp_rank_and_size(self.mesh)
+        self.system.build_tasks()
+        lo, hi = shard_bounds(len(pages), rank, size)
+        mine = self._run_local(pages[lo:hi])
+        shards: List[Any] = [None] * size
+        dist.all_gather_object(shards, mine,
+                               group=self.mesh.get_group("dp"))
+        return merge_sharded_results(shards)
+
+    def _run_local(self, pages: Sequence[Dict[str, Any]]
+                   ) -> List[OcrSystemModelOutput]:
         t_start = time.perf_counter()
         stats = {k: 0.0 for k in (
             "rasterize", "digital_serial", "pdf_text", "h2d_enqueue",

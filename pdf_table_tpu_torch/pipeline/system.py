@@ -12,7 +12,9 @@ HTML and page HTML, with the seconds of each stage in ``metric`` under the
 JAX package's keys; with ``debug``, the annotated overlay
 (``utils/debug_render.py``) in ``debug["render"]`` and the metrics logged.
 Every task is built on the system's ``device``
-(``cuda`` unless ``"cpu"`` is asked for).
+(``cuda`` unless ``"cpu"`` is asked for); with a ``mesh``
+(parallel/mesh.py) the model tasks replicate the mesh's first rank's
+weights as they are built.
 """
 
 from __future__ import annotations
@@ -102,10 +104,11 @@ class OcrSystemTask:
     ``OcrSystemModelOutput``."""
 
     def __init__(self, config: Optional[OcrSystemConfig] = None,
-                 device=None):
+                 mesh=None, device=None):
         from ..engine.device import resolve_device
 
         self.config = config or OcrSystemConfig()
+        self.mesh = mesh
         self.device = resolve_device(device)
         self._det = None
         self._rec = None
@@ -126,7 +129,8 @@ class OcrSystemTask:
             if self._det is None:
                 from ..tasks.detection import OcrDetectionTask
                 self._det = OcrDetectionTask(model=self.config.detect_model,
-                                             device=self.device)
+                                             device=self.device,
+                                             mesh=self.mesh)
         return self._det
 
     @property
@@ -136,7 +140,8 @@ class OcrSystemTask:
                 from ..tasks.recognition import OcrRecognitionTask
                 self._rec = OcrRecognitionTask(
                     model=self.config.recognizer_model, lang=self.config.lang,
-                    device=self.device, cls_task=self.textline_cls_task)
+                    device=self.device, cls_task=self.textline_cls_task,
+                    mesh=self.mesh)
         return self._rec
 
     @property
@@ -147,7 +152,8 @@ class OcrSystemTask:
                 from ..tasks.layout import OcrLayoutTask
                 self._layout = OcrLayoutTask(model=self.config.layout_model,
                                              task_type=self.config.lang,
-                                             device=self.device)
+                                             device=self.device,
+                                             mesh=self.mesh)
         return self._layout
 
     @property
@@ -157,7 +163,8 @@ class OcrSystemTask:
                 from ..tasks.table_structure import OcrTableStructureTask
                 self._tsr = OcrTableStructureTask(
                     model=self.config.table_structure_model,
-                    device=self.device, **self.config.table_structure_kwargs)
+                    device=self.device, mesh=self.mesh,
+                    **self.config.table_structure_kwargs)
         return self._tsr
 
     @property
@@ -176,8 +183,18 @@ class OcrSystemTask:
             if self._line_cls is None and self.config.use_textline_cls:
                 from ..tasks.cls_pulc import ClsImagePulcTask
                 self._line_cls = ClsImagePulcTask(
-                    task_type="textline_orientation", device=self.device)
+                    task_type="textline_orientation", device=self.device,
+                    mesh=self.mesh)
         return self._line_cls
+
+    def build_tasks(self) -> None:
+        """Build every model task the batched runner calls, in one order
+        (on a mesh building a task is a collective, so every process must
+        build the same tasks, also where its own pages would not reach
+        them)."""
+        for name in ("det_task", "textline_cls_task", "rec_task",
+                     "layout_task", "tsr_task"):
+            getattr(self, name)
 
     @property
     def pdf_text_task(self):

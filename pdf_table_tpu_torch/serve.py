@@ -1,7 +1,8 @@
 """The HTTP extraction service with dynamic batching (counterpart of
-pdf_table_tpu/serve.py), on one card.
+pdf_table_tpu/serve.py), on one card or, data-parallel, on several.
 
     python -m pdf_table_tpu_torch.serve --port 8400 [--batch_pages 8]
+    torchrun --nproc_per_node=N -m pdf_table_tpu_torch.serve --mesh dp=N
 
 * A ``ThreadingHTTPServer`` front end; each handler parks on its
   request's event.
@@ -22,8 +23,17 @@ pdf_table_tpu/serve.py), on one card.
 Images are decoded without OpenCV (``utils/image_io.py``). ``warm=True``
 builds every task's model and loads every kernel's library before the
 batcher starts, so that the first request does not pay for ``nvcc``. The
-models run on ``cuda`` unless ``device="cpu"`` is given; ``mesh`` (and
-``--mesh``) raises: parallelism is ROADMAP.md Queue 1 item 13.
+models run on ``cuda`` unless ``device="cpu"`` is given.
+
+With a ``mesh`` (a dp mesh of parallel/mesh.py, one process per card;
+``--mesh dp=N`` under ``torchrun``) the process of rank 0 binds the port,
+batches the requests and sends each batch's payloads to the other ranks
+(``broadcast_object_list``); each of those runs :meth:`serve_worker`,
+which expands the same payloads into the same pages and enters the
+collective ``BatchPipeline.run`` beside rank 0, until rank 0 sends a stop
+(:meth:`close`). Every rank runs its shard of the batch's pages on its own
+card; rank 0 answers with all of them. ``/healthz`` and ``/metrics`` are
+rank 0's.
 """
 
 from __future__ import annotations
@@ -54,15 +64,14 @@ class ExtractionService:
     def __init__(self, config=None, batch_pages: int = 8,
                  max_wait_ms: float = 25.0, warm: bool = False,
                  mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: the port serves from one card; parallelism is "
-                "ROADMAP.md Queue 1 item 13")
+        from .parallel.mesh import dp_rank_and_size
         from .pipeline.batch_runner import BatchPipeline
         from .pipeline.system import OcrSystemConfig
 
-        self.pipeline = BatchPipeline(config or OcrSystemConfig(),
+        self.pipeline = BatchPipeline(config or OcrSystemConfig(), mesh=mesh,
                                       batch_pages=batch_pages, device=device)
+        self.mesh = mesh
+        self.rank = dp_rank_and_size(mesh)[0]
         self.batch_pages = batch_pages
         self.max_wait_ms = max_wait_ms
         self.queue: "Queue[_Request]" = Queue()
@@ -74,7 +83,8 @@ class ExtractionService:
                                         daemon=True)
         if warm:
             self.warm()
-        self._thread.start()
+        if self.rank == 0:
+            self._thread.start()
 
     @property
     def platform(self) -> str:
@@ -83,10 +93,7 @@ class ExtractionService:
     def warm(self) -> None:
         """Build every task the runner calls and, on a card, load every
         kernel's library (built first where missing)."""
-        s = self.pipeline.system
-        for name in ("det_task", "rec_task", "layout_task", "tsr_task",
-                     "textline_cls_task"):
-            getattr(s, name)
+        self.pipeline.system.build_tasks()
         if self.pipeline.device.type == "cuda":
             from .ops.kernels.build import load_all
             load_all()
@@ -106,7 +113,13 @@ class ExtractionService:
 
     def close(self) -> None:
         self._stop.set()
-        self._thread.join(timeout=5)
+        if self.mesh is not None and self.rank == 0:
+            # the batch in flight is a collective: let it end, then stop
+            # the other ranks' workers
+            self._thread.join()
+            self._send_batch(None)
+        else:
+            self._thread.join(timeout=5)
         # fail whatever is still queued, so that parked handlers return
         # now instead of riding out their submit timeout
         while True:
@@ -119,6 +132,43 @@ class ExtractionService:
             req.done.set()
 
     # -- batch side ----------------------------------------------------------
+
+    def _send_batch(self, items):
+        """Rank 0's (kind, payload) list of a batch, or None to stop, to
+        every rank of the mesh; returns what rank 0 sent."""
+        import torch.distributed as dist
+
+        box = [items]
+        dist.broadcast_object_list(box, src=int(self.mesh.mesh.flatten()[0]),
+                                   group=self.mesh.get_group("dp"))
+        return box[0]
+
+    def serve_worker(self) -> None:
+        """A rank other than 0: run each batch rank 0 sends through the
+        collective ``BatchPipeline.run``, until it sends a stop."""
+        import os
+
+        while True:
+            items = self._send_batch(None)
+            if items is None:
+                return
+            pages: List[Dict[str, Any]] = []
+            for kind, payload in items:
+                try:
+                    pages.extend(self._expand(_Request(kind, payload)))
+                except Exception:
+                    continue   # rank 0 fails this request the same way
+            try:
+                if pages:
+                    self.pipeline.run(pages)
+            except Exception:
+                from .utils.logging_utils import logger
+                logger.exception("worker batch failed")
+            finally:
+                for p in pages:
+                    tmp = p.get("_tmp_path")
+                    if tmp and os.path.exists(tmp):
+                        os.unlink(tmp)
 
     def _expand(self, req: _Request) -> List[Dict[str, Any]]:
         """One request -> page dicts for ``BatchPipeline.run``."""
@@ -170,6 +220,8 @@ class ExtractionService:
     def _process(self, batch: List[_Request]) -> None:
         import os
 
+        if self.mesh is not None:
+            self._send_batch([(r.kind, r.payload) for r in batch])
         pages, owners = [], []
         for req in batch:
             try:
@@ -338,12 +390,25 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--no_warm", action="store_true",
                     help="skip building the models and kernels at startup")
     ap.add_argument("--mesh", default=None,
-                    help="dp=N: not on the port (ROADMAP.md Queue 1 item "
-                         "13)")
+                    help="dp=N: data parallel over N processes, one per "
+                         "card (run under torchrun --nproc_per_node=N)")
     args = ap.parse_args(argv)
+    mesh = None
+    if args.mesh:
+        from .parallel.mesh import make_mesh
+        from .parallel.multihost import initialize
+
+        axis, _, n = args.mesh.partition("=")
+        if axis != "dp" or not n.isdigit():
+            raise ValueError(f"--mesh {args.mesh!r}: expected dp=N")
+        initialize()
+        mesh = make_mesh(int(n))
     service = ExtractionService(batch_pages=args.batch_pages,
                                 max_wait_ms=args.max_wait_ms,
-                                warm=not args.no_warm, mesh=args.mesh)
+                                warm=not args.no_warm, mesh=mesh)
+    if service.rank != 0:
+        service.serve_worker()
+        return 0
     server = make_server(service, args.host, args.port)
     print(f"serving on http://{args.host}:{args.port}", flush=True)
 

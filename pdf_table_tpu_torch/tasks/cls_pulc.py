@@ -21,7 +21,7 @@ import torch
 
 from ..engine.buckets import bucket_batch_size
 from ..engine.device import resolve_device, set_float_precision
-from ..engine.infer_task import InferTask
+from ..engine.infer_task import InferTask, replicate_on
 from ..engine.params import init_cls, load_or_init
 from ..models.registry import weights_dir
 from ..models.cls.config import ClsPulcConfig
@@ -43,8 +43,8 @@ class ClsImagePulcTask(InferTask):
 
     def __init__(self, task_type: str = "text_image_orientation",
                  device=None, variables: Optional[Dict[str, Any]] = None,
-                 **cfg_overrides):
-        super().__init__()
+                 mesh=None, **cfg_overrides):
+        super().__init__(mesh)
         self.device = resolve_device(device)
         set_float_precision()
         self.model_config = cfg = ClsPulcConfig.for_task(task_type,
@@ -57,7 +57,7 @@ class ClsImagePulcTask(InferTask):
                 weights_dir("cls", "PPLCNet", cfg.task_type),
                 lambda: init_cls(cfg, 0), self.task_name)
         self.load_variables(variables)
-        self.model.to(self.device)
+        replicate_on(self.model.to(self.device), mesh)
         self.mean = torch.tensor(CLS_MEAN, device=self.device)
         self.std = torch.tensor(CLS_STD, device=self.device)
 

@@ -29,7 +29,7 @@ import torch.nn.functional as F
 
 from ..engine.device import (on_device, resolve_device, set_float_precision,
                              with_default_dtype)
-from ..engine.infer_task import InferTask
+from ..engine.infer_task import InferTask, replicate_on
 from ..engine.params import init_dbnet, load_or_init
 from ..models.dbnet.config import DbNetConfig
 from ..models.dbnet.model import DBNet, inference_variables
@@ -83,8 +83,9 @@ class OcrDetectionTask(InferTask):
     def __init__(self, model: str = "PP-OCRv4_det", device=None,
                  variables: Optional[Dict[str, Any]] = None,
                  half_res_probs: bool = True,
-                 use_device_postprocess: bool = False, **cfg_overrides):
-        super().__init__()
+                 use_device_postprocess: bool = False, mesh=None,
+                 **cfg_overrides):
+        super().__init__(mesh)
         self.model_name = model
         self.device = resolve_device(device)
         self.model_config = cfg = det_config(
@@ -101,7 +102,7 @@ class OcrDetectionTask(InferTask):
                                      lambda: init_dbnet(cfg, 0),
                                      self.task_name)
         self.load_variables(variables)
-        self.model.to(self.device)
+        replicate_on(self.model.to(self.device), mesh)
 
     def load_variables(self, variables: Dict[str, Any]) -> None:
         """Load a flax-layout {"params", "batch_stats"} tree; a trained

@@ -38,6 +38,7 @@ import torch
 
 from ..engine.device import (on_device, resolve_device, set_float_precision,
                              with_default_dtype)
+from ..engine.infer_task import replicate_on
 from ..engine.params import init_docx_layout, init_picodet, load_or_init
 from ..entity.ocr_cell import OcrCell
 from ..models.center_net.processor import CenterNetPreProcessor
@@ -121,8 +122,9 @@ class OcrLayoutTask:
     def __init__(self, model: str = "picodet", device=None,
                  variables: Optional[Dict[str, Any]] = None,
                  task_type: str = "en", config: Optional[Any] = None,
-                 **cfg_overrides):
+                 mesh=None, **cfg_overrides):
         self.device = resolve_device(device)
+        self.mesh = mesh
         set_float_precision()
         self.model_name = DOCX_ALIASES.get(model, model)
         if config is None:
@@ -152,7 +154,7 @@ class OcrLayoutTask:
             variables = load_or_init(wdir, lambda: init(cfg, 0),
                                      self.task_name)
         self.load_variables(variables)
-        self.model.to(self.device)
+        replicate_on(self.model.to(self.device), mesh)
 
     @property
     def docx(self) -> bool:

@@ -44,6 +44,7 @@ import torch
 from ..engine.buckets import bucket_batch_size
 from ..engine.device import (on_device, resolve_device, set_float_precision,
                              with_default_dtype)
+from ..engine.infer_task import replicate_on
 from ..engine.params import has_saved_params, init_rec, load_or_init
 from ..models.rec_ctc.charset import Charset, resolve_charset
 from ..models.rec_ctc.config import RecConfig
@@ -106,9 +107,11 @@ class OcrRecognitionTask:
                  variables: Optional[Dict[str, Any]] = None,
                  cls_task: Optional[ClsImagePulcTask] = None,
                  charset: Optional[Charset] = None,
-                 single_rec_bucket: bool = True, **cfg_overrides):
+                 single_rec_bucket: bool = True, mesh=None,
+                 **cfg_overrides):
         self.model_name = model
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.model_config = cfg = rec_config(
             model=model, **with_default_dtype(cfg_overrides, self.device))
         self.convnext = cfg.backbone == "convnext_vit"
@@ -129,7 +132,7 @@ class OcrRecognitionTask:
             variables = load_or_init(wdir, lambda: init_rec(cfg, 0),
                                      self.task_name)
         self.load_variables(variables)
-        self.model.to(self.device)
+        replicate_on(self.model.to(self.device), mesh)
 
     def _weights_dir(self) -> str:
         """The lang-keyed weights directory, as JAX's (PP-OCRv4_rec_ch

@@ -55,7 +55,7 @@ import numpy as np
 import torch
 
 from ..engine.buckets import bucket_batch_size
-from ..engine.infer_task import InferTask
+from ..engine.infer_task import InferTask, replicate_on
 from ..engine.device import (on_device, resolve_device, set_float_precision,
                              with_default_dtype)
 from ..engine.params import (init_centernet, init_lgpma, init_lore,
@@ -159,8 +159,9 @@ class OcrTableStructureTask(InferTask):
     def __init__(self, model: str = "Lore", task_type: str = "wtw",
                  config: Optional[Any] = None,
                  res_buckets: Any = (), device=None, batch_size: int = 8,
-                 variables: Optional[Dict[str, Any]] = None, **kw):
-        super().__init__()
+                 variables: Optional[Dict[str, Any]] = None, mesh=None,
+                 **kw):
+        super().__init__(mesh)
         if model not in MODELS:
             raise ValueError(f"unknown TSR model {model!r}; expected one "
                              f"of {MODELS}")
@@ -200,7 +201,7 @@ class OcrTableStructureTask(InferTask):
                             getattr(cfg, "task_type", "")),
                 lambda: self._init_tree(cfg), self.task_name)
         self.load_variables(variables)
-        self.model.to(self.device)
+        replicate_on(self.model.to(self.device), mesh)
 
     def _init_lore(self, config, task_type, res_buckets, **kw) -> None:
         self.model_config = config or lore_config(

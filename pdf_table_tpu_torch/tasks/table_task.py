@@ -12,14 +12,16 @@ import numpy as np
 
 class OcrTableTask:
     def __init__(self, table_structure_model: str = "Lore",
-                 task_type: str = "wtw", ocr_task=None, device=None, **kw):
+                 task_type: str = "wtw", ocr_task=None, device=None,
+                 mesh=None, **kw):
         from ..engine.device import resolve_device
         from .table_structure import OcrTableStructureTask
 
         self.device = resolve_device(device)
         self.tsr = OcrTableStructureTask(model=table_structure_model,
                                          task_type=task_type,
-                                         device=self.device, **kw)
+                                         device=self.device, mesh=mesh,
+                                         **kw)
         self._ocr = ocr_task
 
     @property

@@ -33,16 +33,18 @@ class OcrTextTask:
                  deskew: bool = False,
                  debug: bool = False,
                  output_dir: Optional[str] = None,
-                 device=None, **kw):
+                 device=None, mesh=None, **kw):
         from ..engine.device import resolve_device
         from .detection import OcrDetectionTask
         from .recognition import OcrRecognitionTask
 
         self.device = resolve_device(device)
         rec_kw = {} if lang in ("en", "") else {"lang": lang}
-        self.det = OcrDetectionTask(model=detect_model, device=self.device)
+        self.det = OcrDetectionTask(model=detect_model, device=self.device,
+                                    mesh=mesh)
         self.rec = OcrRecognitionTask(model=recognizer_model,
-                                      device=self.device, **rec_kw)
+                                      device=self.device, mesh=mesh,
+                                      **rec_kw)
         self.use_orientation = use_orientation
         self.deskew = deskew
         self.debug = debug

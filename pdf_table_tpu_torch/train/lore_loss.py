@@ -2,7 +2,12 @@
 CenterNet focal on the heatmaps, L1 on the gathered wh / reg targets,
 axis L1 over 4 * n_valid on the base and stacked logical predictions;
 loss = hm + wh + 0.1 * off + 2 * ax (+ 2 * sax with stacking, + st with
-the cycle-pairing loss)."""
+the cycle-pairing loss).
+
+Every term divides by a count over the batch. ``batch_sum`` (default: the
+identity) is applied to each such count, so that in a data-parallel step
+each process's loss is its rows' share of the global batch's loss
+(train/train_step.py::dp_batch_sum)."""
 
 from __future__ import annotations
 
@@ -10,7 +15,7 @@ from typing import Any, Dict
 
 import torch
 
-from .losses import focal_loss
+from .losses import _same, focal_loss
 
 
 def gather_map_at(feat_map: torch.Tensor, ind: torch.Tensor
@@ -22,23 +27,26 @@ def gather_map_at(feat_map: torch.Tensor, ind: torch.Tensor
 
 
 def reg_l1(feat_map: torch.Tensor, ind: torch.Tensor, mask: torch.Tensor,
-           target: torch.Tensor, eps: float = 1e-4) -> torch.Tensor:
+           target: torch.Tensor, eps: float = 1e-4,
+           batch_sum=_same) -> torch.Tensor:
     """L1 over the predictions gathered at ``ind``, masked by slot."""
     pred = gather_map_at(feat_map, ind)
     m = mask[:, :, None].expand(pred.shape).to(pred.dtype)
-    return torch.abs(pred * m - target * m).sum() / (m.sum() + eps)
+    return torch.abs(pred * m - target * m).sum() / (batch_sum(m.sum())
+                                                     + eps)
 
 
 def axis_loss(logi: torch.Tensor, mask: torch.Tensor, target: torch.Tensor,
-              eps: float = 1e-4) -> torch.Tensor:
+              eps: float = 1e-4, batch_sum=_same) -> torch.Tensor:
     """L1 / (4 * n_valid)."""
     m = mask[:, :, None].to(logi.dtype)
-    return torch.abs(logi * m - target * m).sum() / (4 * (m.sum() + eps))
+    return torch.abs(logi * m - target * m).sum() \
+        / (4 * (batch_sum(m.sum()) + eps))
 
 
 def pair_loss(wh_map: torch.Tensor, st_map: torch.Tensor,
               batch: Dict[str, torch.Tensor],
-              eps: float = 1e-4) -> Dict[str, torch.Tensor]:
+              eps: float = 1e-4, batch_sum=_same) -> Dict[str, torch.Tensor]:
     """Cycle-pairing loss: wh (centre -> corner vectors at ``hm_ind``) and
     st (corner -> centre vectors at ``mk_ind``), each element weighted by
     ``1 - exp(-3.14 * min(delta^2, 1))`` with ``delta`` the relative
@@ -63,7 +71,7 @@ def pair_loss(wh_map: torch.Tensor, st_map: torch.Tensor,
     delta = torch.clamp_max(delta * delta, 1.0)
     weight = 1.0 - torch.exp(-3.14 * delta)
 
-    denom = mask.sum() + eps
+    denom = batch_sum(mask.sum()) + eps
     loss1 = (torch.abs(pred1 - target1) * mask * weight).sum() / denom
     loss2 = (torch.abs(p2g - t2g) * mask * weight).sum() / denom
     m2 = batch["mk_mask"][:, :, None].expand(pred2.shape).to(pred2.dtype)
@@ -74,7 +82,8 @@ def pair_loss(wh_map: torch.Tensor, st_map: torch.Tensor,
 def lore_loss(outputs: Dict[str, Any], batch: Dict[str, torch.Tensor],
               hm_weight: float = 1.0, wh_weight: float = 1.0,
               off_weight: float = 0.1, wiz_stacking: bool = True,
-              wiz_pairloss: bool = False) -> Dict[str, torch.Tensor]:
+              wiz_pairloss: bool = False,
+              batch_sum=_same) -> Dict[str, torch.Tensor]:
     """outputs: ``LoreModel.train_forward``'s; batch targets: hm (B, H, W,
     2), hm_ind / hm_mask (B, M), wh (B, M, 8), reg (B, M, 2), logic (B, M,
     4); with ``wiz_pairloss`` also mk_ind / mk_mask / st / ctr_cro_ind,
@@ -84,14 +93,15 @@ def lore_loss(outputs: Dict[str, Any], batch: Dict[str, torch.Tensor],
     hm = outputs["hm"]
     if wiz_pairloss and "mk_ind" in batch:
         # both channels supervised + cycle-pairing
-        hm_l = focal_loss(hm, batch["hm"])
-        pl = pair_loss(heads["wh"], heads["st"], batch)
+        hm_l = focal_loss(hm, batch["hm"], batch_sum=batch_sum)
+        pl = pair_loss(heads["wh"], heads["st"], batch, batch_sum=batch_sum)
         wh_l, st_l = pl["wh_l"], pl["st_l"]
     else:
         # the centre channel only
-        hm_l = focal_loss(hm[..., 0], batch["hm"][..., 0])
+        hm_l = focal_loss(hm[..., 0], batch["hm"][..., 0],
+                          batch_sum=batch_sum)
         wh_l = reg_l1(heads["wh"], batch["hm_ind"], batch["hm_mask"],
-                      batch["wh"])
+                      batch["wh"], batch_sum=batch_sum)
         st_l = None
     if "corner_reg_ind" in batch:
         # centres and corners share one reg vector of 5M slots,
@@ -102,11 +112,12 @@ def lore_loss(outputs: Dict[str, Any], batch: Dict[str, torch.Tensor],
         mk = batch["corner_reg_mask"][:, :, None]
         num = (torch.abs(pc - batch["reg"]) * mc).sum() \
             + (torch.abs(pk - batch["corner_reg"]) * mk).sum()
-        off_l = num / (mc.sum() * 2 + mk.sum() * 2 + 1e-4)
+        off_l = num / (batch_sum(mc.sum() * 2 + mk.sum() * 2) + 1e-4)
     else:
         off_l = reg_l1(heads["reg"], batch["hm_ind"], batch["hm_mask"],
-                       batch["reg"])
-    ax_l = axis_loss(outputs["logi"], batch["hm_mask"], batch["logic"])
+                       batch["reg"], batch_sum=batch_sum)
+    ax_l = axis_loss(outputs["logi"], batch["hm_mask"], batch["logic"],
+                     batch_sum=batch_sum)
     total = hm_weight * hm_l + wh_weight * wh_l + off_weight * off_l \
         + 2.0 * ax_l
     losses = {"hm_l": hm_l, "wh_l": wh_l, "off_l": off_l, "ax_l": ax_l}
@@ -115,7 +126,7 @@ def lore_loss(outputs: Dict[str, Any], batch: Dict[str, torch.Tensor],
         losses["st_l"] = st_l
     if wiz_stacking:
         sax_l = axis_loss(outputs["stacked_logi"], batch["hm_mask"],
-                          batch["logic"])
+                          batch["logic"], batch_sum=batch_sum)
         total = total + 2.0 * sax_l
         losses["sax_l"] = sax_l
     losses["loss"] = total

@@ -1,7 +1,10 @@
-"""LORE TSR trainer on one card (counterpart of
-pdf_table_tpu/train/lore_trainer.py): teacher-forced forward, the LORE
-loss, the global-norm clip and AdamW (``optim.py``), checkpoints in the
-port's format, best-model tracking.
+"""LORE TSR trainer (counterpart of pdf_table_tpu/train/lore_trainer.py):
+teacher-forced forward, the LORE loss, the global-norm clip and AdamW
+(``optim.py``), checkpoints in the port's format, best-model tracking. On
+one card, or data-parallel over a dp mesh (one process per card,
+train/train_step.py): every process takes the same global batch (``fit``
+draws it from the same seed on each), steps on its rows, and keeps the
+same parameters.
 
 The trainer runs f32 (``LoreConfig.dtype``'s default, what the JAX tool
 trains): its parameters are the model's own tensors, updated in place.
@@ -36,7 +39,7 @@ from .lore_loss import lore_loss
 from .optim import (ClipAdamW, Schedule, constant_schedule, join_schedules,
                     linear_schedule, piecewise_constant_schedule,
                     polynomial_schedule)
-from .train_step import TrainState, make_train_step
+from .train_step import TrainState, dp_batch_sum, make_train_step
 
 logger = logging.getLogger(__name__)
 
@@ -107,15 +110,22 @@ def _skeleton(tree: Mapping[str, Any]) -> Dict[str, Any]:
 
 
 class LoreTrainer:
-    """``LoreTrainer(config, args, device=None)`` trains on ``cuda`` unless
-    given ``device="cpu"``. ``init_state(variables)`` starts from a
+    """``LoreTrainer(config, args, mesh=None, device=None)`` trains on
+    ``cuda`` unless given ``device="cpu"``; with a dp ``mesh`` each
+    process steps on its rows of the global batch. ``init_state(variables)`` starts from a
     flax-layout tree (default: ``init_lore``); ``train_step(batch)`` takes
     one step on a batch of numpy arrays (``WtwDataset.batch``'s keys)."""
 
     def __init__(self, config: Optional[LoreConfig] = None,
-                 args: Optional[LoreTrainArgs] = None, device=None):
+                 args: Optional[LoreTrainArgs] = None, mesh=None,
+                 device=None):
+        from ..parallel.mesh import dp_rank_and_size
+
+        dp_rank_and_size(mesh)   # a tp or sp axis raises here
         self.config = config or LoreConfig.wtw()
         self.args = args or LoreTrainArgs()
+        self.mesh = mesh
+        self._batch_sum = dp_batch_sum(mesh)
         if compute_dtype(self.config.dtype) != torch.float32:
             raise ValueError("the trainer runs f32 (its parameters are the "
                              "model's own tensors); got dtype "
@@ -143,12 +153,16 @@ class LoreTrainer:
         if variables is None:
             variables = init_lore(self.config, seed=seed)
         load_flax_variables(self.model, variables)
+        if self.mesh is not None:
+            from ..parallel.mesh import replicate_params
+            replicate_params(self.model, self.mesh)
         self._layout = _skeleton({"params": variables["params"],
                                   "batch_stats": variables["batch_stats"]})
         self.state = TrainState.create(self.model, self.optimizer)
         self._step_fn = make_train_step(self.apply, self.loss,
                                         self.optimizer,
-                                        self.args.grad_accum_steps)
+                                        self.args.grad_accum_steps,
+                                        mesh=self.mesh)
 
     def apply(self, batch: Mapping[str, torch.Tensor]):
         """The teacher-forced forward on a device batch (under ``remat``
@@ -159,7 +173,8 @@ class LoreTrainer:
 
     def loss(self, outputs, batch) -> Dict[str, torch.Tensor]:
         return lore_loss(outputs, batch,
-                         wiz_stacking=self.config.wiz_stacking)
+                         wiz_stacking=self.config.wiz_stacking,
+                         batch_sum=self._batch_sum)
 
     def to_device(self, batch: Mapping[str, np.ndarray]
                   ) -> Dict[str, torch.Tensor]:

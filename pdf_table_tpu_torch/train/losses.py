@@ -89,17 +89,23 @@ def ctc_loss(logits: torch.Tensor, labels: torch.Tensor,
     return per.mean()
 
 
+def _same(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
 def focal_loss(pred: torch.Tensor, gt: torch.Tensor, alpha: float = 2.0,
-               beta: float = 4.0, eps: float = 1e-6) -> torch.Tensor:
+               beta: float = 4.0, eps: float = 1e-6,
+               batch_sum=_same) -> torch.Tensor:
     """CenterNet focal loss on gaussian heatmaps: positives where ``gt`` is
     1, the rest weighted by ``(1 - gt) ** beta``, over the positive
-    count (at least 1)."""
+    count (at least 1). ``batch_sum`` makes the count the global batch's
+    (train/train_step.py::dp_batch_sum)."""
     pred = pred.clamp(eps, 1.0 - eps)
     pos = gt >= 1.0 - 1e-6
     neg_weights = torch.pow(1.0 - gt, beta)
     pos_loss = torch.log(pred) * torch.pow(1 - pred, alpha)
     neg_loss = torch.log(1 - pred) * torch.pow(pred, alpha) * neg_weights
-    n_pos = pos.sum().to(pred.dtype).clamp_min(1.0)
+    n_pos = batch_sum(pos.sum().to(pred.dtype)).clamp_min(1.0)
     zero = torch.zeros((), dtype=pred.dtype, device=pred.device)
     return -(torch.where(pos, pos_loss, zero).sum()
              + torch.where(~pos, neg_loss, zero).sum()) / n_pos

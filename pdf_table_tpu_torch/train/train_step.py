@@ -1,10 +1,22 @@
-"""The train step (counterpart of pdf_table_tpu/train/train_step.py, on one
-card: no mesh).
+"""The train step (counterpart of pdf_table_tpu/train/train_step.py).
 
 A :class:`TrainState` holds the step count, the model's own trainable
 tensors (``params``, by state_dict name), its buffers (BatchNorm
 statistics, which get no gradient) and the optimizer state. The step
 updates the params in place, as the JAX step donates its state.
+
+With a dp mesh (parallel/mesh.py, one process per card) the step is JAX's
+GSPMD step over the global batch: every process passes the same global
+batch, takes its own rows of it, and the gradients and losses are summed
+over the processes, so the clip and the optimizer see the one-device
+step's gradient on every process. For that sum to be the global batch's
+loss, ``loss_fn`` must divide by sums over the global batch, not over its
+own rows: the LORE trainer passes ``lore_loss`` :func:`dp_batch_sum`'s
+all-reduce for its denominators. A model whose BatchNorm runs on batch
+statistics would take them over its own rows: the dp step is for models
+on running statistics, as LORE's train forward is. JAX's ``tp`` and ``sp``
+axes (model-parallel layers, halo exchanges) are ROADMAP.md Queue 1 item
+18: a mesh with either raises.
 """
 
 from __future__ import annotations
@@ -62,9 +74,32 @@ def split_batch(batch: Batch, n: int):
             for i in range(n)]
 
 
+def dp_batch_sum(mesh) -> Callable[[torch.Tensor], torch.Tensor]:
+    """A loss denominator's sum over the global batch: the processes'
+    local sums all-reduced over the mesh's dp axis (a copy, outside
+    autograd: denominators are counts of the targets); the identity
+    without a mesh or on one process."""
+    from ..parallel.mesh import all_reduce_sum, dp_rank_and_size
+
+    if dp_rank_and_size(mesh)[1] == 1:
+        return lambda t: t
+    group = mesh.get_group("dp")
+    return lambda t: all_reduce_sum(t.detach().clone(), group)
+
+
+def dp_rows(batch: Batch, rank: int, size: int) -> Dict[str, torch.Tensor]:
+    """Process ``rank``'s contiguous rows of a batch split ``size`` ways;
+    the batch must split evenly (as JAX's dp sharding needs)."""
+    n = next(iter(batch.values())).shape[0]
+    if n % size:
+        raise ValueError(f"a batch of {n} does not split over dp={size}")
+    m = n // size
+    return {k: v[rank * m:(rank + 1) * m] for k, v in batch.items()}
+
+
 def make_train_step(apply_fn: Callable[[Batch], Any],
                     loss_fn: Callable[[Any, Batch], Dict[str, torch.Tensor]],
-                    optimizer, accum_steps: int = 1
+                    optimizer, accum_steps: int = 1, mesh=None
                     ) -> Callable[[TrainState, Batch],
                                   Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """``step(state, batch) -> (state, metrics)``.
@@ -74,12 +109,31 @@ def make_train_step(apply_fn: Callable[[Batch], Any],
     the loss does not reach gets a zero gradient (as under ``jax.grad``).
     ``accum_steps > 1`` splits the batch into that many microbatches,
     averages their gradients and losses, and updates once: the effective
-    batch at the activation memory of one microbatch."""
+    batch at the activation memory of one microbatch. With a dp ``mesh``
+    (module docstring) ``batch`` is the global batch; each microbatch is
+    split over the processes and its gradients and losses summed."""
+    from ..parallel.mesh import all_reduce_sum, dp_rank_and_size
+
+    rank, size = dp_rank_and_size(mesh)
 
     def grads_of(params, batch):
+        if size > 1:
+            batch = dp_rows(batch, rank, size)
         losses, grads = value_and_grad(apply_fn, loss_fn, params, batch)
-        return losses, {k: torch.zeros_like(params[k]) if g is None else g
-                        for k, g in grads.items()}
+        grads = {k: torch.zeros_like(params[k]) if g is None else g
+                 for k, g in grads.items()}
+        if size > 1:
+            group = mesh.get_group("dp")
+            names = list(grads)
+            flat = all_reduce_sum(torch.cat([grads[k].reshape(-1)
+                                             for k in names]), group)
+            grads = dict(zip(names, (t.view_as(grads[k]) for k, t in zip(
+                names, flat.split([grads[k].numel() for k in names])))))
+            keys = list(losses)
+            vals = all_reduce_sum(torch.stack([losses[k].float()
+                                               for k in keys]), group)
+            losses = dict(zip(keys, vals.unbind()))
+        return losses, grads
 
     def step(state: TrainState, batch: Batch):
         if accum_steps > 1:

@@ -14,8 +14,9 @@ JAX's outside its labels) and the ``--batch_pages 2`` route of a
 two-page digital PDF (``BatchPipeline.run``; the JAX runner asked for the
 canvases as they are) give the same merged HTML and the same metric
 keys. Then ``parse_pages`` against JAX's, the flag surface,
-``--profile_dir`` (a trace written), ``--device_mesh`` (raises naming
-item 13) and the CUDA default."""
+``--profile_dir`` (a trace written), ``--device_mesh`` (declared and
+read by nothing, as in the JAX CLI: the same outputs) and the CUDA
+default."""
 
 import contextlib
 import io
@@ -163,9 +164,13 @@ def test_profile_dir_mesh_and_cuda_default(tmp_path, monkeypatch):
                           device="cpu") == 0
     assert [f.endswith(".json") for f in os.listdir(tmp_path / "prof")] \
         == [True]
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tmain.main(["--file_path_or_url", pdf, "--device_mesh", "dp=8"],
-                   device="cpu")
+    # declared and read by nothing, as in the JAX CLI
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert tmain.main(["--file_path_or_url", pdf, "--output_dir",
+                           str(tmp_path / "m"), "--layout_model", "none",
+                           "--device_mesh", "dp=8"], device="cpu") == 0
+    assert sorted(os.listdir(tmp_path / "m")) == \
+        sorted(os.listdir(tmp_path / "o"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tmain.main(["--file_path_or_url", pdf])

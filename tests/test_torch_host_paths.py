@@ -154,9 +154,11 @@ def test_dbnet_postprocessors_equal_on_one_prob_map(seed):
                                rtol=0, atol=1e-3)
     np.testing.assert_allclose(got["det_scores"], want["det_scores"],
                                rtol=0, atol=ATOL)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tdbproc.DbNetPostProcessor(DbNetConfig(return_polygon=True))(
-            prob, org)
+    poly = dict(kw, return_polygon=True)
+    want = jdbproc.DbNetPostProcessor(JDbCfg.ppocr(**poly))(prob, org)
+    got = tdbproc.DbNetPostProcessor(DbNetConfig.ppocr(**poly))(prob, org)
+    assert got["is_polygon"] and got["det_polygons"] == want["det_polygons"]
+    np.testing.assert_array_equal(got["det_scores"], want["det_scores"])
 
 
 @pytest.fixture(scope="module")

@@ -45,7 +45,12 @@ the task surface and serving, runs the ``pdftable`` CLI on a digital PDF
 and the HTTP service on one request, with neither JAX, flax, cv2, lxml
 nor the JAX package imported. An eleventh runs the DBNet quick trainer,
 ``ctc_loss`` and the converter entry point, with neither JAX, flax,
-optax, orbax, cv2 nor the JAX package imported."""
+optax, orbax, cv2 nor the JAX package imported. A twelfth runs the
+parallel package on a one-process gloo group (the dp mesh, ``shard_batch``,
+``replicate_params``, GPipe at one stage, the dp train step), the FLOP
+count of a deform conv and a conv with a stage around it, and DBNet's
+polygon mode, with neither JAX, flax, cv2 nor the JAX package
+imported."""
 
 import json
 import os
@@ -733,3 +738,83 @@ def test_quick_trainer_ctc_and_converter_run_without_jax():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res == {"bad": [], "params": True, "finite": True, "rc": 0,
                    "converted": True}
+
+
+_PARALLEL_SCRIPT = r"""
+import json, sys
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from pdf_table_tpu_torch.parallel import (make_mesh, replicate_params,
+                                          shard_batch)
+from pdf_table_tpu_torch.parallel.multihost import initialize, shard_bounds
+from pdf_table_tpu_torch.parallel.pipeline import (gpipe_apply,
+                                                   sequential_apply)
+from pdf_table_tpu_torch.train.train_step import TrainState, make_train_step
+from pdf_table_tpu_torch.train.optim import ClipAdamW, constant_schedule
+from pdf_table_tpu_torch.utils.flops import count_flops
+from pdf_table_tpu_torch.utils.profiling import stage
+from pdf_table_tpu_torch.ops.deform_conv import deform_conv2d
+from pdf_table_tpu_torch.models.dbnet.config import DbNetConfig
+from pdf_table_tpu_torch.models.dbnet.processor import DbNetPostProcessor
+
+assert initialize(device="cpu") == (0, 1)
+mesh = make_mesh(device="cpu")
+rows, n = shard_batch({"x": np.ones((3, 2), np.float32)}, mesh)
+model = torch.nn.Linear(2, 1)
+replicate_params(model, mesh)
+stack = {"w": torch.ones(1, 2, 2)}
+stage_fn = lambda p, x: x @ p["w"]
+pp = make_mesh(axis_names=("pp",), device="cpu")
+same = torch.equal(gpipe_apply(stage_fn, stack, torch.ones(3, 1, 2), pp),
+                   sequential_apply(stage_fn, stack, torch.ones(3, 1, 2)))
+opt = ClipAdamW(constant_schedule(1e-2), 1.0)
+step = make_train_step(lambda b: model(b["x"]),
+                       lambda out, b: {"loss": ((out - b["y"]) ** 2).sum()
+                                       / b["y"].numel()},
+                       opt, mesh=mesh)
+state, losses = step(TrainState.create(model, opt),
+                     {"x": torch.ones(2, 2), "y": torch.zeros(2, 1)})
+metrics = {}
+x = torch.ones(1, 8, 8, 64)
+with stage("dcn", metrics):
+    n_dcn, _ = count_flops(deform_conv2d, x, torch.zeros(1, 8, 8, 18),
+                           torch.ones(1, 8, 8, 9), torch.ones(3, 3, 64, 64))
+n_conv, _ = count_flops(torch.nn.functional.conv2d, torch.ones(1, 4, 8, 8),
+                        torch.ones(4, 4, 3, 3), padding=1)
+yy, xx = np.mgrid[:64, :96]
+prob = np.clip(1.2 - np.hypot((yy - 30) / 12.0, (xx - 40) / 25.0), 0,
+               0.99).astype(np.float32)
+post = DbNetPostProcessor(DbNetConfig.ppocr(return_polygon=True,
+                                            thresh=0.6))
+out = post(prob, (128, 192))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "flax", "cv2", "pdf_table_tpu"))
+print(json.dumps({"bad": bad, "rows": rows["x"].shape[0], "n": n,
+                  "bounds": shard_bounds(5, 1, 2), "pp": same,
+                  "step": state.step, "finite": bool(torch.isfinite(
+                      losses["loss"])),
+                  "dcn": n_dcn == 2 * 64 * 9 * 64 * 64, "conv": n_conv,
+                  "stage": "dcn" in metrics,
+                  "polygon": out["is_polygon"], "polys": len(
+                      out["det_polygons"])}))
+"""
+
+
+def test_parallel_flops_and_polygon_run_without_jax():
+    """A twelfth fresh interpreter runs the parallel package on a
+    one-process gloo group, the FLOP counts with a stage, and DBNet's
+    polygon mode, with neither JAX, flax, cv2 nor the JAX package
+    imported."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    env.pop("WORLD_SIZE", None)
+    out = subprocess.run([sys.executable, "-c", _PARALLEL_SCRIPT], cwd=root,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"bad": [], "rows": 3, "n": 3, "bounds": [3, 5],
+                   "pp": True, "step": 1, "finite": True, "dcn": True,
+                   "conv": 2 * 64 * 4 * 4 * 9, "stage": True,
+                   "polygon": True, "polys": 1}

@@ -15,8 +15,10 @@ both, as JAX names its CPU backend), ``/metrics`` (its counters add up),
 ``/v1/models`` (equal to JAX's ``list_models``), ``/debug/profile``
 (a trace written), the 413 cap; ``close()`` fails the requests still
 queued; a crashed run still deletes its temp PDFs. Then the port's
-``warm`` (every task built before the batcher starts) and ``mesh``
-(raises naming item 13)."""
+``warm`` (every task built before the batcher starts) and the refusals
+of ``mesh``: a tp axis raises naming item 18, ``--mesh dp=2`` outside a
+process group of two raises, as does another axis (the dp service itself
+runs in tests/test_torch_parallel_runner.py)."""
 
 import base64
 import http.client
@@ -268,8 +270,13 @@ def test_warm_builds_every_task_and_mesh_raises():
         assert svc.platform == "cpu"
     finally:
         svc.close()
-    with pytest.raises(NotImplementedError, match="item 13"):
-        serve.ExtractionService(mesh="dp=2", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
+    class TpMesh:
+        mesh_dim_names = ("dp", "tp")
+
+    with pytest.raises(NotImplementedError, match="item 18"):
+        serve.ExtractionService(mesh=TpMesh(), device="cpu")
+    with pytest.raises(RuntimeError, match="process group"):
         serve.main(["--mesh", "dp=2"])
+    with pytest.raises(ValueError, match="dp=N"):
+        serve.main(["--mesh", "tp=2"])
     assert decode_image(_png(PAGES[0][:8, :8])).shape == (8, 8, 3)
