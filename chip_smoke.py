@@ -322,6 +322,13 @@ Phases, each fatal on failure:
      bit-equal to their meshless counterparts; then two spawned gloo
      ranks on cuda:0 run the pages 8 and 8, and rank 0's gathered outputs
      hold the same rules against the meshless run.
+  train_mesh: LoreTrainer(LoreConfig.wtw()) at full width on a (dp 1, tp
+     2, sp 2) mesh of four spawned gloo ranks on cuda:0, 2 steps of a
+     global batch of 2 at 1024^2, against the meshless step: losses,
+     params after step 1, replicated leaves bit-equal across the ranks,
+     K1 launched at each DCN's columns (the two tp-split ones at 128).
+(After geometry, windows: K1's two bodies and K2 over output row windows
+bit-equal to the whole call's rows.)
 Prints each phase's wall seconds ({"phase_s": {...}}), the card line,
 one {"kernels": [...]} line, and as the last line {"ok": true, "device":
 {...}}. Imports nothing of JAX.
@@ -796,6 +803,46 @@ def phase_geometry(gen):
     return k1_rows, k2_rows
 
 
+# row windows (the sp axis of the train step): K1's f32 and bf16 bodies
+# and K2 over output rows [o0, o1) against the whole call's rows, bit for
+# bit, at three LORE levels' shapes of a wtw batch of 2 at 1024^2 (B, H,
+# W, Cin, Cout): two halves (sp = 2) and a window across them
+WINDOW_SHAPES = ((2, 64, 64, 256, 256), (2, 128, 128, 128, 128),
+                 (2, 256, 256, 64, 64))
+
+
+def phase_windows(gen):
+    """K1 and K2 over row windows (see above): one row per shape and
+    mode."""
+    import torch
+
+    from pdf_table_tpu_torch.ops.deform_conv import (deform_conv2d_chunked,
+                                                     deform_conv2d_tap)
+
+    rows = []
+    for shape in WINDOW_SHAPES:
+        h = shape[1]
+        windows = ((0, h // 2), (h // 2, h), (h // 3, h // 2 + 5))
+        for name, fn, dt in (("K1 f32", deform_conv2d_tap, torch.float32),
+                             ("K1 bf16", deform_conv2d_tap, torch.bfloat16),
+                             ("K2", deform_conv2d_chunked, torch.bfloat16)):
+            x, off, mask, wt, bias = dcn_inputs(gen, *shape, dt)
+            with torch.no_grad():
+                whole = fn(x, off, mask, wt, bias)
+                equal = [torch.equal(fn(x, off[:, o0:o1].contiguous(),
+                                        mask[:, o0:o1].contiguous(), wt,
+                                        bias, h0=o0, ho=o1 - o0),
+                                     whole[:, o0:o1])
+                         for o0, o1 in windows]
+            rows.append({"kernel": name, "shape": list(shape),
+                         "windows": [list(w) for w in windows],
+                         "bit_equal": equal})
+            check(all(equal), f"windows: {name} at {shape}: a row window "
+                  f"differs from the whole call's rows: {equal}")
+    print(json.dumps({"row_windows": rows}))
+    return rows
+
+
 def phase_flat_kc(gen):
     """K2 (the flat-kc mode) against the plain chunked version on the same
     tensors; timed at the wtw slice's stride-4 shape beside its bound and
@@ -946,7 +993,7 @@ def phase_resize(gen):
 
 
 def kernels_line(rows, launches: dict, fk_rows, fk_launches: dict,
-                 rn_rows, rn_launches: dict, train_rows) -> dict:
+                 rn_rows, rn_launches: dict, train_rows, windows) -> dict:
     """One entry per TPU kernel. deform_conv2d (K1, the tap mode): times
     summed over the 16 DCN calls of one forward of the wireless slice's
     sub-batch (B=8 at 768^2, bf16), ``wtw_forward`` over the 11 tap-mode
@@ -969,7 +1016,8 @@ def kernels_line(rows, launches: dict, fk_rows, fk_launches: dict,
     f32, 16 calls): the Function's forward and the plain backward summed
     over the step beside their bounds, and its checked shapes, the bf16
     gradient check's included (K2's ``train_shapes``: its bf16 gradient
-    check)."""
+    check). ``row_windows`` (K1 and K2): the row-window launches against
+    the whole call's rows (phase_windows)."""
     keys = ("ms", "plain_ms", "bound_ms", "library_ms")
 
     def total(rs, extra=()):
@@ -1017,12 +1065,15 @@ def kernels_line(rows, launches: dict, fk_rows, fk_launches: dict,
         "max_abs_err": max(r["max_abs_err"] for r in rows + t32), **main,
         "wtw_forward": wtw, "f32_forward": f32[768],
         "f32_buckets": {str(c): f32[c] for c in (512, 384, 1024)},
-        "train": train, "shapes": rows}, {
+        "train": train,
+        "row_windows": [w for w in windows if w["kernel"] != "K2"],
+        "shapes": rows}, {
         "name": "deform_conv2d_flat_kc", "route": "cuda", "source": SOURCE,
         "replaces": FK_REPLACES, "launches": sum(fk_launches.values()),
         "launches_by_path": fk_launches,
         "max_abs_err": max(r["max_abs_err"] for r in fk_rows), **fk,
         "train_shapes": [r for r in train_rows if r["mode"] == "flat_kc"],
+        "row_windows": [w for w in windows if w["kernel"] == "K2"],
         "shapes": fk_rows}, {
         "name": "resize_normalize", "route": "cuda", "source": RN_SOURCE,
         "replaces": RN_REPLACES, "launches": sum(rn_launches.values()),
@@ -5359,14 +5410,14 @@ def train_tree(cfg):
     return perturb_conv_offset_mask(init_lore(cfg, seed=0), seed=1)
 
 
-def new_trainer(cfg, tree, out_dir, **kw):
+def new_trainer(cfg, tree, out_dir, mesh=None, **kw):
     from pdf_table_tpu_torch.train.lore_trainer import (LoreTrainArgs,
                                                         LoreTrainer)
 
     args = dict(learning_rate=TRAIN_LR, lr_schedule="constant",
                 batch_size=TRAIN_BATCH, save_every=0, output_dir=out_dir)
     args.update(kw)
-    tr = LoreTrainer(cfg, LoreTrainArgs(**args))
+    tr = LoreTrainer(cfg, LoreTrainArgs(**args), mesh=mesh)
     tr.init_state(tree)
     return tr
 
@@ -6181,38 +6232,9 @@ def _gloo_rank(rank, world, port, in_file, out_file):
 
 
 def gloo_ranks(trees, tmp) -> list:
-    """The two spawned ranks' results; a rank that fails or outlives
-    PAR_TIMEOUT_S fails the phase, and every rank is stopped."""
-    import multiprocessing
-    import socket
-
-    import torch
-
-    with socket.socket() as sk:
-        sk.bind(("127.0.0.1", 0))
-        port = sk.getsockname()[1]
-    in_file = os.path.join(tmp, "trees.pt")
-    torch.save(trees, in_file)
-    outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(PAR_WORLD)]
-    ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=_gloo_rank,
-                         args=(r, PAR_WORLD, port, in_file, outs[r]))
-             for r in range(PAR_WORLD)]
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + PAR_TIMEOUT_S
-    try:
-        for p in procs:
-            p.join(max(deadline - time.monotonic(), 1.0))
-        codes = [p.exitcode for p in procs]
-        check(all(c == 0 for c in codes),
-              f"parallel: the gloo ranks exited {codes}")
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
-    return [torch.load(f, weights_only=False) for f in outs]
+    """The two spawned ranks' results (spawn_ranks)."""
+    return spawn_ranks(_gloo_rank, PAR_WORLD, trees, tmp, PAR_TIMEOUT_S,
+                       "parallel")
 
 
 def dp_train_pair() -> dict:
@@ -6353,6 +6375,239 @@ def phase_parallel(card, trees):
           f"meshless step: {train}")
     return {"parallel_dp1": dp1, "parallel_gloo": gloo}
 
+# train_mesh: the LORE step on a (dp 1, tp 2, sp 2) mesh, four spawned
+# gloo ranks sharing cuda:0 (NCCL refuses several ranks on one device), at
+# LoreConfig.wtw()'s full width (dla34, hidden 256, f32) on a global batch
+# of 2 at 1024^2, MESH_STEPS steps under deterministic algorithms (so that
+# the replicated leaves can be held bit-equal across the ranks), against
+# the meshless step on the same tree and batches in this process: the
+# losses within MESH_LOSS_TOL relative, the params after the first step
+# within 2 lr. Each rank's K1 launches: 16 a forward, each at its DCN's
+# columns, the two ida_0 DCNs (256 columns, sharded by the rule) at 128
+# beside the four 128-wide ones of ida_1. Four ranks on one card
+# measure no scaling: their step time and memory are printed, not
+# compared
+MESH_DIMS = (1, 2, 2)
+MESH_BATCH = 2
+MESH_STEPS = 2
+MESH_LOSS_TOL = 1e-4
+MESH_TIMEOUT_S = 300
+
+
+def spawn_ranks(target, world, inputs, tmp, timeout, tag) -> list:
+    """``world`` spawned processes of ``target(rank, world, port, in_file,
+    out_file)``, their results; a rank that fails or outlives ``timeout``
+    fails the phase, and every rank is stopped."""
+    import multiprocessing
+    import socket
+
+    import torch
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    in_file = os.path.join(tmp, "inputs.pt")
+    torch.save(inputs, in_file)
+    outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(world)]
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target,
+                         args=(r, world, port, in_file, outs[r]))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 1.0))
+        codes = [p.exitcode for p in procs]
+        check(all(c == 0 for c in codes),
+              f"{tag}: the gloo ranks exited {codes}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [torch.load(f, weights_only=False) for f in outs]
+
+
+def _leaf_crc(t) -> int:
+    import zlib
+
+    return zlib.crc32(t.detach().cpu().contiguous().numpy().tobytes())
+
+
+def _mesh_rank(rank, world, port, in_file, out_file):
+    """One rank of the train_mesh phase on cuda:0."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from pdf_table_tpu_torch.engine.device import set_float_precision
+    from pdf_table_tpu_torch.models.lore.config import LoreConfig
+    from pdf_table_tpu_torch.models.lore.dla import DeformConvBlock
+    from pdf_table_tpu_torch.ops.kernels import (KERNELS, launch_columns,
+                                                 launch_counts,
+                                                 reset_launch_counts)
+    from pdf_table_tpu_torch.parallel import make_mesh
+    from pdf_table_tpu_torch.parallel.collectives import (
+        collective_bytes, collective_calls, reset_collective_counts)
+    from pdf_table_tpu_torch.parallel.multihost import initialize
+    from pdf_table_tpu_torch.parallel.tensor_parallel import \
+        ColumnDeformConvBlock
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    set_float_precision()
+    torch.cuda.set_device(0)
+    torch.use_deterministic_algorithms(True)
+    initialize(f"127.0.0.1:{port}", world, rank, backend="gloo",
+               timeout=MESH_TIMEOUT_S)
+    try:
+        inp = torch.load(in_file, weights_only=False)
+        mesh = make_mesh(axis_names=("dp", "tp", "sp"),
+                         devices=np.arange(world).reshape(MESH_DIMS))
+        t0 = time.perf_counter()
+        tr = new_trainer(LoreConfig.wtw(), inp["tree"], inp["out_dir"],
+                         mesh=mesh, batch_size=MESH_BATCH)
+        build_s = time.perf_counter() - t0
+        dist.barrier()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        reset_collective_counts()
+        losses, step_ms, first = [], [], None
+        for i, batch in enumerate(inp["batches"]):
+            t0 = time.perf_counter()
+            losses.append(tr.train_step(batch))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                calls, nbytes = dict(collective_calls), dict(collective_bytes)
+                whole = tr.whole(tr.state.params)
+                crc = {k: _leaf_crc(v) for k, v in tr.state.params.items()}
+                if rank == 0:
+                    first = {k: v.cpu() for k, v in whole.items()}
+                del whole
+        res = {"losses": losses, "step_ms": step_ms, "build_s": build_s,
+               "peak_bytes": torch.cuda.max_memory_allocated(),
+               "launches": {k: launch_counts[k] for k in KERNELS},
+               "columns": {f"{n}@{c}": v
+                           for (n, c), v in launch_columns.items()},
+               "collective_calls_step1": calls,
+               "collective_bytes_step1": nbytes,
+               "crc": crc, "sharded": sorted(tr.state.sharding.dims),
+               "dcns": {n: (int(m.weight.shape[3]),
+                            isinstance(m, ColumnDeformConvBlock))
+                        for n, m in tr.model.named_modules()
+                        if isinstance(m, DeformConvBlock)},
+               "tp_rank": mesh.get_local_rank("tp"),
+               "first_params": first, "jax": "jax" in sys.modules,
+               "device": torch.cuda.current_device()}
+        torch.save(res, out_file)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_train_mesh(card):
+    """The train step on a dp x tp x sp mesh (see above)."""
+    import tempfile
+
+    import torch
+
+    from pdf_table_tpu_torch.data.synthetic import SyntheticTableDataset
+    from pdf_table_tpu_torch.models.lore.config import LoreConfig
+
+    cfg = LoreConfig.wtw()
+    tree = train_tree(cfg)
+    batches = [SyntheticTableDataset(cfg, n=MESH_BATCH, seed=s).batch(
+        list(range(MESH_BATCH))) for s in range(MESH_STEPS)]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp, \
+            torch_deterministic():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tr = new_trainer(cfg, tree, tmp, batch_size=MESH_BATCH)
+        want, want_ms, want_first = [], [], None
+        for i, batch in enumerate(batches):
+            t0 = time.perf_counter()
+            want.append(tr.train_step(batch))
+            torch.cuda.synchronize()
+            want_ms.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                want_first = {k: v.detach().cpu()
+                              for k, v in tr.state.params.items()}
+        want_peak = torch.cuda.max_memory_allocated()
+        del tr
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(_mesh_rank, 4, {"tree": tree,
+                                            "batches": batches,
+                                            "out_dir": tmp},
+                            tmp, MESH_TIMEOUT_S, "train_mesh")
+        ranks_s = time.perf_counter() - t0
+    loss_err = max(abs(r["losses"][i][k] - want[i][k])
+                   / max(abs(want[i][k]), 1e-12)
+                   for r in ranks for i in range(MESH_STEPS)
+                   for k in want[i])
+    first = ranks[0]["first_params"]
+    param_err = max(float((first[k] - want_first[k]).abs().max())
+                    for k in want_first)
+    sharded = set(ranks[0]["sharded"])
+    unequal = sorted(k for k in ranks[0]["crc"] if len({
+        (r["tp_rank"] if k in sharded else 0, r["crc"][k])
+        for r in ranks}) != (MESH_DIMS[1] if k in sharded else 1))
+    k1 = [r["launches"]["deform_conv2d"] for r in ranks]
+    dcns = ranks[0]["dcns"]
+    split = sorted(n for n, (_, col) in dcns.items() if col)
+    widths = {c for c, _ in dcns.values()}
+    # each rank's launches at each width: the steps times its DCNs there
+    by_width = [{w: r["columns"].get(f"deform_conv2d@{w}", 0)
+                 for w in widths} for r in ranks]
+    want_width = {w: MESH_STEPS * sum(c == w for c, _ in dcns.values())
+                  for w in widths}
+    summary = {
+        "card": card, "mesh": dict(zip(("dp", "tp", "sp"), MESH_DIMS)),
+        "config": "LoreConfig.wtw() (dla34, hidden 256, f32)",
+        "global_batch": MESH_BATCH, "resolution": list(cfg.resolution),
+        "steps": MESH_STEPS, "losses": [r["losses"] for r in ranks[:1]],
+        "meshless_losses": want, "loss_rel_err": loss_err,
+        "param_err_step1": param_err, "lr": TRAIN_LR,
+        "sharded_leaves": len(sharded), "replicas_unequal": unequal,
+        "rank_step_ms": [r["step_ms"] for r in ranks],
+        "meshless_step_ms": want_ms,
+        "rank_peak_bytes": [r["peak_bytes"] for r in ranks],
+        "meshless_peak_bytes": want_peak,
+        "collective_calls_step1": ranks[0]["collective_calls_step1"],
+        "collective_bytes_step1": ranks[0]["collective_bytes_step1"],
+        "k1_launches": k1, "k1_launches_by_columns": by_width,
+        "tp_split_dcns": {n: dcns[n][0] for n in split},
+        "launches": [r["launches"] for r in ranks],
+        "build_s": [r["build_s"] for r in ranks], "ranks_wall_s": ranks_s,
+        "note": "four ranks share one card: no scaling is measured"}
+    print(json.dumps({"train_mesh": summary}))
+    check(loss_err < MESH_LOSS_TOL,
+          f"train_mesh: losses {loss_err:.3g} from the meshless step's")
+    check(param_err <= 2 * TRAIN_LR,
+          f"train_mesh: params {param_err:.3g} from the meshless step's "
+          f"after step 1")
+    check(not unequal, f"train_mesh: replicated leaves differ across the "
+          f"ranks: {unequal[:5]}")
+    check(len(sharded) == 85, f"train_mesh: {len(sharded)} sharded leaves")
+    check(k1 == [16 * MESH_STEPS] * 4 and len(dcns) == 16,
+          f"train_mesh: K1 launched {k1} for {len(dcns)} DCNs")
+    check(split == ["detector.dla_up.ida_0.node_1",
+                    "detector.dla_up.ida_0.proj_1"]
+          and all(dcns[n][0] == 128 for n in split)
+          and all(b == want_width for b in by_width),
+          f"train_mesh: the tp-split DCNs {split} or the launches by "
+          f"columns {by_width} (want {want_width})")
+    check(all(r["launches"]["deform_conv2d_flat_kc"] == 0 for r in ranks),
+          "train_mesh: K2 launched in the f32 step")
+    check(not any(r["jax"] for r in ranks),
+          "train_mesh: a rank imported JAX")
+    return {name: sum(r["launches"][name] for r in ranks)
+            for name in ranks[0]["launches"]}
+
+
 def demangle(sym: str) -> str:
     """The kernel's name (and integer template arguments) in a mangled
     symbol: the length-prefixed identifier that ends in "kernel"."""
@@ -6436,6 +6691,7 @@ def main() -> int:
     rows = run("kernels", phase_kernels, gen)
     fk_rows = run("flat_kc", phase_flat_kc, gen)
     geo_k1, geo_k2 = run("geometry", phase_geometry, gen)
+    windows = run("windows", phase_windows, gen)
     rows += geo_k1
     fk_rows += geo_k2
     rn_rows = run("resize", phase_resize, gen)
@@ -6484,6 +6740,7 @@ def main() -> int:
     poly = run("det_polygon", phase_det_polygon, card, det_tree)
     flops = run("flops", phase_flops, card, pipe_trees)
     par = run("parallel", phase_parallel, card, pipe_trees)
+    mesh_launches = run("train_mesh", phase_train_mesh, card)
     print(json.dumps({"phase_s": phase_s}))
     check("jax" not in sys.modules and "pdf_table_tpu" not in sys.modules,
           "the port imported JAX or the JAX package")
@@ -6522,6 +6779,7 @@ def main() -> int:
                 "flops_pipeline_f32": flops["f32"][name],
                 "parallel_dp1": par["parallel_dp1"][name],
                 "parallel_gloo": par["parallel_gloo"][name],
+                "train_mesh": mesh_launches[name],
                 **{path: counts[name] for path, counts in sys_paths.items()},
                 **{path: counts[name] for path, counts in cli_paths.items()}}
 
@@ -6532,7 +6790,8 @@ def main() -> int:
                       lore_wtw=wtw["deform_conv2d"]), fk_rows,
         by_path("deform_conv2d_flat_kc",
                 lore_wtw=wtw["deform_conv2d_flat_kc"]), rn_rows,
-        by_path("resize_normalize", detection=rn_launches), train_rows)))
+        by_path("resize_normalize", detection=rn_launches), train_rows,
+        windows)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

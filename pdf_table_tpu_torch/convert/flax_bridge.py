@@ -80,6 +80,17 @@ def torch_leaf_to_flax(leaf: str, t: torch.Tensor, transposed: bool = False
     return t
 
 
+def flax_last_axis(leaf: str, ndim: int, transposed: bool = False) -> int:
+    """The torch dim that holds the last axis of the flax param named
+    ``leaf`` (the output channels of a kernel), by the layouts of
+    :func:`flax_leaf_to_torch`."""
+    if leaf == "kernel" and transposed:
+        return 1
+    if leaf == "kernel":
+        return 0
+    return ndim - 1
+
+
 def state_dict_name(path: Tuple[str, ...], collection: str = "params"
                     ) -> str:
     """The state_dict key of the flax leaf at ``path`` in ``collection``."""

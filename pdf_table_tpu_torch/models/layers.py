@@ -101,6 +101,9 @@ class BatchNorm(nn.Module):
     in bf16, as flax does with its f32 params."""
 
     momentum = 0.9
+    # the sp region's switch (parallel/spatial.py): batch statistics of a
+    # row shard would be that rank's rows' statistics, so that mode raises
+    rows = None
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -116,6 +119,12 @@ class BatchNorm(nn.Module):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0,
                                 self.eps)
+        if self.rows is not None and self.rows.enabled:
+            raise ValueError(
+                "BatchNorm on batch statistics inside the sp region: each "
+                "rank holds only its rows, so its statistics would not be "
+                "the batch's; train on stored statistics (LORE's train "
+                "forward does) or without an sp axis")
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         dims = [0] + list(range(2, x.dim()))
         mean = xf.mean(dims)

@@ -10,7 +10,9 @@ import torch
 from torch import nn
 
 from ...ops.deform_conv import deform_conv2d_plain
-from ..layers import BasicBlock, BatchNorm, ConvBNAct, max_pool_3x3_s2
+from ...parallel import spatial
+from ...parallel.collectives import gather_rows_replicated
+from ..layers import BasicBlock, BatchNorm, ConvBNAct
 from .config import LoreConfig
 from .dla import (DLA34, DLA34_CHANNELS, DeformConvBlock, DepthwiseUpsample,
                   DLAUp, IDAUp)
@@ -24,7 +26,11 @@ def head_channels(hidden_size: int = 256) -> Dict[str, int]:
 class CenterHeads(nn.Module):
     """Per-head conv3x3(head_conv) + relu -> conv1x1(out). Outputs are
     NCHW f32 (the flax heads cast to f32). ``heads`` ((name, channels),
-    ...) overrides LORE's head set, as Cycle-CenterNet's does."""
+    ...) overrides LORE's head set, as Cycle-CenterNet's does. In the sp
+    region (``rows``) the maps leave it whole: every rank's rows gathered
+    in one call, for the replicated downstream."""
+
+    rows = None
 
     def __init__(self, in_ch: int, head_conv: int = 256,
                  hidden_size: int = 256,
@@ -42,6 +48,12 @@ class CenterHeads(nn.Module):
         for head in self.head_map:
             y = torch.relu(getattr(self, f"{head}_conv")(x))
             out[head] = getattr(self, f"{head}_out")(y).float()
+        if spatial.active(self.rows):
+            whole = gather_rows_replicated(
+                torch.cat(list(out.values()), 1), 2, self.rows.layout(x),
+                self.rows.axis)
+            out = dict(zip(out, whole.split([v.shape[1]
+                                             for v in out.values()], 1)))
         return out
 
 
@@ -95,6 +107,7 @@ class ResNetDetector(nn.Module):
     with head_conv 64 (the reference's LoreDetectModel)."""
 
     widths = (64, 128, 256, 256)
+    rows = None   # the sp region (parallel/spatial.py)
 
     def __init__(self, config: LoreConfig):
         super().__init__()
@@ -116,7 +129,8 @@ class ResNetDetector(nn.Module):
         self.heads = CenterHeads(256, 64, config.hidden_size)
 
     def forward(self, x) -> Dict[str, torch.Tensor]:
-        x = max_pool_3x3_s2(self.stem(x))
+        # 3x3/2 max pool padded with -inf (layers.max_pool_3x3_s2)
+        x = spatial.max_pool2d(self.stem(x), 3, 2, 1, self.rows)
         feats = [x]                                      # stride 4
         for i in range(len(self.widths)):
             for j in range(2):

@@ -12,10 +12,11 @@ from __future__ import annotations
 from typing import List, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ...ops.deform_conv import deform_conv2d
+from ...parallel import spatial
+from ...parallel.collectives import gather_rows_for_dcn
 from ..layers import BatchNorm, ConvBNAct
 
 DLA34_LEVELS = (1, 1, 1, 2, 2, 1)
@@ -58,6 +59,8 @@ class Tree(nn.Module):
     ``children_ch`` is the channel count of the children a parent passes
     in (the flax module infers it from the inputs)."""
 
+    rows = None   # the sp region (parallel/spatial.py)
+
     def __init__(self, levels: int, in_ch: int, features: int,
                  stride: int = 1, level_root: bool = False,
                  root_residual: bool = False, children_ch: int = 0):
@@ -86,7 +89,8 @@ class Tree(nn.Module):
     def forward(self, x, children=None):
         children = list(children) if children else []
         if self.stride > 1:
-            bottom = F.max_pool2d(x, self.stride, self.stride)
+            bottom = spatial.max_pool2d(x, self.stride, self.stride, 0,
+                                        self.rows)
         else:
             bottom = x
         if self.level_root:
@@ -130,7 +134,15 @@ class DLA34(nn.Module):
 class DeformConvBlock(nn.Module):
     """offset/mask conv + modulated deform conv + bn + relu. The mask's
     sigmoid runs in the activations' dtype and the DCN bias stays f32 and
-    is added to the f32 sums, as in the flax block."""
+    is added to the f32 sums, as in the flax block.
+
+    In the sp region (``rows``, parallel/spatial.py) the offset conv runs
+    on this rank's rows, the input is gathered whole (the offsets reach
+    anywhere) and the deform conv computes this rank's output rows over it
+    (its row window). The column-parallel block of
+    parallel/tensor_parallel.py overrides :meth:`deform`."""
+
+    rows = None
 
     def __init__(self, in_ch: int, features: int):
         super().__init__()
@@ -144,10 +156,22 @@ class DeformConvBlock(nn.Module):
         om = self.conv_offset_mask(x).permute(0, 2, 3, 1)
         offset = om[..., :18].float().contiguous()
         mask = torch.sigmoid(om[..., 18:]).float().contiguous()
-        y = self.dcn(x.permute(0, 2, 3, 1).contiguous(), offset, mask,
-                     self.weight, self.bias)
+        xs = x.permute(0, 2, 3, 1).contiguous()
+        h0 = 0
+        if spatial.active(self.rows):
+            # a 3x3/1 DCN: its output rows split as its input's
+            starts = self.rows.layout(xs, 1)
+            h0 = starts[self.rows.axis.rank]
+            xs = gather_rows_for_dcn(xs, 1, starts, self.rows.axis)
+        y = self.deform(xs, offset, mask, h0)
         y = y.to(x.dtype).permute(0, 3, 1, 2)
         return torch.relu(self.bn(y))
+
+    def deform(self, x, offset, mask, h0: int) -> torch.Tensor:
+        """The deform conv's output rows ``[h0, h0 + offset rows)`` over
+        the whole ``x``, f32 NHWC."""
+        return self.dcn(x, offset, mask, self.weight, self.bias, h0=h0,
+                        ho=offset.shape[1])
 
 
 def bilinear_up_kernel(f: int) -> torch.Tensor:
@@ -166,6 +190,8 @@ class DepthwiseUpsample(nn.Module):
     the (C, 1, k, k) kernel un-flipped, ``conv_transpose2d`` is the same
     operator."""
 
+    rows = None   # the sp region (parallel/spatial.py)
+
     def __init__(self, channels: int, factor: int):
         super().__init__()
         self.factor = factor
@@ -178,8 +204,9 @@ class DepthwiseUpsample(nn.Module):
         f = self.factor
         if f == 1:
             return x
-        return F.conv_transpose2d(x, self.weight, stride=f, padding=f // 2,
-                                  groups=x.shape[1])
+        return spatial.conv_transpose2d(x, self.weight, None, (f, f),
+                                        (f // 2, f // 2), (0, 0),
+                                        x.shape[1], (1, 1), self.rows)
 
 
 class IDAUp(nn.Module):

@@ -145,7 +145,10 @@ class LoreModel(nn.Module):
         positions ``cc_match`` (B, M, 4) when given), masked by ``hm_mask``.
         BatchNorm runs on its stored statistics whatever ``self.training``
         says, as the JAX step does (``train=False``); gradients still reach
-        its scale and bias. Returns ``heads`` (NHWC f32), ``hm`` (sigmoid),
+        its scale and bias, and no statistic crosses the ranks of a mesh's
+        sp axis. There the head maps leave the detector whole
+        (``CenterHeads``), so the gathers and the regressor run alike on
+        every sp rank. Returns ``heads`` (NHWC f32), ``hm`` (sigmoid),
         ``logi`` and ``stacked_logi``."""
         out = self.heads(pixel_values)
         B, H, W, _ = out["hm"].shape

@@ -24,6 +24,14 @@ its plain twin at those rounding points is
 
 Each kernel raises on what it does not take.
 
+Every function here takes a row window, ``h0`` and ``ho``: it computes
+output rows ``[h0, h0 + ho)`` of the DCN over the whole ``x``, the offsets
+and mask holding those rows only (the default: every row). A row-sharded
+caller (``parallel/spatial.py``) gives each rank its own rows this way. The
+window moves the sample grid, ``(h0 + oy) * stride - pad``, in integers,
+so a window's rows are bit for bit the whole call's; the origin is never
+folded into the offsets, which would round where they are not integers.
+
 On a CUDA tensor both modes run inside :class:`DeformConv2dFunction`
 (which records no graph under ``no_grad``), whose backward is
 :func:`deform_conv2d_backward_plain` in plain PyTorch (JAX computes the
@@ -40,7 +48,7 @@ import torch
 
 from ..utils.flops import hand_counted
 from .blend_matmul import blend_matmul_plain
-from .kernels import launch_counts
+from .kernels import launch_columns, launch_counts
 
 Pair = Tuple[int, int]
 _CORNERS = ((0, 0), (0, 1), (1, 0), (1, 1))   # (dy, dx) of the 4 corners
@@ -60,6 +68,20 @@ def _out_hw(H: int, W: int, Kh: int, Kw: int, stride: Pair, padding: Pair,
     return Ho, Wo
 
 
+def _window_hw(H: int, W: int, Kh: int, Kw: int, stride: Pair,
+               padding: Pair, dilation: Pair, h0: int = 0,
+               ho: Optional[int] = None) -> Tuple[int, int]:
+    """(rows, Wo) of the output row window ``[h0, h0 + ho)`` (``ho=None``:
+    to the last row), which must lie inside the DCN's output."""
+    Ho, Wo = _out_hw(H, W, Kh, Kw, stride, padding, dilation)
+    if ho is None:
+        ho = Ho - h0
+    if h0 < 0 or ho < 0 or h0 + ho > Ho:
+        raise ValueError(f"row window [{h0}, {h0 + ho}) outside the "
+                         f"output's {Ho} rows")
+    return ho, Wo
+
+
 # ---------------------------------------------------------------------------
 # the route, as pure functions of shapes (copies of the JAX predicates
 # without their backend test and environment switches)
@@ -69,13 +91,14 @@ def _out_hw(H: int, W: int, Kh: int, Kw: int, stride: Pair, padding: Pair,
 def dcn_flops(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
               weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
               stride: Pair = (1, 1), padding: Pair = (1, 1),
-              dilation: Pair = (1, 1), *_, **__) -> int:
-    """The DCN's model FLOPs, ``2·B·Ho·Wo·K·Cin·Cout``: one product over
-    ``K·Cin`` per output, whatever route computes it
-    (``utils/flops.py``)."""
+              dilation: Pair = (1, 1), *_, h0: int = 0,
+              ho: Optional[int] = None, **__) -> int:
+    """The DCN's model FLOPs, ``2·B·Ho·Wo·K·Cin·Cout`` over the row
+    window's ``Ho``: one product over ``K·Cin`` per output, whatever route
+    computes it (``utils/flops.py``)."""
     B, H, W, Cin = x.shape
     Kh, Kw, _, Cout = weight.shape
-    Ho, Wo = _out_hw(H, W, Kh, Kw, stride, padding, dilation)
+    Ho, Wo = _window_hw(H, W, Kh, Kw, stride, padding, dilation, h0, ho)
     return 2 * B * Ho * Wo * Kh * Kw * Cin * Cout
 
 
@@ -159,13 +182,15 @@ def flat_kc_route(b: int, ho: int, wo: int, cin: int, k: int, cout: int,
 
 def _sample_points(offset: torch.Tensor, Ho: int, Wo: int, Kh: int, Kw: int,
                    stride: Pair, padding: Pair, dilation: Pair,
-                   dtype: torch.dtype = torch.float32):
-    """Sample coordinates (sy, sx), each (B, Ho, Wo, K) in ``dtype``."""
+                   dtype: torch.dtype = torch.float32, h0: int = 0):
+    """Sample coordinates (sy, sx), each (B, Ho, Wo, K) in ``dtype``, of
+    output rows ``[h0, h0 + Ho)``."""
     B = offset.shape[0]
     K = Kh * Kw
     dev = offset.device
     f32 = dtype
-    oy = torch.arange(Ho, device=dev, dtype=f32) * stride[0] - padding[0]
+    oy = (torch.arange(Ho, device=dev, dtype=f32) + h0) * stride[0] \
+        - padding[0]
     ox = torch.arange(Wo, device=dev, dtype=f32) * stride[1] - padding[1]
     ky = torch.arange(Kh, device=dev, dtype=f32) * dilation[0]
     kx = torch.arange(Kw, device=dev, dtype=f32) * dilation[1]
@@ -179,7 +204,8 @@ def _sample_points(offset: torch.Tensor, Ho: int, Wo: int, Kh: int, Kw: int,
 
 def tap_columns(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
                 kernel_size: Pair, stride: Pair = (1, 1),
-                padding: Pair = (1, 1), dilation: Pair = (1, 1)):
+                padding: Pair = (1, 1), dilation: Pair = (1, 1),
+                h0: int = 0, ho: Optional[int] = None):
     """Each tap's blended column, (B*Ho*Wo, Cin) f32, in tap order: the four
     bilinear corners gathered with their own in-bounds masks (zero outside
     the image) and summed in f32 with weight ((lerp_y * lerp_x) *
@@ -187,10 +213,10 @@ def tap_columns(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     the tap kernel's tensor-core operand is."""
     B, H, W, Cin = x.shape
     Kh, Kw = kernel_size
-    Ho, Wo = _out_hw(H, W, Kh, Kw, stride, padding, dilation)
+    Ho, Wo = _window_hw(H, W, Kh, Kw, stride, padding, dilation, h0, ho)
     f32 = torch.float32
     sy, sx = _sample_points(offset, Ho, Wo, Kh, Kw, stride, padding,
-                            dilation)
+                            dilation, h0=h0)
     y0 = torch.floor(sy)
     x0 = torch.floor(sx)
     wy = sy - y0
@@ -221,17 +247,18 @@ def deform_conv2d_plain(x: torch.Tensor, offset: torch.Tensor,
                         mask: torch.Tensor, weight: torch.Tensor,
                         bias: Optional[torch.Tensor] = None,
                         stride: Pair = (1, 1), padding: Pair = (1, 1),
-                        dilation: Pair = (1, 1)) -> torch.Tensor:
+                        dilation: Pair = (1, 1), h0: int = 0,
+                        ho: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch DCNv2: each tap's column (:func:`tap_columns`, bf16
     for bf16 x) contracted with ``W[t]`` in f32, plus the bias."""
     B, H, W, Cin = x.shape
     Kh, Kw, _, Cout = weight.shape
-    Ho, Wo = _out_hw(H, W, Kh, Kw, stride, padding, dilation)
+    Ho, Wo = _window_hw(H, W, Kh, Kw, stride, padding, dilation, h0, ho)
     f32 = torch.float32
     wmat = weight.to(f32).reshape(Kh * Kw, Cin, Cout)
     out = torch.zeros(B * Ho * Wo, Cout, device=x.device, dtype=f32)
     for t, col in enumerate(tap_columns(x, offset, mask, (Kh, Kw), stride,
-                                        padding, dilation)):
+                                        padding, dilation, h0, Ho)):
         out += col @ wmat[t]
     out = out.reshape(B, Ho, Wo, Cout)
     if bias is not None:
@@ -259,19 +286,20 @@ def deform_conv2d_3xtf32_plain(x: torch.Tensor, offset: torch.Tensor,
                                mask: torch.Tensor, weight: torch.Tensor,
                                bias: Optional[torch.Tensor] = None,
                                stride: Pair = (1, 1), padding: Pair = (1, 1),
-                               dilation: Pair = (1, 1)) -> torch.Tensor:
+                               dilation: Pair = (1, 1), h0: int = 0,
+                               ho: Optional[int] = None) -> torch.Tensor:
     """The f32 DCN at the f32 kernel body's rounding points: each tap's f32
     column (:func:`tap_columns`) and ``W[t]`` split by :func:`split_tf32`,
     and ``col_lo @ W_hi + col_hi @ W_lo + col_hi @ W_hi`` summed in f32
     (the 3xTF32 split; ``col_lo @ W_lo`` is dropped), plus the bias."""
     B, H, W, Cin = x.shape
     Kh, Kw, _, Cout = weight.shape
-    Ho, Wo = _out_hw(H, W, Kh, Kw, stride, padding, dilation)
+    Ho, Wo = _window_hw(H, W, Kh, Kw, stride, padding, dilation, h0, ho)
     f32 = torch.float32
     w_hi, w_lo = split_tf32(weight.reshape(Kh * Kw, Cin, Cout))
     out = torch.zeros(B * Ho * Wo, Cout, device=x.device, dtype=f32)
     for t, col in enumerate(tap_columns(x.to(f32), offset, mask, (Kh, Kw),
-                                        stride, padding, dilation)):
+                                        stride, padding, dilation, h0, Ho)):
         c_hi, c_lo = split_tf32(col)
         out += c_lo @ w_hi[t] + c_hi @ w_lo[t] + c_hi @ w_hi[t]
     out = out.reshape(B, Ho, Wo, Cout)
@@ -335,7 +363,8 @@ def deform_conv2d_rounded(x: torch.Tensor, offset: torch.Tensor,
 def flat_kc_chunks(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
                    weight: torch.Tensor, stride: Pair = (1, 1),
                    padding: Pair = (1, 1), dilation: Pair = (1, 1),
-                   tap_chunk: Optional[int] = None):
+                   tap_chunk: Optional[int] = None, h0: int = 0,
+                   ho: Optional[int] = None):
     """The flat-kc back half's operands, ``tap_chunk`` taps at a time
     (default: :func:`tap_chunk_size`), as JAX's chunk branch builds them:
     per chunk ``(g2, w4, wrep)`` for :func:`blend_matmul_plain`. The 2x2
@@ -346,10 +375,10 @@ def flat_kc_chunks(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     tap's weights over the 4 corners."""
     B, H, W, Cin = x.shape
     Kh, Kw, _, Cout = weight.shape
-    Ho, Wo = _out_hw(H, W, Kh, Kw, stride, padding, dilation)
+    Ho, Wo = _window_hw(H, W, Kh, Kw, stride, padding, dilation, h0, ho)
     K = Kh * Kw
     sy, sx = _sample_points(offset, Ho, Wo, Kh, Kw, stride, padding,
-                            dilation)
+                            dilation, h0=h0)
     gdt = gather_dtype(x.dtype)
     xg = x.to(gdt)
     xr = torch.roll(xg, -1, dims=2)                      # (y,   x+1)
@@ -396,18 +425,20 @@ def deform_conv2d_chunked_plain(x: torch.Tensor, offset: torch.Tensor,
                                 bias: Optional[torch.Tensor] = None,
                                 stride: Pair = (1, 1), padding: Pair = (1, 1),
                                 dilation: Pair = (1, 1),
-                                tap_chunk: Optional[int] = None
+                                tap_chunk: Optional[int] = None,
+                                h0: int = 0, ho: Optional[int] = None
                                 ) -> torch.Tensor:
     """Plain version of the flat-kc route (the kernel's flat-kc mode): the
     chunks of :func:`flat_kc_chunks` through :func:`blend_matmul_plain`,
     summed in f32, plus the bias."""
     B, H, W, Cin = x.shape
     Kh, Kw, _, Cout = weight.shape
-    Ho, Wo = _out_hw(H, W, Kh, Kw, stride, padding, dilation)
+    Ho, Wo = _window_hw(H, W, Kh, Kw, stride, padding, dilation, h0, ho)
     out = torch.zeros(B * Ho * Wo, Cout, device=x.device,
                       dtype=torch.float32)
     for g2, w4s, wrep in flat_kc_chunks(x, offset, mask, weight, stride,
-                                        padding, dilation, tap_chunk):
+                                        padding, dilation, tap_chunk, h0,
+                                        Ho):
         out += blend_matmul_plain(g2, w4s, wrep, Cin)
     out = out.reshape(B, Ho, Wo, Cout)
     if bias is not None:
@@ -501,8 +532,8 @@ def _kernel_fn(entry: str):
 
         fn = getattr(load("deform_conv"), entry)
         fn.restype = ctypes.c_int
-        n_ptr, n_int = (8, 19) if entry == "pdft_deform_conv2d_fwd" \
-            else (7, 17)
+        n_ptr, n_int = (8, 20) if entry == "pdft_deform_conv2d_fwd" \
+            else (7, 18)
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
             + [ctypes.c_void_p]
         _fns[entry] = fn
@@ -555,11 +586,12 @@ def _check(x, offset, mask, weight, bias, Ho, Wo):
 
 
 def _launch(flat_kc: bool, x, offset, mask, weight, bias, stride, padding,
-            dilation) -> torch.Tensor:
-    """One launch of the kernel's tap or flat-kc mode on CUDA tensors."""
+            dilation, h0: int = 0, ho: Optional[int] = None) -> torch.Tensor:
+    """One launch of the kernel's tap or flat-kc mode on CUDA tensors,
+    over the output rows ``[h0, h0 + ho)``."""
     B, H, W, Cin = x.shape
     Kh, Kw, _, Cout = weight.shape
-    Ho, Wo = _out_hw(H, W, Kh, Kw, stride, padding, dilation)
+    Ho, Wo = _window_hw(H, W, Kh, Kw, stride, padding, dilation, h0, ho)
     _check(x, offset, mask, weight, bias, Ho, Wo)
     if flat_kc and x.dtype != torch.bfloat16:
         raise TypeError(f"the flat-kc kernel takes bf16 x, got {x.dtype}")
@@ -567,15 +599,19 @@ def _launch(flat_kc: bool, x, offset, mask, weight, bias, stride, padding,
                       dtype=torch.float32)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     P, K = B * Ho * Wo, Kh * Kw
+    # the tiling of the whole DCN, so that a row window sums each output in
+    # the whole call's order (the f32 body's tap groups) and its rows are
+    # the whole call's bit for bit
+    P_all = B * _out_hw(H, W, Kh, Kw, stride, padding, dilation)[0] * Wo
     work = None
     if x.dtype == torch.bfloat16:
-        n_tile, wgs, nsplit = kernel_tiling(P, Cout, flat_kc, sms)
+        n_tile, wgs, nsplit = kernel_tiling(P_all, Cout, flat_kc, sms)
         tap_group = 0
         wtile = torch.empty((K * Cin * nsplit * n_tile,), device=x.device,
                             dtype=torch.bfloat16)
     else:   # hi and lo tiles of the split weights, the tap groups' sums
-        n_tile, wgs, nsplit, tap_group = kernel_tiling_f32(P, Cout, Cin, K,
-                                                           sms)
+        n_tile, wgs, nsplit, tap_group = kernel_tiling_f32(P_all, Cout, Cin,
+                                                           K, sms)
         wtile = torch.empty((2 * K * Cin * nsplit * n_tile,),
                             device=x.device, dtype=torch.float32)
         groups = -(-K // tap_group)
@@ -586,7 +622,8 @@ def _launch(flat_kc: bool, x, offset, mask, weight, bias, stride, padding,
             weight.data_ptr(), None if bias is None else bias.data_ptr(),
             out.data_ptr(), wtile.data_ptr())
     shape = (B, H, W, Cin, Ho, Wo, Cout, Kh, Kw, stride[0], stride[1],
-             padding[0], padding[1], dilation[0], dilation[1], n_tile, wgs)
+             padding[0], padding[1], dilation[0], dilation[1], h0, n_tile,
+             wgs)
     if flat_kc:
         entry, args = "pdft_deform_conv2d_flat_kc_fwd", (*ptrs, *shape)
     else:
@@ -599,8 +636,9 @@ def _launch(flat_kc: bool, x, offset, mask, weight, bias, stride, padding,
     if err != 0:
         raise RuntimeError(f"deform_conv2d kernel ({entry}) launch failed: "
                            f"cudaError {err}")
-    launch_counts["deform_conv2d_flat_kc" if flat_kc
-                  else "deform_conv2d"] += 1
+    name = "deform_conv2d_flat_kc" if flat_kc else "deform_conv2d"
+    launch_counts[name] += 1
+    launch_columns[name, Cout] += 1
     return out
 
 
@@ -623,10 +661,12 @@ def deform_conv2d_backward_plain(grad_out: torch.Tensor, x: torch.Tensor,
                                  stride: Pair = (1, 1),
                                  padding: Pair = (1, 1),
                                  dilation: Pair = (1, 1),
-                                 flat_kc: bool = False):
+                                 flat_kc: bool = False, h0: int = 0,
+                                 ho: Optional[int] = None):
     """Gradients ``(dx, doffset, dmask, dweight, dbias)`` of the DCN for
-    ``grad_out`` (B, Ho, Wo, Cout), one tap at a time, in f32, each
-    returned in its input's dtype (``dbias`` None without a bias):
+    ``grad_out`` (B, Ho, Wo, Cout) of the output rows ``[h0, h0 + Ho)``,
+    one tap at a time, in f32, each returned in its input's dtype (``dbias``
+    None without a bias; ``dx`` over the whole x):
 
     - ``dW[t] = colᵀ @ dout`` and ``dcol = dout @ W[t]ᵀ``, as JAX's
       ``_tap_bwd`` (``deform_blend.py:243``);
@@ -646,7 +686,7 @@ def deform_conv2d_backward_plain(grad_out: torch.Tensor, x: torch.Tensor,
     weight's gradient in flat-kc mode."""
     B, H, W, Cin = x.shape
     Kh, Kw, _, Cout = weight.shape
-    Ho, Wo = _out_hw(H, W, Kh, Kw, stride, padding, dilation)
+    Ho, Wo = _window_hw(H, W, Kh, Kw, stride, padding, dilation, h0, ho)
     K = Kh * Kw
     P = B * Ho * Wo
     f32 = torch.float32
@@ -657,7 +697,7 @@ def deform_conv2d_backward_plain(grad_out: torch.Tensor, x: torch.Tensor,
 
     g = grad_out.reshape(P, Cout).to(f32)
     sy, sx = _sample_points(offset, Ho, Wo, Kh, Kw, stride, padding,
-                            dilation)
+                            dilation, h0=h0)
     y0 = torch.floor(sy).reshape(P, K, 1)
     x0 = torch.floor(sx).reshape(P, K, 1)
     wy = sy.reshape(P, K, 1) - y0
@@ -716,15 +756,17 @@ class DeformConv2dFunction(torch.autograd.Function):
     launch of the tap mode (K1) or, with ``flat_kc``, the flat-kc mode
     (K2); ``backward`` is :func:`deform_conv2d_backward_plain` in the same
     mode (JAX's custom VJPs ``blend_matmul_tap`` / ``blend_matmul``,
-    ``deform_blend.py:229,114``)."""
+    ``deform_blend.py:229,114``). Two trailing arguments, ``h0, ho``, give
+    a row window (module docstring); without them, every row."""
 
     @staticmethod
     def forward(ctx, x, offset, mask, weight, bias, stride, padding,
-                dilation, flat_kc):
+                dilation, flat_kc, *window):
         ctx.save_for_backward(x, offset, mask, weight, bias)
         ctx.geometry = (stride, padding, dilation, flat_kc)
+        ctx.window = window
         return _launch(flat_kc, x, offset, mask, weight, bias, stride,
-                       padding, dilation)
+                       padding, dilation, *window)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -734,8 +776,16 @@ class DeformConv2dFunction(torch.autograd.Function):
         # arrives strided
         grads = deform_conv2d_backward_plain(
             grad_out.contiguous(), x, offset, mask, weight, bias, stride,
-            padding, dilation, flat_kc)
-        return (*grads, None, None, None, None)
+            padding, dilation, flat_kc, *ctx.window)
+        return (*grads, None, None, None, None) + (None,) * len(ctx.window)
+
+
+def _window_args(x, weight, stride, padding, dilation, h0: int,
+                 ho: Optional[int]) -> Tuple[int, ...]:
+    """The Function's trailing window arguments: none for every row."""
+    Ho = _out_hw(x.shape[1], x.shape[2], weight.shape[0], weight.shape[1],
+                 stride, padding, dilation)[0]
+    return () if h0 == 0 and ho in (None, Ho) else (h0, ho)
 
 
 @hand_counted(dcn_flops)
@@ -743,15 +793,19 @@ def deform_conv2d_tap(x: torch.Tensor, offset: torch.Tensor,
                       mask: torch.Tensor, weight: torch.Tensor,
                       bias: Optional[torch.Tensor] = None,
                       stride: Pair = (1, 1), padding: Pair = (1, 1),
-                      dilation: Pair = (1, 1)) -> torch.Tensor:
-    """The whole DCN in the kernel's tap mode (K1) on a CUDA tensor,
-    differentiable; the plain version on a CPU tensor."""
+                      dilation: Pair = (1, 1), h0: int = 0,
+                      ho: Optional[int] = None) -> torch.Tensor:
+    """The DCN (its row window) in the kernel's tap mode (K1) on a CUDA
+    tensor, differentiable; the plain version on a CPU tensor."""
     if _device_type(x) == "cpu":
         return deform_conv2d_plain(x, offset, mask, weight, bias, stride,
-                                   padding, dilation)
+                                   padding, dilation, h0=h0, ho=ho)
     return DeformConv2dFunction.apply(x, offset, mask, weight, bias,
                                       tuple(stride), tuple(padding),
-                                      tuple(dilation), False)
+                                      tuple(dilation), False,
+                                      *_window_args(x, weight, stride,
+                                                    padding, dilation, h0,
+                                                    ho))
 
 
 @hand_counted(dcn_flops)
@@ -759,34 +813,44 @@ def deform_conv2d_chunked(x: torch.Tensor, offset: torch.Tensor,
                           mask: torch.Tensor, weight: torch.Tensor,
                           bias: Optional[torch.Tensor] = None,
                           stride: Pair = (1, 1), padding: Pair = (1, 1),
-                          dilation: Pair = (1, 1)) -> torch.Tensor:
-    """The flat-kc route: the whole DCN, all taps, in one launch of the
-    kernel's flat-kc mode (K2) on a CUDA tensor, differentiable; on a CPU
-    tensor :func:`deform_conv2d_chunked_plain` in JAX's
+                          dilation: Pair = (1, 1), h0: int = 0,
+                          ho: Optional[int] = None) -> torch.Tensor:
+    """The flat-kc route: the DCN (its row window), all taps, in one launch
+    of the kernel's flat-kc mode (K2) on a CUDA tensor, differentiable; on
+    a CPU tensor :func:`deform_conv2d_chunked_plain` in JAX's
     tap chunks, which changes only the order of the f32 sums."""
     if _device_type(x) == "cpu":
         return deform_conv2d_chunked_plain(x, offset, mask, weight, bias,
-                                           stride, padding, dilation)
+                                           stride, padding, dilation,
+                                           h0=h0, ho=ho)
     return DeformConv2dFunction.apply(x, offset, mask, weight, bias,
                                       tuple(stride), tuple(padding),
-                                      tuple(dilation), True)
+                                      tuple(dilation), True,
+                                      *_window_args(x, weight, stride,
+                                                    padding, dilation, h0,
+                                                    ho))
 
 
 @hand_counted(dcn_flops)
 def deform_conv2d(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
                   weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
                   stride: Pair = (1, 1), padding: Pair = (1, 1),
-                  dilation: Pair = (1, 1)) -> torch.Tensor:
+                  dilation: Pair = (1, 1), h0: int = 0,
+                  ho: Optional[int] = None) -> torch.Tensor:
     """Modulated deform conv (DCNv2), channels-last; returns f32
-    (B, Ho, Wo, Cout). CPU tensors go through :func:`deform_conv2d_plain`;
-    CUDA tensors through the flat-kc mode where the JAX package takes its
-    flat-kc route (:func:`flat_kc_route`), else through the tap mode."""
+    (B, Ho, Wo, Cout), the rows of the window ``[h0, h0 + ho)``. CPU
+    tensors go through :func:`deform_conv2d_plain`; CUDA tensors through
+    the flat-kc mode where the JAX package takes its flat-kc route
+    (:func:`flat_kc_route`), else through the tap mode. The route is
+    decided on the whole DCN's output rows, so that a row window never
+    changes where the kernel rounds."""
     if x.device.type == "cuda":
         B, H, W, Cin = x.shape
         Kh, Kw, _, Cout = weight.shape
         Ho, Wo = _out_hw(H, W, Kh, Kw, stride, padding, dilation)
         if flat_kc_route(B, Ho, Wo, Cin, Kh * Kw, Cout, x.dtype):
             return deform_conv2d_chunked(x, offset, mask, weight, bias,
-                                         stride, padding, dilation)
+                                         stride, padding, dilation, h0=h0,
+                                         ho=ho)
     return deform_conv2d_tap(x, offset, mask, weight, bias, stride, padding,
-                             dilation)
+                             dilation, h0=h0, ho=ho)

@@ -18,7 +18,11 @@ KERNELS = {"deform_conv2d": "deform_conv",
            "resize_normalize": "resize_norm"}
 
 launch_counts: Counter = Counter()
+# the same launches by (name, output columns): the deform-conv kernel's
+# launches at each Cout (a tp-sharded DCN runs at its shard's columns)
+launch_columns: Counter = Counter()
 
 
 def reset_launch_counts() -> None:
     launch_counts.clear()
+    launch_columns.clear()

@@ -8,7 +8,10 @@
 // lives in the kernel, as in the reference's CUDA im2col op.
 //
 // out[p, co] = bias[co] + sum_t A[p, t, :] @ W[t][:, co], sums in f32.
-// The sample point is (oy*sh - ph + ky*dh + dy, ox*sw - pw + kx*dw + dx);
+// The sample point is ((h0+oy)*sh - ph + ky*dh + dy, ox*sw - pw + kx*dw +
+// dx): ``h0`` is the first output row of the launch's row window, so that a
+// launch computes output rows [h0, h0 + Ho) of the DCN over the whole x (a
+// row-sharded caller's own rows; 0 and the whole Ho otherwise);
 // its four bilinear corners q = (0,0), (0,1), (1,0), (1,1) carry
 // w_q = ((lerp_y * lerp_x) * in_bounds_q) * mask, computed with
 // non-contracted f32 operations in that order. A corner outside the image
@@ -84,7 +87,7 @@ struct DcnArgs {
   const __nv_bfloat16* wtile;   // B tiles: [step][Cout split][N][64]
   const float* bias;
   float* out;
-  int B, H, W, Cin, Ho, Wo, Cout, Kh, Kw, sh, sw, ph, pw, dh, dw;
+  int B, H, W, Cin, Ho, Wo, Cout, Kh, Kw, sh, sw, ph, pw, dh, dw, h0;
 };
 
 __host__ __device__ constexpr int corners_of(int mode) {
@@ -320,7 +323,8 @@ __device__ __forceinline__ void corner_table(const Args& a, long long p,
     const int ky = t / a.Kw;
     const int kx = t - ky * a.Kw;
     const float* off = a.offset + p * (2 * K) + 2 * t;
-    const float sy = __fadd_rn((float)(oy * a.sh - a.ph + ky * a.dh), off[0]);
+    const float sy =
+        __fadd_rn((float)((a.h0 + oy) * a.sh - a.ph + ky * a.dh), off[0]);
     const float sx = __fadd_rn((float)(ox * a.sw - a.pw + kx * a.dw), off[1]);
     const float m = a.mask[p * K + t];
     const float y0f = floorf(sy);
@@ -577,7 +581,7 @@ cudaError_t launch_wgmma(const DcnArgs& a, int wgs, int nsplit,
 int dcn_bf16(int mode, const void* x, const float* offset, const float* mask,
              const void* weight, const float* bias, float* out, void* wtile,
              int B, int H, int W, int Cin, int Ho, int Wo, int Cout, int Kh,
-             int Kw, int sh, int sw, int ph, int pw, int dh, int dw,
+             int Kw, int sh, int sw, int ph, int pw, int dh, int dw, int h0,
              int n_tile, int wgs, void* stream) {
   const long long P = (long long)B * Ho * Wo;
   if (P <= 0 || Cout <= 0) return (int)cudaSuccess;
@@ -596,7 +600,8 @@ int dcn_bf16(int mode, const void* x, const float* offset, const float* mask,
   if (e != cudaSuccess) return (int)e;
   const DcnArgs a{static_cast<const __nv_bfloat16*>(x), offset, mask,
                   static_cast<const __nv_bfloat16*>(wtile), bias, out,
-                  B, H, W, Cin, Ho, Wo, Cout, Kh, Kw, sh, sw, ph, pw, dh, dw};
+                  B, H, W, Cin, Ho, Wo, Cout, Kh, Kw, sh, sw, ph, pw, dh, dw,
+                  h0};
   switch (mode * 1000 + n_tile) {
     case kTap * 1000 + 64: return (int)launch_wgmma<kTap, 64>(a, wgs, nsplit, s);
     case kTap * 1000 + 128: return (int)launch_wgmma<kTap, 128>(a, wgs, nsplit, s);
@@ -658,7 +663,7 @@ struct F32Args {
   const float* bias;
   float* out;
   float* work;          // per tap group sums [group][P][Cout] (groups > 1)
-  int B, H, W, Cin, Ho, Wo, Cout, Kh, Kw, sh, sw, ph, pw, dh, dw;
+  int B, H, W, Cin, Ho, Wo, Cout, Kh, Kw, sh, sw, ph, pw, dh, dw, h0;
   int tap_group;        // taps per group (blockIdx.z)
 };
 
@@ -943,7 +948,8 @@ int dcn_f32(const void* x, const float* offset, const float* mask,
             const void* weight, const float* bias, float* out, void* wtile,
             void* work, int B, int H, int W, int Cin, int Ho, int Wo,
             int Cout, int Kh, int Kw, int sh, int sw, int ph, int pw, int dh,
-            int dw, int n_tile, int wgs, int tap_group, void* stream) {
+            int dw, int h0, int n_tile, int wgs, int tap_group,
+            void* stream) {
   const long long P = (long long)B * Ho * Wo;
   if (P <= 0 || Cout <= 0) return (int)cudaSuccess;
   const int K = Kh * Kw;
@@ -965,7 +971,7 @@ int dcn_f32(const void* x, const float* offset, const float* mask,
   const F32Args a{static_cast<const float*>(x), offset, mask,
                   static_cast<const float*>(wtile), bias, out,
                   static_cast<float*>(work), B, H, W, Cin, Ho, Wo, Cout, Kh,
-                  Kw, sh, sw, ph, pw, dh, dw, tap_group};
+                  Kw, sh, sw, ph, pw, dh, dw, h0, tap_group};
   e = n_tile == 64 ? launch_tf32<64>(a, wgs, wg_n, nsplit, groups, s)
                    : launch_tf32<128>(a, wgs, wg_n, nsplit, groups, s);
   if (e != cudaSuccess || groups == 1) return (int)e;
@@ -985,22 +991,23 @@ int dcn_f32(const void* x, const float* offset, const float* mask,
 // (the bf16 tensor-core body; Cin % 64 == 0, Cout % 8 == 0, Cout <= 256,
 // n_tile in {64, 128, 256}, wgs in {1, 2}, ``wtile`` scratch of
 // Kh*Kw*Cin*ceil(Cout/n_tile)*n_tile bf16 for the staged weights; work and
-// tap_group unused). x must be 16-byte aligned. Returns the cudaError_t of
-// the launch.
+// tap_group unused). Ho is the row window's height and h0 its first output
+// row (0 and the whole Ho for the whole DCN). x must be 16-byte aligned.
+// Returns the cudaError_t of the launch.
 extern "C" int pdft_deform_conv2d_fwd(
     const void* x, const float* offset, const float* mask, const void* weight,
     const float* bias, float* out, void* wtile, void* work, int dtype, int B,
     int H, int W, int Cin, int Ho, int Wo, int Cout, int Kh, int Kw, int sh,
-    int sw, int ph, int pw, int dh, int dw, int n_tile, int wgs,
+    int sw, int ph, int pw, int dh, int dw, int h0, int n_tile, int wgs,
     int tap_group, void* stream) {
   if (dtype == 1)
     return dcn_bf16(kTap, x, offset, mask, weight, bias, out, wtile, B, H, W,
-                    Cin, Ho, Wo, Cout, Kh, Kw, sh, sw, ph, pw, dh, dw, n_tile,
-                    wgs, stream);
+                    Cin, Ho, Wo, Cout, Kh, Kw, sh, sw, ph, pw, dh, dw, h0,
+                    n_tile, wgs, stream);
   if (dtype == 0)
     return dcn_f32(x, offset, mask, weight, bias, out, wtile, work, B, H, W,
-                   Cin, Ho, Wo, Cout, Kh, Kw, sh, sw, ph, pw, dh, dw, n_tile,
-                   wgs, tap_group, stream);
+                   Cin, Ho, Wo, Cout, Kh, Kw, sh, sw, ph, pw, dh, dw, h0,
+                   n_tile, wgs, tap_group, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1010,8 +1017,8 @@ extern "C" int pdft_deform_conv2d_flat_kc_fwd(
     const void* x, const float* offset, const float* mask, const void* weight,
     const float* bias, float* out, void* wtile, int B, int H, int W, int Cin,
     int Ho, int Wo, int Cout, int Kh, int Kw, int sh, int sw, int ph, int pw,
-    int dh, int dw, int n_tile, int wgs, void* stream) {
+    int dh, int dw, int h0, int n_tile, int wgs, void* stream) {
   return dcn_bf16(kFlatKc, x, offset, mask, weight, bias, out, wtile, B, H,
-                  W, Cin, Ho, Wo, Cout, Kh, Kw, sh, sw, ph, pw, dh, dw,
+                  W, Cin, Ho, Wo, Cout, Kh, Kw, sh, sw, ph, pw, dh, dw, h0,
                   n_tile, wgs, stream);
 }

@@ -1,18 +1,24 @@
 """Device mesh and sharding utilities (counterpart of
 pdf_table_tpu/parallel/mesh.py).
 
-The scaling story is data parallelism over pages and crops: a 1-D "dp"
-mesh, the batch split over it, the parameters replicated. On the card the
-mesh is a ``torch.distributed.device_mesh.DeviceMesh`` over the ranks of
-the process group, one process per card (``multihost.initialize`` or
-``torchrun``): where JAX's single program places shards on devices, each
-process here takes its own rows and the results meet in a collective.
+The scaling story is data parallelism over pages and crops: a "dp" axis,
+the batch split over it, the parameters replicated. The train step also
+takes JAX's two model-parallel axes: ``tp`` (the output channels of wide
+layers, ``tensor_parallel.py``) and ``sp`` (image rows,
+``spatial.py``). On the card the mesh is a
+``torch.distributed.device_mesh.DeviceMesh`` over the ranks of the process
+group, one process per card (``multihost.initialize`` or ``torchrun``):
+where JAX's single program places shards on devices, each process here
+takes its own rows or columns and the results meet in a collective.
+
+A mesh's axes are ``dp``, ``tp`` and ``sp``, in any subset; another name
+raises where the mesh is used. The runner and the service split their
+pages over ``dp`` only: the ``tp`` and ``sp`` ranks of a dp row run that
+row's pages, as JAX replicates the inference programs over those axes.
 
 A mesh's device type follows the group's backend: ``cuda`` over NCCL,
-``cpu`` over gloo (the CPU tests, and two processes sharing one card,
-which NCCL refuses). The model-parallel axes of JAX's train step, ``tp``
-and ``sp``, are ROADMAP.md Queue 1 item 18: a mesh with either raises
-where it is used.
+``cpu`` over gloo (the CPU tests, and several processes sharing one card,
+which NCCL refuses).
 """
 
 from __future__ import annotations
@@ -79,22 +85,42 @@ def axis_size(mesh: Optional[DeviceMesh], axis: str) -> int:
     return mesh.size(mesh.mesh_dim_names.index(axis))
 
 
+MESH_AXES = ("dp", "tp", "sp")
+
+
+def check_axes(mesh: Optional[DeviceMesh]) -> None:
+    """Raise unless every axis of ``mesh`` is ``dp``, ``tp`` or ``sp``."""
+    names = tuple(mesh.mesh_dim_names or ()) if mesh is not None else ()
+    bad = [n for n in names if n not in MESH_AXES]
+    if bad or len(set(names)) != len(names):
+        raise ValueError(f"a mesh's axes are among {MESH_AXES}, each once; "
+                         f"got {names}")
+
+
+def axis_rank_and_size(mesh: Optional[DeviceMesh], axis: str
+                       ) -> Tuple[int, int]:
+    """(this process's index along ``axis``, the axis size); (0, 1)
+    without a mesh or that axis."""
+    size = axis_size(mesh, axis)
+    return (mesh.get_local_rank(axis) if size > 1 else 0), size
+
+
 def dp_rank_and_size(mesh: Optional[DeviceMesh]) -> Tuple[int, int]:
     """(this process's index along ``dp``, the dp size); (0, 1) without a
-    mesh. A ``tp`` or ``sp`` axis raises (ROADMAP.md Queue 1 item 18),
-    and so does any axis but ``dp``."""
-    if mesh is None:
-        return 0, 1
-    names = tuple(mesh.mesh_dim_names or ())
-    if "tp" in names or "sp" in names:
-        raise NotImplementedError(
-            f"mesh axes {names}: the tp and sp axes (column-parallel "
-            "layers, halo exchanges) are not ported (ROADMAP.md Queue 1 "
-            "item 18)")
-    if names != ("dp",):
-        raise ValueError(f"a data-parallel mesh has the one axis 'dp', "
-                         f"got {names}")
-    return mesh.get_local_rank("dp"), mesh.size(0)
+    mesh or a dp axis. An axis but ``dp``, ``tp`` and ``sp`` raises."""
+    check_axes(mesh)
+    return axis_rank_and_size(mesh, "dp")
+
+
+def sp_split(t, rank: int, size: int):
+    """Rank ``rank``'s rows of a batch leaf split ``size`` ways over its
+    dim 1 (JAX's ``spec_for``, ``train_step.py:129``): a leaf of 4 or more
+    dims whose dim 1 ``size`` divides; any other leaf whole, as JAX
+    replicates it. Returns (the leaf, whether it was split)."""
+    if size > 1 and getattr(t, "ndim", 0) >= 4 and t.shape[1] % size == 0:
+        m = t.shape[1] // size
+        return t[:, rank * m:(rank + 1) * m], True
+    return t, False
 
 
 def data_sharding(mesh: DeviceMesh, axis: str = "dp",

@@ -48,11 +48,13 @@ A failure is contained to its page
 pages get an error output, the rest of the batch goes on; nothing is re-run
 elsewhere.
 
-With a ``mesh`` (a dp mesh of parallel/mesh.py, one process per card),
-``run`` is a collective: every process passes the same pages, runs its
+With a ``mesh`` (parallel/mesh.py, one process per card), ``run`` is a
+collective: every process passes the same pages, runs its dp row's
 contiguous shard of them (``parallel/multihost.py::shard_bounds``) through
 its own chunks and lanes on its own card, and gets every page's output
-back in page order (``all_gather_object``). A failure stays contained
+back in page order (``all_gather_object`` over dp). The ``tp`` and ``sp``
+ranks of a dp row run that row's pages alike, as JAX replicates its
+programs over those axes. A failure stays contained
 within the process that met it. JAX's runner pads each chunk to a
 multiple of the dp size, since its chunk is one program over the mesh;
 here each process runs its pages as they are, so nothing is padded.
@@ -178,7 +180,7 @@ class BatchPipeline:
                  device_crops: Optional[bool] = None):
         from ..parallel.mesh import dp_rank_and_size
 
-        dp_rank_and_size(mesh)   # a tp or sp axis raises here
+        dp_rank_and_size(mesh)   # an axis but dp, tp and sp raises here
         self.system = OcrSystemTask(config or OcrSystemConfig(), mesh=mesh,
                                     device=device)
         self.mesh = mesh

@@ -25,14 +25,15 @@ builds every task's model and loads every kernel's library before the
 batcher starts, so that the first request does not pay for ``nvcc``. The
 models run on ``cuda`` unless ``device="cpu"`` is given.
 
-With a ``mesh`` (a dp mesh of parallel/mesh.py, one process per card;
-``--mesh dp=N`` under ``torchrun``) the process of rank 0 binds the port,
+With a ``mesh`` (parallel/mesh.py, one process per card; ``--mesh dp=N``
+under ``torchrun``) the process of rank 0 binds the port,
 batches the requests and sends each batch's payloads to the other ranks
 (``broadcast_object_list``); each of those runs :meth:`serve_worker`,
 which expands the same payloads into the same pages and enters the
 collective ``BatchPipeline.run`` beside rank 0, until rank 0 sends a stop
-(:meth:`close`). Every rank runs its shard of the batch's pages on its own
-card; rank 0 answers with all of them. ``/healthz`` and ``/metrics`` are
+(:meth:`close`). Every dp row runs its shard of the batch's pages on its
+own card (the tp and sp ranks of a row alike); rank 0 answers with all of
+them. ``/healthz`` and ``/metrics`` are
 rank 0's.
 """
 
@@ -71,7 +72,11 @@ class ExtractionService:
         self.pipeline = BatchPipeline(config or OcrSystemConfig(), mesh=mesh,
                                       batch_pages=batch_pages, device=device)
         self.mesh = mesh
-        self.rank = dp_rank_and_size(mesh)[0]
+        dp_rank_and_size(mesh)   # an axis but dp, tp and sp raises here
+        # the mesh's first process batches; every other one (of any dp,
+        # tp or sp index) runs in serve_worker
+        self.rank = 0 if mesh is None else mesh.get_rank() - int(
+            mesh.mesh.flatten()[0])
         self.batch_pages = batch_pages
         self.max_wait_ms = max_wait_ms
         self.queue: "Queue[_Request]" = Queue()
@@ -139,8 +144,7 @@ class ExtractionService:
         import torch.distributed as dist
 
         box = [items]
-        dist.broadcast_object_list(box, src=int(self.mesh.mesh.flatten()[0]),
-                                   group=self.mesh.get_group("dp"))
+        dist.broadcast_object_list(box, src=int(self.mesh.mesh.flatten()[0]))
         return box[0]
 
     def serve_worker(self) -> None:

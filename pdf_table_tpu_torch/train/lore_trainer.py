@@ -1,10 +1,14 @@
 """LORE TSR trainer (counterpart of pdf_table_tpu/train/lore_trainer.py):
 teacher-forced forward, the LORE loss, the global-norm clip and AdamW
 (``optim.py``), checkpoints in the port's format, best-model tracking. On
-one card, or data-parallel over a dp mesh (one process per card,
-train/train_step.py): every process takes the same global batch (``fit``
-draws it from the same seed on each), steps on its rows, and keeps the
-same parameters.
+one card, or over a mesh of ``dp``, ``tp`` and ``sp`` (one process per
+card, train/train_step.py): every process takes the same global batch
+(``fit`` draws it from the same seed on each) and steps on its dp rows;
+under ``tp`` the wide layers hold their rank's columns
+(parallel/tensor_parallel.py), under ``sp`` the detector runs on the
+rank's image rows (parallel/spatial.py). Its result is the one-device
+step's. Checkpoints hold the whole, meshless tree, written by the mesh's
+first process; a restore shards it again.
 
 The trainer runs f32 (``LoreConfig.dtype``'s default, what the JAX tool
 trains): its parameters are the model's own tensors, updated in place.
@@ -28,7 +32,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..convert.flax_bridge import load_flax_variables, state_dict_to_flax
+from ..convert.flax_bridge import (flax_to_state_dict, load_flax_variables,
+                                   state_dict_to_flax, transposed_modules)
 from ..engine.device import compute_dtype, resolve_device
 from ..engine.params import (init_lore, load_params, save_params,
                              save_params_async, wait_for_async_saves)
@@ -59,7 +64,8 @@ class LoreTrainArgs:
     log_every: int = 50
     # checkpoint the forward stage by stage (remat_stages): a stage keeps
     # only its input, and the backward recomputes its activations one
-    # stage at a time, at the cost of a second forward
+    # stage at a time, at the cost of a second forward (on a mesh with its
+    # collectives, in the same order on every rank)
     remat: bool = False
     # >1: split the batch into this many microbatches, average their
     # gradients, update once
@@ -111,20 +117,23 @@ def _skeleton(tree: Mapping[str, Any]) -> Dict[str, Any]:
 
 class LoreTrainer:
     """``LoreTrainer(config, args, mesh=None, device=None)`` trains on
-    ``cuda`` unless given ``device="cpu"``; with a dp ``mesh`` each
-    process steps on its rows of the global batch. ``init_state(variables)`` starts from a
-    flax-layout tree (default: ``init_lore``); ``train_step(batch)`` takes
-    one step on a batch of numpy arrays (``WtwDataset.batch``'s keys)."""
+    ``cuda`` unless given ``device="cpu"``; with a ``mesh`` each process
+    steps on its part of the global batch (module docstring).
+    ``init_state(variables)`` starts from a flax-layout tree (default:
+    ``init_lore``); ``train_step(batch)`` takes one step on a batch of
+    numpy arrays (``WtwDataset.batch``'s keys). ``min_shard_dim`` is the tp
+    rule's threshold (JAX's trainer keeps the default, 256)."""
 
     def __init__(self, config: Optional[LoreConfig] = None,
                  args: Optional[LoreTrainArgs] = None, mesh=None,
-                 device=None):
-        from ..parallel.mesh import dp_rank_and_size
+                 device=None, min_shard_dim: int = 256):
+        from ..parallel.mesh import check_axes
 
-        dp_rank_and_size(mesh)   # a tp or sp axis raises here
+        check_axes(mesh)
         self.config = config or LoreConfig.wtw()
         self.args = args or LoreTrainArgs()
         self.mesh = mesh
+        self.min_shard_dim = min_shard_dim
         self._batch_sum = dp_batch_sum(mesh)
         if compute_dtype(self.config.dtype) != torch.float32:
             raise ValueError("the trainer runs f32 (its parameters are the "
@@ -138,6 +147,7 @@ class LoreTrainer:
                                    self.args.grad_clip,
                                    weight_decay=self.args.weight_decay)
         self.state: Optional[TrainState] = None
+        self.rows = None   # the detector's sp region (parallel/spatial.py)
         self._step_fn: Optional[Callable] = None
         self._layout: Optional[Dict[str, Any]] = None
         self.history: List[Dict[str, float]] = []
@@ -149,20 +159,31 @@ class LoreTrainer:
                    seed: int = 0) -> None:
         """Load a flax-layout ``{"params", "batch_stats"}`` tree (default
         ``init_lore(config, seed)``) into the model and start the optimizer
-        at step 0."""
+        at step 0; on a mesh, rank 0's tree placed on the mesh
+        (``shard_state`` and the sp region)."""
+        if self.mesh is not None and self.state is not None:
+            raise RuntimeError("a trainer on a mesh shards its model once: "
+                               "restore_checkpoint or restore_train_state "
+                               "load a tree later")
         if variables is None:
             variables = init_lore(self.config, seed=seed)
         load_flax_variables(self.model, variables)
-        if self.mesh is not None:
-            from ..parallel.mesh import replicate_params
-            replicate_params(self.model, self.mesh)
         self._layout = _skeleton({"params": variables["params"],
                                   "batch_stats": variables["batch_stats"]})
         self.state = TrainState.create(self.model, self.optimizer)
+        if self.mesh is not None:
+            from ..parallel.mesh import replicate_params
+            from ..parallel.spatial import shard_rows
+            from ..parallel.tensor_parallel import shard_state
+
+            replicate_params(self.model, self.mesh)
+            self.state = shard_state(self.state, self.mesh,
+                                     self.min_shard_dim)
+            self.rows = shard_rows(self.model, self.mesh)
         self._step_fn = make_train_step(self.apply, self.loss,
                                         self.optimizer,
                                         self.args.grad_accum_steps,
-                                        mesh=self.mesh)
+                                        mesh=self.mesh, rows=self.rows)
 
     def apply(self, batch: Mapping[str, torch.Tensor]):
         """The teacher-forced forward on a device batch (under ``remat``
@@ -264,21 +285,54 @@ class LoreTrainer:
 
     # -- checkpointing ------------------------------------------------------
 
+    def whole(self, tensors: Mapping[str, torch.Tensor]
+               ) -> Dict[str, torch.Tensor]:
+        """Params (or their moments) by name, the tp shards gathered whole
+        (a collective on a tp mesh: every process calls it)."""
+        tensors = {k: t.detach() for k, t in tensors.items()}
+        sharding = self.state.sharding
+        return tensors if sharding is None else sharding.gather_tree(tensors)
+
+    def _writes(self) -> bool:
+        """Whether this process writes the checkpoints: the mesh's first,
+        or the only one."""
+        if self.mesh is None:
+            return True
+        import torch.distributed as dist
+
+        return dist.get_rank() == int(self.mesh.mesh.flatten()[0])
+
+    def _load(self, variables: Mapping[str, Any]) -> None:
+        """A whole flax-layout tree into the model, each tp shard cut from
+        it."""
+        sharding = self.state.sharding
+        if sharding is None:
+            load_flax_variables(self.model, variables)
+            return
+        sd = flax_to_state_dict(variables, transposed_modules(self.model))
+        with torch.no_grad():
+            for k, t in self.model.state_dict(keep_vars=True).items():
+                t.copy_(sharding.shard(k, sd[k]))
+
     def variables(self) -> Dict[str, Any]:
         """The model's params and batch_stats as a flax-layout tree (device
-        tensors), which ``init_state`` and the inference tasks load."""
-        sd = {k: t.detach() for k, t in {**self.state.params,
-                                         **self.state.buffers}.items()}
-        return state_dict_to_flax(sd, self._layout)
+        tensors), whole on a mesh, which ``init_state`` and the inference
+        tasks load."""
+        sd = {**self.whole(self.state.params),
+              **{k: t.detach() for k, t in self.state.buffers.items()}}
+        return state_dict_to_flax(sd, self._layout,
+                                  transposed_modules(self.model))
 
     def save_checkpoint(self, path: Optional[str] = None,
                         blocking: bool = True) -> str:
         """The flax-layout variables; ``blocking=False`` writes the file on
         a thread while training goes on (``fit`` waits for it at the
-        end)."""
+        end). On a mesh every process calls it and the first writes."""
         path = path or os.path.join(self.args.output_dir, "checkpoint")
-        (save_params if blocking else save_params_async)(self.variables(),
-                                                         path)
+        variables = self.variables()
+        if self._writes():
+            (save_params if blocking else save_params_async)(variables,
+                                                             path)
         return path
 
     def restore_checkpoint(self, path: str) -> None:
@@ -286,7 +340,7 @@ class LoreTrainer:
         if self.state is None:
             self.init_state(variables)
         else:
-            load_flax_variables(self.model, variables)
+            self._load(variables)
 
     # -- full-state resume ----------------------------------------------------
 
@@ -296,10 +350,13 @@ class LoreTrainer:
         checkpoint restarts the moments and the schedule)."""
         path = path or os.path.join(self.args.output_dir, "train_state")
         opt = self.state.opt_state
-        save_params({**self.variables(),
-                     "opt_state": {"count": opt["count"], "mu": opt["mu"],
-                                   "nu": opt["nu"]},
-                     "step": self.state.step}, path)
+        tree = {**self.variables(),
+                "opt_state": {"count": opt["count"],
+                              "mu": self.whole(opt["mu"]),
+                              "nu": self.whole(opt["nu"])},
+                "step": self.state.step}
+        if self._writes():
+            save_params(tree, path)
         return path
 
     def restore_train_state(self, path: str) -> None:
@@ -310,10 +367,17 @@ class LoreTrainer:
         if self.state is None:
             self.init_state(variables)
         else:
-            load_flax_variables(self.model, variables)
+            self._load(variables)
         opt = tree["opt_state"]
-        self.state.opt_state = {
-            "count": int(opt["count"]),
-            "mu": {k: v.to(self.device) for k, v in opt["mu"].items()},
-            "nu": {k: v.to(self.device) for k, v in opt["nu"].items()}}
+        sharding = self.state.sharding
+
+        def placed(moments):
+            moments = {k: torch.as_tensor(v) for k, v in moments.items()}
+            if sharding is not None:
+                moments = sharding.shard_tree(moments)
+            return {k: v.to(self.device) for k, v in moments.items()}
+
+        self.state.opt_state = {"count": int(opt["count"]),
+                                "mu": placed(opt["mu"]),
+                                "nu": placed(opt["nu"])}
         self.state.step = int(tree["step"])

@@ -14,6 +14,12 @@ the learning-rate schedules it is built with, with optax's arithmetic:
 - a piecewise-constant schedule scales *at* its boundary count.
 
 A state is ``{"count": int, "mu": {name: tensor}, "nu": {name: tensor}}``.
+
+On a mesh with a ``tp`` axis (``parallel/tensor_parallel.py``) the
+sharded params' gradients and moments are this rank's columns: the
+clip's norm adds the replicated leaves' squares once and the sharded
+leaves' local sums all-reduced over tp, and Adam updates each shard
+elementwise.
 """
 
 from __future__ import annotations
@@ -75,9 +81,18 @@ def join_schedules(schedules: Sequence[Schedule],
     return schedule
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """``sqrt(sum of every element squared)``, f32."""
-    return torch.sqrt(sum(torch.sum(t.float() * t.float()) for t in tensors))
+def global_norm(tensors, sharded=(), group=None) -> torch.Tensor:
+    """``sqrt(sum of every element squared)``, f32, over the replicated
+    ``tensors`` and the tp shards ``sharded`` (their squares summed over
+    ``group``, the tp axis's process group)."""
+    sq = sum(torch.sum(t.float() * t.float()) for t in tensors)
+    sharded = list(sharded)
+    if sharded:
+        from ..parallel.collectives import all_reduce
+
+        part = sum(torch.sum(t.float() * t.float()) for t in sharded)
+        sq = sq + all_reduce(part, group)
+    return torch.sqrt(sq)
 
 
 class ClipAdamW:
@@ -101,11 +116,18 @@ class ClipAdamW:
 
     @torch.no_grad()
     def update(self, grads: Mapping[str, torch.Tensor], state: Dict,
-               params: Mapping[str, torch.Tensor]
+               params: Mapping[str, torch.Tensor], sharding=None
                ) -> Tuple[Dict[str, torch.Tensor], Dict]:
         """(updates to add to the params, the next state); the moments are
-        updated in place."""
-        g_norm = global_norm(grads.values())
+        updated in place. ``sharding`` (a ``ParamSharding``) names the tp
+        shards among ``grads``."""
+        if sharding is not None and sharding.dims:
+            g_norm = global_norm(
+                [g for k, g in grads.items() if k not in sharding.dims],
+                [g for k, g in grads.items() if k in sharding.dims],
+                sharding.axis.group)
+        else:
+            g_norm = global_norm(grads.values())
         clip = bool(g_norm >= self.max_norm)
         count = state["count"] + 1
         f32 = torch.float32

@@ -5,18 +5,29 @@ tensors (``params``, by state_dict name), its buffers (BatchNorm
 statistics, which get no gradient) and the optimizer state. The step
 updates the params in place, as the JAX step donates its state.
 
-With a dp mesh (parallel/mesh.py, one process per card) the step is JAX's
-GSPMD step over the global batch: every process passes the same global
-batch, takes its own rows of it, and the gradients and losses are summed
-over the processes, so the clip and the optimizer see the one-device
-step's gradient on every process. For that sum to be the global batch's
-loss, ``loss_fn`` must divide by sums over the global batch, not over its
-own rows: the LORE trainer passes ``lore_loss`` :func:`dp_batch_sum`'s
-all-reduce for its denominators. A model whose BatchNorm runs on batch
-statistics would take them over its own rows: the dp step is for models
-on running statistics, as LORE's train forward is. JAX's ``tp`` and ``sp``
-axes (model-parallel layers, halo exchanges) are ROADMAP.md Queue 1 item
-18: a mesh with either raises.
+With a mesh (parallel/mesh.py, one process per card, axes ``dp``, ``tp``
+and ``sp``) the step is JAX's GSPMD step over the global batch, whose
+result is the one-device step's:
+
+- every process passes the same global batch and takes its dp rows of it;
+  the gradients and losses are summed over dp, so the clip and the
+  optimizer see the one-device step's gradient. For that sum to be the
+  global batch's loss, ``loss_fn`` must divide by sums over the global
+  batch, not over its own rows: the LORE trainer passes ``lore_loss``
+  :func:`dp_batch_sum`'s all-reduce over dp for its denominators;
+- under ``sp`` (``rows``, a ``parallel.spatial.Rows``) each process also
+  takes its rows of the image (JAX's ``spec_for``: a leaf of 4 or more
+  dims whose rows sp divides; else the leaf stays whole and the sp ranks
+  compute alike). The params used in the sp region get partial
+  gradients, summed over sp in one flat all-reduce;
+- under ``tp`` the state's params are column shards
+  (``parallel/tensor_parallel.py::shard_state``): their gradients stay
+  local, and the clip's norm sums the shards over tp.
+
+The losses come out the same on every tp and sp rank. A model whose
+BatchNorm runs on batch statistics would take them over its own rows: the
+mesh step is for models on running statistics, as LORE's train forward
+is (in the sp region batch statistics raise).
 """
 
 from __future__ import annotations
@@ -32,17 +43,23 @@ Batch = Mapping[str, torch.Tensor]
 
 @dataclass
 class TrainState:
+    """``model`` owns ``params`` and ``buffers``; ``sharding`` (a
+    ``ParamSharding``) names the params that are tp shards, None
+    off a tp mesh."""
+
     step: int
     params: Dict[str, torch.Tensor]
     buffers: Dict[str, torch.Tensor]
     opt_state: Dict[str, Any]
+    model: Optional[nn.Module] = None
+    sharding: Any = None
 
     @classmethod
     def create(cls, model: nn.Module, optimizer) -> "TrainState":
         params = dict(model.named_parameters())
         return cls(step=0, params=params,
                    buffers=dict(model.named_buffers()),
-                   opt_state=optimizer.init(params))
+                   opt_state=optimizer.init(params), model=model)
 
 
 def value_and_grad(apply_fn: Callable[[Batch], Any],
@@ -97,9 +114,21 @@ def dp_rows(batch: Batch, rank: int, size: int) -> Dict[str, torch.Tensor]:
     return {k: v[rank * m:(rank + 1) * m] for k, v in batch.items()}
 
 
+def _sum_flat(grads: Dict[str, torch.Tensor], names, group) -> None:
+    """``grads[k]`` for ``k`` in ``names`` summed over ``group``, in one
+    all-reduce of their concatenation (in place of the dict's entries)."""
+    from ..parallel.mesh import all_reduce_sum
+
+    names = [k for k in grads if k in names]
+    flat = all_reduce_sum(torch.cat([grads[k].reshape(-1) for k in names]),
+                          group)
+    for k, t in zip(names, flat.split([grads[k].numel() for k in names])):
+        grads[k] = t.view_as(grads[k])
+
+
 def make_train_step(apply_fn: Callable[[Batch], Any],
                     loss_fn: Callable[[Any, Batch], Dict[str, torch.Tensor]],
-                    optimizer, accum_steps: int = 1, mesh=None
+                    optimizer, accum_steps: int = 1, mesh=None, rows=None
                     ) -> Callable[[TrainState, Batch],
                                   Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """``step(state, batch) -> (state, metrics)``.
@@ -109,26 +138,35 @@ def make_train_step(apply_fn: Callable[[Batch], Any],
     the loss does not reach gets a zero gradient (as under ``jax.grad``).
     ``accum_steps > 1`` splits the batch into that many microbatches,
     averages their gradients and losses, and updates once: the effective
-    batch at the activation memory of one microbatch. With a dp ``mesh``
+    batch at the activation memory of one microbatch. With a ``mesh``
     (module docstring) ``batch`` is the global batch; each microbatch is
-    split over the processes and its gradients and losses summed."""
-    from ..parallel.mesh import all_reduce_sum, dp_rank_and_size
+    split over dp (and its ``"image"`` over sp, where ``rows``, the model's
+    sp region, is given), and its gradients and losses summed."""
+    from ..parallel.mesh import all_reduce_sum, dp_rank_and_size, sp_split
 
     rank, size = dp_rank_and_size(mesh)
 
     def grads_of(params, batch):
         if size > 1:
             batch = dp_rows(batch, rank, size)
-        losses, grads = value_and_grad(apply_fn, loss_fn, params, batch)
+        split = False
+        if rows is not None:
+            image, split = sp_split(batch["image"], rows.axis.rank,
+                                    rows.axis.size)
+            batch = {**batch, "image": image}
+        if rows is None:
+            losses, grads = value_and_grad(apply_fn, loss_fn, params, batch)
+        else:
+            with rows.region(split):
+                losses, grads = value_and_grad(apply_fn, loss_fn, params,
+                                               batch)
         grads = {k: torch.zeros_like(params[k]) if g is None else g
                  for k, g in grads.items()}
+        if split:
+            _sum_flat(grads, rows.param_names, rows.axis.group)
         if size > 1:
             group = mesh.get_group("dp")
-            names = list(grads)
-            flat = all_reduce_sum(torch.cat([grads[k].reshape(-1)
-                                             for k in names]), group)
-            grads = dict(zip(names, (t.view_as(grads[k]) for k, t in zip(
-                names, flat.split([grads[k].numel() for k in names])))))
+            _sum_flat(grads, grads.keys(), group)
             keys = list(losses)
             vals = all_reduce_sum(torch.stack([losses[k].float()
                                                for k in keys]), group)
@@ -149,7 +187,7 @@ def make_train_step(apply_fn: Callable[[Batch], Any],
         else:
             losses, grads = grads_of(state.params, batch)
         updates, opt_state = optimizer.update(grads, state.opt_state,
-                                              state.params)
+                                              state.params, state.sharding)
         with torch.no_grad():
             for k, u in updates.items():
                 state.params[k].add_(u.to(state.params[k].dtype))

@@ -50,7 +50,10 @@ parallel package on a one-process gloo group (the dp mesh, ``shard_batch``,
 ``replicate_params``, GPipe at one stage, the dp train step), the FLOP
 count of a deform conv and a conv with a stage around it, and DBNet's
 polygon mode, with neither JAX, flax, cv2 nor the JAX package
-imported."""
+imported. A thirteenth starts four gloo ranks, each a fresh interpreter,
+that take one LORE train step (dla34, small widths) on a (dp 1, tp 2,
+sp 2) mesh, with neither JAX, flax, optax, cv2 nor the JAX package
+imported on any rank."""
 
 import json
 import os
@@ -818,3 +821,83 @@ def test_parallel_flops_and_polygon_run_without_jax():
                    "pp": True, "step": 1, "finite": True, "dcn": True,
                    "conv": 2 * 64 * 4 * 4 * 9, "stage": True,
                    "polygon": True, "polys": 1}
+
+
+_TP_SP_SCRIPT = r"""
+import json, os, sys
+import numpy as np
+import torch
+import torch.multiprocessing as mp
+
+
+def run(rank, world, port, out_dir):
+    torch.set_num_threads(1)
+    from pdf_table_tpu_torch.engine.params import init_lore
+    from pdf_table_tpu_torch.models.lore.config import LoreConfig
+    from pdf_table_tpu_torch.parallel import make_mesh
+    from pdf_table_tpu_torch.parallel.multihost import initialize
+    from pdf_table_tpu_torch.train.lore_trainer import (LoreTrainArgs,
+                                                        LoreTrainer)
+    import torch.distributed as dist
+
+    initialize(f"127.0.0.1:{port}", world, rank, device="cpu", timeout=120)
+    cfg = LoreConfig(resolution=(64, 64), max_objs=4, hidden_size=32,
+                     head_conv=16, tsfm_layers=1, stacking_layers=1,
+                     num_heads=4, max_fmp_size=64, d_ff=64)
+    mesh = make_mesh(axis_names=("dp", "tp", "sp"),
+                     devices=np.arange(4).reshape(1, 2, 2), device="cpu")
+    tr = LoreTrainer(cfg, LoreTrainArgs(batch_size=1, save_every=0,
+                                        output_dir=out_dir),
+                     mesh=mesh, device="cpu")
+    tr.init_state(init_lore(cfg, seed=0))
+    rng = np.random.default_rng(0)
+    hm = np.zeros((1, 16, 16, 2), np.float32)
+    hm[:, 4, 4, 0] = 1.0
+    batch = {"image": rng.normal(size=(1, 64, 64, 3)).astype(np.float32),
+             "hm": hm, "hm_ind": np.zeros((1, 4), np.int64),
+             "hm_mask": np.ones((1, 4), np.float32),
+             "wh": np.ones((1, 4, 8), np.float32),
+             "reg": np.zeros((1, 4, 2), np.float32),
+             "logic": np.ones((1, 4, 4), np.float32),
+             "gt_dets": np.ones((1, 4, 8), np.float32)}
+    loss = tr.train_step(batch)["loss"]
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in (
+        "jax", "jaxlib", "flax", "optax", "cv2", "pdf_table_tpu"))
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump({"bad": bad, "finite": bool(np.isfinite(loss)),
+                   "sharded": len(tr.state.sharding.dims),
+                   "rows": tr.rows is not None}, f)
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    mp.spawn(run, args=(4, port, sys.argv[1]), nprocs=4)
+    print(json.dumps([json.load(open(os.path.join(sys.argv[1],
+                                                  f"rank{r}.json")))
+                      for r in range(4)]))
+"""
+
+
+def test_tp_sp_step_runs_without_jax(tmp_path):
+    """A thirteenth run: four gloo ranks take a LORE train step on a
+    (1, 2, 2) mesh, with neither JAX, flax, optax, cv2 nor the JAX
+    package imported on any rank."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS="1",
+               PDF_TABLE_TPU_ALLOW_RANDOM_INIT="quiet")
+    env.pop("WORLD_SIZE", None)
+    script = tmp_path / "tp_sp_step.py"
+    script.write_text(_TP_SP_SCRIPT)
+    out = subprocess.run([sys.executable, str(script), str(tmp_path)],
+                         cwd=root, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    # dla34's level4/5 convs and the two ida_0 DCNs and their upsample
+    # are at least 256 wide
+    assert res == [{"bad": [], "finite": True, "sharded": 21,
+                    "rows": True}] * 4

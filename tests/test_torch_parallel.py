@@ -1,7 +1,7 @@
 """The port's parallel/ package against the JAX package's on the CPU: the
 multi-process sharding math (every n in 0..40 over 1-5 processes), the
 dp mesh, its placements, ``shard_batch`` and ``replicate_params`` on a
-2-rank gloo group, and GPipe over a 4-rank pp group against
+2-rank gloo group (and the dp coordinate of meshes with tp and sp axes), and GPipe over a 4-rank pp group against
 ``sequential_apply`` and JAX's ``gpipe_apply`` on a 4-device pp mesh (the
 stack of tests/test_parallel_pp.py), forward and gradients to 1e-5.
 
@@ -140,10 +140,16 @@ def test_replicate_params_takes_rank0s_tree(groups):
 
 
 def test_tp_and_sp_axes_raise_naming_item_18(groups):
+    """A mesh with tp or sp axes gives the dp coordinate (the train step's
+    axes, tests/test_torch_tp_sp.py); another axis name still raises. (The
+    name is kept from when these axes raised, naming item 18, which is
+    done.)"""
     mesh_res, _ = groups
-    for res in mesh_res:
-        assert set(res["refusals"]) == {"tp", "sp"}
-        assert all("item 18" in m for m in res["refusals"].values())
+    for r, res in enumerate(mesh_res):
+        assert res["taken"] == {"dp/tp": (r, 2), "dp/sp": (0, 1),
+                                "tp/dp": (r, 2)}
+        assert set(res["refusals"]) == {"dp/pp"}
+        assert "'pp'" in res["refusals"]["dp/pp"]
 
 
 def test_mesh_needs_the_group_for_several_processes():

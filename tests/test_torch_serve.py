@@ -16,9 +16,10 @@ both, as JAX names its CPU backend), ``/metrics`` (its counters add up),
 (a trace written), the 413 cap; ``close()`` fails the requests still
 queued; a crashed run still deletes its temp PDFs. Then the port's
 ``warm`` (every task built before the batcher starts) and the refusals
-of ``mesh``: a tp axis raises naming item 18, ``--mesh dp=2`` outside a
-process group of two raises, as does another axis (the dp service itself
-runs in tests/test_torch_parallel_runner.py)."""
+of ``mesh``: an axis other than dp, tp and sp raises, ``--mesh dp=2``
+outside a process group of two raises, as does another axis (the dp
+service itself runs in tests/test_torch_parallel_runner.py, on a tp
+mesh in tests/test_torch_tp_sp.py)."""
 
 import base64
 import http.client
@@ -270,11 +271,11 @@ def test_warm_builds_every_task_and_mesh_raises():
         assert svc.platform == "cpu"
     finally:
         svc.close()
-    class TpMesh:
-        mesh_dim_names = ("dp", "tp")
+    class PpMesh:
+        mesh_dim_names = ("dp", "pp")
 
-    with pytest.raises(NotImplementedError, match="item 18"):
-        serve.ExtractionService(mesh=TpMesh(), device="cpu")
+    with pytest.raises(ValueError, match="'pp'"):
+        serve.ExtractionService(mesh=PpMesh(), device="cpu")
     with pytest.raises(RuntimeError, match="process group"):
         serve.main(["--mesh", "dp=2"])
     with pytest.raises(ValueError, match="dp=N"):

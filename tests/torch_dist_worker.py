@@ -1,5 +1,6 @@
 """One rank of a gloo process group for the port's parallel tests
-(tests/test_torch_parallel.py, tests/test_torch_parallel_runner.py).
+(tests/test_torch_parallel.py, tests/test_torch_parallel_runner.py,
+tests/test_torch_tp_sp.py).
 
     python tests/torch_dist_worker.py CASE RANK WORLD PORT IN_FILE OUT_FILE
 
@@ -109,7 +110,8 @@ def page_summary(out):
 
 def case_mesh(rank, world, inp):
     """make_mesh, the placements, shard_batch and replicate_params on a
-    1-D dp mesh; the tp / sp refusal."""
+    1-D dp mesh; the dp coordinate on meshes with tp and sp axes, and the
+    refusal of an unknown axis."""
     from pdf_table_tpu_torch.parallel import (data_sharding, make_mesh,
                                               replicate_params,
                                               replicated_sharding,
@@ -127,14 +129,19 @@ def case_mesh(rank, world, inp):
     replicate_params(model, mesh)
     tree = {"w": torch.full((2,), float(rank)), "b": [torch.tensor(rank)]}
     replicate_params(tree, mesh)
-    refusals = {}
-    for axes in (("dp", "tp"), ("dp", "sp")):
+    taken, refusals = {}, {}
+    for axes, devices in ((("dp", "tp"), np.arange(world)[:, None]),
+                          (("dp", "sp"), np.arange(world)[None]),
+                          (("tp", "dp"), np.arange(world)[None])):
+        sub = make_mesh(axis_names=axes, devices=devices, device="cpu")
+        taken["/".join(axes)] = dp_rank_and_size(sub)
+    for axes in (("dp", "pp"),):
         sub = make_mesh(axis_names=axes, devices=np.arange(world)[None],
                         device="cpu")
         try:
             dp_rank_and_size(sub)
-        except NotImplementedError as e:
-            refusals[axes[1]] = str(e)
+        except ValueError as e:
+            refusals["/".join(axes)] = str(e)
     return {"shape": tuple(mesh.shape), "names": mesh.mesh_dim_names,
             "dp": dp_rank_and_size(mesh), "n": n,
             "rows": {k: v.numpy() for k, v in rows.items()},
@@ -143,7 +150,7 @@ def case_mesh(rank, world, inp):
             "before": {k: v.numpy() for k, v in before.items()},
             "after": {k: v.numpy() for k, v in model.state_dict().items()},
             "tree": (tree["w"].numpy(), int(tree["b"][0])),
-            "refusals": refusals}
+            "taken": taken, "refusals": refusals}
 
 
 def mlp_stage(params, x):
@@ -171,18 +178,15 @@ def case_gpipe(rank, world, inp):
     return out
 
 
-def case_runner(rank, world, inp):
-    """The dp runner on the pages, the dp service on the payloads, the dp
-    LORE step on the global batch."""
+def runner_and_service(rank, inp, mesh):
+    """The runner on ``inp["pages"]`` and the service on
+    ``inp["payloads"]`` over ``mesh``; rank 0 also runs the meshless
+    runner on the same tasks (``solo``) and submits the payloads, the
+    other ranks serve."""
     from pdf_table_tpu_torch import serve
-    from pdf_table_tpu_torch.models.lore.config import LoreConfig
-    from pdf_table_tpu_torch.parallel import make_mesh
     from pdf_table_tpu_torch.pipeline.batch_runner import BatchPipeline
     from pdf_table_tpu_torch.pipeline.system import OcrSystemConfig
-    from pdf_table_tpu_torch.train.lore_trainer import (LoreTrainArgs,
-                                                        LoreTrainer)
 
-    mesh = make_mesh(device="cpu")
     bp = build_pipeline(inp, mesh)
     pages = [{"image": p, "page": i} for i, p in enumerate(inp["pages"])]
     res = {"pages": [page_summary(o) for o in bp.run(pages)],
@@ -206,7 +210,19 @@ def case_runner(rank, world, inp):
             svc.close()
     else:
         svc.serve_worker()
+    return res
 
+
+def case_runner(rank, world, inp):
+    """The dp runner on the pages, the dp service on the payloads, the dp
+    LORE step on the global batch."""
+    from pdf_table_tpu_torch.models.lore.config import LoreConfig
+    from pdf_table_tpu_torch.parallel import make_mesh
+    from pdf_table_tpu_torch.train.lore_trainer import (LoreTrainArgs,
+                                                        LoreTrainer)
+
+    mesh = make_mesh(device="cpu")
+    res = runner_and_service(rank, inp, mesh)
     tr = LoreTrainer(LoreConfig.wtw(**inp["lore_tiny"]),
                      LoreTrainArgs(**inp["train_args"]), mesh=mesh,
                      device="cpu")
@@ -218,7 +234,152 @@ def case_runner(rank, world, inp):
     return res
 
 
-CASES = {"mesh": case_mesh, "gpipe": case_gpipe, "runner": case_runner}
+LAYER_STACK = ("conv3x3/1", "conv3x3/2", "conv7x7/1", "dla_pool",
+               "resnet_pool", "deconv4x4/2", "depthwise_up2", "conv1x1/2")
+
+
+def layer_stack(x, weights, rows=None):
+    """The row-sharded layers of the sp region one after another
+    (LAYER_STACK, each followed by tanh): the plain ops with ``rows``
+    None, on this rank's rows in an enabled sp region."""
+    from pdf_table_tpu_torch.parallel import spatial
+
+    w = iter(weights)
+    for kind in LAYER_STACK:
+        if kind.startswith("conv"):
+            k, s = (int(v) for v in kind[4:].replace("x", "/").split("/")
+                    [1:])
+            x = spatial.conv2d(x, next(w), next(w), (s, s), (k // 2,) * 2,
+                               (1, 1), 1, rows)
+        elif kind == "dla_pool":
+            x = spatial.max_pool2d(x, 2, 2, 0, rows)
+        elif kind == "resnet_pool":
+            x = spatial.max_pool2d(x, 3, 2, 1, rows)
+        elif kind == "deconv4x4/2":
+            # conv_transpose_same(C, C, 4, 2): torch padding 1, no output
+            # padding
+            x = spatial.conv_transpose2d(x, next(w), None, (2, 2), (1, 1),
+                                         (0, 0), 1, (1, 1), rows)
+        else:
+            wd = next(w)
+            x = spatial.conv_transpose2d(x, wd, None, (2, 2), (1, 1),
+                                         (0, 0), wd.shape[0], (1, 1), rows)
+        x = torch.tanh(x)
+    return x
+
+
+def _crc(t):
+    import zlib
+
+    return zlib.crc32(t.detach().contiguous().numpy().tobytes())
+
+
+def _lore_config(inp, name):
+    from pdf_table_tpu_torch.models.lore.config import LoreConfig
+
+    kw = inp["configs"][name]
+    return LoreConfig(**kw) if name == "resnet18" else LoreConfig.wtw(**kw)
+
+
+def _mesh3(dims):
+    from pdf_table_tpu_torch.parallel import make_mesh
+
+    return make_mesh(axis_names=("dp", "tp", "sp"),
+                     devices=np.arange(int(np.prod(dims))).reshape(dims),
+                     device="cpu")
+
+
+def _trainer(inp, run, mesh, out_dir):
+    from pdf_table_tpu_torch.train.lore_trainer import (LoreTrainArgs,
+                                                        LoreTrainer)
+
+    args = dict(inp["train_args"], output_dir=out_dir,
+                remat=run.get("remat", False),
+                grad_accum_steps=run.get("accum", 1))
+    tr = LoreTrainer(_lore_config(inp, run["config"]),
+                     LoreTrainArgs(**args), mesh=mesh, device="cpu",
+                     min_shard_dim=run.get("min_shard_dim", 256))
+    tr.init_state(inp["trees"][run["config"]])
+    return tr
+
+
+def case_tp_sp(rank, world, inp):
+    """The tp and sp axes: (c) the layer stack at sp = 4, each rank's
+    output rows and gradients; (d) each run of ``inp["runs"]`` (a LORE
+    step on a dp x tp x sp mesh: its losses, its whole params and Adam
+    first moments, written by rank 0 beside the results, the checksums of
+    this rank's params); (e) after the run marked ``resume``, a save /
+    restore / resume against the next step taken through; (f) the runner
+    and the service on a (2, 2, 1) mesh."""
+    from pdf_table_tpu_torch.parallel.collectives import (
+        collective_bytes, collective_calls, reset_collective_counts,
+        split_rows)
+    from pdf_table_tpu_torch.parallel.mesh import axis_rank_and_size
+    from pdf_table_tpu_torch.parallel.spatial import Rows
+
+    out = {}
+    lay = inp["layers"]
+    mesh = _mesh3((1, 1, world))
+    rows = Rows(mesh)
+    x = torch.from_numpy(lay["x"])
+    starts = split_rows(x.shape[2], world)
+    xl = x[:, :, starts[rank]:starts[rank + 1]].clone().requires_grad_()
+    weights = [torch.from_numpy(w).requires_grad_() for w in lay["weights"]]
+    with rows.region(True):
+        y = layer_stack(xl, weights, rows)
+        so = split_rows(lay["gout"].shape[2], world)
+        g = torch.from_numpy(lay["gout"])[:, :, so[rank]:so[rank + 1]]
+        grads = torch.autograd.grad((y * g).sum(), [xl] + weights)
+    out["layers"] = {"y": y.detach().numpy(),
+                     "grads": [t.numpy() for t in grads]}
+
+    out["runs"] = []
+    side = inp["side_dir"]
+    for i, run in enumerate(inp["runs"]):
+        mesh = _mesh3(run["mesh"])
+        tr = _trainer(inp, run, mesh, os.path.join(side, f"run{i}"))
+        reset_collective_counts()
+        losses = tr.train_step(inp["batches"][run["batch"]])
+        calls, nbytes = dict(collective_calls), dict(collective_bytes)
+        params = tr.whole(tr.state.params)
+        mu = tr.whole(tr.state.opt_state["mu"])
+        if rank == 0:
+            torch.save({"params": {k: v.numpy() for k, v in params.items()},
+                        "mu": {k: v.numpy() for k, v in mu.items()}},
+                       os.path.join(side, f"run{i}.pt"))
+        out["runs"].append({
+            "losses": losses, "calls": calls, "bytes": nbytes,
+            "coords": {a: axis_rank_and_size(mesh, a)
+                       for a in ("dp", "tp", "sp")},
+            "sharded": sorted(tr.state.sharding.dims),
+            "shapes": {k: tuple(v.shape) for k, v in
+                       tr.state.params.items()},
+            "crc": {k: _crc(v) for k, v in tr.state.params.items()},
+            "rows_split": tr.rows is not None and "halo_rows" in calls})
+        if run.get("resume"):
+            # (e) the next step straight through, and again from the
+            # train state saved before it
+            b2 = inp["batches"][run["resume"]]
+            saved = tr.save_train_state(os.path.join(side, "train_state"))
+            through = tr.train_step(b2)
+            want = {k: _crc(v) for k, v in tr.state.params.items()}
+            tr2 = _trainer(inp, run, mesh, os.path.join(side, "resume"))
+            tr2.restore_train_state(saved)
+            resumed = tr2.train_step(b2)
+            out["resume"] = {
+                "through": through, "resumed": resumed,
+                "step": tr2.state.step, "path": saved,
+                "params_equal": want == {
+                    k: _crc(v) for k, v in tr2.state.params.items()}}
+
+    # (f) the runner and the service split their pages over dp only
+    out["runner"] = runner_and_service(rank, inp["runner"],
+                                       _mesh3((2, 2, 1)))
+    return out
+
+
+CASES = {"mesh": case_mesh, "gpipe": case_gpipe, "runner": case_runner,
+         "tp_sp": case_tp_sp}
 
 
 # -- the test process's side ---------------------------------------------------
