@@ -78,6 +78,18 @@ Phases, each fatal on failure:
      (boxes within 0.5 px, the same labels, scores within 1e-4) at the
      bench's arguments, and the share matched in any order at
      keep_top_k 50;
+ 8b. surface: the device ops of the JAX package's public surface, each on
+     the card and held to the same call with its inputs on the CPU:
+     batch_resize_pad_normalize (4 pages cut to 4 sizes, packed, to
+     736x576; 1e-4 grey levels), warp_perspective_batch (31 quads of a
+     page, 48x320 crops; 1e-4 grey levels), connected_components (a
+     page's ink at 1/4 scale; labels equal), nms_mask (the components'
+     boxes grown by 12 px, their mean ink as scores; masks equal),
+     decode_centernet_bbox (a blurred ink heatmap of the 4 pages, k 100;
+     within 1e-5, indices equal) and device_decode_nms (the layout phase's
+     PicoDet heads on its 8 canvases; survivors equal, rows within 1e-5 of
+     their values). None launches K1-K3. Every export of every package of
+     the port resolves; the counts are printed;
   9. pipeline: the port's BatchPipeline.run with bench.py's configuration
      (det thresholds, the table layout head, rec en, LORE wireless f32 with
      res_buckets="auto", use_orientation_cls=False, the 0/180 classifier
@@ -453,7 +465,7 @@ LAYOUT_SCORE_TOL = 1e-4
 # timed runs after one warm-up; the card against the CPU on 2 pages
 # (quads to 1 px, texts equal on at least 98 % of crops)
 PIPE_PAGES = 16
-PIPE_RUNS = 5
+PIPE_RUNS = 3
 PIPE_CPU_PAGES = 2
 PIPE_LORE_KW = dict(vis_thresh=VIS_THRESH, **F32)
 PIPE_QUAD_TOL = 1.0
@@ -462,7 +474,7 @@ PIPE_TEXT_MIN = 0.98
 # beside the 8 digital pages; timed runs after the warm-up and the counted
 # run
 DIGITAL_RASTER = 8
-DIGITAL_RUNS = 2
+DIGITAL_RUNS = 1
 # train phase: the wtw step at full width, f32, B = 4 (LoreTrainArgs'
 # default); the first step through the kernel against the plain-DCN model
 # (f32 on both sides, sums in another order): each loss term, the global
@@ -2053,11 +2065,193 @@ def phase_layout(card):
     return tree
 
 
+SURFACE_GREY = 1e-4      # grey levels, warps and resizes
+SURFACE_DECODE = 1e-5    # the decodes, of each value
+SURFACE_SIZES = ((1224, 950), (1000, 800), (700, 950), (1224, 600))
+SURFACE_OUT = (736, 576)
+SURFACE_QUADS = 31
+SURFACE_CROP = (48, 320)
+SURFACE_K = 100
+
+
+def port_exports() -> dict:
+    """Every package of the port -> the names of its ``__all__``, each
+    resolved with ``getattr`` (lazy exports import their module here)."""
+    import importlib
+    from pathlib import Path
+
+    import pdf_table_tpu_torch
+
+    root = Path(pdf_table_tpu_torch.__file__).parent
+    out = {}
+    for init in sorted(root.rglob("__init__.py")):
+        rel = init.parent.relative_to(root).parts
+        mod = importlib.import_module(".".join(("pdf_table_tpu_torch",)
+                                               + rel))
+        names = list(getattr(mod, "__all__", ()))
+        for n in names:
+            getattr(mod, n)
+        if names:
+            out[mod.__name__] = len(names)
+    return out
+
+
+def surface_inputs():
+    """The surface phase's host inputs, from make_page and a seed."""
+    import numpy as np
+
+    from pdf_table_tpu_torch.ops import order_points_clockwise
+    from pdf_table_tpu_torch.ops.image import pack_images
+
+    rng = np.random.default_rng(0)
+    pages = [make_page(i) for i in range(len(SURFACE_SIZES))]
+    buf, hw = pack_images([p[:h, :w] for p, (h, w) in zip(pages,
+                                                          SURFACE_SIZES)])
+    quads = []
+    for i in range(SURFACE_QUADS):
+        cx, cy = rng.uniform(100, 850), rng.uniform(80, 1140)
+        w, h = rng.uniform(60, 300), rng.uniform(16, 40)
+        a = np.deg2rad(rng.uniform(-30, 30) if i % 3 == 0 else 0.0)
+        d = np.array([[-w, -h], [w, -h], [w, h], [-w, h]]) / 2
+        rot = np.array([[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]])
+        quads.append(order_points_clockwise(d @ rot.T + (cx, cy)))
+    ink = np.stack([255 - p[:, :, 0] for p in pages]).astype(np.float32)
+    small = ink[:, ::4, ::4] / 255.0
+    k = np.ones(5, np.float32) / 5
+    blur = np.apply_along_axis(np.convolve, 1, small, k, "same")
+    blur = np.apply_along_axis(np.convolve, 2, blur, k, "same")
+    heat = (blur + rng.uniform(0, 1e-3, blur.shape)).astype(np.float32)
+    B, H, W = heat.shape
+    return {"buf": buf, "hw": hw, "page": pages[0], "quads": np.stack(quads),
+            "mask": small[0] > 0.5, "ink": small[0].astype(np.float32),
+            "heat": heat[..., None],
+            "wh": rng.uniform(4, 60, (B, H, W, 2)).astype(np.float32),
+            "reg": rng.uniform(0, 1, (B, H, W, 2)).astype(np.float32)}
+
+
+def phase_surface(card, layout_v):
+    """The public surface's device ops on the card, each held to the same
+    call with its inputs on the CPU, and the port's package exports."""
+    import numpy as np
+    import torch
+
+    from pdf_table_tpu_torch import ops
+    from pdf_table_tpu_torch.models.picodet.processor import \
+        device_decode_nms
+    from pdf_table_tpu_torch.ops.kernels import (launch_counts,
+                                                 reset_launch_counts)
+    from pdf_table_tpu_torch.pipeline.batch_runner import pack_pages
+    from pdf_table_tpu_torch.tasks.layout import OcrLayoutTask
+
+    exports = port_exports()
+    x = surface_inputs()
+    (_, g), = pack_pages([make_page(i) for i in range(DET_PAGES)]).items()
+    layout = OcrLayoutTask(device=DEVICE, variables=layout_v, **LAYOUT_KW)
+    with torch.inference_mode():
+        raw = layout.forward(layout.preprocess(
+            torch.from_numpy(g["images"]).to(DEVICE)))
+    cfg = layout.model_config
+    mats = ops.perspective_matrices(x["quads"], SURFACE_CROP)
+    # NMS over the page's components, grown so that neighbours overlap,
+    # their mean ink as scores: one set of boxes for both devices
+    boxes, means, _, valid = ops.component_boxes(
+        ops.connected_components(torch.from_numpy(x["mask"])),
+        torch.from_numpy(x["ink"]), 512)
+    grown = boxes[valid] + torch.tensor([-12., -12., 12., 12.])
+    means = means[valid]
+
+    def calls(dev):
+        """Every op on ``dev``: name -> (output tensors, seconds)."""
+        t = lambda a: torch.as_tensor(a).to(dev)
+        out = {}
+
+        def timed_call(name, fn, *args):
+            """``fn(*args)`` twice, the second call timed (the first
+            loads the device's kernels)."""
+            fn(*args)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*args)
+            torch.cuda.synchronize()
+            out[name] = (res if isinstance(res, tuple) else (res,),
+                         time.perf_counter() - t0)
+            return res
+
+        with torch.inference_mode():
+            timed_call("batch_resize_pad_normalize",
+                       ops.batch_resize_pad_normalize, t(x["buf"]),
+                       t(x["hw"]), SURFACE_OUT)
+            timed_call("warp_perspective_batch", ops.warp_perspective_batch,
+                       t(x["page"]), t(mats), SURFACE_CROP)
+            timed_call("connected_components", ops.connected_components,
+                       t(x["mask"]))
+            timed_call("nms_mask", ops.nms_mask, t(grown), t(means), 0.3)
+            timed_call("decode_centernet_bbox", ops.decode_centernet_bbox,
+                       t(x["heat"]), t(x["wh"]), t(x["reg"]), SURFACE_K)
+            timed_call("device_decode_nms", device_decode_nms,
+                       {k: [a.to(dev) for a in v] for k, v in raw.items()},
+                       cfg)
+        return out
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    card_out = calls(DEVICE)
+    launches = dict(launch_counts)
+    cpu_out = calls("cpu")
+    norm = 255 * min(cfg.norm_std)
+    tol = {"batch_resize_pad_normalize": SURFACE_GREY / norm,
+           "warp_perspective_batch": SURFACE_GREY}
+    rows = {}
+    for name, (got, card_s) in card_out.items():
+        want, cpu_s = cpu_out[name]
+        row = {"card_ms": card_s * 1e3, "cpu_ms": cpu_s * 1e3,
+               "shape": [list(a.shape) for a in got]}
+        for g_, w_ in zip(got, want):
+            g_, w_ = g_.cpu(), w_.cpu()
+            check(g_.shape == w_.shape and g_.dtype == w_.dtype,
+                  f"surface: {name} gives {g_.shape} {g_.dtype} on the "
+                  f"card, {w_.shape} {w_.dtype} on the CPU")
+            if g_.dtype.is_floating_point:
+                err = (g_ - w_).abs().max().item() if g_.numel() else 0.0
+                row["max_abs_err"] = max(row.get("max_abs_err", 0.0), err)
+                if name in tol:
+                    check(err <= tol[name], f"surface: {name} differs from "
+                          f"the CPU by {err:.3g} (limit {tol[name]:.3g})")
+                else:
+                    lim = SURFACE_DECODE * (1 + w_.abs())
+                    check(bool(((g_ - w_).abs() <= lim).all()),
+                          f"surface: {name} differs from the CPU by {err:.3g}"
+                          f" beyond {SURFACE_DECODE:g} of the value")
+            else:
+                check(torch.equal(g_, w_),
+                      f"surface: {name}'s {g_.dtype} output differs from "
+                      f"the CPU's")
+        rows[name] = row
+    surv = card_out["device_decode_nms"][0][0][..., 4].cpu()
+    check(torch.equal(surv > 0, cpu_out["device_decode_nms"][0][0][..., 4]
+                      > 0), "surface: device_decode_nms keeps other rows")
+    labels = card_out["connected_components"][0][0]
+    n_comp = int(torch.unique(labels[labels > 0]).numel())
+    kept = int(card_out["nms_mask"][0][0].sum())
+    summary = {"card": card, "launches": launches, "packages": len(exports),
+               "exports": sum(exports.values()), "components": n_comp,
+               "nms_boxes": int(card_out["nms_mask"][0][0].numel()),
+               "nms_kept": kept, "survivors": int((surv > 0).sum()),
+               "ops": rows}
+    print(json.dumps({"surface": summary}))
+    check(sum(launches.values()) == 0,
+          f"surface: the ops launched {launches}")
+    check(n_comp > 10 and 0 < kept < summary["nms_boxes"],
+          "surface: the components or the NMS did no real work")
+    check(summary["survivors"] > 0, "surface: no PicoDet survivor")
+    return summary
+
+
 # the token-model TSR phases (SLANet, TableMaster/MtlTabNet at full width,
 # 500 decode steps) on the LORE slice's 8 table regions of 4 pages
 TSR_PAGES = 4
 TSR_BOXES = ((70, 100, 880, 560), (70, 620, 880, 1150))
-TSR_RUNS = 2
+TSR_RUNS = 1
 TSR_TEACHER_TOL = 1e-4  # card vs CPU: cuDNN and oneDNN sum in other orders
 TSR_TIE_GAP = 1e-4      # greedy ids compared up to the CPU's first near-tie
 TSR_CPU_CROPS = 2       # crops held against the CPU (one of each size)
@@ -2066,7 +2260,7 @@ SLANET_GAIN = 30.0      # structure logits spread (the CPU tests' trees)
 MASTER_VAR_GAIN = 4.0   # the residual encoder's variances, as the tests
 MASTER_GAIN = 10.0
 MASTER_SPECIAL_BIAS = -100.0   # <UKN>, <SOS>, <PAD>
-PIPE_TSR_RUNS = 2
+PIPE_TSR_RUNS = 1
 # the TableMaster arm decodes 16 crops a chunk at some 2 s a sub-batch of
 # 8 on the host's launches: one chunk of 8 pages, one page on the CPU
 PIPE_ARM_PAGES = {"SLANet": (PIPE_PAGES, PIPE_CPU_PAGES),
@@ -2181,7 +2375,7 @@ def tsr_stages(task, dev_pages, regions) -> dict:
             "crop_pre": host_ms(lambda: list(task.sub_batches(dev_pages,
                                                               regions))),
             "encoder": host_ms(lambda: encode(x)),
-            "decode": host_ms(lambda: decode(feat), iters=3),
+            "decode": host_ms(lambda: decode(feat), iters=1),
             "download": host_ms(lambda: packed.cpu()),
             "host_post": host_ms(lambda: [
                 task._post_one(packed_np[j:j + 1], m)
@@ -2919,7 +3113,7 @@ def phase_pipeline_bf16(card, trees, f32_out):
 
 
 SYS_RASTER = 6
-SYS_RUNS = 2
+SYS_RUNS = 1
 SYS_CPU_RASTER = 1
 SYS_THRESH_QUANTILE = 0.77
 SYS_QUAD_PX = 1.0
@@ -3888,10 +4082,10 @@ CN_HEADS_TOL = 1e-4     # card vs CPU: heads, max |diff| / max |head|
 CN_TIE_GAP = 1e-4       # decode slots compared up to the first near-tie
 CN_DECODE_TOL = 1e-3    # feature-map px and scores, on those slots
 CN_YARD_TOL = 1e-3      # f32 kernel vs plain-DCN yardstick, relative
-CN_RUNS = 5
+CN_RUNS = 3
 CN_DCNS = 16            # deform convs of one DLA trunk forward
 LGPMA_GAIN = 8.0        # the bbox head's class and delta logits spread
-LGPMA_RUNS = 2          # timed runs (the host post is seconds a run)
+LGPMA_RUNS = 1          # timed runs (the host post is seconds a run)
 LGPMA_CPU_CROPS = 2
 LGPMA_TOL = 1e-4        # card vs CPU: inputs (abs), maps and heads (rel)
 LGPMA_TIE_GAP = 1e-4    # proposals compared up to the first near-tie
@@ -6700,6 +6894,7 @@ def main() -> int:
     rn_launches = run("detection", phase_detection, card)
     run("recognition", phase_recognition, card)
     layout_v = run("layout", phase_layout, card)
+    run("surface", phase_surface, card, layout_v)
     pipe, pipe_trees, pipe_out = run("pipeline", phase_pipeline, card,
                                      layout_v)
     pipe_digital = run("pipeline_digital", phase_pipeline_digital, card,

@@ -5,23 +5,26 @@ nothing of it (nor JAX). Entry points run on ``cuda`` unless the caller
 passes ``device="cpu"``. Each kernel the JAX package wrote in Pallas is a
 hand-written Hopper kernel here (``ops/kernels/csrc``), with a plain
 PyTorch version beside it that the CPU path and the tests use.
+
+The public names are the JAX package's: every package exports what its
+JAX counterpart exports, so that code written against ``pdf_table_tpu``
+runs on the port by the package name alone
+(``tests/test_torch_api_surface.py`` holds the claim).
 """
 
-__version__ = "0.1.0"
+from ._lazy import lazy_exports
+from .version import __version__
 
 __all__ = ["__version__", "read_pdf", "OcrSystemTask", "OcrSystemConfig",
-           "BatchPipeline"]
+           "BatchPipeline", "ExtractionService"]
 
-
-def __getattr__(name):
-    """Lazy re-exports of the public API, as the JAX package's."""
-    if name == "read_pdf":
-        from .pdf_table import read_pdf
-        return read_pdf
-    if name in ("OcrSystemTask", "OcrSystemConfig"):
-        from .pipeline import system
-        return getattr(system, name)
-    if name == "BatchPipeline":
-        from .pipeline.batch_runner import BatchPipeline
-        return BatchPipeline
-    raise AttributeError(name)
+__getattr__, __dir__ = lazy_exports(
+    __name__,
+    {"read_pdf": ".pdf_table",
+     "OcrSystemTask": ".pipeline.system",
+     "OcrSystemConfig": ".pipeline.system",
+     "BatchPipeline": ".pipeline.batch_runner",
+     "ExtractionService": ".serve"},
+    submodules=("entity", "utils", "models", "tasks", "pipeline",
+                "pdf_table", "ops", "eval", "data", "train", "convert",
+                "pdfio", "parallel"))

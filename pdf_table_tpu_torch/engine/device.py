@@ -36,6 +36,14 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     return dev
 
 
+def default_backend(device: Optional[Union[str, torch.device]] = None
+                    ) -> str:
+    """The platform of the resolved device as JAX names its backends:
+    ``"gpu"`` for ``cuda``, else ``"cpu"`` (what the service's
+    ``/healthz`` reports)."""
+    return "gpu" if resolve_device(device).type == "cuda" else "cpu"
+
+
 def on_device(pages, device: torch.device) -> torch.Tensor:
     """``pages`` (a numpy array or a tensor) as a tensor on ``device``; a
     tensor already there is returned as it is, not copied."""
@@ -45,9 +53,15 @@ def on_device(pages, device: torch.device) -> torch.Tensor:
     return t if here else t.to(device)
 
 
-def compute_dtype(name: str) -> torch.dtype:
+def compute_dtype(name: Optional[str] = None,
+                  device: Optional[Union[str, torch.device]] = None
+                  ) -> torch.dtype:
     """The model's compute dtype by its config name; the deform-conv kernel
-    takes these two."""
+    takes these two. Without a name, the policy's dtype on the resolved
+    device (:func:`default_dtype`), which is what JAX's ``compute_dtype()``
+    gives for its backend."""
+    if name is None:
+        return default_dtype(resolve_device(device))
     try:
         return _DTYPES[name]
     except KeyError:

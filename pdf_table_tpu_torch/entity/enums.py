@@ -1,6 +1,7 @@
-"""Enumerations of the data model that the port's pipeline reads
-(counterpart of pdf_table_tpu/entity/enums.py: ``HtmlContentType``,
-``HtmlTableCompareType`` and ``PdfLineType``)."""
+"""Enumerations of the data model (counterpart of
+pdf_table_tpu/entity/enums.py, the same members, values and ``desc`` /
+``parse``): the reference's ``entity/enum_entity.py`` surface with English
+descriptors."""
 
 from __future__ import annotations
 
@@ -14,6 +15,18 @@ class HtmlContentType(Enum):
     IMAGE = "image"
     HYPERLINK = "hyperlink"
     NONE = "unknown"
+
+    @property
+    def desc(self) -> str:
+        return self.value
+
+    @staticmethod
+    def parse(raw) -> "HtmlContentType":
+        s = str(raw).lower()
+        for member in HtmlContentType:
+            if s in (member.value.lower(), member.name.lower()):
+                return member
+        return HtmlContentType.NONE
 
 
 @unique
@@ -48,6 +61,17 @@ class HtmlTableCompareType(Enum):
 
 
 @unique
+class LineDirectionType(Enum):
+    HORIZONTAL = "horizontal"
+    VERTICAL = "vertical"
+    NONE = "unknown"
+
+    @property
+    def desc(self) -> str:
+        return self.value
+
+
+@unique
 class PdfLineType(Enum):
     PARAGRAPH_START = "paragraph start"
     PARAGRAPH_END = "paragraph end"
@@ -56,3 +80,65 @@ class PdfLineType(Enum):
     ALIGN_RIGHT = "align right"
     ALIGN_CENTER = "align center"
     NONE = "unknown"
+
+    @property
+    def desc(self) -> str:
+        return self.value
+
+
+class LayoutLabelEnum(Enum):
+    TEXT = "text"
+    TITLE = "title"
+    FIGURE = "figure"
+    FIGURE_CAPTION = "figure_caption"
+    TABLE = "table"
+    TABLE_CAPTION = "table_caption"
+    HEADER = "header"
+    FOOTER = "footer"
+    REFERENCE = "reference"
+    EQUATION = "equation"
+    LIST = "list"
+    PAGE_NUMBER = "page_number"
+    FOOTNOTE = "footnote"
+    FULL_COLUMN = "full_column"
+    SUB_COLUMN = "sub_column"
+
+    @property
+    def desc(self) -> str:
+        return self.value
+
+    @staticmethod
+    def parse(raw) -> "LayoutLabelEnum | None":
+        s = str(raw).lower()
+        for member in LayoutLabelEnum:
+            if s == member.value.lower():
+                return member
+        return None
+
+
+@unique
+class ModelType(Enum):
+    LAYOUT_DOCX_LAYOUT = "DocXLayout"
+    LAYOUT_PICODET = "picodet"
+
+    TSR_CENTER_NET = "CenterNet"
+    TSR_SLANET = "SLANet"
+    TSR_LORE = "Lore"
+    TSR_LGPMA = "Lgpma"
+    TSR_MTL_TAB_NET = "MtlTabNet"
+    TSR_TABLE_MASTER = "TableMaster"
+    TSR_LINE_CELL = "LineCell"
+    TSR_LINE_CELL_PDF = "LineCellPdf"
+
+    DET_PP_OCRV4 = "PP-OCRv4-det"
+    DET_PP_OCRV3 = "PP-OCRv3-det"
+    DET_DBNET_RESNET18 = "resnet18"
+    DET_DBNET_RESNET50 = "resnet50"
+    DET_PROXYLESSNAS = "proxylessnas"
+
+    REC_PP_OCRV4 = "PP-OCRv4-rec"
+    REC_PP_OCRV3 = "PP-OCRv3-rec"
+    REC_PP_TABLE = "PP-Table"
+    REC_CONVNEXT_VIT = "ConvNextViT"
+    REC_CRNN = "CRNN"
+    REC_LIGHTWEIGHT_EDGE = "LightweightEdge"

@@ -55,6 +55,13 @@ class DocXLayoutPreProcessor:
                          "out_h": inp_h // self.config.down_ratio}}
 
 
+def poly_iou(a: np.ndarray, b: np.ndarray) -> float:
+    """Axis-aligned IoU of the hulls of two (8,) quads: the JAX package's
+    approximation of the reference's polygon IoU (shapely polygons), one
+    pair of :func:`pairwise_poly_iou`."""
+    return pairwise_poly_iou(np.stack([a, b]))[0, 1]
+
+
 def pairwise_poly_iou(quads: np.ndarray) -> np.ndarray:
     """(n, 8) quads -> (n, n) axis-aligned IoU of their hulls (the JAX
     package's ``poly_iou``, its approximation of the reference's polygon

@@ -1,0 +1,16 @@
+"""LORE table structure (counterpart of pdf_table_tpu/models/lore).
+
+The JAX package's exports, name for name, each resolved at its first
+use."""
+
+from ..._lazy import lazy_exports
+
+_EXPORTS = {
+    "LoreConfig": ".config",
+    "LoreModel": ".model",
+    "LorePreProcessor": ".processor",
+    "LorePostProcessor": ".processor",
+}
+
+__all__ = list(_EXPORTS)
+__getattr__, __dir__ = lazy_exports(__name__, _EXPORTS)

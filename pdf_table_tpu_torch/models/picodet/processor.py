@@ -191,6 +191,15 @@ def device_nms_pack(b: torch.Tensor, s: torch.Tensor, cfg: PicoDetConfig
     return pack_survivors(b, sc, keep, kk)
 
 
+def device_decode_nms(raw: Dict[str, Any], cfg: PicoDetConfig
+                      ) -> torch.Tensor:
+    """GFL decode + top-k + per-class greedy NMS on the head maps' device:
+    :func:`device_nms_pack` of :func:`device_decode_topk`'s candidates,
+    survivor rows (B, C, keep_top_k, 5)."""
+    b, s = _decode_topk(raw, cfg)
+    return device_nms_pack(b, s, cfg)
+
+
 def pack_survivors(b: torch.Tensor, sc: torch.Tensor, keep: torch.Tensor,
                    kk: int) -> torch.Tensor:
     """The ``kk`` best kept rows per class; -inf marks the others, so the

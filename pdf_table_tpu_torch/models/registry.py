@@ -21,6 +21,7 @@ loads flax-layout trees passed as ``variables`` and fetches nothing.
 from __future__ import annotations
 
 import os
+from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
 
 from ..utils.constants import Constants
@@ -28,6 +29,15 @@ from ..utils.constants import Constants
 _REGISTRY: Dict[Tuple[str, str], Callable[..., Any]] = {}
 
 TASKS = ("detection", "recognition", "layout", "table_structure", "cls")
+
+
+@dataclass(frozen=True)
+class ModelKey:
+    """A model's full key, as the JAX registry declares it."""
+    task: str            # one of TASKS
+    name: str            # e.g. "PP-OCRv4_det" / "db_resnet18" / "LoreModel"
+    task_type: str = ""  # e.g. "general" / "table" / "wtw"
+    lang: str = "en"
 
 
 class UnknownModel(KeyError, NotImplementedError):

@@ -62,3 +62,20 @@ def decode_boxes_4ps(heat: torch.Tensor, wh: torch.Tensor,
                          dim=-1)
     centers = torch.stack([cx, cy], dim=-1)
     return bboxes, scores, clses, centers, inds
+
+
+def decode_centernet_bbox(heat: torch.Tensor, wh: torch.Tensor,
+                          reg: torch.Tensor, k: int):
+    """Axis-aligned CenterNet decode: heat (B, H, W, C) post-sigmoid, wh
+    (B, H, W, 2) box sizes, reg (B, H, W, 2). Returns (bboxes (B, K, 4)
+    xyxy, scores, clses, inds) in feature-map coordinates."""
+    b, h, w, _ = heat.shape
+    heat = heatmap_nms(heat)
+    scores, inds, clses, ys, xs = topk_scores(heat, k)
+    r = gather_feat(reg.reshape(b, h * w, 2), inds)
+    cx = xs + r[:, :, 0]
+    cy = ys + r[:, :, 1]
+    sz = gather_feat(wh.reshape(b, h * w, 2), inds)
+    bboxes = torch.stack([cx - sz[:, :, 0] / 2, cy - sz[:, :, 1] / 2,
+                          cx + sz[:, :, 0] / 2, cy + sz[:, :, 1] / 2], dim=-1)
+    return bboxes, scores, clses, inds

@@ -4,8 +4,10 @@
 Plain PyTorch: the JAX package computes these in XLA, not Pallas. Labels
 follow the JAX contract exactly (0 = background, a component's label is
 its min flat index + 1), and so do the packed box rows, slot order
-included. Every function takes a batch of maps, (N, H, W); the labelling
-of one (H, W) map is the same with or without the batch dimension.
+included. :func:`connected_components` is the JAX op's label propagation
+on one (H, W) map; the rest take a batch of maps, (N, H, W), and the
+labelling of one map is the same with or without the batch dimension
+(:func:`component_boxes` also takes one map, as the JAX op does).
 """
 
 from __future__ import annotations
@@ -14,6 +16,9 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+# propagation steps between the host's looks at the labels
+CHECK_EVERY = 16
 
 
 def _run_min(vals: torch.Tensor, mask: torch.Tensor, dim: int, span: int
@@ -47,6 +52,34 @@ def _neighbour_min(labels: torch.Tensor, big: int) -> torch.Tensor:
         torch.minimum(p[..., 2:, :-2], p[..., 2:, 2:])))
 
 
+def connected_components(mask: torch.Tensor, max_iters: int = 4096
+                         ) -> torch.Tensor:
+    """mask (H, W) bool -> int32 labels (H, W): 0 = background, each
+    component labelled by its min flat index + 1. Label propagation, as in
+    the JAX op: each iteration takes the min over every pixel's 8
+    neighbours, until an iteration changes nothing or after ``max_iters``.
+    The iterations run without a host sync; every ``CHECK_EVERY`` of them
+    the loop ends if they changed nothing (once converged an iteration is
+    the identity, so the labels are the JAX op's). The detection lane runs
+    the batched :func:`connected_components_scan` instead."""
+    H, W = mask.shape
+    idx = (torch.arange(H * W, dtype=torch.int32, device=mask.device) + 1) \
+        .reshape(H, W)
+    big = H * W + 2
+    labels = torch.where(mask, idx, 0)
+    done = 0
+    while done < max_iters:
+        prev = labels
+        for _ in range(min(CHECK_EVERY, max_iters - done)):
+            l = torch.where(mask, labels, big)
+            labels = torch.where(
+                mask, torch.minimum(l, _neighbour_min(l, big)), 0)
+        done += min(CHECK_EVERY, max_iters - done)
+        if torch.equal(labels, prev):
+            break
+    return labels
+
+
 def connected_components_scan(mask: torch.Tensor,
                               num_iters: int = 8) -> torch.Tensor:
     """mask (..., H, W) bool -> int32 labels: 0 = background, each
@@ -78,7 +111,11 @@ def component_boxes(labels: torch.Tensor, scores: torch.Tensor,
     labels (N, H, W) int32, scores (N, H, W) float. Returns boxes (N, K, 4)
     f32 xyxy (x1, y1 exclusive), means (N, K) f32, areas (N, K) int32 and
     valid (N, K) bool; a slot past the last component has area 0 and the
-    box (W, H, 0, 0)."""
+    box (W, H, 0, 0). One (H, W) map, as the JAX op takes, gives the same
+    without the N axis."""
+    if labels.dim() == 2:
+        return tuple(t[0] for t in component_boxes(
+            labels[None], scores[None], max_components))
     N, H, W = labels.shape
     dev = labels.device
     flat = labels.reshape(N, H * W)

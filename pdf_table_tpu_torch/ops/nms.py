@@ -1,6 +1,7 @@
 """Box NMS pieces (counterpart of pdf_table_tpu/ops/nms.py): the pairwise
-IoU matrix in torch, which the layout lane's device NMS builds on, and the
-host greedy ``hard_nms`` in numpy, which the host route of
+IoU matrix in torch, which the layout lane's device NMS builds on, the
+greedy keep-mask ``nms_mask`` on the boxes' device, and the host greedy
+``hard_nms`` in numpy, which the host route of
 ``PicoDetPostProcessor.from_candidates`` runs."""
 
 from __future__ import annotations
@@ -22,6 +23,38 @@ def _iou_matrix(boxes: torch.Tensor) -> torch.Tensor:
         * (boxes[..., 3] - boxes[..., 1]).clamp_min(0)
     union = area[..., :, None] + area[..., None, :] - inter
     return torch.where(union > 0, inter / union, torch.zeros_like(inter))
+
+
+# steps between the host's looks at a device loop's state
+CHECK_EVERY = 16
+
+
+def nms_mask(boxes: torch.Tensor, scores: torch.Tensor,
+             iou_threshold: float = 0.5, score_threshold: float = 0.0
+             ) -> torch.Tensor:
+    """Greedy NMS keep-mask over (N, 4) / (N,) on their device.
+
+    Each step keeps the best unsuppressed box (the lower index on a tie)
+    and suppresses its overlaps, as the JAX op's N-step loop does. The
+    steps run without a host sync; every ``CHECK_EVERY`` steps the loop
+    ends once no box is left alive, which changes no result."""
+    n = boxes.shape[0]
+    iou = _iou_matrix(boxes)
+    alive = scores > score_threshold
+    keep = torch.zeros((n,), dtype=torch.bool, device=boxes.device)
+    ninf = torch.tensor(float("-inf"), dtype=scores.dtype,
+                        device=scores.device)
+    rows = torch.arange(n, device=boxes.device)
+    for step in range(n):
+        if step % CHECK_EVERY == 0 and not bool(alive.any()):
+            break
+        s = torch.where(alive, scores, ninf)
+        best = torch.argmax(s)
+        has = s[best] > ninf
+        sel = (rows == best) & has
+        keep = keep | sel
+        alive = alive & ~((iou[best] >= iou_threshold) & has) & ~sel
+    return keep
 
 
 def hard_nms(boxes, scores, iou_threshold: float = 0.5,

@@ -17,9 +17,14 @@ The homographies and the quad bookkeeping are host-side numpy
 These are plain gathers and matmuls that the JAX package computes outside
 any Pallas kernel, so they are ``torch`` calls here.
 
-:func:`crop_rotated_boxes` is the host path of natural-size crops
-(``crop_rotated_boxes(img, quads, None)`` in the JAX package), with
-OpenCV 5.0.0's perspective arithmetic from ``ops/cv_host.py``.
+:func:`warp_perspective_batch` samples N crops of one image through
+homographies (:func:`order_points_clockwise`, :func:`perspective_matrices`,
+the single-quad forms of the batch helpers), as the JAX package's does.
+
+:func:`crop_rotated_boxes` crops quads out of one image: at one size on
+the device through :func:`warp_perspective_batch` when ``out_hw`` is
+given, else at each crop's natural size on the host, with OpenCV 5.0.0's
+perspective arithmetic from ``ops/cv_host.py``.
 """
 
 from __future__ import annotations
@@ -28,6 +33,46 @@ from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+
+
+def order_points_clockwise(pts: np.ndarray) -> np.ndarray:
+    """Order 4 points as [top-left, top-right, bottom-right, bottom-left]
+    (image coordinates, y down): one quad of
+    :func:`order_points_clockwise_batch`."""
+    return order_points_clockwise_batch(np.reshape(pts, (1, 4, 2)))[0]
+
+
+def _homography_from_quad(src_quad: np.ndarray, dst_w: float,
+                          dst_h: float) -> np.ndarray:
+    """3x3 matrix mapping the dst rect (0, 0)-(w, h) onto the src quad (for
+    inverse-map sampling): the closed-form projective solve in f64."""
+    dst = np.array([[0, 0], [dst_w, 0], [dst_w, dst_h], [0, dst_h]],
+                   dtype=np.float64)
+    src = np.asarray(src_quad, dtype=np.float64)
+    A = np.zeros((8, 8))
+    b = np.zeros(8)
+    for i in range(4):
+        xd, yd = dst[i]
+        xs, ys = src[i]
+        A[2 * i] = [xd, yd, 1, 0, 0, 0, -xd * xs, -yd * xs]
+        b[2 * i] = xs
+        A[2 * i + 1] = [0, 0, 0, xd, yd, 1, -xd * ys, -yd * ys]
+        b[2 * i + 1] = ys
+    try:
+        h = np.linalg.solve(A, b)
+    except np.linalg.LinAlgError:
+        h = np.linalg.lstsq(A, b, rcond=None)[0]
+    return np.array([[h[0], h[1], h[2]], [h[3], h[4], h[5]],
+                     [h[6], h[7], 1.0]], dtype=np.float32)
+
+
+def perspective_matrices(quads: np.ndarray, out_hw: Tuple[int, int]
+                         ) -> np.ndarray:
+    """(N, 4, 2) clockwise quads -> (N, 3, 3) dst -> src homographies onto
+    an ``out_hw`` output."""
+    oh, ow = out_hw
+    return np.stack([_homography_from_quad(q, ow, oh) for q in quads]) \
+        if len(quads) else np.zeros((0, 3, 3), np.float32)
 
 
 def order_points_clockwise_batch(pts: np.ndarray) -> np.ndarray:
@@ -102,6 +147,53 @@ def quads_axis_aligned(quads: np.ndarray, eps: float = 0.75) -> np.ndarray:
             & (np.abs(q[:, 1, 0] - q[:, 2, 0]) <= eps))
 
 
+def _sample_coords(mats: torch.Tensor, out_hw: Tuple[int, int],
+                   dev: torch.device):
+    """The output pixel centers ``gx`` (1, 1, ow), ``gy`` (1, oh, 1) and
+    their source coordinates ``sx``, ``sy`` (N, oh, ow) through the dst ->
+    src homographies ``mats`` (N, 3, 3), in f32."""
+    oh, ow = out_hw
+    f32 = torch.float32
+    gx = (torch.arange(ow, dtype=f32, device=dev) + 0.5)[None, None, :]
+    gy = (torch.arange(oh, dtype=f32, device=dev) + 0.5)[None, :, None]
+    m = mats.to(device=dev, dtype=f32)[:, :, :, None, None]  # (N, 3, 3, 1, 1)
+    # mat @ [gx, gy, 1] as a chain of fused multiply-adds (the second
+    # product is added unrounded, through f64), which is how XLA on the CPU
+    # sums this 3-term dot (warp_perspective_batch's from three crops on;
+    # one crop gets plain f32 sums there); a plain f32 sum moves 4 % of the
+    # coordinates by an ulp
+    src = ((m[:, :, 0] * gx).double()
+           + m[:, :, 1].double() * gy.double()).to(f32) + m[:, :, 2]
+    den = src[:, 2].clamp_min(1e-8)
+    return gx, gy, src[:, 0] / den - 0.5, src[:, 1] / den - 0.5
+
+
+def warp_perspective_batch(img: torch.Tensor, mats: torch.Tensor,
+                           out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Sample N crops from one image: img (H, W, C); mats (N, 3, 3) dst ->
+    src. Returns (N, oh, ow, C) float32, zero where the sample point falls
+    more than a pixel outside the image; corners outside it are clamped to
+    the edge."""
+    H, W = img.shape[0], img.shape[1]
+    f32 = torch.float32
+    _, _, sx, sy = _sample_coords(mats, out_hw, img.device)
+    x0f, y0f = torch.floor(sx), torch.floor(sy)
+    wx, wy = sx - x0f, sy - y0f
+    x0, y0 = x0f.long(), y0f.long()
+    valid = (sx >= -1) & (sx <= W) & (sy >= -1) & (sy <= H)
+    x0c, x1c = x0.clamp(0, W - 1), (x0 + 1).clamp(0, W - 1)
+    y0c, y1c = y0.clamp(0, H - 1), (y0 + 1).clamp(0, H - 1)
+    flat = img.reshape(H * W, -1).to(f32)
+
+    def g(yy, xx, w):
+        return flat[yy * W + xx] * w[..., None]
+
+    out = g(y0c, x0c, (1 - wx) * (1 - wy)) + g(y0c, x1c, wx * (1 - wy)) \
+        + g(y1c, x0c, (1 - wx) * wy) + g(y1c, x1c, wx * wy)
+    return torch.where(valid[..., None], out,
+                       torch.zeros((), device=img.device))
+
+
 def warp_crops_from_pages(pages: torch.Tensor, page_idx: torch.Tensor,
                           mats: torch.Tensor, widths: torch.Tensor,
                           out_hw: Tuple[int, int],
@@ -119,17 +211,7 @@ def warp_crops_from_pages(pages: torch.Tensor, page_idx: torch.Tensor,
     dev = pages.device
     f32 = torch.float32
     n = mats.shape[0]
-    gx = (torch.arange(ow, dtype=f32, device=dev) + 0.5)[None, None, :]
-    gy = (torch.arange(oh, dtype=f32, device=dev) + 0.5)[None, :, None]
-    m = mats.to(f32)[:, :, :, None, None]                    # (N, 3, 3, 1, 1)
-    # mat @ [gx, gy, 1] as a chain of fused multiply-adds (the second
-    # product is added unrounded, through f64), which is how XLA sums this
-    # 3-term dot; a plain f32 sum moves 4 % of the coordinates by an ulp
-    src = ((m[:, :, 0] * gx).double()
-           + m[:, :, 1].double() * gy.double()).to(f32) + m[:, :, 2]
-    den = src[:, 2].clamp_min(1e-8)
-    sx = src[:, 0] / den - 0.5
-    sy = src[:, 1] / den - 0.5
+    gx, gy, sx, sy = _sample_coords(mats, out_hw, dev)
     x0f, y0f = torch.floor(sx), torch.floor(sy)
     wx, wy = sx - x0f, sy - y0f
     x0, y0 = x0f.long(), y0f.long()
@@ -249,12 +331,29 @@ def resample_axis_aligned_crops(pages: torch.Tensor, page_idx: torch.Tensor,
     return out, across(rows.flip(1), coords(x2, j, step, -1.0), vy.flip(1))
 
 
-def crop_rotated_boxes(img: np.ndarray, quads: np.ndarray
-                       ) -> List[np.ndarray]:
-    """Natural-size crops of text quads (``crop_rotated_boxes(img, quads,
-    None)`` of the JAX package): an axis-aligned quad is sliced out, a
-    rotated one warped onto its own width and height with
-    :func:`perspective_transform` and :func:`warp_perspective_u8`."""
+def crop_rotated_boxes(img: np.ndarray, quads: np.ndarray,
+                       out_hw: Optional[Tuple[int, int]] = None,
+                       device=None) -> Union[List[np.ndarray], torch.Tensor]:
+    """Crops of text quads out of one page image.
+
+    With ``out_hw`` every crop samples to that size on ``device`` (cuda
+    unless ``"cpu"``) through :func:`warp_perspective_batch`: an (N, oh,
+    ow, C) f32 tensor. With ``out_hw=None`` each crop keeps its natural
+    size on the host: an axis-aligned quad is sliced out, a rotated one
+    warped onto its own width and height with :func:`perspective_transform`
+    and :func:`warp_perspective_u8` (a list of numpy arrays)."""
+    if out_hw is not None:
+        from ..engine.device import resolve_device
+
+        dev = resolve_device(device)
+        if len(quads) == 0:
+            return torch.zeros((0, out_hw[0], out_hw[1], img.shape[-1]),
+                               dtype=torch.float32, device=dev)
+        ordered = np.stack([order_points_clockwise(q) for q in quads])
+        mats = perspective_matrices(ordered, out_hw)
+        return warp_perspective_batch(torch.as_tensor(img).to(dev),
+                                      torch.as_tensor(mats).to(dev), out_hw)
+
     from .cv_host import perspective_transform, warp_perspective_u8
 
     H, W = img.shape[:2]

@@ -19,8 +19,9 @@ The page is drawn in the JAX renderer's three layers:
 visible text raises an ``ImportError`` naming PIL: the renderer never
 returns a page without its glyphs. Both are bit-equal to the JAX renderer
 (and its drawing before the text step) on OpenCV 5.0.0 and PIL's FreeType
-(tests/test_torch_pdfio.py). The JAX package's Ghostscript path is not
-ported.
+(tests/test_torch_pdfio.py). :func:`render_pdf` renders a document's pages
+with :func:`render_page`. The JAX package's Ghostscript path is not
+ported: ``render_pdf(backend="ghostscript")`` raises.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from __future__ import annotations
 import io
 import logging
 import os
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -258,3 +260,26 @@ def render_page(doc: PdfDocument, page: PdfPage, dpi: int = 144,
     if not any(not t.invisible and t.text.strip() for t in page.texts):
         return img
     return draw_text_layer(img, doc, page, dpi=dpi)
+
+
+def render_pdf(path_or_bytes, dpi: int = 144,
+               pages: Optional[List[int]] = None, backend: str = "auto"
+               ) -> List[Tuple[int, np.ndarray]]:
+    """A document's pages as ``(page_index, RGB image)`` through
+    :func:`render_page`. ``backend`` is ``"native"`` or ``"auto"`` (the
+    same renderer); ``"ghostscript"`` raises, since the JAX package's
+    Ghostscript path, an external binary, is not ported (a recorded
+    difference: with ``PDFTABLE_RENDER_BACKEND=ghostscript`` the JAX
+    ``"auto"`` tries that binary first, the port renders natively)."""
+    if backend == "ghostscript":
+        raise NotImplementedError(
+            "render_pdf(backend='ghostscript'): the Ghostscript path of the "
+            "JAX package is not ported; use backend='native'")
+    if backend not in ("auto", "native"):
+        raise ValueError(f"unknown render backend {backend!r}")
+    out = []
+    with PdfDocument.open(path_or_bytes) as doc:
+        idxs = pages if pages is not None else range(doc.page_count)
+        for i in idxs:
+            out.append((i, render_page(doc, doc.load_page(i), dpi=dpi)))
+    return out

@@ -49,3 +49,10 @@ class Constants:
     PDF_RENDER_DPI = int(_env("PDFTABLE_RENDER_DPI", "144"))
     DEBUG = _env_bool("PDFTABLE_DEBUG", False)
 
+    @classmethod
+    def ensure_dirs(cls) -> None:
+        """Create the base, output, model-cache, page-cache and log
+        directories."""
+        for d in (cls.BASE_DIR, cls.OUTPUT_DIR, cls.MODEL_CACHE_DIR,
+                  cls.PAGE_CACHE_DIR, cls.LOG_DIR):
+            os.makedirs(d, exist_ok=True)

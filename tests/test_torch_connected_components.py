@@ -13,8 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from pdf_table_tpu_torch.ops import connected_components as tcc
-
+# the module, not the package's export of the same name (the function)
+tcc = importlib.import_module("pdf_table_tpu_torch.ops.connected_components")
 jcc = importlib.import_module("pdf_table_tpu.ops.connected_components")
 
 torch.set_num_threads(1)

@@ -53,7 +53,10 @@ polygon mode, with neither JAX, flax, cv2 nor the JAX package
 imported. A thirteenth starts four gloo ranks, each a fresh interpreter,
 that take one LORE train step (dla34, small widths) on a (dp 1, tp 2,
 sp 2) mesh, with neither JAX, flax, optax, cv2 nor the JAX package
-imported on any rank."""
+imported on any rank. A fourteenth imports the data model (no model module
+comes with it), resolves every export of the JAX package's packages through
+the port's, and calls the entity and ops names of the public surface on the
+CPU, with neither JAX, flax, cv2, lxml nor the JAX package imported."""
 
 import json
 import os
@@ -901,3 +904,113 @@ def test_tp_sp_step_runs_without_jax(tmp_path):
     # are at least 256 wide
     assert res == [{"bad": [], "finite": True, "sharded": 21,
                     "rows": True}] * 4
+
+
+_SURFACE_SCRIPT = r"""
+import importlib, json, sys
+import numpy as np
+import torch
+torch.set_num_threads(1)
+import pdf_table_tpu_torch.entity as E
+light = sorted(m for m in sys.modules
+               if m.startswith("pdf_table_tpu_torch.models"))
+exports = json.loads(sys.argv[1])
+unresolved = []
+for pkg, names in sorted(exports.items()):
+    mod = importlib.import_module(pkg)
+    unresolved += [pkg + "." + n for n in names if not hasattr(mod, n)]
+merged = E.Line.merge_lines([E.Line(E.Point(0, 5), E.Point(4, 5)),
+                             E.Line(E.Point(5, 5), E.Point(9, 5))])
+segs = E.Line.merge_segments_1d(np.array([[0, 3], [2, 6], [9, 12]]))
+ivs = E.LineInterval.merge_all([E.LineInterval(4, 1), E.LineInterval(3, 7)])
+cell = E.OcrCell(raw_data=E.OcrCell.from_bbox([1, 2, 3, 4], "t").to_dict())
+ev = E.TableEval(units=[E.TableUnit([0, 0, 1, 1], [0, 0, 1, 1])])
+from pdf_table_tpu_torch import ops
+from pdf_table_tpu_torch.ops.image import pack_images
+from pdf_table_tpu_torch.models.picodet import PicoDetConfig
+from pdf_table_tpu_torch.models.picodet.processor import device_decode_nms
+from pdf_table_tpu_torch.models.docx_layout.processor import poly_iou
+from pdf_table_tpu_torch.pdfio import PdfWriter
+from pdf_table_tpu_torch.pdfio.render import render_pdf
+from pdf_table_tpu_torch.engine import default_backend
+from pdf_table_tpu_torch.utils import print_timings, track_infer_time
+rng = np.random.default_rng(0)
+imgs = [rng.integers(0, 255, (h, w, 3), dtype=np.uint8)
+        for h, w in [(40, 60), (80, 30)]]
+buf, hw = pack_images(imgs)
+pre, valid = ops.batch_resize_pad_normalize(torch.as_tensor(buf),
+                                            torch.as_tensor(hw), (48, 48))
+rb = ops.resize_bilinear(torch.as_tensor(imgs[0]), (20, 30))
+quads = np.array([[[5, 5], [30, 8], [28, 20], [4, 17]]], np.float32)
+crops = ops.crop_rotated_boxes(imgs[0], quads, (16, 32), device="cpu")
+mats = ops.perspective_matrices(np.stack([ops.order_points_clockwise(q)
+                                          for q in quads]), (16, 32))
+warped = ops.warp_perspective_batch(torch.as_tensor(imgs[0]),
+                                    torch.as_tensor(mats), (16, 32))
+boxes = torch.tensor([[0, 0, 10, 10], [1, 1, 11, 11], [50, 50, 60, 60.]])
+keep = ops.nms_mask(boxes, torch.tensor([0.9, 0.8, 0.7]))
+heat = torch.rand(1, 8, 8, 2)
+dec = ops.decode_centernet_bbox(heat, torch.rand(1, 8, 8, 2),
+                                torch.rand(1, 8, 8, 2), 4)
+mask = torch.zeros(8, 8, dtype=torch.bool)
+mask[1:3, 1:3] = True
+mask[5:7, 4:8] = True
+labels = ops.connected_components(mask)
+cfg = PicoDetConfig(img_height=64, img_width=64, score_threshold=0.3)
+raw = {"scores": [torch.rand(1, (64 // s) ** 2, cfg.num_classes)
+                  for s in cfg.strides],
+       "boxes": [torch.randn(1, (64 // s) ** 2, 4 * (cfg.reg_max + 1))
+                 for s in cfg.strides]}
+packed = device_decode_nms(raw, cfg)
+w = PdfWriter()
+w.add_page(200, 100).rect(10, 10, 50, 30)
+pages = render_pdf(w.tobytes(), dpi=36)
+buf_t = []
+with track_infer_time(buf_t):
+    st = print_timings("surface", [0.001])
+bad = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "flax", "cv2", "lxml", "pdf_table_tpu"))
+print(json.dumps({
+    "bad": bad, "light": light, "unresolved": unresolved,
+    "packages": len(exports), "merged": len(merged), "segs": segs.tolist(),
+    "ivs": [[iv.start, iv.end] for iv in ivs], "cell": list(cell.bbox),
+    "axes": ev.axes().tolist(), "pre": list(pre.shape),
+    "valid": valid.tolist(), "rb": list(rb.shape), "crops": list(crops.shape),
+    "warp": bool(torch.equal(crops, warped)), "keep": keep.tolist(),
+    "dec": list(dec[0].shape), "labels": sorted(set(labels.flatten().tolist())),
+    "packed": list(packed.shape), "pages": [list(p[1].shape) for p in pages],
+    "iou": poly_iou(np.arange(8.0), np.arange(8.0)),
+    "backend": default_backend("cpu"), "timed": len(buf_t),
+    "count": st["count"]}))
+"""
+
+
+def test_public_surface_resolves_without_jax():
+    """A fourteenth fresh interpreter imports the data model (no model
+    module comes with it), resolves every export of the JAX package's
+    packages through the port's packages of the same paths, and calls the
+    entity and ops names of the public surface on the CPU, with neither
+    JAX, flax, cv2, lxml nor the JAX package imported."""
+    from test_torch_api_surface import JAX_ROOT, PORT, package_exports
+
+    exports = {}
+    for init, names in package_exports(JAX_ROOT).items():
+        rel = os.path.dirname(init).replace("/", ".")
+        exports[PORT + ("." + rel if rel else "")] = names
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    out = subprocess.run([sys.executable, "-c", _SURFACE_SCRIPT,
+                          json.dumps(exports)], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {
+        "bad": [], "light": [], "unresolved": [], "packages": len(exports),
+        "merged": 1, "segs": [[0.0, 6.0], [9.0, 12.0]], "ivs": [[1, 7]],
+        "cell": [1.0, 2.0, 3.0, 4.0], "axes": [[0, 0, 1, 1]],
+        "pre": [2, 48, 48, 3], "valid": [[32, 48], [48, 18]],
+        "rb": [20, 30, 3], "crops": [1, 16, 32, 3], "warp": True,
+        "keep": [True, False, True], "dec": [1, 4, 4], "labels": [0, 10, 45],
+        "packed": [1, 5, 85, 5], "pages": [[50, 100, 3]],
+        "iou": 1.0, "backend": "cpu", "timed": 1, "count": 1.0}
+
