@@ -121,6 +121,22 @@ Phases, each fatal on failure:
      system_per_page) against the same pipeline on the CPU: vector text
      cells equal, table_html equal wherever the layout's table regions
      are (the count printed);
+ 9s. pipeline_scanned: the 16 pages of the pipeline phase written by PIL
+     as one PDF of JPEG scans at 144 dpi (page 3 a grey JPEG, page 7 a
+     CMYK one), and a seventeenth scan with an invisible OCR text layer
+     (render mode 3, the port's PdfWriter), read with the port's reader
+     and rendered by the runner (the JPEGs decoded through PIL as
+     cv2.imdecode decodes them, placed 1:1) through the pipeline phase's
+     BatchPipeline.run: a warm-up, one counted run (K3 once a chunk, K1 16
+     times a LORE sub-batch, K2 never; no error page, a table; the 16
+     scans take the raster lane and come back is_pdf False, the OCR'd one
+     the digital lane and is_pdf True, as in the JAX runner), timed runs
+     (pages/s, the rasterize lane against the same run on the decoded
+     images); the scans' outputs equal to that run's page for page (quads,
+     texts, layout cells, table_html, page_html), 2 scans against the same
+     pipeline on the CPU; fails where PIL cannot decode JPEG; renders 2
+     pages through render_pdf(backend="ghostscript") where a gs binary is
+     on PATH;
  9c. bf16_models: every model that runs bf16 since the twelfth slice, f32
      and bf16 at full width on the trees and inputs of its f32 phase (the
      four DBNets on a chunk of 8 at 960x720, PicoDet on the chunk, the
@@ -187,12 +203,13 @@ Phases, each fatal on failure:
      a traced round and of its run;
  9h. cli: the port's cli.main.main (the `pdftable` command) on the card,
      its system the per-page phase's (the smoke's trees, the line grid)
-     under the CLI's config, on one full-width raster PNG with --debug
-     and on the 2-page PDF with --batch_pages 1 and 8: a warm-up and one
-     counted run each; the merged HTML equal to OcrSystemTask's /
-     BatchPipeline.run's on the same pages, the debug PNG equal to the
-     rendered overlay, K1 16 a LORE forward on the image route, K3 once on
-     the batched route;
+     under the CLI's config, on one full-width raster PNG with --debug,
+     on the 2-page PDF with --batch_pages 1 and 8 and on a one-page PDF
+     holding the PNG's page as a JPEG scan: a warm-up and one counted run
+     each; the merged HTML equal to OcrSystemTask's / BatchPipeline.run's
+     on the same pages, the debug PNG equal to the rendered overlay, K1 16
+     a LORE forward on the image and scan routes, K3 once on the batched
+     route;
  10. tsr_slanet and tsr_master: OcrTableStructureTask(model="SLANet")
      (488^2, LCNet 1.0, neck 96, hidden 256) and (model="TableMaster")
      (480^2, D 512, 8 heads, ff 2024, N = 3), f32, T = 500 steps each, on
@@ -475,6 +492,13 @@ PIPE_TEXT_MIN = 0.98
 # run
 DIGITAL_RASTER = 8
 DIGITAL_RUNS = 1
+# pipeline_scanned: the pages written as a grey and a CMYK JPEG, timed runs
+# after the counted one, scans held against the CPU, and the largest mean
+# grey-level difference of a decoded scan from its page (JPEG's loss)
+SCAN_GREY, SCAN_CMYK = 3, 7
+SCAN_RUNS = 2
+SCAN_CPU_PAGES = 2
+SCAN_JPEG_MEAN = 4.0
 # train phase: the wtw step at full width, f32, B = 4 (LoreTrainArgs'
 # default); the first step through the kernel against the plain-DCN model
 # (f32 on both sides, sums in another order): each loss term, the global
@@ -3744,6 +3768,9 @@ def phase_cli(card, trees):
     pdf = os.path.join(td, "doc.pdf")
     with open(pdf, "wb") as f:
         f.write(two_page_pdf())
+    scan = os.path.join(td, "scan.pdf")
+    with open(scan, "wb") as f:
+        f.write(scan_pdf(page))
     merge = types.SimpleNamespace(args=PdfTableCliArguments())
 
     def merged(pairs):
@@ -3751,7 +3778,8 @@ def phase_cli(card, trees):
 
     routes = {"cli_image": (png, ["--debug"]),
               "cli_pdf": (pdf, ["--batch_pages", "1"]),
-              "cli_pdf_batch_pages_8": (pdf, ["--batch_pages", "8"])}
+              "cli_pdf_batch_pages_8": (pdf, ["--batch_pages", "8"]),
+              "cli_scan": (scan, ["--batch_pages", "1"])}
     real = cli_main.OcrSystemTask
     cli_main.OcrSystemTask = the_system
     paths, seconds, outs = {}, {}, {}
@@ -3796,6 +3824,11 @@ def phase_cli(card, trees):
     check(outs["cli_pdf"] == merged([(o.page, o.page_html)
                                      for o in per_page]),
           "cli: the per-page PDF route's HTML differs from OcrSystemTask's")
+    sdoc = PdfDocument.open(scan)
+    scanned = system(pdf_page=sdoc.load_page(0), pdf_doc=sdoc, page=0,
+                     src_id="scan.pdf")
+    check(outs["cli_scan"] == merged([(0, scanned.page_html)]),
+          "cli: the scanned PDF's HTML differs from OcrSystemTask's")
     bp = BatchPipeline(system.config, batch_pages=8, device="cuda")
     bp.system = system
     batched = bp.run([{"pdf_page": doc.load_page(i), "pdf_doc": doc,
@@ -3803,20 +3836,22 @@ def phase_cli(card, trees):
     check(outs["cli_pdf_batch_pages_8"] == merged(
         [(o.page, o.page_html) for o in batched]),
         "cli: the batched PDF route's HTML differs from BatchPipeline.run's")
-    im = paths["cli_image"]
-    check(im["lore_forwards"] and im["launches"]["deform_conv2d"]
-          + im["launches"]["deform_conv2d_flat_kc"]
-          == 16 * len(im["lore_forwards"])
-          and im["launches"]["resize_normalize"] == 0,
-          f"cli: the image route launched {im['launches']} for "
-          f"{len(im['lore_forwards'])} LORE forwards")
+    for name in ("cli_image", "cli_scan"):
+        im = paths[name]
+        check(im["lore_forwards"] and im["launches"]["deform_conv2d"]
+              + im["launches"]["deform_conv2d_flat_kc"]
+              == 16 * len(im["lore_forwards"])
+              and im["launches"]["resize_normalize"] == 0,
+              f"cli: the {name} route launched {im['launches']} for "
+              f"{len(im['lore_forwards'])} LORE forwards")
     check(paths["cli_pdf_batch_pages_8"]["launches"]["resize_normalize"]
           == 1, f"cli: the batched route launched "
                 f"{paths['cli_pdf_batch_pages_8']['launches']}")
     summary = {"card": card, "model_build_s": build_s, "det_thresh": thresh,
                "run_s": seconds, "paths": paths,
                "tables": [len(ref.table_html)]
-               + [len(o.table_html) for o in per_page]}
+               + [len(o.table_html) for o in per_page]
+               + [len(scanned.table_html)]}
     print(json.dumps({"cli": summary}))
     shutil.rmtree(td, ignore_errors=True)
     return {k: v["launches"] for k, v in paths.items()}
@@ -5156,6 +5191,225 @@ def phase_pipeline_digital(card, trees):
     check(tables_equal == regions_equal,
           "pipeline_digital: table_html differs from the CPU's where the "
           "layout regions are equal")
+    return launches
+
+
+def jpeg_bytes(img, mode="RGB") -> bytes:
+    """An RGB page as a JPEG of ``mode`` (RGB, L or CMYK), through PIL."""
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(img).convert(mode).save(buf, format="JPEG")
+    return buf.getvalue()
+
+
+def scan_pdf(img, ocr_lines: int = 0) -> bytes:
+    """One page of the port's PdfWriter holding ``img`` as a JPEG scan
+    placed 1:1 at 144 dpi, with ``ocr_lines`` lines of invisible text
+    (render mode 3, as OCR tools write it)."""
+    from pdf_table_tpu_torch.pdfio import PdfWriter
+
+    h, w = img.shape[:2]
+    writer = PdfWriter()
+    p = writer.add_page(w / 2, h / 2)
+    p.image(jpeg_bytes(img), 0, 0, w / 2, h / 2, w, h)
+    for k in range(ocr_lines):
+        p.ops.append(f"BT 3 Tr /F1 10 Tf 36 {h / 2 - 40 - 18 * k:g} Td "
+                     f"(scanned line {k} read by OCR) Tj ET")
+    return writer.tobytes()
+
+
+def scanned_pdf() -> bytes:
+    """The pipeline phase's 16 pages (make_page) as one PDF of JPEG scans
+    written by PIL at 144 dpi, so that the runner's 144 dpi places each
+    1:1; page SCAN_GREY a grey JPEG, page SCAN_CMYK a CMYK one."""
+    import io
+
+    from PIL import Image
+
+    modes = {SCAN_GREY: "L", SCAN_CMYK: "CMYK"}
+    ims = [Image.fromarray(make_page(i)).convert(modes.get(i, "RGB"))
+           for i in range(PIPE_PAGES)]
+    buf = io.BytesIO()
+    ims[0].save(buf, format="PDF", save_all=True, append_images=ims[1:],
+                resolution=144)
+    return buf.getvalue()
+
+
+def same_outputs(got, want) -> list:
+    """Indices of the pages whose quads, texts, layout cells, table_html
+    or page_html differ."""
+    import numpy as np
+
+    def key(o):
+        return ([(np.asarray(c.poly).tobytes(), c.text, c.score)
+                 for c in o.text_cells],
+                [(np.asarray(c.bbox).tobytes(), c.label, c.score)
+                 for c in o.layout_cells], o.table_html, o.page_html)
+
+    return [i for i, (g, w) in enumerate(zip(got, want)) if key(g) != key(w)]
+
+
+def phase_pipeline_scanned(card, trees):
+    """Phase 9s (module docstring). Returns its counted run's launches."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from PIL import features
+
+    from pdf_table_tpu_torch.ops.kernels import (KERNELS, launch_counts,
+                                                 reset_launch_counts)
+    from pdf_table_tpu_torch.pdfio import PdfDocument, render_page
+    from pdf_table_tpu_torch.pdfio.reader import build_native
+    from pdf_table_tpu_torch.pdfio.render import render_pdf
+    from pdf_table_tpu_torch.utils.image_io import decode_image
+
+    check(features.check("jpg"), "pipeline_scanned: PIL cannot decode JPEG")
+    build_native()
+    data = scanned_pdf()
+    doc = PdfDocument.open(data)
+    scans = [doc.load_page(i) for i in range(doc.page_count)]
+    check(len(scans) == PIPE_PAGES and all(
+        [m.filter for m in pg.images] == ["DCTDecode"] and not pg.texts
+        for pg in scans), "pipeline_scanned: PIL did not write one JPEG a "
+                          "page")
+    ocr_doc = PdfDocument.open(scan_pdf(make_page(PIPE_PAGES), 20))
+    ocr_page = ocr_doc.load_page(0)
+    check(ocr_page.texts and all(t.invisible for t in ocr_page.texts),
+          "pipeline_scanned: the OCR layer is not read as invisible text")
+    pages = [{"pdf_page": pg, "pdf_doc": doc, "page": i}
+             for i, pg in enumerate(scans)]
+    pages.append({"pdf_page": ocr_page, "pdf_doc": ocr_doc,
+                  "page": PIPE_PAGES})
+
+    # the JPEG streams decoded: the same pages given as images
+    streams = [doc.get_image_bytes(pg.images[0].obj_num) for pg in scans]
+    check(all(kind == 1 for _, kind in streams),
+          "pipeline_scanned: a scan's stream was not passed through encoded")
+    t0 = time.perf_counter()
+    decoded = [decode_image(b) for b, _ in streams]
+    decode_ms = (time.perf_counter() - t0) * 1e3 / len(decoded)
+    jpeg_mean = [float(np.abs(d.astype(np.int16) - make_page(i)).mean())
+                 for i, d in enumerate(decoded)]
+    check(max(jpeg_mean) <= SCAN_JPEG_MEAN,
+          f"pipeline_scanned: a decoded scan is {max(jpeg_mean):.2f} grey "
+          f"levels from its page on average")
+    t0 = time.perf_counter()
+    rendered = [render_page(doc, pg) for pg in scans]
+    render_ms = (time.perf_counter() - t0) * 1e3 / len(scans)
+    check(all(np.array_equal(r, d) for r, d in zip(rendered, decoded)),
+          "pipeline_scanned: a rendered scan differs from its decoded JPEG")
+    image_pages = [{"image": d, "page": i} for i, d in enumerate(decoded)] \
+        + [pages[-1]]
+
+    bp = build_pipeline("cuda", trees)
+    t0 = time.perf_counter()
+    bp.run(pages)                       # warm-up
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    tsr_model = bp.system.tsr_task.model
+    forwards, chunks = [], []
+    real_forward, real_chunks = tsr_model.forward_packed, bp._chunks
+    tsr_model.forward_packed = lambda x: (forwards.append(x.shape[0]),
+                                          real_forward(x))[1]
+
+    def counted_chunks(images):
+        cs = real_chunks(images)
+        chunks.extend(len(c["indices"]) for c in cs)
+        return cs
+
+    bp._chunks = counted_chunks
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = bp.run(pages)
+    torch.cuda.synchronize()
+    counted_s = time.perf_counter() - t0
+    launches = {k: launch_counts[k] for k in KERNELS}
+    del tsr_model.forward_packed, bp._chunks
+    check(len(out) == len(pages), "pipeline_scanned: one output per page")
+    errors = {i: o.metric.get("error") for i, o in enumerate(out)
+              if o.metric.get("error")}
+    check(not errors, f"pipeline_scanned: errors {errors}")
+    check([o.is_pdf for o in out] == [False] * PIPE_PAGES + [True],
+          "pipeline_scanned: the scans must take the raster lane and the "
+          "OCR'd scan the digital one")
+    check(all(o.page_html for o in out[:PIPE_PAGES]),
+          "pipeline_scanned: a scan has no page_html")
+    check(not out[-1].text_cells,
+          "pipeline_scanned: the invisible OCR text reached the page")
+    n_tables = sum(len(o.table_html) for o in out)
+    check(n_tables >= 1 and forwards,
+          "pipeline_scanned: no scanned table reached LORE")
+    check(launches["resize_normalize"] == len(chunks)
+          and launches["deform_conv2d"] == 16 * len(forwards)
+          and launches["deform_conv2d_flat_kc"] == 0,
+          f"pipeline_scanned launched {launches} for {len(chunks)} chunks "
+          f"and {len(forwards)} LORE sub-batches")
+
+    run_s, raster_s = [], []
+    for _ in range(SCAN_RUNS):
+        t0 = time.perf_counter()
+        bp.run(pages)
+        run_s.append(time.perf_counter() - t0)
+        raster_s.append(bp.last_stats["rasterize"])
+    t0 = time.perf_counter()
+    ref = bp.run(image_pages)
+    image_run_s = time.perf_counter() - t0
+    image_raster_s = bp.last_stats["rasterize"]
+    differ = same_outputs(out[:PIPE_PAGES], ref[:PIPE_PAGES])
+
+    # 2 scans on the card against the same pipeline on the CPU
+    few = pages[:SCAN_CPU_PAGES]
+    got = bp.run(few)
+    cpu = build_pipeline("cpu", trees)
+    t0 = time.perf_counter()
+    want = cpu.run(few)
+    cpu_s = time.perf_counter() - t0
+    cmp = pipeline_diff(got, want)
+
+    gs = shutil.which("gs")
+    ghostscript = "absent: no gs binary on PATH"
+    if gs:
+        t0 = time.perf_counter()
+        gs_pages = render_pdf(data, pages=[0, 1], backend="ghostscript")
+        ghostscript = {"binary": gs, "s": time.perf_counter() - t0,
+                       "shapes": [list(im.shape) for _, im in gs_pages]}
+    per_run = statistics.median(run_s)
+    summary = {
+        "card": card, "pages": len(pages), "scans": PIPE_PAGES,
+        "grey_page": SCAN_GREY, "cmyk_page": SCAN_CMYK, "chunks": chunks,
+        "launches": launches, "lore_sub_batches": forwards,
+        "tables": n_tables, "warm_up_s": warm_s, "counted_run_s": counted_s,
+        "run_s": run_s, "runs": len(run_s), "pages_per_s":
+            len(pages) / per_run,
+        "rasterize_s": raster_s, "image_run_s": image_run_s,
+        "image_run_rasterize_s": image_raster_s,
+        "decode_ms_per_scan": decode_ms, "render_ms_per_scan": render_ms,
+        "jpeg_mean_grey_levels_max": max(jpeg_mean),
+        "pages_differing_from_the_image_run": differ,
+        "ghostscript": ghostscript, "cpu": {"run_s": cpu_s, **cmp}}
+    print(json.dumps({"pipeline_scanned": summary}))
+    check(not differ, f"pipeline_scanned: scans {differ} differ from the "
+                      f"same pages given as decoded images")
+    check(not [o for o in want if o.metric.get("error")],
+          "pipeline_scanned: the CPU pipeline gave errors")
+    check(cmp["quads_same_count"] and cmp["quad_px"] <= PIPE_QUAD_TOL,
+          f"pipeline_scanned: quads differ from the CPU's: "
+          f"{cmp['quad_px']:.3g} px")
+    lay = cmp["layout"]
+    check(lay["same_count"] and lay["same_labels"]
+          and lay["box_px"] <= LAYOUT_BOX_TOL
+          and lay["score"] <= LAYOUT_SCORE_TOL,
+          f"pipeline_scanned: layout survivors differ from the CPU's: {lay}")
+    check(cmp["text_share"] >= PIPE_TEXT_MIN,
+          f"pipeline_scanned: texts equal on {cmp['text_share']:.3f} of "
+          f"crops")
+    check(cmp["page_html_equal"] == cmp["page_html_checked"],
+          "pipeline_scanned: page_html differs where its inputs are equal")
     return launches
 
 
@@ -6899,6 +7153,8 @@ def main() -> int:
                                      layout_v)
     pipe_digital = run("pipeline_digital", phase_pipeline_digital, card,
                        pipe_trees)
+    pipe_scanned = run("pipeline_scanned", phase_pipeline_scanned, card,
+                       pipe_trees)
     run("bf16_models", phase_bf16_models, card)
     pipe_bf16 = run("pipeline_bf16", phase_pipeline_bf16, card, pipe_trees,
                     pipe_out)
@@ -6942,8 +7198,8 @@ def main() -> int:
 
     def by_path(name, **extra):
         """A kernel's launches on every counted path that runs it or not:
-        the digital pipeline launches K3 once a chunk and K1 on its raster
-        pages' LORE sub-batches; the token-model and LGPMA phases and the
+        the digital and scanned pipelines launch K3 once a chunk and K1 on
+        their raster pages' LORE sub-batches; the token-model and LGPMA phases and the
         token pipeline arms launch K3 once a chunk (detection) and never
         K1 or K2; CenterNet
         and DocXLayout run K1 at every DCN (K2 too in bf16); the DBNet
@@ -6953,6 +7209,7 @@ def main() -> int:
         the batched PDF route's chunk."""
         return {**extra, "pipeline": pipe[name],
                 "pipeline_digital": pipe_digital[name],
+                "pipeline_scanned": pipe_scanned[name],
                 "pipeline_bf16": pipe_bf16[name],
                 "tsr_slanet": sla[name],
                 "tsr_master": tm[name], "tsr_mtl_tabnet": mtl[name],

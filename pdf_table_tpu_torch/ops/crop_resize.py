@@ -208,6 +208,8 @@ def resize_area_u8_plain(img: np.ndarray, nh: int, nw: int) -> np.ndarray:
     axes with its f32 area tables, and emulates the rest with its
     fixed-point bilinear path on area coefficients."""
     h, w = img.shape[:2]
+    if (h, w) == (nh, nw):              # OpenCV copies
+        return img.copy()
     sx, sy = w / nw, h / nh
     if sx >= 1 and sy >= 1:
         ix, iy = int(round(sx)), int(round(sy))

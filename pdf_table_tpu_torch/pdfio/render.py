@@ -3,41 +3,42 @@ pdf_table_tpu/pdfio/render.py, without cv2).
 
 The page is drawn in the JAX renderer's three layers:
 
-1. embedded images with raw samples (8-bit RGB or grey, 1-bit), decoded in
-   numpy and resized to their placement box with OpenCV's ``INTER_AREA``
-   arithmetic (``ops/crop_resize.py::resize_area_u8_plain``). Encoded
-   images (JPEG and the like) need an image codec, which the port does not
-   carry: each is skipped with a warning, where the JAX renderer decodes it
-   with ``cv2.imdecode``;
+1. embedded images, each resized to its placement box with OpenCV's
+   ``INTER_AREA`` arithmetic (``ops/crop_resize.py::resize_area_u8_plain``).
+   Raw samples (8-bit RGB or grey, 1-bit) are decoded in numpy; an encoded
+   stream (``/DCTDecode`` JPEG, ``/JPXDecode`` JPEG 2000: a scanned page)
+   through ``utils/image_io.py::decode_image`` (PIL), which decodes as
+   ``cv2.imdecode`` does, and in the codestream's own colours. A stream
+   that does not decode (CCITT, JBIG2, broken bytes) is skipped, as the
+   JAX renderer skips ``cv2.imdecode``'s None;
 2. rects, lines and polylines, with OpenCV's drawing arithmetic
    (``draw.py``);
 3. text, through PIL's FreeType (the page's embedded font programs, else
-   DejaVu), imported only here.
+   DejaVu).
 
-:func:`render_page_vector` is layers 1 and 2 and needs no PIL;
-:func:`render_page` adds layer 3. On a host without PIL, a page with
-visible text raises an ``ImportError`` naming PIL: the renderer never
-returns a page without its glyphs. Both are bit-equal to the JAX renderer
-(and its drawing before the text step) on OpenCV 5.0.0 and PIL's FreeType
-(tests/test_torch_pdfio.py). :func:`render_pdf` renders a document's pages
-with :func:`render_page`. The JAX package's Ghostscript path is not
-ported: ``render_pdf(backend="ghostscript")`` raises.
+:func:`render_page_vector` is layers 1 and 2 and needs PIL only for an
+encoded image; :func:`render_page` adds layer 3. On a host without PIL, a
+page with an encoded image or visible text raises an ``ImportError``
+naming PIL: the renderer never returns a page without its scan or its
+glyphs. Both are bit-equal to the JAX renderer (and its drawing before
+the text step) on OpenCV 5.0.0 and PIL's FreeType
+(tests/test_torch_pdfio.py, tests/test_torch_scanned_pdf.py).
+:func:`render_pdf` renders a document's pages with :func:`render_page`, or
+through an external Ghostscript binary, as the JAX package's does.
 """
 
 from __future__ import annotations
 
 import io
-import logging
 import os
 from typing import List, Optional, Tuple
 
 import numpy as np
 
 from ..ops.crop_resize import resize_area_u8_plain
+from ..utils.image_io import decode_image, read_image
 from . import draw
 from .reader import PdfDocument, PdfPage
-
-logger = logging.getLogger(__name__)
 
 _FONT_CANDIDATES = [
     "/usr/share/fonts/truetype/dejavu/DejaVuSans.ttf",
@@ -52,9 +53,22 @@ def _import_pil():
     except ImportError as e:
         raise ImportError(
             "render_page draws the text layer with PIL (Pillow), which this "
-            "host lacks; render_page_vector draws the images and vector "
-            "content without it") from e
+            "host lacks; render_page_vector draws the vector content and "
+            "raw-sample images without it") from e
     return Image, ImageDraw, ImageFont
+
+
+def _decode_encoded(data: bytes, page: PdfPage, im) -> Optional[np.ndarray]:
+    """An encoded image stream -> (h, w, 3) uint8, or None where it does
+    not decode; an ``ImportError`` naming PIL where PIL is missing."""
+    try:
+        import PIL.Image  # noqa: F401
+    except ImportError as e:
+        raise ImportError(
+            f"page {page.index} carries an encoded image (object "
+            f"{im.obj_num}, {im.filter}): the renderer decodes it with PIL "
+            f"(Pillow), which this host lacks") from e
+    return decode_image(data)
 
 
 def _get_font(px_size: int):
@@ -164,12 +178,8 @@ def render_page_vector(doc: PdfDocument, page: PdfPage, dpi: int = 144,
         data, kind = doc.get_image_bytes(im.obj_num)
         if not data:
             continue
-        if kind == 1:
-            logger.warning(
-                "page %d: encoded image (object %d, %s) skipped: the port "
-                "carries no image codec", page.index, im.obj_num, im.filter)
-            continue
-        decoded = _decode_raw(data, im)
+        decoded = _decode_encoded(data, page, im) if kind == 1 \
+            else _decode_raw(data, im)
         if decoded is None:
             continue
         x0, y1 = to_px(im.bbox[0], im.bbox[1])
@@ -262,21 +272,81 @@ def render_page(doc: PdfDocument, page: PdfPage, dpi: int = 144,
     return draw_text_layer(img, doc, page, dpi=dpi)
 
 
+def _ghostscript_binary() -> Optional[str]:
+    """An external rasterizer binary, or None: ``PDFTABLE_GS_BINARY``
+    where it is set (None if that file does not exist), else ``gs`` on
+    PATH."""
+    import shutil
+
+    override = os.environ.get("PDFTABLE_GS_BINARY")
+    if override:
+        return override if os.path.exists(override) else None
+    return shutil.which("gs")
+
+
+def _render_pdf_ghostscript(path_or_bytes, dpi: int,
+                            pages: Optional[List[int]], gs_bin: str
+                            ) -> List[Tuple[int, np.ndarray]]:
+    """Rasterize through a Ghostscript subprocess (``png16m`` at
+    ``-r<dpi>``); its PNGs read through ``utils/image_io.py``. Raises on
+    a failure: ``render_pdf``'s ``"auto"`` falls back to the native
+    renderer."""
+    import subprocess
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="pdfio_gs_") as td:
+        if isinstance(path_or_bytes, (bytes, bytearray)):
+            src = os.path.join(td, "in.pdf")
+            with open(src, "wb") as f:
+                f.write(path_or_bytes)
+        else:
+            src = os.fspath(path_or_bytes)
+        out_pat = os.path.join(td, "page-%04d.png")
+        cmd = [gs_bin, "-q", "-dNOPAUSE", "-dBATCH", "-dSAFER",
+               "-sDEVICE=png16m", f"-r{int(dpi)}",
+               f"-sOutputFile={out_pat}", src]
+        subprocess.run(cmd, check=True, timeout=600,
+                       stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+        rendered = sorted(f for f in os.listdir(td) if f.startswith("page-"))
+        if not rendered:
+            raise RuntimeError("ghostscript produced no pages")
+        idxs = pages if pages is not None else range(len(rendered))
+        out = []
+        for i in idxs:
+            if i >= len(rendered):
+                continue
+            rgb = read_image(os.path.join(td, rendered[i]))
+            if rgb is None:
+                raise RuntimeError(f"unreadable gs output page {i}")
+            out.append((i, rgb))
+        return out
+
+
 def render_pdf(path_or_bytes, dpi: int = 144,
                pages: Optional[List[int]] = None, backend: str = "auto"
                ) -> List[Tuple[int, np.ndarray]]:
-    """A document's pages as ``(page_index, RGB image)`` through
-    :func:`render_page`. ``backend`` is ``"native"`` or ``"auto"`` (the
-    same renderer); ``"ghostscript"`` raises, since the JAX package's
-    Ghostscript path, an external binary, is not ported (a recorded
-    difference: with ``PDFTABLE_RENDER_BACKEND=ghostscript`` the JAX
-    ``"auto"`` tries that binary first, the port renders natively)."""
-    if backend == "ghostscript":
-        raise NotImplementedError(
-            "render_pdf(backend='ghostscript'): the Ghostscript path of the "
-            "JAX package is not ported; use backend='native'")
-    if backend not in ("auto", "native"):
-        raise ValueError(f"unknown render backend {backend!r}")
+    """A document's pages as ``(page_index, RGB image)``. ``backend``:
+    ``"ghostscript"`` renders through the external binary
+    (:func:`_ghostscript_binary`; a ``RuntimeError`` without one, its
+    failure raised); ``"auto"`` does so only under
+    ``PDFTABLE_RENDER_BACKEND=ghostscript`` with a binary, and falls back
+    to the native renderer (:func:`render_page`) where it fails; any
+    other name renders natively."""
+    want_gs = backend == "ghostscript" or (
+        backend == "auto"
+        and os.environ.get("PDFTABLE_RENDER_BACKEND") == "ghostscript")
+    if want_gs:
+        gs_bin = _ghostscript_binary()
+        if gs_bin:
+            try:
+                return _render_pdf_ghostscript(path_or_bytes, dpi, pages,
+                                               gs_bin)
+            except Exception:
+                if backend == "ghostscript":
+                    raise
+        elif backend == "ghostscript":
+            raise RuntimeError("no ghostscript binary found "
+                               "(set PDFTABLE_GS_BINARY or install gs)")
     out = []
     with PdfDocument.open(path_or_bytes) as doc:
         idxs = pages if pages is not None else range(doc.page_count)

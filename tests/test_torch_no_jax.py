@@ -56,7 +56,11 @@ sp 2) mesh, with neither JAX, flax, optax, cv2 nor the JAX package
 imported on any rank. A fourteenth imports the data model (no model module
 comes with it), resolves every export of the JAX package's packages through
 the port's, and calls the entity and ops names of the public surface on the
-CPU, with neither JAX, flax, cv2, lxml nor the JAX package imported."""
+CPU, with neither JAX, flax, cv2, lxml nor the JAX package imported. A
+fifteenth runs the scanned route: a PDF of two CMYK JPEG scans of a ruled
+table (one with an invisible OCR text layer) through ``BatchPipeline.run``,
+``read_pdf(flavor="lattice")`` and the ``pdftable`` CLI, with neither JAX,
+flax, cv2, lxml nor the JAX package imported."""
 
 import json
 import os
@@ -1014,3 +1018,74 @@ def test_public_surface_resolves_without_jax():
         "packed": [1, 5, 85, 5], "pages": [[50, 100, 3]],
         "iou": 1.0, "backend": "cpu", "timed": 1, "count": 1.0}
 
+
+
+_SCANNED_SCRIPT = r"""
+import contextlib, io, json, os, sys, tempfile
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from PIL import Image
+from pdf_table_tpu_torch import read_pdf
+from pdf_table_tpu_torch.cli.main import main
+from pdf_table_tpu_torch.pdfio import PdfDocument, PdfWriter, render_page
+from pdf_table_tpu_torch.pipeline.batch_runner import BatchPipeline
+from pdf_table_tpu_torch.pipeline.system import OcrSystemConfig
+from pdf_table_tpu_torch.tasks.detection import OcrDetectionTask
+vec = PdfWriter()
+grid = vec.add_page(300, 200)
+grid.table(20, 180, [80, 80, 80], 30, [["h1", "h2", "h3"], ["a", "b", "c"]])
+img = render_page(PdfDocument.open(vec.tobytes()),
+                  PdfDocument.open(vec.tobytes()).load_page(0))
+buf = io.BytesIO()
+Image.fromarray(img).convert("CMYK").save(buf, format="JPEG")
+w = PdfWriter()
+for ocr in (True, False):
+    p = w.add_page(300, 200)
+    p.image(buf.getvalue(), 0, 0, 300, 200, img.shape[1], img.shape[0])
+    if ocr:
+        p.ops += [op.replace("BT ", "BT 3 Tr ", 1) for op in grid.ops
+                  if op.startswith("BT ")]
+td = tempfile.mkdtemp()
+pdf = os.path.join(td, "scan.pdf")
+w.save(pdf)
+doc = PdfDocument.open(pdf)
+bp = BatchPipeline(OcrSystemConfig(
+    layout_model="none", use_orientation_cls=False, use_textline_cls=False,
+    table_structure_model="LineCellPdf"), device="cpu")
+bp.system._det = OcrDetectionTask(device="cpu", limit_side_len=64,
+                                  thresh=0.45, box_thresh=0.0)
+out = bp.run([{"pdf_page": doc.load_page(i), "pdf_doc": doc, "page": i}
+              for i in range(2)])
+tables = read_pdf(pdf, flavor="lattice", pages="all")
+with contextlib.redirect_stdout(io.StringIO()):
+    rc = main(["--file_path_or_url", pdf, "--output_dir", td,
+               "--layout_model", "none"], device="cpu")
+html = open(os.path.join(td, "scan.html")).read()
+bad = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "flax", "cv2", "lxml", "pdf_table_tpu"))
+print(json.dumps({"bad": bad, "errors": [o.metric.get("error") for o in out],
+                  "is_pdf": [o.is_pdf for o in out],
+                  "equal": bool(np.array_equal(out[0].image, out[1].image)),
+                  "ink": bool(np.abs(out[1].image.astype(int) - img).max() < 40),
+                  "tables": [len(o.table_html) for o in out],
+                  "read_pdf": [t.data for t in tables], "rc": rc,
+                  "pages_html": html.count("<!-- page")}))
+"""
+
+
+def test_scanned_route_runs_without_jax():
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    out = subprocess.run([sys.executable, "-c", _SCANNED_SCRIPT], cwd=root,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    # the OCR'd scan reads its invisible text; the other is an image only
+    assert res == {"bad": [], "errors": [None, None],
+                   "is_pdf": [True, False], "equal": True, "ink": True,
+                   "tables": [0, 0],
+                   "read_pdf": [[["h1", "h2", "h3"], ["a", "b", "c"]],
+                                [["", "", ""], ["", "", ""]]],
+                   "rc": 0, "pages_html": 2}

@@ -6,14 +6,13 @@ with stroked and filled rects, thin and thick lines, polylines, raw RGB,
 grey and 1-bit images and text (PIL with the DejaVu fonts); the
 vector-and-image half (``render_page_vector``) bit for bit against the JAX
 renderer's drawing before its text step (the same page with its text
-removed). Also: an encoded image is skipped with a warning (the JAX
-renderer decodes it with cv2), ``render_page`` raises naming PIL when PIL
-cannot be imported, and the port's OpenCV arithmetic (``pdfio/draw.py``,
+removed; the embedded page's JPEG drawn on both sides). Also:
+``render_page`` raises naming PIL when PIL cannot be imported, and the
+port's OpenCV arithmetic (``pdfio/draw.py``,
 ``ops/crop_resize.py::resize_area_u8_plain``) equals ``cv2.line``,
 ``cv2.rectangle``, ``cv2.polylines`` and ``cv2.resize(INTER_AREA)`` on
 seeded random cases, out-of-image points included."""
 
-import logging
 import os
 import sys
 import zlib
@@ -253,12 +252,14 @@ def test_render_page_bit_equal_to_jax(docs, name, dpi):
 @pytest.mark.parametrize("name", ["vector", "raw_images", "embedded"])
 def test_vector_half_equals_jax_before_its_text_step(docs, name):
     """JAX's drawing before its text step: the JAX renderer on the page
-    with its texts removed (the embedded page's JPEG is cut from both)."""
+    with its texts removed (the embedded page's JPEG drawn by both)."""
     for jd, jp, td, tp in _renders(docs[name]):
         jp.texts = []
-        jp.images = [m for m in jp.images if m.filter != "DCTDecode"]
-        np.testing.assert_array_equal(render_page_vector(td, tp),
-                                      jrender(jd, jp))
+        got = render_page_vector(td, tp)
+        np.testing.assert_array_equal(got, jrender(jd, jp))
+        if name == "embedded":
+            tp.images = []
+            assert (got != render_page_vector(td, tp)).any(-1).sum() > 40_000
 
 
 def test_golden_digital_pages_render_bit_equal(tmp_path):
@@ -267,18 +268,6 @@ def test_golden_digital_pages_render_bit_equal(tmp_path):
                                             "rb").read()):
             np.testing.assert_array_equal(render_page(td, tp),
                                           jrender(jd, jp))
-
-
-def test_encoded_image_is_skipped_with_a_warning(docs, caplog):
-    """The port carries no JPEG decoder: the image is skipped (the JAX
-    renderer decodes it); everything else on the page is drawn as JAX
-    draws it."""
-    for jd, jp, td, tp in _renders(docs["embedded"]):
-        with caplog.at_level(logging.WARNING):
-            got = render_page(td, tp)
-        assert "encoded image" in caplog.text
-        jp.images = []
-        np.testing.assert_array_equal(got, jrender(jd, jp))
 
 
 def test_render_page_raises_naming_pil_without_it(docs, monkeypatch):

@@ -3,8 +3,9 @@ tests/test_ops.py ``TestResize``, ``TestWarp::test_order_points``,
 ``TestNms``, ``TestCenterNetDecode`` and ``TestConnectedComponents``, with
 ``warp_perspective_batch``, ``perspective_matrices``, ``nms_mask`` and
 ``decode_centernet_bbox`` beside them; tests/test_layout_tsr.py's
-``device_decode_nms`` case; DocXLayout's ``poly_iou``; and the three
-``render_pdf`` cases of tests/test_pdfio.py. Both packages get the same
+``device_decode_nms`` case; DocXLayout's ``poly_iou``; and the native
+``render_pdf`` case of tests/test_pdfio.py (its Ghostscript cases are in
+tests/test_torch_scanned_pdf.py). Both packages get the same
 inputs, made from a seed with numpy.
 
 Tolerances: labels, masks and NMS survivors equal; warps and resizes
@@ -428,20 +429,3 @@ def test_render_pdf_auto_is_native_and_bit_equal(monkeypatch):
     native = render_pdf(data, dpi=72, pages=[1], backend="native")
     assert [i for i, _ in native] == [1]
     np.testing.assert_array_equal(native[0][1], want[1][1])
-
-
-def test_render_pdf_ghostscript_raises(monkeypatch):
-    """The Ghostscript path is not ported: with a binary there or not, the
-    port raises where JAX would run it (or raise for the missing one)."""
-    from pdf_table_tpu.pdfio.render import render_pdf as jax_render
-    from pdf_table_tpu_torch.pdfio.render import render_pdf
-
-    monkeypatch.setenv("PDFTABLE_GS_BINARY", "/nonexistent/gs")
-    with pytest.raises(RuntimeError):
-        jax_render(_simple_pdf(), backend="ghostscript")
-    for gs in ("/nonexistent/gs", "/bin/true"):
-        monkeypatch.setenv("PDFTABLE_GS_BINARY", gs)
-        with pytest.raises(NotImplementedError, match="Ghostscript"):
-            render_pdf(_simple_pdf(), backend="ghostscript")
-    with pytest.raises(ValueError):
-        render_pdf(_simple_pdf(), backend="poppler")
