@@ -137,6 +137,17 @@ Phases, each fatal on failure:
      pipeline on the CPU; fails where PIL cannot decode JPEG; renders 2
      pages through render_pdf(backend="ghostscript") where a gs binary is
      on PATH;
+ 9d. decode: the host image decode (utils/image_io.py) on the card's host,
+     which has PIL and no cv2: the fixtures of tests/data/image_decode/
+     (a clean JPEG; a corrupt one that libjpeg stops on after its last
+     scanline, which decodes; one it stops on before its first, a
+     truncated one, an ICO and a TGA, which give None) held to the SHA-256
+     of cv2's decode committed beside them; a 13,400 x 13,400 flat grey
+     JPEG made here, which Image.open refuses as a decompression bomb,
+     decoded to its shape and value; a JPEG header of 40,000 x 30,000
+     raising ImageDecodeError without a pixel loaded; PIL's
+     MAX_IMAGE_PIXELS and LOAD_TRUNCATED_IMAGES left as they were. No
+     kernel runs;
  9c. bf16_models: every model that runs bf16 since the twelfth slice, f32
      and bf16 at full width on the trees and inputs of its f32 phase (the
      four DBNets on a chunk of 8 at 960x720, PicoDet on the chunk, the
@@ -496,6 +507,8 @@ DIGITAL_RUNS = 1
 # after the counted one, scans held against the CPU, and the largest mean
 # grey-level difference of a decoded scan from its page (JPEG's loss)
 SCAN_GREY, SCAN_CMYK = 3, 7
+# decode: a JPEG side just over twice PIL's MAX_IMAGE_PIXELS
+DECODE_BIG_SIDE = 13400
 SCAN_RUNS = 2
 SCAN_CPU_PAGES = 2
 SCAN_JPEG_MEAN = 4.0
@@ -5252,6 +5265,71 @@ def same_outputs(got, want) -> list:
     return [i for i, (g, w) in enumerate(zip(got, want)) if key(g) != key(w)]
 
 
+def phase_decode():
+    """Phase 9d (module docstring). Returns its summary."""
+    import hashlib
+    import io
+    import struct
+
+    import numpy as np
+    import PIL
+    from PIL import Image, ImageFile
+
+    from pdf_table_tpu_torch.utils.image_io import (ImageDecodeError,
+                                                    decode_image)
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "data", "image_decode")
+    with open(os.path.join(root, "digests.json")) as f:
+        digests = json.load(f)["files"]
+    pil_globals = (Image.MAX_IMAGE_PIXELS, ImageFile.LOAD_TRUNCATED_IMAGES)
+    for name, want in sorted(digests.items()):
+        with open(os.path.join(root, name), "rb") as f:
+            rgb = decode_image(f.read())
+        got = None if rgb is None else {
+            "sha256": hashlib.sha256(rgb.tobytes()).hexdigest(),
+            "shape": list(rgb.shape)}
+        check(got == want, f"decode: {name} gives {got} with PIL "
+                           f"{PIL.__version__}, cv2 5.0.0 gave {want}")
+    side, grey = DECODE_BIG_SIDE, 137
+    buf = io.BytesIO()
+    Image.new("L", (side, side), grey).save(buf, format="JPEG", quality=90)
+    big = buf.getvalue()
+    try:
+        Image.open(io.BytesIO(big))
+        refused = False
+    except Image.DecompressionBombError:
+        refused = True
+    check(refused, "decode: Image.open took the 13,400^2 JPEG, so it tests "
+                   "nothing of PIL's limit")
+    t = time.perf_counter()
+    rgb = decode_image(big)
+    big_s = time.perf_counter() - t
+    check(rgb is not None and rgb.shape == (side, side, 3)
+          and int(rgb.min()) == int(rgb.max()) == grey,
+          "decode: the 13,400^2 flat grey JPEG did not decode to its value")
+    del rgb
+    small = io.BytesIO()
+    Image.new("RGB", (64, 48), (90, 120, 200)).save(small, format="JPEG")
+    small = small.getvalue()
+    i = small.index(b"\xff\xc0")
+    over = small[:i + 5] + struct.pack(">HH", 30000, 40000) + small[i + 9:]
+    try:
+        decode_image(over)
+        raised = False
+    except ImageDecodeError:
+        raised = True
+    check(raised, "decode: a 40,000 x 30,000 header did not raise")
+    check(Image.MAX_IMAGE_PIXELS is pil_globals[0]
+          and ImageFile.LOAD_TRUNCATED_IMAGES is pil_globals[1],
+          "decode: a PIL global was written")
+    out = {"pil": PIL.__version__, "fixtures": len(digests),
+           "big_side": side, "big_decode_s": big_s, "big_jpeg_bytes":
+           len(big)}
+    print(json.dumps({"decode": out}))
+    return out
+
+
 def phase_pipeline_scanned(card, trees):
     """Phase 9s (module docstring). Returns its counted run's launches."""
     import shutil
@@ -7155,6 +7233,7 @@ def main() -> int:
                        pipe_trees)
     pipe_scanned = run("pipeline_scanned", phase_pipeline_scanned, card,
                        pipe_trees)
+    run("decode", phase_decode)
     run("bf16_models", phase_bf16_models, card)
     pipe_bf16 = run("pipeline_bf16", phase_pipeline_bf16, card, pipe_trees,
                     pipe_out)

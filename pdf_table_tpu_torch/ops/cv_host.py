@@ -452,7 +452,13 @@ def rotation_matrix_2d(center: Tuple[float, float], angle: float,
 def perspective_transform(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
     """``cv2.getPerspectiveTransform(src, dst)`` of four f32 points: the
     8x8 system of OpenCV (its products of f32 coordinates rounded to f32)
-    solved by OpenCV's LU with partial pivoting in f64; (3, 3) f64."""
+    solved by OpenCV's LU with partial pivoting in f64; (3, 3) f64.
+
+    Where the LU finds no pivot (a quad with two corners on one point, or
+    all four on a line), OpenCV 5.0.0 takes the homogeneous system
+    ``[A | -b]`` (8x9), forms its ``mulTransposed`` (AᵀA, each sum in row
+    order), and returns the last left singular vector of OpenCV's Jacobi
+    SVD of that 9x9 matrix, unit norm, with ``M[2, 2]`` not 1."""
     s = np.asarray(src, np.float32).reshape(4, 2)
     d = np.asarray(dst, np.float32).reshape(4, 2)
     a = [[0.0] * 8 for _ in range(8)]
@@ -468,11 +474,18 @@ def perspective_transform(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
         a[i + 4][7] = float(-sy * dy)
         b[i] = float(dx)
         b[i + 4] = float(dy)
+    rows = [a[i] + [-b[i]] for i in range(8)]
     x = _lu_solve(a, b)
-    if x is None:
-        # cv::solve zeroes its result when the LU finds no pivot
-        x = [0.0] * 8
-    return np.array(x + [1.0]).reshape(3, 3)
+    if x is not None:
+        return np.array(x + [1.0]).reshape(3, 3)
+    ata = [[0.0] * 9 for _ in range(9)]
+    for i in range(9):
+        for j in range(i, 9):
+            acc = 0.0
+            for r in rows:
+                acc += r[i] * r[j]
+            ata[i][j] = ata[j][i] = acc
+    return np.array(_jacobi_svd_u(ata)[8]).reshape(3, 3)
 
 
 def _lu_solve(a: List[List[float]], b: List[float]
@@ -505,6 +518,115 @@ def _lu_solve(a: List[List[float]], b: List[float]
     return b
 
 
+def _cv_hypot(a: float, b: float) -> float:
+    """OpenCV's own ``hypot`` in ``lapack.cpp`` (not libm's)."""
+    a, b = abs(a), abs(b)
+    if a > b:
+        b /= a
+        return a * math.sqrt(1 + b * b)
+    if b > 0:
+        a /= b
+        return b * math.sqrt(1 + a * a)
+    return 0.0
+
+
+def _jacobi_svd_u(s: List[List[float]]) -> List[List[float]]:
+    """The left singular vectors (as rows, by falling singular value) that
+    ``cv::SVDecomp`` of a square f64 matrix gives: OpenCV 5.0.0's
+    ``JacobiSVDImpl_`` line by line (one-sided Jacobi on the rows of the
+    transposed matrix, its ``hypot``, sums in index order, no fused
+    multiply-adds), including its fill of a zero singular value's vector
+    from ``RNG(0x12345678)`` orthogonalised against the ones before it.
+    Below 25 rows OpenCV never hands an SVD to LAPACK."""
+    n = len(s)
+    at = [[float(s[k][i]) for k in range(n)] for i in range(n)]
+    w = [0.0] * n
+    for i in range(n):
+        sd = 0.0
+        for t in at[i]:
+            sd += t * t
+        w[i] = sd
+    eps = np.finfo(np.float64).eps * 10
+    for _ in range(max(n, 30)):
+        changed = False
+        for i in range(n - 1):
+            for j in range(i + 1, n):
+                ai, aj = at[i], at[j]
+                a, b, p = w[i], w[j], 0.0
+                for k in range(n):
+                    p += ai[k] * aj[k]
+                if abs(p) <= eps * math.sqrt(a * b):
+                    continue
+                p *= 2
+                beta = a - b
+                gamma = _cv_hypot(p, beta)
+                if beta < 0:
+                    sn = math.sqrt((gamma - beta) * 0.5 / gamma)
+                    cs = p / (gamma * sn * 2)
+                else:
+                    cs = math.sqrt((gamma + beta) / (gamma * 2))
+                    sn = p / (gamma * cs * 2)
+                a = b = 0.0
+                for k in range(n):
+                    t0 = cs * ai[k] + sn * aj[k]
+                    t1 = -sn * ai[k] + cs * aj[k]
+                    ai[k], aj[k] = t0, t1
+                    a += t0 * t0
+                    b += t1 * t1
+                w[i], w[j] = a, b
+                changed = True
+        if not changed:
+            break
+    for i in range(n):
+        sd = 0.0
+        for t in at[i]:
+            sd += t * t
+        w[i] = math.sqrt(sd)
+    for i in range(n - 1):
+        j = i
+        for k in range(i + 1, n):
+            if w[j] < w[k]:
+                j = k
+        if i != j:
+            w[i], w[j] = w[j], w[i]
+            at[i], at[j] = at[j], at[i]
+    state = 0x12345678
+    tiny = np.finfo(np.float64).tiny
+    for i in range(n):
+        sd = w[i]
+        tries = 0
+        while tries < 100 and sd <= tiny:
+            # a zero singular value: a random +-1/n vector, projected off
+            # the vectors before it (twice), then normalised
+            row = at[i]
+            for k in range(n):
+                state = ((state & 0xFFFFFFFF) * 4164903690
+                         + (state >> 32)) & 0xFFFFFFFFFFFFFFFF
+                row[k] = 1.0 / n if state & 256 else -1.0 / n
+            for _ in range(2):
+                for j in range(i):
+                    sd = 0.0
+                    for k in range(n):
+                        sd += row[k] * at[j][k]
+                    asum = 0.0
+                    for k in range(n):
+                        t = row[k] - sd * at[j][k]
+                        row[k] = t
+                        asum += abs(t)
+                    asum = 1 / asum if asum > eps * 100 else 0.0
+                    for k in range(n):
+                        row[k] *= asum
+            sd = 0.0
+            for t in row:
+                sd += t * t
+            sd = math.sqrt(sd)
+            tries += 1
+        scale = 1 / sd if sd > tiny else 0.0
+        for k in range(n):
+            at[i][k] *= scale
+    return at
+
+
 def _invert3(m: np.ndarray) -> np.ndarray:
     """OpenCV's closed-form f64 inverse of a 3x3 (``invert``, DECOMP_LU)."""
     S = [[float(v) for v in row] for row in np.asarray(m).reshape(3, 3)]
@@ -526,26 +648,47 @@ def _invert3(m: np.ndarray) -> np.ndarray:
     return np.array(t).reshape(3, 3)
 
 
+def _fma_f32(a, b, c) -> np.ndarray:
+    """``fmaf(a, b, c)`` of f32 arrays, rounded once: the product is exact
+    in f64, the sum's error comes from TwoSum, and the f64 sum is rounded
+    to odd before it is rounded to f32."""
+    p = np.asarray(a, np.float64) * np.asarray(b, np.float64)
+    c = np.asarray(c, np.float64)
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    inexact = (err != 0) & np.isfinite(s) & ((s.view(np.int64) & 1) == 0)
+    s = np.where(inexact, np.nextafter(s, np.where(err > 0, np.inf, -np.inf)),
+                 s)
+    return s.astype(np.float32)
+
+
 def warp_perspective_u8(image: np.ndarray, mat: np.ndarray,
                         size: Tuple[int, int]) -> np.ndarray:
     """``cv2.warpPerspective(image, mat, size)`` of a uint8 (H, W, C)
-    image, INTER_LINEAR, border constant 0: OpenCV 5 samples uint8 images
-    at float source coordinates, as its f32 path (no 1/32-px table), and
-    rounds the blend to the nearest integer, ties to even. The inverse is
-    OpenCV's f64 closed form, rounded to f32; per row ``m01 * y + m02`` in
-    two roundings, along the row one fused multiply-add, then the
-    division by w. Within one grey level of ``cv2.warpPerspective`` (one
-    or two pixels of a crop differ, a last-bit difference of the source
-    coordinate)."""
+    image, INTER_LINEAR, border constant 0, bit-equal to OpenCV 5.0.0 on
+    an AVX2 host. The inverse is OpenCV's f64 closed form (all zeros where
+    its determinant is 0), rounded to f32. OpenCV's kernel takes a row in
+    blocks of 16 columns: there ``X = fmaf(m00, x, m01 * y + m02)`` (the
+    row term in two roundings); the columns after the last whole block
+    take ``fmaf(m00, x, m01 * y) + m02``. Then the division by w, and the
+    blend at float source coordinates as two lerps along x and one along y,
+    each ``fmaf(t, b - a, a)``, rounded to the nearest integer, ties to
+    even. The column split matters where the matrix is near singular
+    (``perspective_transform`` of a degenerate quad), whose coordinates
+    cancel from some 1e16."""
     h, w = image.shape[:2]
     out_w, out_h = size
     inv = _invert3(mat).astype(np.float32)
-    xs = np.arange(out_w, dtype=np.float64)[None, :]
+    xs = np.broadcast_to(np.arange(out_w, dtype=np.float32)[None, :],
+                         (out_h, out_w))
     ys = np.arange(out_h, dtype=np.float32)[:, None]
+    tail = xs >= out_w // 16 * 16
 
     def coord(r):
-        row = inv[r, 1] * ys + inv[r, 2]
-        return (np.float64(inv[r, 0]) * xs + row).astype(np.float32)
+        block = _fma_f32(inv[r, 0], xs, inv[r, 1] * ys + inv[r, 2])
+        rest = _fma_f32(inv[r, 0], xs, inv[r, 1] * ys) + inv[r, 2]
+        return np.where(tail, rest, block)
 
     X, Y, W = coord(0), coord(1), coord(2)
     with np.errstate(divide="ignore", invalid="ignore"):
@@ -569,10 +712,11 @@ def warp_perspective_u8(image: np.ndarray, mat: np.ndarray,
         return src[np.clip(yy, 0, h - 1), np.clip(xx, 0, w - 1)] \
             * ok[..., None]
 
-    one = np.float32(1)
-    out = (corner(0, 0) * ((one - ax) * (one - ay))
-           + corner(0, 1) * (ax * (one - ay))) \
-        + (corner(1, 0) * ((one - ax) * ay) + corner(1, 1) * (ax * ay))
+    p00, p01 = corner(0, 0), corner(0, 1)
+    top = _fma_f32(ax, p01 - p00, p00)
+    p10, p11 = corner(1, 0), corner(1, 1)
+    bottom = _fma_f32(ax, p11 - p10, p10)
+    out = _fma_f32(ay, bottom - top, top)
     out = np.clip(np.rint(out), 0, 255).astype(np.uint8)
     return out if image.ndim == 3 else out[..., 0]
 

@@ -9,8 +9,12 @@ Otsu thresholds and masks, ``findNonZero``, ``getRotationMatrix2D`` and
 ``boxPoints`` equal; ``minAreaRect`` centre, size and angle within 1e-4
 (where the two pick different rectangles, their areas tie within 1e-5 of
 each other: OpenCV 5.0's float arithmetic breaks the tie); uint8
-``warpPerspective`` and ``warpAffine`` (border 255) within one grey level
-on at most 0.1 % of the pixels; ``getPerspectiveTransform`` within 1e-9;
+``warpAffine`` (border 255) within one grey level on at most 0.1 % of the
+pixels; uint8 ``warpPerspective`` within one grey level there and
+bit-equal on turned quads and on the degenerate quads of F8 (500
+rectangles at 45 degrees, 2,000 collinear quads), where
+``getPerspectiveTransform`` is bit-equal too (OpenCV's SVD fallback, its
+Jacobi SVD bit-equal to ``cv2.SVDecomp``), and within 1e-9 elsewhere;
 f32 resize within 1e-5, uint8 grey resize bit-equal. A polygon that leaves
 the image is filled within one pixel a row of ``cv2.fillPoly``
 (ROADMAP.md Queue 3)."""
@@ -252,3 +256,116 @@ def test_resizes(hw, out):
     g = rng.integers(0, 256, hw).astype(np.uint8)
     np.testing.assert_array_equal(resize_u8_plain(g, *out),
                                   cv2.resize(g, out[::-1]))
+
+
+# -- degenerate quads (F8) --------------------------------------------------
+
+def crop_size_dst(o):
+    """``crop_rotated_boxes``'s destination rectangle for an ordered quad."""
+    w = int(round(max(np.linalg.norm(o[0] - o[1]),
+                      np.linalg.norm(o[3] - o[2]))))
+    h = int(round(max(np.linalg.norm(o[0] - o[3]),
+                      np.linalg.norm(o[1] - o[2]))))
+    w, h = max(w, 1), max(h, 1)
+    return np.array([[0, 0], [w - 1, 0], [w - 1, h - 1], [0, h - 1]],
+                    np.float32)
+
+
+def degenerate_quads(kind):
+    """The two sets on which the port's crops were black (ROADMAP.md Queue
+    3, F8), made from seed 0: 500 rectangles of half sides 2-60 px turned
+    by exactly 45 degrees about centres in [50, 450)² (the sum / difference
+    ordering puts two of their corners on one point, or makes them nearly
+    so), or 2,000 quads of four integer points on a line (a start in
+    [0, 300)², a step in [-20, 20]², sorted multiples 0-5 of it)."""
+    rng = np.random.default_rng(0)
+    out = []
+    if kind == "rect45":
+        r = np.sqrt(0.5)
+        turn = np.array([[r, -r], [r, r]])
+        for _ in range(500):
+            c = rng.uniform(50, 450, 2)
+            hw = rng.uniform(2, 60, 2)
+            box = np.array([[-hw[0], -hw[1]], [hw[0], -hw[1]],
+                            [hw[0], hw[1]], [-hw[0], hw[1]]])
+            out.append((box @ turn.T + c).astype(np.float32))
+    else:
+        for _ in range(2000):
+            p0, step = rng.integers(0, 300, 2), rng.integers(-20, 21, 2)
+            t = np.sort(rng.integers(0, 6, 4))
+            out.append((p0 + t[:, None] * step).astype(np.float32))
+    return np.stack(out)
+
+
+@pytest.mark.parametrize("src,dst", [
+    ([(0, 0), (10, 0), (10, 0), (0, 10)], [(0, 0), (20, 0), (20, 5), (0, 5)]),
+    ([(0, 0), (1, 1), (2, 2), (3, 3)], [(0, 0), (20, 0), (20, 5), (0, 5)])],
+    ids=["two_corners_on_one_point", "collinear"])
+def test_perspective_transform_of_a_degenerate_quad_equals_cv2(src, dst):
+    src, dst = np.float32(src), np.float32(dst)
+    want = cv2.getPerspectiveTransform(src, dst)
+    got = ch.perspective_transform(src, dst)
+    np.testing.assert_array_equal(got, want)
+    assert abs(np.linalg.norm(got) - 1.0) < 1e-12 and got[2, 2] != 1.0
+
+
+@pytest.mark.parametrize("kind", ["rect45", "collinear"])
+def test_degenerate_quads_transform_and_warp_as_cv2(kind):
+    """On each set ``perspective_transform`` equals
+    ``cv2.getPerspectiveTransform`` bit for bit (the LU where it finds a
+    pivot, OpenCV's SVD fallback where it does not), and
+    ``warp_perspective_u8`` of that matrix equals ``cv2.warpPerspective``."""
+    from pdf_table_tpu_torch.ops.warp import order_points_clockwise_batch
+
+    img = np.random.default_rng(1).integers(0, 256, (520, 520, 3),
+                                            dtype=np.uint8)
+    singular = 0
+    for o in order_points_clockwise_batch(degenerate_quads(kind)):
+        dst = crop_size_dst(o)
+        want = cv2.getPerspectiveTransform(o, dst)
+        got = ch.perspective_transform(o, dst)
+        np.testing.assert_array_equal(got, want)
+        singular += got[2, 2] != 1.0
+        size = int(dst[1, 0]) + 1, int(dst[2, 1]) + 1
+        np.testing.assert_array_equal(ch.warp_perspective_u8(img, got, size),
+                                      cv2.warpPerspective(img, want, size))
+    assert singular >= (300 if kind == "rect45" else 1900)
+
+
+@pytest.mark.parametrize("seed", range(2))
+def test_warp_perspective_bit_equal_on_turned_quads(seed):
+    """Quads turned by any angle and jittered, crops of every width (the
+    columns after OpenCV's last block of 16 take another rounding), colour
+    and grey: bit-equal to ``cv2.warpPerspective``."""
+    from pdf_table_tpu_torch.ops.warp import order_points_clockwise_batch
+
+    rng = np.random.default_rng(seed)
+    img = rng.integers(0, 256, (300, 400, 3), dtype=np.uint8)
+    for _ in range(60):
+        c, hw = rng.uniform(60, 340, 2), rng.uniform(3, 50, 2)
+        a = rng.uniform(-np.pi, np.pi)
+        turn = np.array([[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]])
+        box = np.array([[-hw[0], -hw[1]], [hw[0], -hw[1]], [hw[0], hw[1]],
+                        [-hw[0], hw[1]]]) @ turn.T + c
+        o = order_points_clockwise_batch(
+            (box + rng.normal(0, 2, (4, 2))).astype(np.float32))[0]
+        dst = crop_size_dst(o)
+        m = ch.perspective_transform(o, dst)
+        size = int(dst[1, 0]) + 1, int(dst[2, 1]) + 1
+        for im in (img, img[..., 1]):
+            np.testing.assert_array_equal(ch.warp_perspective_u8(im, m, size),
+                                          cv2.warpPerspective(im, m, size))
+
+
+@pytest.mark.parametrize("rank", [9, 7, 6])
+def test_jacobi_svd_equals_cv2_svdecomp(rank):
+    """``_jacobi_svd_u`` is OpenCV's Jacobi SVD bit for bit, on symmetric
+    matrices of full and deficient rank (the zero singular values' vectors
+    drawn from OpenCV's RNG)."""
+    rng = np.random.default_rng(rank)
+    for _ in range(10):
+        b = rng.normal(size=(rank, 9))
+        s = b.T @ b
+        _, u, _ = cv2.SVDecomp(s)
+        np.testing.assert_array_equal(
+            np.array(ch._jacobi_svd_u(s.tolist())).T, u)

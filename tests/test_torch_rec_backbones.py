@@ -5,7 +5,8 @@ package at full width on the CPU: the trees equal in shape (flax's LSTM
 cells fused into ``nn.LSTM`` by the weight bridge), the logits within
 1e-4 of flax's, and the recognition lane as a whole against the JAX
 package's fused device lane (``BatchPipeline._recognize_all_device``),
-with the 0/180 classifier (CRNN and LightweightEdge without it too), on
+with the 0/180 classifier (CRNN and LightweightEdge without it too;
+ConvNextViT's in tests/test_torch_rec_convnext_lane.py), on
 the canvases and quads of tests/test_torch_recognition.py (axis-aligned
 and rotated): the packed ids and keep masks equal, confidences within
 1e-5, texts equal.
@@ -130,8 +131,8 @@ def _jax_lane(model, rec_v, cls_v):
 
 
 # every recognizer with the classifier, CRNN and LightweightEdge without
-# it too (ConvNextViT's lane without it compiles another 13 s of JAX
-# program for no path of its own)
+# it too (ConvNextViT's lane without it is held in
+# tests/test_torch_rec_convnext_lane.py, to keep this file near a minute)
 @pytest.mark.parametrize("model,use_cls", [
     ("CRNN", False), ("CRNN", True), ("ConvNextViT", True),
     ("LightweightEdge", False), ("LightweightEdge", True)])

@@ -21,15 +21,13 @@ a half pixel; either changes a crop, and a random-weight recognizer its
 text. The natural-size text crops (``crop_rotated_boxes(img, quads,
 None)``) and the deskew (``estimate_skew_angle``, ``rotate_image``) are the
 port's on both sides (``natural_crops_as_the_port``): the port's
-``warpPerspective`` and ``warpAffine`` are within one grey level of
-OpenCV's on a pixel or two of a crop or a page, its skew angle within
-1e-6 degrees of OpenCV's where the double-precision calipers take over,
-and a random-weight recognizer turns such a pixel into another character
-at a near-tie; where two corners of a quad
-order onto one point, OpenCV's perspective matrix is one of unit norm
-from a fallback the port does not reproduce, the port's the zero matrix of
-``cv::solve``'s failure (ROADMAP.md Queue 3). The crops themselves are
-held to JAX's in tests/test_torch_host_paths.py, the turn too. Pages: a raster page with a wired table (with LORE, and with
+``warpAffine`` is within one grey level of OpenCV's on a pixel or two of
+a page, its skew angle within 1e-6 degrees of OpenCV's where the
+double-precision calipers take over, and a random-weight recognizer turns
+such a pixel into another character at a near-tie. The crops themselves
+(``warpPerspective`` bit-equal to OpenCV's, degenerate quads included
+since F8's repair) are held to JAX's in tests/test_torch_host_paths.py and
+tests/test_torch_cv_host.py, the turn too. Pages: a raster page with a wired table (with LORE, and with
 LineCell), the page skewed by 3 degrees, the page turned by 180 degrees
 (with a 0/180 classifier that reads every crop as turned), the page turned
 by 90 degrees (with a detector whose boxes follow the bars, so that the
