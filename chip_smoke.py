@@ -141,13 +141,24 @@ Phases, each fatal on failure:
      which has PIL and no cv2: the fixtures of tests/data/image_decode/
      (a clean JPEG; a corrupt one that libjpeg stops on after its last
      scanline, which decodes; one it stops on before its first, a
-     truncated one, an ICO and a TGA, which give None) held to the SHA-256
-     of cv2's decode committed beside them; a 13,400 x 13,400 flat grey
+     truncated one, an ICO and a TGA, which give None; since the
+     twenty-first slice one file per decode F10-F15 of ROADMAP.md Queue 3:
+     a 16-bit colour JP2, a corrupt GIF, HDR, PAM, colour and grey PFM, a
+     colour-mapped 1-bit Sun raster, PNMs of maxval 100 and 1000, 16-bit
+     colour PPM and TIFF, YCbCr and CIELAB TIFF, PNGs with a wrong tEXt and
+     IEND CRC) held to the SHA-256 of cv2's decode committed beside them,
+     with the paths of the libopenjp2 and libtiff that PIL links (the
+     port's JPEG 2000 and TIFF readers call them) printed, the phase
+     failing where either is missing; a GIF whose screen is over PIL's
+     178,956,970-pixel check, decoded to its background and frame; a
+     13,400 x 13,400 flat grey
      JPEG made here, which Image.open refuses as a decompression bomb,
      decoded to its shape and value; a JPEG header of 40,000 x 30,000
-     raising ImageDecodeError without a pixel loaded; PIL's
-     MAX_IMAGE_PIXELS and LOAD_TRUNCATED_IMAGES left as they were. No
-     kernel runs;
+     raising ImageDecodeError without a pixel loaded; a 2480 x 3508 ASCII
+     P3 and a 16,400^2 grey TIFF in one deflate strip (made by
+     make_fixtures.py there; libtiff's scanline route), each decoded to
+     its samples and timed; PIL's MAX_IMAGE_PIXELS and
+     LOAD_TRUNCATED_IMAGES left as they were. No kernel runs;
  9c. bf16_models: every model that runs bf16 since the twelfth slice, f32
      and bf16 at full width on the trees and inputs of its f32 phase (the
      four DBNets on a chunk of 8 at 960x720, PicoDet on the chunk, the
@@ -5268,6 +5279,7 @@ def same_outputs(got, want) -> list:
 def phase_decode():
     """Phase 9d (module docstring). Returns its summary."""
     import hashlib
+    import importlib.util
     import io
     import struct
 
@@ -5275,9 +5287,17 @@ def phase_decode():
     import PIL
     from PIL import Image, ImageFile
 
+    from pdf_table_tpu_torch.utils.codec_libs import libtiff, openjpeg
     from pdf_table_tpu_torch.utils.image_io import (ImageDecodeError,
                                                     decode_image)
 
+    libs = {}
+    for name, load in (("libopenjp2", openjpeg), ("libtiff", libtiff)):
+        try:
+            libs[name] = load().path
+        except RuntimeError as e:
+            check(False, f"decode: {e}")
+    print(json.dumps({"decode_libraries": libs}))
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                         "data", "image_decode")
     with open(os.path.join(root, "digests.json")) as f:
@@ -5320,12 +5340,71 @@ def phase_decode():
     except ImageDecodeError:
         raised = True
     check(raised, "decode: a 40,000 x 30,000 header did not raise")
+    # a 30 x 20 frame of palette indices at (100, 200) on a 16,384 x 10,923
+    # screen (178,962,432 pixels), disposal 2, background index 9
+    pal = np.arange(768, dtype=np.uint32).reshape(256, 3) * 7 % 256
+    frame = np.arange(600, dtype=np.uint32).reshape(20, 30) * 11 % 256
+    codes = [(256, 9)]
+    for k, v in enumerate(frame.ravel()):
+        if k and k % 254 == 0:
+            codes.append((256, 9))
+        codes.append((int(v), 9))
+    codes.append((257, 9))
+    lzw, acc, nbits = bytearray(), 0, 0
+    for code, n in codes:
+        acc |= code << nbits
+        nbits += n
+        while nbits >= 8:
+            lzw.append(acc & 255)
+            acc >>= 8
+            nbits -= 8
+    lzw.append(acc)
+    gif = (b"GIF89a" + struct.pack("<HHBBB", 16384, 10923, 0xF7, 9, 0)
+           + pal.astype(np.uint8).tobytes() + b"\x21\xf9\x04\x08\0\0\0\0"
+           + b"\x2c" + struct.pack("<HHHHB", 100, 200, 30, 20, 0) + b"\x08"
+           + b"".join(bytes([len(lzw[i:i + 255])]) + lzw[i:i + 255]
+                      for i in range(0, len(lzw), 255)) + b"\0\x3b")
+    t = time.perf_counter()
+    rgb = decode_image(gif)
+    gif_s = time.perf_counter() - t
+    check(rgb is not None and rgb.shape == (10923, 16384, 3)
+          and (rgb[0, 0] == pal[9]).all() and (rgb[-1, -1] == pal[9]).all()
+          and (rgb[200:220, 100:130] == pal[frame]).all(),
+          "decode: the GIF over PIL's bomb check did not decode to its "
+          "background and frame")
+    del rgb
+    # a 300 dpi A4 page as an ASCII P3 (the port's ReadNumber loop in C++)
+    # and a 16,400^2 grey TIFF in one strip (libtiff's scanline route)
+    spec = importlib.util.spec_from_file_location(
+        "make_fixtures", os.path.join(root, "make_fixtures.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    p3, samples = tool.page_ascii_pnm(3)
+    t = time.perf_counter()
+    rgb = decode_image(p3)
+    p3_s = time.perf_counter() - t
+    check(rgb is not None and np.array_equal(rgb, samples),
+          "decode: the page-sized P3 did not decode to its samples")
+    del rgb, p3, samples
+    tside = 16400
+    tiff = tool.strip_tiff(tool.grey_strip(tside), tside, tside, 1)
+    t = time.perf_counter()
+    rgb = decode_image(tiff)
+    tiff_s = time.perf_counter() - t
+    x = np.arange(tside)
+    check(rgb is not None and rgb.shape == (tside, tside, 3) and all(
+        np.array_equal(rgb[y, :, c], (x + 7 * y) % 251)
+        for y in (0, 1, tside - 1) for c in range(3)),
+        "decode: the 16,400^2 single-strip grey TIFF did not decode to its "
+        "samples")
+    del rgb, tiff
     check(Image.MAX_IMAGE_PIXELS is pil_globals[0]
           and ImageFile.LOAD_TRUNCATED_IMAGES is pil_globals[1],
           "decode: a PIL global was written")
     out = {"pil": PIL.__version__, "fixtures": len(digests),
            "big_side": side, "big_decode_s": big_s, "big_jpeg_bytes":
-           len(big)}
+           len(big), "big_gif_decode_s": gif_s, "p3_page_decode_s": p3_s,
+           "big_tiff_strip_decode_s": tiff_s}
     print(json.dumps({"decode": out}))
     return out
 

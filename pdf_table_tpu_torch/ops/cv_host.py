@@ -15,10 +15,7 @@ pixel, which Python runs some hundred times slower. The rest is numpy.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import subprocess
 import threading
 from pathlib import Path
 from typing import List, Optional, Tuple
@@ -29,11 +26,10 @@ from scipy import ndimage
 from ..models.line_cell.algo import rgb_to_grey
 from ..models.lore.processor import warp_affine_linear
 from ..pdfio.draw import clip_line, line_int
+from ..utils import native_build
+from ..utils.native_build import NATIVE_DIR
 
-NATIVE_DIR = Path(__file__).resolve().parent / "native"
-BUILD_DIR = NATIVE_DIR / "build"
 SOURCE = NATIVE_DIR / "cv_host.cc"
-CXXFLAGS = ("-O2", "-fPIC", "-shared", "-std=c++17", "-ffp-contract=off")
 _lib = None
 _lib_lock = threading.Lock()
 
@@ -49,28 +45,13 @@ __all__ = ["rgb_to_grey", "find_contours", "arc_length", "approx_poly_dp",
 
 
 def library_path() -> Path:
-    """``native/build/libcvhost-<hash>.so``, the hash over the source and
-    the flags."""
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(CXXFLAGS).encode())
-    return BUILD_DIR / f"libcvhost-{h.hexdigest()[:12]}.so"
+    """``native/build/libcvhost-<hash>.so``."""
+    return native_build.library_path(SOURCE)
 
 
 def build_native() -> Path:
-    """Build the library if it is missing (a file of this process's own,
-    renamed into place, so that concurrent builds do not collide)."""
-    lib = library_path()
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(["g++", *CXXFLAGS, str(SOURCE), "-o", str(tmp)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"cv_host: building {SOURCE.name} failed:\n"
-                           f"{proc.stderr[-4000:]}")
-    os.replace(tmp, lib)
-    return lib
+    """Build the library if it is missing."""
+    return native_build.build_native(SOURCE)
 
 
 def _load():

@@ -7,10 +7,9 @@ JAX package's on the files where the two used to part.
   image), files that cv2 writes (8- and 16-bit, grey, alpha, float) and
   hand-built Sun rasters give None exactly where cv2 does and bit-equal
   pixels everywhere else (a grey PFM as OpenCV's unscaled
-  ``saturate_cast`` of its floats). One case is left out: a
-  16-bit colour JPEG 2000, where PIL rounds each sample to 8 bits (with
-  wraparound at 65,535) and OpenCV truncates, up to 255 apart (ROADMAP.md
-  Queue 3, F10).
+  ``saturate_cast`` of its floats, 16-bit samples both as ``v * 257`` and
+  over their full range). tests/test_torch_image_formats.py holds the
+  formats the port reads with its own readers case by case.
 - Corrupt JPEG data: tests/data/image_decode/make_fixtures.py's recipe (a
   blurred 400 x 300 JPEG, seed 0, three random bytes set per copy), 400
   corruptions after byte 600 and 400 after byte 100, give cv2's None or
@@ -30,7 +29,9 @@ JAX package's on the files where the two used to part.
   ``OcrTextTask`` and ``OcrDocument`` on an image path, on an ICO, a TGA,
   each kind of corrupt JPEG, a truncated one and an over-limit header.
 - The committed fixtures decode to the digests beside them (what
-  ``chip_smoke.py``'s ``decode`` phase holds the card's host to)."""
+  ``chip_smoke.py``'s ``decode`` phase holds the card's host to); each
+  entry point is held to JAX's on every one of them, the F10-F15 files of
+  make_fixtures.py too."""
 
 import hashlib
 import http.client
@@ -133,7 +134,9 @@ def encode(im, fmt, **kw) -> bytes:
 
 # -- formats -----------------------------------------------------------------
 
-MODES = ("RGB", "L", "RGBA", "P", "1", "I;16", "I", "F", "CMYK", "LA")
+# "I;16full": 16-bit grey over the full range, beside "I;16"'s v * 257
+MODES = ("RGB", "L", "RGBA", "P", "1", "I;16", "I;16full", "I", "F", "CMYK",
+         "LA")
 
 
 def _sample(mode):
@@ -141,6 +144,9 @@ def _sample(mode):
                                             dtype=np.uint8)
     if mode == "I;16":
         return Image.fromarray(rgb[..., 0].astype(np.uint16) * 257)
+    if mode == "I;16full":
+        return Image.fromarray(np.random.default_rng(0).integers(
+            0, 65536, (50, 40)).astype(np.uint16))
     if mode == "I":
         return Image.fromarray(rgb[..., 0].astype(np.int32) * 1000)
     if mode == "F":
@@ -181,8 +187,15 @@ def test_the_formats_cv2_refuses_give_none():
             assert decode_image(data) is None
 
 
+def _full16(a):
+    """Full-range 16-bit samples of ``a``'s shape, seeded by it."""
+    return np.random.default_rng(int(a.sum())).integers(
+        0, 65536, a.shape).astype(np.uint16)
+
+
 CV_ARRAYS = {
     "u8": lambda a: a, "u16": lambda a: a.astype(np.uint16) * 257,
+    "u16full": _full16, "grey16full": lambda a: _full16(a[..., 0]),
     "rgba": lambda a: np.dstack([a, a[..., :1]]), "grey": lambda a: a[..., 0],
     "grey16": lambda a: a[..., 0].astype(np.uint16) * 257,
     "f32": lambda a: a.astype(np.float32) / 255}
@@ -197,8 +210,6 @@ def _cv_written():
     for ext in (".png", ".tiff", ".ppm", ".pgm", ".pbm", ".bmp", ".webp",
                 ".jp2", ".sr", ".ras"):
         for kind, fn in CV_ARRAYS.items():
-            if ext == ".jp2" and kind == "u16":      # F10
-                continue
             try:
                 ok, enc = cv2.imencode(ext, fn(a))
             except cv2.error:
@@ -391,8 +402,11 @@ def test_fixtures_decode_to_their_digests():
     for name, want in digests.items():
         assert tool.rgb_digest(decode_image(FILES[name])) == want
         assert tool.rgb_digest(cv_outcome(FILES[name])) == want
-    assert [n for n, d in digests.items() if d is not None] == \
-        ["clean.jpg", "corrupt_decodes.jpg"]
+    assert [n for n, d in digests.items() if d is not None] == [
+        "bad_iend_crc.png", "bad_text_crc.png", "cielab.tiff", "clean.jpg",
+        "colour.pfm", "corrupt_decodes.jpg", "grey.pfm", "image.hdr",
+        "image.pam", "mapped_1bit.ras", "maxval100.pgm", "maxval1000.ppm",
+        "rgb16.jp2", "rgb16.ppm", "rgb16.tiff", "ycbcr.tiff"]
 
 
 # -- size limits -------------------------------------------------------------

@@ -59,8 +59,10 @@ the port's, and calls the entity and ops names of the public surface on the
 CPU, with neither JAX, flax, cv2, lxml nor the JAX package imported. A
 fifteenth runs the scanned route: a PDF of two CMYK JPEG scans of a ruled
 table (one with an invisible OCR text layer) through ``BatchPipeline.run``,
-``read_pdf(flavor="lattice")`` and the ``pdftable`` CLI, with neither JAX,
-flax, cv2, lxml nor the JAX package imported."""
+``read_pdf(flavor="lattice")`` and the ``pdftable`` CLI, then decodes every
+committed image fixture (the port's own readers and the OpenJPEG and
+libtiff bindings among them) to its digest of cv2's decode, with neither
+JAX, flax, cv2, lxml nor the JAX package imported."""
 
 import json
 import os
@@ -1062,6 +1064,20 @@ with contextlib.redirect_stdout(io.StringIO()):
     rc = main(["--file_path_or_url", pdf, "--output_dir", td,
                "--layout_model", "none"], device="cpu")
 html = open(os.path.join(td, "scan.html")).read()
+import hashlib
+from pdf_table_tpu_torch.utils.image_io import decode_image
+fixtures = os.path.join("tests", "data", "image_decode")
+digests = json.load(open(os.path.join(fixtures, "digests.json")))["files"]
+decoded = {}
+for name, want in sorted(digests.items()):
+    rgb = decode_image(open(os.path.join(fixtures, name), "rb").read())
+    got = None if rgb is None else {
+        "sha256": hashlib.sha256(rgb.tobytes()).hexdigest(),
+        "shape": list(rgb.shape)}
+    decoded[name] = got == want
+readers = sorted(m for m in sys.modules if m in (
+    "pdf_table_tpu_torch.utils.cv_readers",
+    "pdf_table_tpu_torch.utils.codec_libs"))
 bad = sorted(m for m in sys.modules if m.split(".")[0] in (
     "jax", "jaxlib", "flax", "cv2", "lxml", "pdf_table_tpu"))
 print(json.dumps({"bad": bad, "errors": [o.metric.get("error") for o in out],
@@ -1070,7 +1086,10 @@ print(json.dumps({"bad": bad, "errors": [o.metric.get("error") for o in out],
                   "ink": bool(np.abs(out[1].image.astype(int) - img).max() < 40),
                   "tables": [len(o.table_html) for o in out],
                   "read_pdf": [t.data for t in tables], "rc": rc,
-                  "pages_html": html.count("<!-- page")}))
+                  "pages_html": html.count("<!-- page"),
+                  "fixtures": sorted(n for n, ok in decoded.items() if ok),
+                  "unequal": sorted(n for n, ok in decoded.items() if not ok),
+                  "readers": readers}))
 """
 
 
@@ -1082,6 +1101,15 @@ def test_scanned_route_runs_without_jax():
                          timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     res = json.loads(out.stdout.strip().splitlines()[-1])
+    # every committed decode fixture (the port's own readers of GIF, HDR,
+    # PNM, PAM, PFM, Sun rasters, TIFF and JPEG 2000 among them) gives its
+    # digest of cv2's decode
+    with open(os.path.join(root, "tests", "data", "image_decode",
+                           "digests.json")) as f:
+        names = sorted(json.load(f)["files"])
+    assert res.pop("fixtures") == names and res.pop("unequal") == []
+    assert res.pop("readers") == ["pdf_table_tpu_torch.utils.codec_libs",
+                                  "pdf_table_tpu_torch.utils.cv_readers"]
     # the OCR'd scan reads its invisible text; the other is an image only
     assert res == {"bad": [], "errors": [None, None],
                    "is_pdf": [True, False], "equal": True, "ink": True,

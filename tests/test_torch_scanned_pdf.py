@@ -603,3 +603,66 @@ def test_cli_on_a_scan_matches_jax(route, trees, jtasks, tmp_path,
         jax_.system._det = jtasks["_det"]
     got, _, pm = run_both(port, jax_)
     assert got["n_pages"] == 1 and pm[0]["n_text"] and pm[0]["n_tables"]
+
+
+# -- a 16-bit colour JPEG 2000 scan (ROADMAP.md Queue 3, F10) -----------------
+
+def jpx16(img: np.ndarray, seed: int = 16) -> bytes:
+    """``img`` (RGB uint8) as a 16-bit colour JP2 written by cv2: each
+    sample ``v * 256`` plus seeded noise in the low byte, which PIL's
+    rounding carries into the high byte where OpenCV's shift drops it."""
+    low = np.random.default_rng(seed).integers(0, 256, img.shape)
+    ok, enc = cv2.imencode(".jp2", (img[..., ::-1].astype(np.uint16) << 8)
+                           | low.astype(np.uint16))
+    assert ok
+    return enc.tobytes()
+
+
+def jpx16_page(img: np.ndarray) -> bytes:
+    """A one-page PDF holding ``img`` as a 16-bit colour ``/JPXDecode``
+    scan, placed 1:1 at 144 dpi."""
+    h, w = img.shape[:2]
+    return image_pdf([(jpx16(img), "JPXDecode", w, h, "DeviceRGB",
+                       (0, 0, w / 2, h / 2))], size=(w / 2, h / 2))
+
+
+def test_16bit_colour_jpx_renders_as_jax():
+    """The page image decodes as OpenCV's shift gives it, where PIL's
+    rounding parts from it on most samples; the renders are equal."""
+    stream = jpx16(_picture(0))
+    pil_rgb = np.asarray(Image.open(io.BytesIO(stream)).convert("RGB"))
+    assert (pil_rgb != cv2_rgb(stream)).mean() > 0.2
+    np.testing.assert_array_equal(decode_image(stream), cv2_rgb(stream))
+    data = image_pdf([(stream, "JPXDecode", 120, 90, "DeviceRGB", box)
+                      for box in PLACEMENTS])
+    for dpi in (144, 100):
+        got, want = _render_both(data, dpi)
+        np.testing.assert_array_equal(got, want)
+
+
+def test_runner_on_a_16bit_colour_jpx_scan_matches_jax(trees, jtasks):
+    data = jpx16_page(PAGES[0])
+    want = jax_pipeline(jtasks, False).run(_pdf_pages(data, JDoc, (0,)))
+    got = port_pipeline(trees, False).run(_pdf_pages(data, PdfDocument,
+                                                     (0,)))
+    _same_runner_pages(got, want)
+    assert len(got[0].text_cells) >= 8
+
+
+def test_lattice_on_a_16bit_colour_jpx_scan_matches_jax(tmp_path):
+    vec = PdfWriter()
+    vec.add_page(300, 200).table(
+        20, 180, [80, 80, 80], 30,
+        [["h1", "h2", "h3"], ["a", "b", "c"], ["d", "e", "f"]])
+    with PdfDocument.open(vec.tobytes()) as doc:
+        img = render_page(doc, doc.load_page(0))
+    path = str(tmp_path / "jpx16.pdf")
+    with open(path, "wb") as f:
+        f.write(jpx16_page(img))
+    want = jread_pdf(path, flavor="lattice")
+    got = read_pdf(path, flavor="lattice")
+    assert got.n == want.n >= 1
+    for g, w in zip(got, want):
+        assert g.df.equals(w.df) and g.data == w.data
+        assert g.parsing_report == w.parsing_report
+        np.testing.assert_array_equal(g.bbox, w.bbox)
