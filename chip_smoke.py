@@ -158,7 +158,12 @@ Phases, each fatal on failure:
      P3 and a 16,400^2 grey TIFF in one deflate strip (made by
      make_fixtures.py there; libtiff's scanline route), each decoded to
      its samples and timed; PIL's MAX_IMAGE_PIXELS and
-     LOAD_TRUNCATED_IMAGES left as they were. No kernel runs;
+     LOAD_TRUNCATED_IMAGES left as they were; since the twenty-second
+     slice the host geometry of F16-F19 (minAreaRect, uint8 and f32
+     warpAffine, fillPoly off the image, the f32 resize) on the seeded
+     inputs of tests/data/image_decode/host_geometry.py, each output held
+     to the SHA-256 of cv2 5.0.0's committed beside it, and timed. No
+     kernel runs;
  9c. bf16_models: every model that runs bf16 since the twelfth slice, f32
      and bf16 at full width on the trees and inputs of its f32 phase (the
      four DBNets on a chunk of 8 at 960x720, PicoDet on the chunk, the
@@ -5401,10 +5406,23 @@ def phase_decode():
     check(Image.MAX_IMAGE_PIXELS is pil_globals[0]
           and ImageFile.LOAD_TRUNCATED_IMAGES is pil_globals[1],
           "decode: a PIL global was written")
+    # the host geometry (F16-F19) on this host against cv2's digests
+    spec = importlib.util.spec_from_file_location(
+        "host_geometry", os.path.join(root, "host_geometry.py"))
+    geo = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(geo)
+    t = time.perf_counter()
+    got_geo = geo.port_outputs()
+    geo_s = time.perf_counter() - t
+    want_geo = geo.load_digests()
+    geo_off = [k for k in sorted(want_geo) if got_geo.get(k) != want_geo[k]]
+    check(not geo_off, f"decode: the host geometry of {geo_off} differs "
+                       f"from cv2 5.0.0's digests on this host")
     out = {"pil": PIL.__version__, "fixtures": len(digests),
            "big_side": side, "big_decode_s": big_s, "big_jpeg_bytes":
            len(big), "big_gif_decode_s": gif_s, "p3_page_decode_s": p3_s,
-           "big_tiff_strip_decode_s": tiff_s}
+           "big_tiff_strip_decode_s": tiff_s,
+           "host_geometry_cases": len(want_geo), "host_geometry_s": geo_s}
     print(json.dumps({"decode": out}))
     return out
 

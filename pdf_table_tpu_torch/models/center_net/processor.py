@@ -4,13 +4,14 @@ pdf_table_tpu/models/center_net/processor.py).
 Pre, on the device from the resident pages: the JAX pre-processor takes
 the crop ``page[y1:y2, x1:x2]`` and runs ``cv2.warpAffine`` of its BGR f32
 copy with the centred scale matrix (INTER_LINEAR, border 0), then the
-CenterNet normalization. OpenCV 5 samples f32 images at float source
+CenterNet normalization. OpenCV 5.0.0 samples f32 images at float source
 coordinates: ``inv(M) @ (u, v, 1)`` with the inverse in f64, its f32
 coefficients applied per row (``ay * v + by``, two roundings) and along
-the row (``ax * u + bx``, one fused multiply-add), no 1/32-px
-quantization.
-:func:`warp_crops` samples the same points from the page, corners outside
-the crop reading 0.
+the row (``ax * u + bx``, one fused multiply-add in the columns of whole
+blocks of 16, two roundings after them), no 1/32-px quantization, and
+blends the corners as three fused lerps (ops/cv_host.py::
+warp_affine_linear). :func:`warp_crops` samples the same points from the
+page, corners outside the crop reading 0, and blends them the same way.
 
 Post, on the host: :func:`group_bbox_by_gbox` (the vertex snap, in
 vectorized numpy with the JAX loop's first-match rule),
@@ -26,10 +27,27 @@ import numpy as np
 import torch
 
 from ..line_cell.grid import merge_positions
-from ..lore.processor import invert_affine, warp_affine_linear
+from ...ops.cv_host import invert_affine, warp_affine_linear
 from .config import CenterNetConfig
 
 Window = Tuple[int, int, int, int, int]   # page, x1, y1, x2, y2
+
+
+def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+             ) -> torch.Tensor:
+    """``fmaf(a, b, c)`` of f32 tensors, rounded once: the product is exact
+    in f64, the sum's error comes from TwoSum, and the f64 sum is rounded
+    to odd before it is rounded to f32 (on any device)."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    inexact = (err != 0) & torch.isfinite(s) & ((s.view(torch.int64) & 1)
+                                                == 0)
+    toward = torch.where(err > 0, torch.full_like(s, float("inf")),
+                         torch.full_like(s, float("-inf")))
+    return torch.where(inexact, torch.nextafter(s, toward), s).float()
 
 
 class CenterNetPreProcessor:
@@ -58,8 +76,9 @@ class CenterNetPreProcessor:
                    coefs: np.ndarray) -> torch.Tensor:
         """BGR f32 (N, inp_h, inp_w, 3) crops, 0..255: destination pixel
         (u, v) samples the crop at ``(ax * u + bx, ay * v + by)``
-        bilinearly, each corner outside the crop 0, blended as
-        ``warp_affine_linear`` (models/lore/processor.py) does."""
+        bilinearly, each corner outside the crop 0, with the roundings and
+        the blend of ``cv2.warpAffine`` (ops/cv_host.py::
+        warp_affine_linear): bit-equal to it."""
         inp_h, inp_w = self.config.resolution
         dev = pages.device
         f32 = torch.float32
@@ -67,13 +86,15 @@ class CenterNetPreProcessor:
         win = torch.as_tensor(np.asarray(windows, np.int64), device=dev)
         # OpenCV's rounding of the f32 coefficients: per row y it takes
         # ay * v + by (two roundings), then along the row one fused
-        # multiply-add ax * u + bx (the exact f64 value, rounded once)
+        # multiply-add ax * u + bx (the exact f64 value, rounded once) in
+        # its blocks of 16 columns, ax * u + bx in two roundings after them
         c = torch.as_tensor(coefs, device=dev)
         pi, x1, y1, x2, y2 = win.unbind(1)
-        u = torch.arange(inp_w, dtype=torch.float64, device=dev)
+        u = torch.arange(inp_w, dtype=f32, device=dev)[None]
         v = torch.arange(inp_h, dtype=f32, device=dev)
-        sx = (c[:, 0:1].double() * u[None]
-              + c[:, 1:2].double()).float()              # (N, inp_w)
+        sx = torch.where(u < inp_w // 16 * 16,
+                         _fma_f32(c[:, 0:1], u, c[:, 1:2]),
+                         c[:, 0:1] * u + c[:, 1:2])       # (N, inp_w)
         sy = c[:, 2:3] * v[None] + c[:, 3:4]               # (N, inp_h)
         x0f, y0f = torch.floor(sx), torch.floor(sy)
         ax = (sx - x0f)[:, None, :, None]
@@ -92,10 +113,11 @@ class CenterNetPreProcessor:
             g = pages[pidx, rows[:, :, None], cols[:, None, :]].to(f32)
             return g.flip(-1) * ok[..., None]
 
-        one = 1.0
-        return (corner(0, 0) * ((one - ax) * (one - ay))
-                + corner(0, 1) * (ax * (one - ay))) \
-            + (corner(1, 0) * ((one - ax) * ay) + corner(1, 1) * (ax * ay))
+        p00, p01 = corner(0, 0), corner(0, 1)
+        top = _fma_f32(ax, p01 - p00, p00)
+        p10, p11 = corner(1, 0), corner(1, 1)
+        bottom = _fma_f32(ax, p11 - p10, p10)
+        return _fma_f32(ay, bottom - top, top)
 
     def __call__(self, image: np.ndarray) -> Dict[str, Any]:
         """One uint8 RGB crop on the host, as the JAX pre-processor's
@@ -109,8 +131,7 @@ class CenterNetPreProcessor:
         c = (w / 2.0, h / 2.0)
         mat = np.array([[scale, 0, inp_w / 2 - scale * c[0]],
                         [0, scale, inp_h / 2 - scale * c[1]]], np.float32)
-        warped = warp_affine_linear(image[:, :, ::-1].astype(np.float32),
-                                    mat, (inp_w, inp_h))
+        warped = warp_affine_linear(image[:, :, ::-1], mat, (inp_w, inp_h))
         norm = (warped / 255.0 - self.MEAN) / self.STD
         return {"image": norm[None].astype(np.float32),
                 "meta": self.plan(h, w)[1]}

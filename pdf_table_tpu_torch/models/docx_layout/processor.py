@@ -8,8 +8,8 @@ Pre, on the device from the resident canvases: the JAX pre-processor runs
 (models/center_net/processor.py) samples the same points with the same
 normalization, the page as its window, and tasks/layout.py uses it.
 :class:`DocXLayoutPreProcessor` is the JAX pre-processor itself on the host
-(``models/lore/processor.py::warp_affine_linear``, OpenCV 5's f32
-``warpAffine``), the yardstick of the device warp.
+(``ops/cv_host.py::warp_affine_linear``, OpenCV 5.0.0's f32
+``warpAffine`` bit for bit), the yardstick of the device warp.
 
 Post, on the host from one page's decode: scale back to page
 coordinates, clip, threshold, :func:`pnms` (the JAX loop's result, its
@@ -24,7 +24,7 @@ import numpy as np
 
 from ...entity.enums import HtmlContentType
 from ...entity.ocr_cell import OcrCell
-from ..lore.processor import warp_affine_linear
+from ...ops.cv_host import warp_affine_linear
 from .config import DocXLayoutConfig
 
 
@@ -46,8 +46,7 @@ class DocXLayoutPreProcessor:
         c = (w / 2.0, h / 2.0)
         mat = np.array([[scale, 0, inp_w / 2 - scale * c[0]],
                         [0, scale, inp_h / 2 - scale * c[1]]], np.float32)
-        warped = warp_affine_linear(image[:, :, ::-1].astype(np.float32),
-                                    mat, (inp_w, inp_h))
+        warped = warp_affine_linear(image[:, :, ::-1], mat, (inp_w, inp_h))
         norm = (warped / 255.0 - self.MEAN) / self.STD
         return {"image": norm[None].astype(np.float32),
                 "meta": {"c": c, "s": float(s), "org_shape": (h, w),

@@ -13,69 +13,12 @@ then snap cell edges to shared grid lines.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Sequence
 
 import numpy as np
 
+from ...ops.cv_host import warp_affine_linear
 from .config import LoreConfig
-
-
-def invert_affine(mat: np.ndarray) -> np.ndarray:
-    """The inverse of a 2x3 affine in f64, as ``cv2.invertAffineTransform``
-    computes it."""
-    m = np.asarray(mat, np.float64)
-    d = m[0, 0] * m[1, 1] - m[0, 1] * m[1, 0]
-    d = 1.0 / d if d != 0 else 0.0
-    a11, a22 = m[1, 1] * d, m[0, 0] * d
-    a12, a21 = -m[0, 1] * d, -m[1, 0] * d
-    return np.array([[a11, a12, -a11 * m[0, 2] - a12 * m[1, 2]],
-                     [a21, a22, -a21 * m[0, 2] - a22 * m[1, 2]]])
-
-
-def warp_affine_linear(image: np.ndarray, mat: np.ndarray,
-                       size: Tuple[int, int], border: float = 0.0
-                       ) -> np.ndarray:
-    """``cv2.warpAffine(image, mat, size, flags=cv2.INTER_LINEAR)`` on an
-    f32 (H, W, C) image, border constant ``border`` (0 by default), in
-    numpy: destination pixel (x, y) (no half-pixel centres) samples the
-    source at ``inv(mat) @ (x, y, 1)``, bilinearly, corners outside the
-    image reading ``border``. OpenCV 5 samples
-    f32 images at float source coordinates (the 1/32-px fixed point of
-    older releases is gone) and rounds them as
-    ``models/center_net/processor.py::warp_crops`` does: the inverse in f64,
-    its f32 coefficients applied per row (``a01 * y + a02``, two roundings)
-    and along the row (``a00 * x`` plus the row term, one fused
-    multiply-add); the same for y. Held to ``cv2.warpAffine`` within 1e-4
-    grey levels on 0..255 images (tests/test_torch_lore_train.py)."""
-    h, w = image.shape[:2]
-    out_w, out_h = size
-    inv = invert_affine(mat).astype(np.float32)
-    xs = np.arange(out_w, dtype=np.float64)[None, :]
-    ys = np.arange(out_h, dtype=np.float32)[:, None]
-    row_x = inv[0, 1] * ys + inv[0, 2]
-    row_y = inv[1, 1] * ys + inv[1, 2]
-    sx = (np.float64(inv[0, 0]) * xs + row_x).astype(np.float32)
-    sy = (np.float64(inv[1, 0]) * xs + row_y).astype(np.float32)
-    x0 = np.floor(sx)
-    y0 = np.floor(sy)
-    ax = (sx - x0)[..., None]
-    ay = (sy - y0)[..., None]
-    x0 = x0.astype(np.int64)
-    y0 = y0.astype(np.int64)
-    src = np.asarray(image, np.float32)
-
-    def corner(dy, dx):
-        yy, xx = y0 + dy, x0 + dx
-        ok = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
-        v = src[np.clip(yy, 0, h - 1), np.clip(xx, 0, w - 1)]
-        if border:
-            return np.where(ok[..., None], v, np.float32(border))
-        return v * ok[..., None]
-
-    one = np.float32(1)
-    return (corner(0, 0) * ((one - ax) * (one - ay))
-            + corner(0, 1) * (ax * (one - ay))) \
-        + (corner(1, 0) * ((one - ax) * ay) + corner(1, 1) * (ax * ay))
 
 
 class LorePreProcessor:
@@ -113,23 +56,21 @@ class LorePreProcessor:
     def __call__(self, image: np.ndarray) -> Dict[str, Any]:
         inp_h, inp_w = self.config.resolution
         mat, meta = self._affine(*image.shape[:2])
-        warped = warp_affine_linear(image[:, :, ::-1].astype(np.float32),
-                                    mat, (inp_w, inp_h))
+        warped = warp_affine_linear(image[:, :, ::-1], mat, (inp_w, inp_h))
         norm = (warped / 255.0 - self.MEAN) / self.STD
         return {"image": norm[None].astype(np.float32), "meta": meta}
 
     def warp_u8(self, image: np.ndarray) -> Dict[str, Any]:
         """``cv2.warpAffine`` of the uint8 image itself with
-        ``INTER_LINEAR``: OpenCV 5 samples a uint8 image at the float
-        source coordinates of its f32 path (:func:`warp_affine_linear`) and
-        rounds the blend to the nearest integer, ties to even (bit-equal to
-        ``cv2.warpAffine`` of OpenCV 5.0; releases before 4.11 used 1/32-px
-        fixed-point coordinates and 15-bit weights instead)."""
+        ``INTER_LINEAR``: OpenCV 5.0.0 samples a uint8 image with the f32
+        kernel of :func:`warp_affine_linear` and rounds the blend to the
+        nearest integer, ties to even (releases before 4.11 used 1/32-px
+        fixed-point coordinates and 15-bit weights instead). Held to
+        ``cv2.warpAffine`` bit for bit by tests/test_torch_tsr_crops.py."""
         inp_h, inp_w = self.config.resolution
         mat, meta = self._affine(*image.shape[:2])
-        warped = warp_affine_linear(image.astype(np.float32), mat,
-                                    (inp_w, inp_h))
-        u8 = np.clip(np.rint(warped), 0, 255).astype(np.uint8)
+        u8 = warp_affine_linear(np.asarray(image, np.uint8), mat,
+                                (inp_w, inp_h), out_dtype=np.uint8)
         return {"image_u8": u8[None], "meta": meta}
 
 

@@ -240,32 +240,46 @@ def resize_area_u8_plain(img: np.ndarray, nh: int, nw: int) -> np.ndarray:
 
 def resize_linear_f32(img: np.ndarray, h: int, w: int) -> np.ndarray:
     """``cv2.resize(img, (w, h))`` (INTER_LINEAR) of an f32 (H, W, C) or
-    (H, W) image, in numpy: source coordinates ``(d + 0.5) * (src / dst) -
-    0.5`` in f64 (OpenCV 5.0's f32 path on this build does not round them
-    to f32), their fractions as f32 weights; columns left of or beyond the
-    source at full weight on the edge column, rows clamped with their
-    weights kept; the horizontal pass, then the vertical one, each as ``a
-    + (b - a) * t``. Within 2e-7 of the values' scale of ``cv2.resize``
-    (held by tests/test_torch_lgpma.py and tests/test_torch_cv_host.py)."""
-    H, W = img.shape[:2]
-    squeeze = img.ndim == 2
-    if squeeze:
-        img = img[..., None]
+    (H, W) image, as OpenCV 5.0.0 computes it on an AVX-512 host (its IPP
+    resize): source coordinates ``(d + 0.5) * (src / dst) - 0.5`` in f64,
+    their fractions as f32 weights; columns left of or beyond the source on
+    the edge column at weight 0, rows clamped; the horizontal pass, then
+    the vertical one, each ``fmaf(t, b - a, a)``. Where a 3-channel image's
+    edge run (the columns left of the source, or those beyond it) is not a
+    whole number of blocks of 16 pixels and its last block holds 5 or
+    more, that block's first two channels blend vertically unfused, ``a +
+    (b - a) * t``. The taps here, the two passes in C++
+    (``native/cv_host.cc``). Bit-equal to ``cv2.resize``
+    (tests/test_torch_cv_host.py)."""
+    from .cv_host import _load
 
-    def taps(src, dst, clamp_weight):
-        f = (np.arange(dst) + 0.5) * (1.0 / (dst / src)) - 0.5
+    src = np.ascontiguousarray(img, np.float32)
+    H, W = src.shape[:2]
+    cn = src.shape[2] if src.ndim == 3 else 1
+
+    def taps(n_src, n_dst):
+        f = (np.arange(n_dst) + 0.5) * (n_src / n_dst) - 0.5
         s = np.floor(f)
-        t = f - s
-        s = s.astype(np.int64)
-        if clamp_weight:
-            t = np.where((s < 0) | (s >= src - 1), 0.0, t)
-            s = np.clip(s, 0, src - 1)
-        return (np.clip(s, 0, src - 1), np.clip(s + 1, 0, src - 1),
-                t.astype(np.float32))
+        return s.astype(np.int64), (f - s).astype(np.float32)
 
-    x0, x1, a = taps(W, w, True)
-    y0, y1, b = taps(H, h, False)
-    src = np.asarray(img, np.float32)
-    rows = src[:, x0] + (src[:, x1] - src[:, x0]) * a[None, :, None]
-    out = rows[y0] + (rows[y1] - rows[y0]) * b[:, None, None]
-    return out[..., 0] if squeeze else out
+    sx, a = taps(W, w)
+    edge = (sx < 0) | (sx >= W - 1)
+    a = np.where(edge, np.float32(0), a)
+    x0 = np.clip(sx, 0, W - 1)
+    x1 = np.where(edge, x0, np.clip(sx + 1, 0, W - 1))
+    sy, b = taps(H, h)
+    unfused = np.zeros(w, np.uint8)
+    if cn == 3:
+        left, right = int((sx < 0).sum()), int((sx >= W - 1).sum())
+        for start, run in ((0, left), (w - right, right)):
+            tail = run % 16
+            if tail >= 5:
+                unfused[start + run - tail:start + run] = 1
+    out = np.empty((h, w) + src.shape[2:], np.float32)
+    i32 = np.int32
+    if out.size:
+        _load().cvh_resize_linear_f32(
+            src, W, cn, x0.astype(i32), x1.astype(i32), a, unfused, w,
+            np.clip(sy, 0, H - 1).astype(i32),
+            np.clip(sy + 1, 0, H - 1).astype(i32), b, h, out)
+    return out

@@ -5,11 +5,13 @@ detection, recognition, deskew and crop paths of the JAX package make
 the port reproduces each one's arithmetic, and
 tests/test_torch_cv_host.py holds it to ``cv2`` 5.0.0.
 
-Contour following, the convex hull and ``minAreaRect`` are OpenCV's algorithms in C++ (``native/cv_host.cc``), built
-at first use with ``g++`` into ``native/build/`` (listed in ``.gitignore``;
-the library's name carries a hash of the source, so an edit rebuilds) and
-called through ctypes: border following is a loop over every border
-pixel, which Python runs some hundred times slower. The rest is numpy.
+Contour following, the convex hull, ``minAreaRect``, ``warpAffine`` and
+the two passes of the f32 resize (``crop_resize.py::resize_linear_f32``)
+are OpenCV's algorithms in C++ (``native/cv_host.cc``), built at first use
+with ``g++`` into ``native/build/`` (listed in ``.gitignore``; the
+library's name carries a hash of the source, so an edit rebuilds) and
+called through ctypes: border following and a page's warp are loops over
+every pixel, which Python runs many times slower. The rest is numpy.
 """
 
 from __future__ import annotations
@@ -24,7 +26,6 @@ import numpy as np
 from scipy import ndimage
 
 from ..models.line_cell.algo import rgb_to_grey
-from ..models.lore.processor import warp_affine_linear
 from ..pdfio.draw import clip_line, line_int
 from ..utils import native_build
 from ..utils.native_build import NATIVE_DIR
@@ -41,7 +42,7 @@ __all__ = ["rgb_to_grey", "find_contours", "arc_length", "approx_poly_dp",
            "connected_components_with_stats",
            "threshold_otsu_inv", "find_nonzero", "rotation_matrix_2d",
            "perspective_transform", "warp_perspective_u8",
-           "warp_affine_u8"]
+           "invert_affine", "warp_affine_linear", "warp_affine_u8"]
 
 
 def library_path() -> Path:
@@ -71,6 +72,17 @@ def _load():
         lib.cvh_min_area_rect.argtypes = [P(np.float32, flags="C"),
                                           ctypes.c_int,
                                           P(np.float32, flags="C")]
+        lib.cvh_warp_affine.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, P(np.float32, flags="C"), ctypes.c_float,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        lib.cvh_resize_linear_f32.argtypes = [
+            P(np.float32, flags="C"), ctypes.c_int, ctypes.c_int,
+            P(np.int32, flags="C"), P(np.int32, flags="C"),
+            P(np.float32, flags="C"), P(np.uint8, flags="C"), ctypes.c_int,
+            P(np.int32, flags="C"), P(np.int32, flags="C"),
+            P(np.float32, flags="C"), ctypes.c_int,
+            P(np.float32, flags="C")]
         lib.cvh_convex_hull.restype = ctypes.c_int
         lib.cvh_convex_hull.argtypes = [P(np.float32, flags="C"),
                                         ctypes.c_int, P(np.int32, flags="C")]
@@ -260,7 +272,10 @@ def convex_hull(points) -> np.ndarray:
 
 def min_area_rect(points) -> RotatedRect:
     """``cv2.minAreaRect(points)``: ((cx, cy), (w, h), angle in degrees),
-    the convex hull's rotating calipers in OpenCV's float arithmetic."""
+    the convex hull's rotating calipers in OpenCV 5.0.0's float arithmetic
+    (the next caliper by the sign of a float cross product), the angle
+    folded into [-90, 0) in f64. Bit-equal to ``cv2.minAreaRect``
+    (tests/test_torch_cv_host.py)."""
     p = _f32_points(points)
     out = np.zeros(5, np.float32)
     _load().cvh_min_area_rect(p, len(p), out)
@@ -286,50 +301,102 @@ def box_points(rect: RotatedRect) -> np.ndarray:
 
 # -- masks ---------------------------------------------------------------------
 
+XY_SHIFT = 16               # fillPoly's fixed point: x in 16.16
+XY_ONE = 1 << XY_SHIFT
+
+
+def _trunc_div(a: int, b: int) -> int:
+    """C's integer division (toward zero)."""
+    q = abs(a) // abs(b)
+    return q if (a >= 0) == (b > 0) else -q
+
+
 def fill_poly(mask: np.ndarray, pts: np.ndarray, value: int = 1) -> None:
     """``cv2.fillPoly(mask, [pts], value)`` in place, integer points,
-    ``shift=0``, 8-connected, as OpenCV 5.0 fills: each edge drawn by the
-    line iterator, then each scan line filled from the ceiling of its left
-    edge's x to the floor of its right one's (exact rationals), spans
-    clamped to the image. An edge that leaves the image takes its x from
-    the line clipped to the image (``cv::clipLine``, integer end points)
-    over its own rows. Bit-equal to ``cv2.fillPoly`` for polygons inside
-    the image; of polygons that leave it, 2 % of random quads differ in a
-    few pixels (ROADMAP.md Queue 3)."""
+    ``shift=0``, 8-connected, as OpenCV 5.0.0's ``CollectPolyEdges`` and
+    ``FillEdgeCollection`` fill: each edge drawn by the line iterator;
+    its x in 16.16 fixed point stepping by a truncated ``dx`` a row; an
+    edge that leaves the image takes the end points that ``cv::clipLine``
+    gives it, whose x (and, where the clipped part is not flat, whose y) it
+    then runs through over the edge's own rows; the active edges walked in
+    OpenCV's order and bubble-sorted by x after each row; each pair filled
+    from the ceiling of the left x to the floor of the right, clamped to
+    the image. Bit-equal to ``cv2.fillPoly`` for polygons inside and
+    outside the image (tests/test_torch_cv_host.py)."""
     v = np.asarray(pts, np.int64).reshape(-1, 2)
     h, w = mask.shape[:2]
-    edges = []   # (y0, y1, xa, ya, xb, yb): rows [y0, y1) of a line
+    edges = []   # [y0, y1, x, dx]: rows [y0, y1), x at y0
     for i in range(len(v)):
         x0, y0 = int(v[i - 1, 0]), int(v[i - 1, 1])
         x1, y1 = int(v[i, 0]), int(v[i, 1])
         line_int(mask, (x0, y0), (x1, y1), value)
-        if y0 == y1:
-            continue
-        line = (x0, y0, x1, y1)
+        ax, ay, bx, by = x0 << XY_SHIFT, y0, x1 << XY_SHIFT, y1
         if not (0 <= x0 < w and 0 <= x1 < w and 0 <= y0 < h
                 and 0 <= y1 < h):
             _, cx0, cy0, cx1, cy1 = clip_line(w, h, x0, y0, x1, y1)
+            ax, bx = cx0 << XY_SHIFT, cx1 << XY_SHIFT
             if cy0 != cy1:
-                line = (cx0, cy0, cx1, cy1)
-        edges.append((min(y0, y1), max(y0, y1)) + line)
+                ay, by = cy0, cy1
+        if y0 == y1:
+            continue
+        dx = _trunc_div(bx - ax, by - ay)
+        if y0 < y1:
+            edges.append([y0, y1, ax + (y0 - ay) * dx, dx])
+        else:
+            edges.append([y1, y0, bx + (y1 - by) * dx, dx])
     if len(edges) < 2:
         return
-    lo = max(0, min(e[0] for e in edges))
-    hi = min(h, max(e[1] for e in edges))
-    for y in range(lo, hi):
-        xs = []
-        for y0, y1, xa, ya, xb, yb in edges:
-            if y0 <= y < y1:
-                num, den = xa * (yb - ya) + (y - ya) * (xb - xa), yb - ya
-                if den < 0:
-                    num, den = -num, -den
-                xs.append((num / den, num, den))
-        xs.sort()
-        for (_, na, da), (_, nb, db) in zip(xs[0::2], xs[1::2]):
-            x1 = max(-(-na // da), 0)
-            x2 = min(nb // db, w - 1)
-            if x1 <= x2:
-                mask[y, x1:x2 + 1] = value
+    ends = [e[2] + (e[1] - e[0]) * e[3] for e in edges]
+    y_max = max(e[1] for e in edges)
+    if y_max < 0 or min(e[0] for e in edges) >= h \
+            or max(max(e[2] for e in edges), max(ends)) < 0 \
+            or min(min(e[2] for e in edges), min(ends)) >= w << XY_SHIFT:
+        return
+    edges.sort(key=lambda e: (e[0], e[2], e[3]))
+    total, i = len(edges), 0
+    active: List[list] = []
+    for y in range(edges[0][0], min(y_max, h)):
+        # the walk: drop the edges that end here, merge in those that
+        # start here (before an active edge of no smaller x), fill pairs
+        walked: List[list] = []
+        k = 0
+        while k < len(active) or (i < total and edges[i][0] == y):
+            last = active[k] if k < len(active) else None
+            if last is not None and last[1] == y:
+                k += 1
+                continue
+            if last is not None and (i >= total or edges[i][0] > y
+                                     or last[2] < edges[i][2]):
+                walked.append(last)
+                k += 1
+            elif i < total:
+                walked.append(edges[i])
+                i += 1
+            else:
+                break
+            if len(walked) % 2 == 0:
+                a, b = walked[-2], walked[-1]
+                if y >= 0:
+                    lo, hi = (b, a) if a[2] > b[2] else (a, b)
+                    xa = (lo[2] + XY_ONE - 1) >> XY_SHIFT
+                    xb = hi[2] >> XY_SHIFT
+                    if xa < w and xb >= 0:
+                        mask[y, max(xa, 0):min(xb, w - 1) + 1] = value
+                a[2] += a[3]
+                b[2] += b[3]
+        active = walked + active[k:]
+        # OpenCV's bubble sort by x, its last exchange bounding each pass
+        stop = None
+        while True:
+            m, exchanged = 0, None
+            while m < len(active) - 1 and active[m] is not stop:
+                if active[m][2] > active[m + 1][2]:
+                    active[m], active[m + 1] = active[m + 1], active[m]
+                    exchanged = active[m]
+                m += 1
+            if exchanged is None or exchanged is active[0]:
+                break
+            stop = exchanged
 
 
 def mean_masked(img: np.ndarray, mask: np.ndarray) -> float:
@@ -702,12 +769,55 @@ def warp_perspective_u8(image: np.ndarray, mat: np.ndarray,
     return out if image.ndim == 3 else out[..., 0]
 
 
+def invert_affine(mat: np.ndarray) -> np.ndarray:
+    """The inverse of a 2x3 affine in f64, as ``cv2.invertAffineTransform``
+    computes it."""
+    m = np.asarray(mat, np.float64)
+    d = m[0, 0] * m[1, 1] - m[0, 1] * m[1, 0]
+    d = 1.0 / d if d != 0 else 0.0
+    a11, a22 = m[1, 1] * d, m[0, 0] * d
+    a12, a21 = -m[0, 1] * d, -m[1, 0] * d
+    return np.array([[a11, a12, -a11 * m[0, 2] - a12 * m[1, 2]],
+                     [a21, a22, -a21 * m[0, 2] - a22 * m[1, 2]]])
+
+
+def warp_affine_linear(image: np.ndarray, mat: np.ndarray,
+                       size: Tuple[int, int], border: float = 0.0,
+                       out_dtype=np.float32) -> np.ndarray:
+    """``cv2.warpAffine(image, mat, size, flags=cv2.INTER_LINEAR,
+    borderValue=(border,) * 4)`` of a uint8 or f32 (H, W) or (H, W, C)
+    image, as OpenCV 5.0.0's kernel computes it (``native/cv_host.cc``):
+    destination pixel (x, y) samples the source at ``inv(mat) @ (x, y,
+    1)``, the inverse in f64 rounded to f32; per row ``a01 * y + a02`` in
+    two roundings, along the row one fused multiply-add ``a00 * x`` on it
+    for the columns of whole blocks of 16 and ``fmaf(a00, x, a01 * y) +
+    a02`` after them (the same for y); the corners, ``border`` outside the
+    image, blended as two lerps along x and one along y, each ``fmaf(t, b
+    - a, a)``. The result is f32, or uint8 (rounded to nearest, ties to
+    even) where ``out_dtype`` says so. Bit-equal to ``cv2.warpAffine`` on
+    both dtypes (tests/test_torch_cv_host.py, tests/test_torch_tsr_crops.py,
+    tests/test_torch_lore_train.py)."""
+    src = np.asarray(image)
+    src = np.ascontiguousarray(src, np.uint8 if src.dtype == np.uint8
+                               else np.float32)
+    h, w = src.shape[:2]
+    cn = src.shape[2] if src.ndim == 3 else 1
+    out_w, out_h = size
+    out = np.empty((out_h, out_w) + src.shape[2:], out_dtype)
+    inv = np.ascontiguousarray(invert_affine(mat).astype(np.float32)
+                               .ravel())
+    if out.size:
+        _load().cvh_warp_affine(
+            src.ctypes.data, int(src.dtype == np.uint8), h, w, cn, inv,
+            float(border), out.ctypes.data,
+            int(out.dtype == np.uint8), out_h, out_w)
+    return out
+
+
 def warp_affine_u8(image: np.ndarray, mat: np.ndarray, size: Tuple[int, int],
                    border: float = 0.0) -> np.ndarray:
     """``cv2.warpAffine(image, mat, size, flags=INTER_LINEAR,
-    borderValue=(border,) * 3)`` of a uint8 image: OpenCV 5's float sample
-    points (``models/lore/processor.py::warp_affine_linear``), the blend
-    rounded to the nearest integer, ties to even."""
-    warped = warp_affine_linear(np.asarray(image, np.float32), mat, size,
-                                border=border)
-    return np.clip(np.rint(warped), 0, 255).astype(np.uint8)
+    borderValue=(border,) * 3)`` of a uint8 image:
+    :func:`warp_affine_linear` with a uint8 result."""
+    return warp_affine_linear(np.asarray(image, np.uint8), mat, size,
+                              border=border, out_dtype=np.uint8)

@@ -1,11 +1,13 @@
 // OpenCV 5.0.0's host geometry without OpenCV: contour following
-// (findContours with RETR_LIST and CHAIN_APPROX_SIMPLE), convexHull and
-// minAreaRect. The algorithms and their float
-// and double arithmetic are OpenCV's, statement by statement, so that the
-// results are the same bits; build without floating-point contraction
-// (-ffp-contract=off). A plain C interface for ctypes
-// (ops/cv_host.py), no allocation crosses it except through the contour
-// handle.
+// (findContours with RETR_LIST and CHAIN_APPROX_SIMPLE), convexHull,
+// minAreaRect, warpAffine (INTER_LINEAR, constant border) and the f32
+// INTER_LINEAR resize. The algorithms and their float and double
+// arithmetic are OpenCV's, statement by statement, so that the results
+// are the same bits; build without
+// floating-point contraction (-ffp-contract=off): where OpenCV's kernels
+// fuse a multiply-add, this file says so with std::fma. A plain C
+// interface for ctypes (ops/cv_host.py), no allocation crosses it except
+// through the contour handle.
 
 #include <algorithm>
 #include <limits>
@@ -218,24 +220,30 @@ std::vector<int> convex_hull(const Pt2f* data0, int total) {
   return hullbuf;
 }
 
-// OpenCV's rotatingCalipers(points, n, CALIPERS_MINAREARECT, out) over a
-// counter-clockwise hull, its arithmetic in T: float is OpenCV's. out: the
-// corner, then the two side vectors. On a long hull the float cosines can
-// advance the wrong one of two calipers on near-parallel edges and measure
-// a rectangle that does not hold the points; OpenCV 5.0 returns the true
-// one there, and cvh_min_area_rect then reruns the calipers with T =
-// double.
-template <typename T>
+// OpenCV 5.0.0's rotatingCalipers(points, n, CALIPERS_MINAREARECT, out)
+// over a counter-clockwise hull, in its float arithmetic. The caliper that
+// turns next is the one whose edge, turned into the first caliper's frame,
+// lies furthest clockwise (a sign of a float cross product, not a
+// comparison of cosines). out: the corner, then the two side vectors.
+inline Pt2f rotate90_cw(Pt2f v) { return Pt2f{v.y, -v.x}; }
+inline Pt2f rotate90_ccw(Pt2f v) { return Pt2f{-v.y, v.x}; }
+inline Pt2f rotate180(Pt2f v) { return Pt2f{-v.x, -v.y}; }
+
+// Whether v1 lies clockwise of v2.
+inline bool first_vec_is_right(Pt2f v1, Pt2f v2) {
+  Pt2f t = rotate90_cw(v1);
+  return t.x * v2.x + t.y * v2.y < 0;
+}
+
 void rotating_calipers_min_area(const Pt2f* points, int n, float* out) {
-  struct PT { T x, y; };
-  T minarea = std::numeric_limits<T>::max();
-  std::vector<T> inv_vect_length(n);
-  std::vector<PT> vect(n);
+  float minarea = std::numeric_limits<float>::max();
+  std::vector<float> inv_vect_length(n);
+  std::vector<Pt2f> vect(n);
   int left = 0, bottom = 0, right = 0, top = 0;
   int seq[4] = {-1, -1, -1, -1};
-  T orientation = 0;
-  T base_a;
-  T base_b = 0;
+  float orientation = 0;
+  float base_a;
+  float base_b = 0;
   float left_x, right_x, top_y, bottom_y;
   Pt2f pt0 = points[0];
   left_x = right_x = pt0.x;
@@ -247,12 +255,11 @@ void rotating_calipers_min_area(const Pt2f* points, int n, float* out) {
     if (pt0.y > top_y) top_y = pt0.y, top = i;
     if (pt0.y < bottom_y) bottom_y = pt0.y, bottom = i;
     Pt2f pt = points[(i + 1) & (i + 1 < n ? -1 : 0)];
-    // float inputs subtract in T (OpenCV's float code subtracts in float)
-    dx = static_cast<T>(pt.x) - static_cast<T>(pt0.x);
-    dy = static_cast<T>(pt.y) - static_cast<T>(pt0.y);
-    vect[i].x = static_cast<T>(dx);
-    vect[i].y = static_cast<T>(dy);
-    inv_vect_length[i] = static_cast<T>(1. / std::sqrt(dx * dx + dy * dy));
+    dx = pt.x - pt0.x;
+    dy = pt.y - pt0.y;
+    vect[i].x = static_cast<float>(dx);
+    vect[i].y = static_cast<float>(dy);
+    inv_vect_length[i] = static_cast<float>(1. / std::sqrt(dx * dx + dy * dy));
     pt0 = pt;
   }
   {
@@ -263,7 +270,7 @@ void rotating_calipers_min_area(const Pt2f* points, int n, float* out) {
       double by = vect[i].y;
       double convexity = ax * by - ay * bx;
       if (convexity != 0) {
-        orientation = (convexity > 0) ? T(1) : T(-1);
+        orientation = (convexity > 0) ? 1.f : -1.f;
         break;
       }
       ax = bx;
@@ -276,27 +283,17 @@ void rotating_calipers_min_area(const Pt2f* points, int n, float* out) {
   seq[2] = top;
   seq[3] = left;
   int best_left = 0, best_bottom = 0;
-  T best_a = 0, best_b = 0, best_w = 0, best_h = 0;
+  float best_a = 0, best_b = 0, best_w = 0, best_h = 0;
   for (int k = 0; k < n; ++k) {
-    T dp[4] = {
-        +base_a * vect[seq[0]].x + base_b * vect[seq[0]].y,
-        -base_b * vect[seq[1]].x + base_a * vect[seq[1]].y,
-        -base_a * vect[seq[2]].x - base_b * vect[seq[2]].y,
-        +base_b * vect[seq[3]].x - base_a * vect[seq[3]].y,
-    };
-    T maxcos = dp[0] * inv_vect_length[seq[0]];
+    Pt2f rot[4] = {vect[seq[0]], rotate90_cw(vect[seq[1]]),
+                   rotate180(vect[seq[2]]), rotate90_ccw(vect[seq[3]])};
     int main_element = 0;
-    for (int i = 1; i < 4; ++i) {
-      T cosalpha = dp[i] * inv_vect_length[seq[i]];
-      if (cosalpha > maxcos) {
-        main_element = i;
-        maxcos = cosalpha;
-      }
-    }
+    for (int i = 1; i < 4; ++i)
+      if (first_vec_is_right(rot[i], rot[main_element])) main_element = i;
     {
       int pindex = seq[main_element];
-      T lead_x = vect[pindex].x * inv_vect_length[pindex];
-      T lead_y = vect[pindex].y * inv_vect_length[pindex];
+      float lead_x = vect[pindex].x * inv_vect_length[pindex];
+      float lead_y = vect[pindex].y * inv_vect_length[pindex];
       switch (main_element) {
         case 0: base_a = lead_x; base_b = lead_y; break;
         case 1: base_a = lead_y; base_b = -lead_x; break;
@@ -306,13 +303,13 @@ void rotating_calipers_min_area(const Pt2f* points, int n, float* out) {
     }
     seq[main_element] += 1;
     seq[main_element] = (seq[main_element] == n) ? 0 : seq[main_element];
-    T dx = static_cast<T>(points[seq[1]].x) - static_cast<T>(points[seq[3]].x);
-    T dy = static_cast<T>(points[seq[1]].y) - static_cast<T>(points[seq[3]].y);
-    T width = dx * base_a + dy * base_b;
-    dx = static_cast<T>(points[seq[2]].x) - static_cast<T>(points[seq[0]].x);
-    dy = static_cast<T>(points[seq[2]].y) - static_cast<T>(points[seq[0]].y);
-    T height = -dx * base_b + dy * base_a;
-    T area = width * height;
+    float dx = points[seq[1]].x - points[seq[3]].x;
+    float dy = points[seq[1]].y - points[seq[3]].y;
+    float width = dx * base_a + dy * base_b;
+    dx = points[seq[2]].x - points[seq[0]].x;
+    dy = points[seq[2]].y - points[seq[0]].y;
+    float height = -dx * base_b + dy * base_a;
+    float area = width * height;
     if (area <= minarea) {
       minarea = area;
       best_left = seq[3];
@@ -323,39 +320,160 @@ void rotating_calipers_min_area(const Pt2f* points, int n, float* out) {
       best_bottom = seq[0];
     }
   }
-  T A1 = best_a;
-  T B1 = best_b;
-  T A2 = -best_b;
-  T B2 = best_a;
-  T C1 = A1 * points[best_left].x + points[best_left].y * B1;
-  T C2 = A2 * points[best_bottom].x + points[best_bottom].y * B2;
-  T idet = T(1) / (A1 * B2 - A2 * B1);
-  out[0] = static_cast<float>((C1 * B2 - C2 * B1) * idet);
-  out[1] = static_cast<float>((A1 * C2 - A2 * C1) * idet);
-  out[2] = static_cast<float>(A1 * best_w);
-  out[3] = static_cast<float>(B1 * best_w);
-  out[4] = static_cast<float>(A2 * best_h);
-  out[5] = static_cast<float>(B2 * best_h);
+  float A1 = best_a;
+  float B1 = best_b;
+  float A2 = -best_b;
+  float B2 = best_a;
+  float C1 = A1 * points[best_left].x + points[best_left].y * B1;
+  float C2 = A2 * points[best_bottom].x + points[best_bottom].y * B2;
+  float idet = 1.f / (A1 * B2 - A2 * B1);
+  out[0] = (C1 * B2 - C2 * B1) * idet;
+  out[1] = (A1 * C2 - A2 * C1) * idet;
+  out[2] = A1 * best_w;
+  out[3] = B1 * best_w;
+  out[4] = A2 * best_h;
+  out[5] = B2 * best_h;
 }
 
-// Whether the rectangle (corner, two side vectors) holds every point, to
-// 1e-4 of a side.
-bool rect_holds(const Pt2f* points, int n, const float* o) {
-  double ux = o[2], uy = o[3], vx = o[4], vy = o[5];
-  double uu = ux * ux + uy * uy, vv = vx * vx + vy * vy;
-  if (uu <= 0 || vv <= 0) return true;
-  for (int i = 0; i < n; ++i) {
-    double rx = points[i].x - static_cast<double>(o[0]);
-    double ry = points[i].y - static_cast<double>(o[1]);
-    double s = (rx * ux + ry * uy) / uu, t = (rx * vx + ry * vy) / vv;
-    if (s < -1e-4 || s > 1 + 1e-4 || t < -1e-4 || t > 1 + 1e-4) return false;
+// OpenCV 5.0.0's warpAffine kernel, INTER_LINEAR, constant border, on an
+// h x w image of cn channels: dst (oh, ow, cn). m is the inverse map's six
+// f32 coefficients. A row takes the term m[1] * y + m[2] (two roundings);
+// the columns of its whole blocks of 16 take x as one fused multiply-add
+// on it, the columns after the last block fmaf(m[0], x, m[1] * y) + m[2].
+// The four corners (border where outside) blend as two lerps along x and
+// one along y, each fmaf(t, b - a, a); a uint8 result rounds to nearest,
+// ties to even, and saturates.
+inline float lerp(float t, float a, float b) { return std::fma(t, b - a, a); }
+
+inline void store(float v, float* d) { *d = v; }
+inline void store(float v, uint8_t* d) {
+  float r = std::nearbyint(v);
+  *d = static_cast<uint8_t>(r < 0 ? 0 : r > 255 ? 255 : r);
+}
+
+template <typename S, typename D>
+void warp_affine(const S* src, int h, int w, int cn, const float* m,
+                 float border, D* dst, int oh, int ow) {
+  const int blocks = ow / 16 * 16;
+  const float lim = 2147483520.f;  // the largest float below 2^31
+  for (int y = 0; y < oh; ++y) {
+    const float fy = static_cast<float>(y);
+    const float row_x = m[1] * fy + m[2];
+    const float row_y = m[4] * fy + m[5];
+    const float prod_x = m[1] * fy, prod_y = m[4] * fy;
+    D* out = dst + static_cast<size_t>(y) * ow * cn;
+    for (int x = 0; x < ow; ++x) {
+      const float fx = static_cast<float>(x);
+      float sx, sy;
+      if (x < blocks) {
+        sx = std::fma(m[0], fx, row_x);
+        sy = std::fma(m[3], fx, row_y);
+      } else {
+        sx = std::fma(m[0], fx, prod_x) + m[2];
+        sy = std::fma(m[3], fx, prod_y) + m[5];
+      }
+      const float flx = std::floor(sx), fly = std::floor(sy);
+      const bool far = !(std::fabs(flx) < lim && std::fabs(fly) < lim);
+      const int ix = far ? 0 : static_cast<int>(flx);
+      const int iy = far ? 0 : static_cast<int>(fly);
+      const float ax = sx - flx, ay = sy - fly;
+      const S* p[4] = {nullptr, nullptr, nullptr, nullptr};
+      if (!far) {
+        for (int k = 0; k < 4; ++k) {
+          const int yy = iy + (k >> 1), xx = ix + (k & 1);
+          if (yy >= 0 && yy < h && xx >= 0 && xx < w)
+            p[k] = src + (static_cast<size_t>(yy) * w + xx) * cn;
+        }
+      }
+      for (int c = 0; c < cn; ++c) {
+        float v[4];
+        for (int k = 0; k < 4; ++k)
+          v[k] = p[k] ? static_cast<float>(p[k][c]) : border;
+        const float top = lerp(ax, v[0], v[1]);
+        const float bottom = lerp(ax, v[2], v[3]);
+        store(lerp(ay, top, bottom), out + static_cast<size_t>(x) * cn + c);
+      }
+    }
   }
-  return true;
+}
+
+// The two passes of OpenCV 5.0.0's f32 INTER_LINEAR resize (IPP's on an
+// AVX-512 host) over an h x w x cn image, from taps computed by the caller:
+// each output column x reads source columns x0[x], x1[x] at weight a[x],
+// each output row y source rows y0[y], y1[y] at weight b[y]. A row is
+// fmaf(a, s1 - s0, s0) a float; the rows blend as fmaf(b, r1 - r0, r0),
+// but for the first two channels of the columns where unfused[x] is set,
+// which take r0 + (r1 - r0) * b.
+void resize_linear_f32(const float* src, int w, int cn, const int* x0,
+                       const int* x1, const float* a, const uint8_t* unfused,
+                       int ow, const int* y0, const int* y1, const float* b,
+                       int oh, float* dst) {
+  const size_t row = static_cast<size_t>(ow) * cn;
+  std::vector<float> rows(2 * row);
+  int have[2] = {-1, -1};
+  auto horizontal = [&](int sy, float* out) {
+    const float* s = src + static_cast<size_t>(sy) * w * cn;
+    for (int x = 0; x < ow; ++x)
+      for (int c = 0; c < cn; ++c) {
+        const float p = s[static_cast<size_t>(x0[x]) * cn + c];
+        const float q = s[static_cast<size_t>(x1[x]) * cn + c];
+        out[static_cast<size_t>(x) * cn + c] = std::fma(a[x], q - p, p);
+      }
+  };
+  for (int y = 0; y < oh; ++y) {
+    const float* r[2];
+    for (int k = 0; k < 2; ++k) {
+      const int sy = k ? y1[y] : y0[y];
+      int slot = have[0] == sy ? 0 : have[1] == sy ? 1 : -1;
+      if (slot < 0) {
+        // keep the other row if the other tap still needs it
+        slot = (have[0] == y0[y] || have[0] == y1[y]) ? 1 : 0;
+        horizontal(sy, rows.data() + slot * row);
+        have[slot] = sy;
+      }
+      r[k] = rows.data() + slot * row;
+    }
+    float* out = dst + static_cast<size_t>(y) * row;
+    for (int x = 0; x < ow; ++x)
+      for (int c = 0; c < cn; ++c) {
+        const size_t i = static_cast<size_t>(x) * cn + c;
+        const float r0 = r[0][i], r1 = r[1][i];
+        out[i] = (unfused[x] && c < 2) ? r0 + (r1 - r0) * b[y]
+                                       : std::fma(b[y], r1 - r0, r0);
+      }
+  }
 }
 
 }  // namespace
 
 extern "C" {
+
+void cvh_resize_linear_f32(const float* src, int w, int cn, const int* x0,
+                           const int* x1, const float* a,
+                           const uint8_t* unfused, int ow, const int* y0,
+                           const int* y1, const float* b, int oh,
+                           float* dst) {
+  resize_linear_f32(src, w, cn, x0, x1, a, unfused, ow, y0, y1, b, oh, dst);
+}
+
+// warpAffine of an h x w x cn image (uint8 where src_u8, else f32) into
+// an oh x ow x cn one (uint8 where dst_u8, else f32); m the inverse map.
+void cvh_warp_affine(const void* src, int src_u8, int h, int w, int cn,
+                     const float* m, float border, void* dst, int dst_u8,
+                     int oh, int ow) {
+  if (src_u8 && dst_u8)
+    warp_affine(static_cast<const uint8_t*>(src), h, w, cn, m, border,
+                static_cast<uint8_t*>(dst), oh, ow);
+  else if (src_u8)
+    warp_affine(static_cast<const uint8_t*>(src), h, w, cn, m, border,
+                static_cast<float*>(dst), oh, ow);
+  else if (dst_u8)
+    warp_affine(static_cast<const float*>(src), h, w, cn, m, border,
+                static_cast<uint8_t*>(dst), oh, ow);
+  else
+    warp_affine(static_cast<const float*>(src), h, w, cn, m, border,
+                static_cast<float*>(dst), oh, ow);
+}
 
 // findContours(img != 0, RETR_LIST, CHAIN_APPROX_SIMPLE) of an h x w uint8
 // image: a handle to the contours, in OpenCV's output order (the reverse of
@@ -425,40 +543,35 @@ void cvh_min_area_rect(const float* pts, int n, float* out) {
   std::vector<Pt2f> hull(hidx.size());
   for (size_t i = 0; i < hidx.size(); ++i) hull[i] = p[hidx[i]];
   int hn = static_cast<int>(hull.size());
-  float cx = 0, cy = 0, bw = 0, bh = 0, angle = 0;
+  float cx = 0, cy = 0, bw = 0, bh = 0;
+  double angle = 0;
   if (hn > 2) {
     Pt2f o[3];
-    float* of = reinterpret_cast<float*>(o);
-    rotating_calipers_min_area<float>(hull.data(), hn, of);
-    if (!rect_holds(hull.data(), hn, of))
-      rotating_calipers_min_area<double>(hull.data(), hn, of);
+    rotating_calipers_min_area(hull.data(), hn, reinterpret_cast<float*>(o));
     cx = o[0].x + (o[1].x + o[2].x) * 0.5f;
     cy = o[0].y + (o[1].y + o[2].y) * 0.5f;
-    // OpenCV 5.0 reports the rectangle turned by -90 degrees: the width
-    // along the second side, the angle in [-90, 0)
-    bw = static_cast<float>(std::sqrt(static_cast<double>(o[2].x) * o[2].x +
-                                      static_cast<double>(o[2].y) * o[2].y));
-    bh = static_cast<float>(std::sqrt(static_cast<double>(o[1].x) * o[1].x +
+    bw = static_cast<float>(std::sqrt(static_cast<double>(o[1].x) * o[1].x +
                                       static_cast<double>(o[1].y) * o[1].y));
-    angle = static_cast<float>(std::atan2(static_cast<double>(o[1].y),
-                                          static_cast<double>(o[1].x)) *
-                                   180 / M_PI - 90);
+    bh = static_cast<float>(std::sqrt(static_cast<double>(o[2].x) * o[2].x +
+                                      static_cast<double>(o[2].y) * o[2].y));
+    angle = std::atan2(static_cast<double>(o[1].y),
+                       static_cast<double>(o[1].x)) * 180 / M_PI;
   } else if (hn == 2) {
     cx = (hull[0].x + hull[1].x) * 0.5f;
     cy = (hull[0].y + hull[1].y) * 0.5f;
     double dx = hull[1].x - hull[0].x;
     double dy = hull[1].y - hull[0].y;
-    bh = static_cast<float>(std::sqrt(dx * dx + dy * dy));
-    double a = std::atan2(dy, dx) * 180 / M_PI - 90;
-    if (a < -90) a += 180;
-    if (a >= 90) a -= 180;
-    angle = static_cast<float>(a);
+    bw = static_cast<float>(std::sqrt(dx * dx + dy * dy));
+    angle = std::atan2(dy, dx) * 180 / M_PI;
   } else if (hn == 1) {
     cx = hull[0].x;
     cy = hull[0].y;
-    angle = -90;
   }
-  if (!(angle < 0)) {
+  // OpenCV 5.0 reports the angle in [-90, 0): a half turn keeps the sides,
+  // a quarter turn swaps them (in f64, rounded once)
+  while (angle < -90) angle += 180;
+  while (angle >= 90) angle -= 180;
+  if (angle >= 0) {
     angle -= 90;
     std::swap(bw, bh);
   }
@@ -466,7 +579,7 @@ void cvh_min_area_rect(const float* pts, int n, float* out) {
   out[1] = cy;
   out[2] = bw;
   out[3] = bh;
-  out[4] = angle;
+  out[4] = static_cast<float>(angle);
 }
 
 // The convex hull of n float points (OpenCV's convexHull with

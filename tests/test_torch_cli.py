@@ -38,7 +38,7 @@ from pdf_table_tpu_torch.tasks.detection import OcrDetectionTask
 from test_torch_aux_tasks import assert_overlays_match, overlay_labels
 from test_torch_pipeline import DET, DET_BENCH
 from test_torch_system import (TABLE_PAGE, jtasks,  # noqa: F401
-                               natural_crops_as_the_port, systems, trees)
+                               systems, trees)
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "golden"))
 import cases  # noqa: E402

@@ -53,8 +53,8 @@ from pdf_table_tpu_torch.utils.image_io import decode_image, read_image
 from test_torch_cli import RgbRunner, clis, run_both
 from test_torch_pdfio import WRITERS
 from test_torch_pipeline import PAGES, jax_pipeline, port_pipeline
-from test_torch_system import (jtasks, natural_crops_as_the_port,  # noqa
-                               same_output, systems, trees)
+from test_torch_system import (jtasks, same_output, systems,  # noqa
+                               trees)
 
 torch.set_num_threads(1)
 

@@ -5,8 +5,9 @@ crop (OpenCV 5.0 on the CPU), ``batch_infer(crops)`` equal to JAX's
 tests/test_torch_table_structure.py and tests/test_torch_table_structure_wtw.py,
 SLANet, CenterNet and LineCell: the cells, and the table HTML byte for
 byte), and ``__call__(image)`` equal to JAX's ``__call__`` for LORE: the
-host preprocess within 1e-4 grey levels of JAX's cv2 input, the cells
-equal."""
+host preprocess equal to JAX's cv2 input, the cells equal. ``warp_u8`` is
+held at LORE wireless's 768^2 and 1024^2 on random crops of 80-1400 px
+too (F17)."""
 
 import copy
 
@@ -40,7 +41,6 @@ torch.set_num_threads(1)
 WARPS = [(37, 53, 64, True), (300, 200, 64, True), (41, 29, 128, False),
          (513, 257, 96, False), (20, 20, 64, True), (101, 77, 64, False),
          (64, 64, 64, True), (7, 301, 160, False)]
-GREY_TOL = 1e-4
 
 
 @pytest.mark.parametrize("h,w,side,upper_left", WARPS)
@@ -58,6 +58,22 @@ def test_warp_u8_is_cv2(h, w, side, upper_left):
     for k in ("s", "org_shape", "out_h", "out_w"):
         assert got["meta"][k] == want["meta"][k]
     np.testing.assert_array_equal(got["meta"]["c"], want["meta"]["c"])
+
+
+@pytest.mark.parametrize("side", [768, 1024])
+def test_warp_u8_is_cv2_at_lore_sizes(side):
+    """F17: LORE wireless's warp at its model sizes, of ten random crops
+    of 80-1400 px a side (both anchors), equal to JAX's ``warp_u8``
+    (``cv2.warpAffine``)."""
+    rng = np.random.default_rng(side)
+    for t in range(10):
+        h, w = (int(v) for v in rng.integers(80, 1401, 2))
+        img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        kw = dict(resolution=(side, side), upper_left=bool(t % 2))
+        np.testing.assert_array_equal(
+            LorePreProcessor(LoreConfig.wireless(**kw)).warp_u8(img)
+            ["image_u8"],
+            JLorePre(JLoreConfig.wireless(**kw)).warp_u8(img)["image_u8"])
 
 
 def _crops(pages, regions):
@@ -121,9 +137,7 @@ def test_lore_call_matches_jax(lore_tasks):
     for crop in crops:
         x, _ = ttask.host_preprocess(crop)
         want_x = jtask.pre(crop)["image"]
-        # the input in grey levels: normalized values times std * 255
-        grey = np.abs(x - want_x) * (ttask.pre.STD * 255.0)
-        assert grey.max() <= GREY_TOL
+        np.testing.assert_array_equal(x, want_x)
         n += _same(ttask(crop), jtask(crop))
     assert n > 0
 
