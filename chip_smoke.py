@@ -164,6 +164,12 @@ Phases, each fatal on failure:
      inputs of tests/data/image_decode/host_geometry.py, each output held
      to the SHA-256 of cv2 5.0.0's committed beside it, and timed. No
      kernel runs;
+ 9e. html: the port's table-HTML parser (utils/html_tree.py) on the
+     card's host, which has no lxml: every input of
+     tests/data/html_tree/cases.json (the rows of F20, edge cases and
+     seeded table soup) parsed, its canonical tree (tests/html_soup.py)
+     held to the SHA-256 of lxml 6.1.1 / libxml2 2.14.6's committed
+     beside it, and the parse timed. No kernel runs;
  9c. bf16_models: every model that runs bf16 since the twelfth slice, f32
      and bf16 at full width on the trees and inputs of its f32 phase (the
      four DBNets on a chunk of 8 at 960x720, PicoDet on the chunk, the
@@ -5427,6 +5433,32 @@ def phase_decode():
     return out
 
 
+def phase_html():
+    """Phase 9e (module docstring). Returns its summary."""
+    import importlib.util
+    import platform
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    spec = importlib.util.spec_from_file_location(
+        "html_soup", os.path.join(root, "html_soup.py"))
+    soup = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(soup)
+    with open(os.path.join(root, "data", "html_tree", "cases.json")) as f:
+        fixtures = json.load(f)
+    t = time.perf_counter()
+    got = [soup.digest(soup.port_tree(c["input"])) for c in fixtures["cases"]]
+    parse_s = time.perf_counter() - t
+    off = [i for i, (g, c) in enumerate(zip(got, fixtures["cases"]))
+           if g != c["sha256"]]
+    check(not off, f"html: the trees of cases {off[:20]} differ from lxml "
+                   f"{fixtures['lxml']} / libxml2 {fixtures['libxml2']}'s "
+                   f"on Python {platform.python_version()}")
+    out = {"cases": len(got), "parse_s": parse_s,
+           "python": platform.python_version()}
+    print(json.dumps({"html": out}))
+    return out
+
+
 def phase_pipeline_scanned(card, trees):
     """Phase 9s (module docstring). Returns its counted run's launches."""
     import shutil
@@ -7331,6 +7363,7 @@ def main() -> int:
     pipe_scanned = run("pipeline_scanned", phase_pipeline_scanned, card,
                        pipe_trees)
     run("decode", phase_decode)
+    run("html", phase_html)
     run("bf16_models", phase_bf16_models, card)
     pipe_bf16 = run("pipeline_bf16", phase_pipeline_bf16, card, pipe_trees,
                     pipe_out)

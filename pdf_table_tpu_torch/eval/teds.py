@@ -8,8 +8,8 @@ TEDS = 1 - distance / max(|T_pred|, |T_gt|).
 The Levenshtein distance is computed here, exactly: the JAX package calls
 ``python-Levenshtein`` and, where it is missing, scores a rename as the
 longer text's length, which is no edit distance. The port's TEDS equals
-JAX's with the package installed. The HTML is parsed with the standard
-library (``utils/html_tree.py``), not lxml."""
+JAX's with the package installed. The HTML is parsed by the port's own
+parser (``utils/html_tree.py``), which builds lxml's tree, not by lxml."""
 
 from __future__ import annotations
 
@@ -30,7 +30,7 @@ class _Node:
 
 
 def _build_tree(elem, structure_only: bool) -> _Node:
-    tag = elem.tag
+    tag = elem.tag.lower()  # as JAX's: the parser folds ASCII only
     colspan = int(elem.get("colspan", 1) or 1)
     rowspan = int(elem.get("rowspan", 1) or 1)
     text = ""

@@ -3,8 +3,8 @@ pdf_table_tpu/tasks/result_compare.py): ``TableResultCompare`` sorts two
 results into the ``HtmlTableCompareType`` buckets (same, same after the
 width is stripped, text order, spans, missing words), and
 ``check_pred_table_html`` adds the per-cell diffs, the opcode dump and an
-HTML report. The table HTML is parsed with the standard library
-(``utils/html_tree.py``), not lxml."""
+HTML report. The table HTML is parsed by the port's own parser
+(``utils/html_tree.py``), which builds lxml's tree, not by lxml."""
 
 from __future__ import annotations
 
@@ -12,14 +12,14 @@ import re
 from typing import Any, Dict, List, Tuple
 
 from ..entity.enums import HtmlTableCompareType
-from ..utils.html_tree import ParserError, fromstring
+from ..utils.html_tree import fromstring
 
 
 def _cells_of(html: str) -> List[Tuple[str, int, int]]:
     """[(text, rowspan, colspan)] in document order."""
     try:
         doc = fromstring(html)
-    except ParserError:
+    except ValueError:  # no element, or an encoding declaration
         return []
     out = []
     for td in doc.iter_tags("td", "th"):
@@ -91,7 +91,7 @@ def _rows_of(html: str) -> List[List[Tuple[str, int, int]]]:
     """[[(text, rowspan, colspan)] per <tr>] in document order."""
     try:
         doc = fromstring(html)
-    except ParserError:
+    except ValueError:  # no element, or an encoding declaration
         return []
     rows = []
     for tr in doc.iter_tags("tr"):

@@ -2,7 +2,8 @@
 pdf_table_tpu/utils/xlsx_writer.py): an xlsx file is a zip of XML parts,
 so the worksheet, the workbook plumbing and the merged cells of
 rowspan / colspan are written directly, as in JAX. The table HTML is
-parsed with the standard library (``utils/html_tree.py``), not lxml."""
+parsed by the port's own parser (``utils/html_tree.py``), which builds
+lxml's tree, not by lxml."""
 
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 """The port's standalone tasks and table tools against the JAX package's on
 the CPU.
 
-Table HTML: the port parses it with the standard library
+Table HTML: the port parses it with its own parser
 (``utils/html_tree.py``) where JAX uses lxml: the rows, cells, spans and
 texts, and the element tree TEDS walks, equal lxml's on every golden page
 and table (tests/golden/expected), on table HTML the port's
